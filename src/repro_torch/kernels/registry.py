@@ -1,0 +1,218 @@
+"""The port's routing table: every `core.exec_plan` route of this slice
+(port of `repro.kernels.registry`, restricted to the serving path).
+
+Each op's lowest-priority route is a plain PyTorch route whose predicate
+checks only semantic viability.  The kernel routes' predicates follow the
+reference's; whether a kernel route runs its CUDA kernel or its plain
+version is the wrapper's decision, by the device its tensors lie on — a
+CUDA tensor takes the kernel or raises.  No environment variable turns a
+kernel route off.
+
+Uniform run signatures per op:
+
+  matmul        run(x, lin, policy) -> (..., N)
+  flash_attn    run(q, k, v, *, policy, causal, window, offset, valid,
+                    scale, kv_on_grid) -> (B, Sq, H, hd)
+  decode_attn   run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
+  paged_decode  run(q, cache, positions, *, policy, scale) -> (B, 1, H, hd)
+  unembed       run(x, table, policy) -> (B, S, V) f32
+"""
+from __future__ import annotations
+
+
+from repro_torch.core import exec_plan
+from repro_torch.core.device import rowwise_dot
+from repro_torch.core.packing import operand_nbytes
+from repro_torch.core.quantize import fake_quant
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_decode as PD
+from repro_torch.models import decode_attn as D
+
+# torch dtypes accepted as pre-quantized weights (their route is a later
+# slice; the predicates below keep the fused kernel off them)
+NATIVE_NARROW = ("float8_e4m3fn", "float8_e5m2")
+
+# kernel vs plain version on the card: the max-abs error chip_smoke.py
+# holds the paged-decode kernel to (its check_paged says why)
+PAGED_DECODE_CARD_TOL = 2e-2
+
+
+def _kv_fmt(policy):
+    return policy.fmt_kv if policy.kv_quantized else None
+
+
+# -----------------------------------------------------------------------------
+# matmul
+# -----------------------------------------------------------------------------
+
+def _mm_fused(x, lin, policy):
+    if "wq" not in lin:
+        raise ValueError("the fused DPA kernel consumes load-time weights: "
+                         "prepare the params (core.linear.prepare_linear, "
+                         "done by Model.init and models.convert)")
+    return kops.dpa_matmul_fused_pipeline(x, lin, policy)
+
+
+def _mm_fake_quant(x, lin, policy):
+    w = lin["w"].to(x.dtype)
+    wq = fake_quant(
+        w, policy.fmt_weights,
+        dim=0 if policy.w_granularity == "per_channel" else None,
+        block=policy.block_size if policy.w_granularity == "per_block"
+        else None)
+    xq = fake_quant(
+        x, policy.fmt_acts,
+        dim=-1 if policy.a_granularity == "per_channel" else None,
+        block=policy.block_size if policy.a_granularity == "per_block"
+        else None)
+    return rowwise_dot(xq, wq.t())
+
+
+def _mm_f32(x, lin, policy):
+    return rowwise_dot(x, lin["w"].to(x.dtype).t())
+
+
+def _mm_operand_bytes(policy, ctx):
+    m, k, n = ctx.get("m"), ctx.get("k"), ctx.get("n")
+    if not (m and k and n):
+        return None
+    return (operand_nbytes(m * k, policy.fmt_acts, packed=policy.packed)
+            + operand_nbytes(k * n, policy.fmt_weights, packed=policy.packed))
+
+
+exec_plan.register(
+    "matmul", "cuda_fused", backend="cuda", run=_mm_fused,
+    priority=30, reference="torch_fake_quant", tol=0.35,
+    predicate=lambda policy, ctx: {
+        "kernel_path": policy.use_kernel,
+        "fused_quant": policy.fused_quant,
+        "float_weights": ctx.get("w_dtype") not in NATIVE_NARROW,
+        "dpa_enabled": policy.enabled},
+    bytes_moved=_mm_operand_bytes,
+    note="in-kernel activation quantize, per-(row, K-block) scales")
+
+exec_plan.register(
+    "matmul", "torch_fake_quant", backend="torch", run=_mm_fake_quant,
+    priority=10,
+    predicate=lambda policy, ctx: {"dpa_enabled": policy.enabled},
+    note="STE quant-dequant operands, f32 accumulation")
+
+exec_plan.register(
+    "matmul", "torch_f32", backend="torch", run=_mm_f32, priority=0,
+    note="DPA disabled: the f32 datapath")
+
+
+# -----------------------------------------------------------------------------
+# flash_attn: full-sequence attention (models.layers._sdpa)
+# -----------------------------------------------------------------------------
+
+def _fa_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
+            kv_on_grid):
+    mask = D.build_sdpa_mask(q.shape[1], k.shape[1], offset, causal, window,
+                             valid, device=q.device)
+    return D.dpa_attention(q, k, v, mask[None, None], fmt=policy.fmt_attn,
+                           fmt_kv=_kv_fmt(policy), scale=scale,
+                           kv_on_grid=kv_on_grid)
+
+
+def _fa_ref(q, k, v, *, policy, causal, window, offset, valid, scale,
+            kv_on_grid):
+    mask = D.build_sdpa_mask(q.shape[1], k.shape[1], offset, causal, window,
+                             valid, device=q.device)
+    return D.sdpa_reference(q, k, v, mask[None, None], scale=scale)
+
+
+exec_plan.register(
+    "flash_attn", "torch_dpa_attn", backend="torch", run=_fa_dpa,
+    priority=10,
+    predicate=lambda policy, ctx: {"dpa_attn": policy.attn_enabled},
+    note="any-shape DPA attention (global softmax max)")
+
+exec_plan.register(
+    "flash_attn", "torch_ref_attn", backend="torch", run=_fa_ref,
+    priority=0, note="f32 logits + softmax (the seed datapath)")
+
+
+# -----------------------------------------------------------------------------
+# decode_attn: single-token decode over the contiguous quantized cache
+# -----------------------------------------------------------------------------
+
+def _kv_rows_bytes(policy, n_rows, hd):
+    """codes + f32 scales for K and V over n_rows cache rows."""
+    return 2 * (operand_nbytes(n_rows * hd, policy.fmt_kv,
+                               packed=policy.kv_packed) + 4 * n_rows)
+
+
+def _da_dpa(q, cache, offset, *, policy, scale):
+    return D.dpa_decode_attn(q, cache, offset, fmt=policy.fmt_attn,
+                             fmt_kv=policy.fmt_kv,
+                             kv_packed=policy.kv_packed, scale=scale)
+
+
+exec_plan.register(
+    "decode_attn", "torch_dpa_decode", backend="torch", run=_da_dpa,
+    priority=0,
+    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    bytes_moved=lambda policy, ctx: _kv_rows_bytes(
+        policy, ctx.get("batch", 1) * ctx.get("s_ctx", 0)
+        * ctx.get("kv_heads", 1), ctx.get("hd", 0)),
+    note="prologue-dequant decode off the contiguous codes+scales cache")
+
+
+# -----------------------------------------------------------------------------
+# paged_decode: single-token decode over the paged cache (block table)
+# -----------------------------------------------------------------------------
+
+def _pd_kernel(q, cache, positions, *, policy, scale):
+    return PD.paged_decode_attention(
+        q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
+        cache["v_scale"], cache["block_table"], positions,
+        fmt=policy.fmt_attn, fmt_kv=policy.fmt_kv,
+        kv_packed=policy.kv_packed, scale=scale)
+
+
+def _pd_gather(q, cache, positions, *, policy, scale):
+    return D.dpa_paged_decode_attn(q, cache, positions, fmt=policy.fmt_attn,
+                                   fmt_kv=policy.fmt_kv,
+                                   kv_packed=policy.kv_packed, scale=scale)
+
+
+def _pd_view_rows(ctx):
+    return (ctx.get("batch", 1) * ctx.get("max_pages", 0)
+            * ctx.get("page_size", 0) * ctx.get("kv_heads", 1))
+
+
+exec_plan.register(
+    "paged_decode", "cuda_block_table", backend="cuda", run=_pd_kernel,
+    priority=10, reference="torch_gather", tol=PAGED_DECODE_CARD_TOL,
+    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    bytes_moved=lambda policy, ctx: _kv_rows_bytes(
+        policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
+    note="pages read through the block table; live rows only, codes + "
+         "scales streamed from device memory once per pass")
+
+exec_plan.register(
+    "paged_decode", "torch_gather", backend="torch", run=_pd_gather,
+    priority=0,
+    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    bytes_moved=lambda policy, ctx: 3 * _kv_rows_bytes(
+        policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
+    note="gather_paged_kv re-materializes the contiguous view")
+
+
+# -----------------------------------------------------------------------------
+# unembed: f32 logits over the (tied) vocab table
+# -----------------------------------------------------------------------------
+
+def _ue_tied(x, table, policy):
+    # f32 products of the compute-dtype operands (the table rounded to
+    # x's dtype), f32 sums: a bf16 matmul would round the logits to bf16
+    # and turn greedy near-ties into different tokens
+    return rowwise_dot(x, table.to(x.dtype))
+
+
+exec_plan.register(
+    "unembed", "torch_tied_table", backend="torch", run=_ue_tied,
+    priority=0,
+    bytes_moved=lambda policy, ctx: 4 * ctx.get("size", 0),
+    note="f32-accumulation logits over the embedding table")

@@ -1,0 +1,98 @@
+"""Model builder of the port: the dense decoder family (port of the
+decoder path of `repro.models.registry`).
+
+Batch conventions, as in the reference:
+  prefill: tokens (B, S) -> (logits of the last position, caches)
+  decode:  {"tokens": (B, S), "index": int or (B,) int32 tensor} with the
+           caches -> (logits (B, S, V) f32, caches)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.linear import needs_prep, prepare_linear
+
+from . import layers as L
+from .config import ModelConfig
+from .transformer import apply_stack, init_block, init_block_cache
+
+_DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
+           "bfloat16": torch.bfloat16, "fp16": torch.float16}
+
+LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+           ("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
+
+
+class Model:
+    """A dense decoder bound to a config and a device.
+
+    Params are a dict {"layers": [block dicts], "norm_f", "embed"}; a
+    linear is {"w": f32 master} plus, for the fused-kernel policies, the
+    load-time serving weights (`prepare_params`)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        if cfg.family != "decoder":
+            raise NotImplementedError(
+                f"{cfg.family} models join the port in a later slice "
+                "(ROADMAP Queue 1 items 8 and 12)")
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("the port serves tied-embedding "
+                                      "decoders (qwen3, llama3.2)")
+        self.cfg = cfg
+        self.device = device
+        self.dtype = _DTYPES[cfg.dtype]
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random params with the reference init's shapes and scales
+        (normal * d_in^-0.5 linears, 0.02 embedding, unit norms, f32),
+        drawn from `generator` on the model's device, then prepared."""
+        cfg, dev = self.cfg, self.device
+        params = {"layers": [init_block(generator, cfg, dev)
+                             for _ in range(cfg.n_layers)],
+                  "norm_f": L.init_norm(cfg.d_model, dev),
+                  "embed": L.init_embedding(generator, cfg.vocab_size,
+                                            cfg.d_model, dev)}
+        return self.prepare_params(params)
+
+    def prepare_params(self, params: dict) -> dict:
+        """Add the fused kernel's load-time weights to every linear when
+        the policy routes linears to it (a no-op otherwise)."""
+        if needs_prep(self.cfg.policy):
+            for lp in params["layers"]:
+                for blk, name in LINEARS:
+                    prepare_linear(lp[blk][name], self.cfg.policy, self.dtype)
+        return params
+
+    def init_caches(self, batch_size: int, s_ctx: int) -> list:
+        return [init_block_cache(self.cfg, batch_size, s_ctx, self.dtype,
+                                 self.device)
+                for _ in range(self.cfg.n_layers)]
+
+    def _forward(self, params, tokens, offset, caches):
+        x = L.apply_embedding(params["embed"], tokens, self.dtype)
+        x, caches = apply_stack(params["layers"], x, self.cfg, offset=offset,
+                                caches=caches)
+        return L.apply_norm(params["norm_f"], x, eps=self.cfg.norm_eps), \
+            caches
+
+    @torch.no_grad()
+    def prefill(self, params, tokens):
+        """tokens (B, S) -> (f32 logits of the last position, caches)."""
+        caches = self.init_caches(tokens.shape[0], tokens.shape[1])
+        x, caches = self._forward(params, tokens, 0, caches)
+        return L.apply_unembed(x[:, -1:], params["embed"]["table"]), caches
+
+    @torch.no_grad()
+    def decode_step(self, params, batch, caches):
+        """One step over batch["tokens"] (B, S) at batch["index"]; the
+        caches update in place and are returned."""
+        x, caches = self._forward(params, batch["tokens"], batch["index"],
+                                  caches)
+        return L.apply_unembed(x, params["embed"]["table"]), caches
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    """The model on `device` (default "cuda"; raises without a card
+    unless the caller passes device="cpu")."""
+    return Model(cfg, resolve_device(device))

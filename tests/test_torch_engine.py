@@ -1,0 +1,140 @@
+"""The port's continuous-batching engine on the CPU: per-request greedy
+outputs equal the port's static `generate` token for token, under both
+serving policies, with pages evicted back to the free list.
+
+The pin is exact.  Paging is pure relayout, prefill runs the same
+quantized-cache path as the static path, and every plain product sums
+each row in one fixed order whatever the batch (`rowwise_dot`), so row i
+of an 8-token prefill chunk or a 3-slot decode step is bit-identical to
+the batch-of-one step `generate` takes.  The geometry is
+`tests/test_engine.py`'s.
+"""
+import functools
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.launch.engine import (Engine, EngineConfig,  # noqa: E402
+                                       Request, synthetic_workload)
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+
+POLICIES = ["kv4_attn8_packed", "w4a8_kv4_attn8"]
+ECFG = EngineConfig(page_size=8, n_pages=32, max_batch=3,
+                    max_pages_per_req=4, token_budget=8, prefill_chunk=8)
+LENS = [(9, 5), (14, 7), (5, 4), (20, 6), (11, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _model(policy):
+    cfg = reduce_config(get_config("qwen3-4b")).replace(policy=policy)
+    model = build_model(cfg, device="cpu")
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def _requests(vocab, seed=3):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab, size=s0).astype(np.int32),
+                    max_new=g)
+            for i, (s0, g) in enumerate(LENS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _served(policy):
+    model, params = _model(policy)
+    engine = Engine(model, params, ECFG, device="cpu")
+    reqs = _requests(model.cfg.vocab_size)
+    return engine, reqs, engine.run(reqs)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_engine_matches_generate_per_request(policy):
+    model, params = _model(policy)
+    engine, reqs, _ = _served(policy)
+    for req in reqs:
+        out = generate(model, params, req.prompt[None], req.max_new,
+                       ECFG.s_max, device="cpu").numpy()[0]
+        assert np.array_equal(np.asarray(req.out_tokens),
+                              out[req.n_prompt:]), (policy, req.rid)
+        assert np.array_equal(req.tokens(), out)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_engine_finishes_and_evicts(policy):
+    engine, reqs, report = _served(policy)
+    assert report["n_requests"] == len(LENS)
+    assert report["gen_tokens"] == sum(g for _, g in LENS)
+    assert all(r.n_generated == r.max_new for r in reqs)
+    assert engine.alloc.in_use == 0 and engine.alloc.peak_in_use > 0
+    assert all(s is None for s in engine.slots)
+    assert np.all(engine._table == 0)
+    assert torch.all(engine._block_table == 0)
+    # honest accounting: live <= paged < static layouts
+    assert 0 < report["live_bytes"] <= report["paged_bytes"]
+    assert report["paged_bytes"] < report["static_bytes"]
+    assert report["static_bytes"] < report["static_f32_bytes"]
+    assert report["decode_route"] == "cuda_block_table"
+    assert report["decode_steps"] > 0 and report["prefill_calls"] > 0
+
+
+def test_engine_queues_when_pool_is_tight():
+    model, params = _model("kv4_attn8_packed")
+    ecfg = EngineConfig(page_size=8, n_pages=8, max_batch=3,
+                        max_pages_per_req=4, token_budget=8,
+                        prefill_chunk=8)
+    engine = Engine(model, params, ecfg, device="cpu")
+    reqs = _requests(model.cfg.vocab_size)
+    report = engine.run(reqs)
+    assert report["n_requests"] == len(LENS)
+    assert engine.alloc.peak_in_use <= 7
+    _, served, _ = _served("kv4_attn8_packed")
+    for a, b in zip(reqs, served):              # same tokens, tighter pool
+        assert a.out_tokens == b.out_tokens
+
+
+def test_engine_poisson_open_loop_and_workload_stream():
+    model, params = _model("kv4_attn8_packed")
+    reqs = synthetic_workload(6, vocab=model.cfg.vocab_size, seed=1,
+                              rate=200.0, prompt_range=(4, 12),
+                              gen_range=(2, 5))
+    ref = importlib.import_module("repro.launch.engine").synthetic_workload(
+        6, vocab=model.cfg.vocab_size, seed=1, rate=200.0,
+        prompt_range=(4, 12), gen_range=(2, 5))
+    for a, b in zip(reqs, ref):                 # the reference's stream
+        assert np.array_equal(a.prompt, b.prompt)
+        assert (a.max_new, a.arrival) == (b.max_new, b.arrival)
+    engine = Engine(model, params, ECFG, device="cpu")
+    report = engine.run(reqs)
+    assert report["n_requests"] == 6 and engine.alloc.in_use == 0
+
+
+def test_engine_rejects_bad_configurations():
+    model, params = _model("kv4_attn8_packed")
+    raw = build_model(model.cfg.replace(policy="fp32"), device="cpu")
+    with pytest.raises(ValueError, match="fmt_kv"):
+        Engine(raw, None, ECFG, device="cpu")
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        Engine(model, params, EngineConfig(page_size=8, max_pages_per_req=4,
+                                           prefill_chunk=7), device="cpu")
+    engine = Engine(model, params, ECFG, device="cpu")
+    with pytest.raises(ValueError, match="S_max"):
+        engine.submit(Request(rid=9, prompt=np.zeros(ECFG.s_max, np.int32),
+                              max_new=1))
+    from repro_torch.serving.sampler import SamplerConfig
+    with pytest.raises(NotImplementedError):
+        Engine(model, params, ECFG, device="cpu",
+               sampler=SamplerConfig(temperature=0.7))
+
+
+def test_greedy_tokens_masks_nan():
+    from repro_torch.serving.sampler import greedy_tokens
+    x = torch.tensor([[0.1, float("nan"), 0.3, 0.3],
+                      [float("nan")] * 4,
+                      [-1.0, -0.5, -0.5, -2.0]])
+    assert greedy_tokens(x).tolist() == [2, 0, 1]
+    assert greedy_tokens(x).dtype == torch.int32
