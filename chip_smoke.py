@@ -7,30 +7,58 @@ Phases (every failure raises; the exit code is then non-zero):
 1. Card: name and power limit, torch and CUDA versions, and the build of
    the CUDA kernels from `src/repro_torch/csrc/` (timed).
 2. Kernels against their plain PyTorch versions on the card, at the
-   serving path's shapes: `dpa_matmul_fused` at every projection of
-   qwen3-4b (M = 4 decode, M = 32 prefill chunk) and
-   `paged_decode_attention` at the engine's decode geometry plus the
-   block-table edge cases (odd lengths, mid-page positions, an idle slot
-   on the scratch page).  Each kernel and its plain version are timed with
-   CUDA events (median of 25 runs after warm-up) beside the least time
-   the card could take (bytes over 3.35 TB/s, or operations over the fp8
-   peak, whichever is larger).
-3. Engine: full-width qwen3-4b (36 layers, bf16, policy w4a8_kv4_attn8,
-   seeded random weights) serves 8 synthetic requests through the
-   continuous-batching engine.  The kernel launch counters are zeroed
-   just before the run and read just after: every projection must have
-   gone through the fused kernel and every decode step's attention
-   through the paged kernel.
+   serving paths' shapes:
+   - `dpa_matmul_fused` at every projection of qwen3-4b and at the
+     attention projections of granite-moe-1b (M = 4 decode, M = 32
+     prefill chunk);
+   - `paged_decode_attention` at the engine's decode geometry plus the
+     block-table edge cases (odd lengths, mid-page positions, an idle
+     slot on the scratch page), for qwen3-4b (hd 128, H 32, KV 8) and
+     granite-moe-1b (hd 64, H 16, KV 8);
+   - `dpa_grouped_matmul_fused` at granite's expert shapes (E 32, K x N
+     1024 x 512 and 512 x 1024) for M = 8 (decode, 4 rows padded) and
+     M = 11 (a 32-token prefill chunk's capacity), with capacity-dropped
+     zero rows, which must come out exactly 0;
+   - `dpa_matmul_prequant` at granite's attention projections and
+     `dpa_grouped_matmul_prequant` at its expert shapes, held to
+     `max_abs_err == 0` (fp4 x fp4 sums are exact in f32).
+   Each kernel, its plain version and (for the prequant pair)
+   `torch._scaled_mm` / `torch._scaled_grouped_mm` on the e4m3-widened
+   codes are timed two ways: `ms` / `plain_ms` / `library_ms`, the median
+   of 25 CUDA-event-bracketed calls (which includes the host's launch
+   time), and `device_ms` / `plain_device_ms` / `library_device_ms`, the
+   profiler's device time per call over 20 calls; beside them the least
+   time the card could take (bytes over 3.35 TB/s, or operations over the
+   fp8 peak, whichever is larger).
+3. Serving at full width, seeded random weights, policy w4a8_kv4_attn8
+   unless said otherwise; the kernel launch counters are zeroed just
+   before each path and read just after:
+   a. qwen3-4b (36 layers) serves 8 synthetic requests through the
+      continuous-batching engine: every projection through the fused
+      kernel, every decode step's attention through the paged kernel;
+   b. granite-moe-1b-a400m (24 layers, 32 experts top-8) serves 8
+      synthetic requests through the engine: attention projections
+      through the fused kernel, expert matmuls through the grouped fused
+      kernel, decode attention through the paged kernel (hd 64); and
+      its first layer's `apply_moe` runs three times on one bf16 input,
+      which must give the same bits each time;
+   c. granite-moe-1b under fp4_dpa_packed through `generate` (2 prompts
+      of 32 tokens, 16 new): attention projections through the dense
+      prequant kernel, experts through the grouped prequant kernel,
+      attention in f32 over a raw bf16 cache.
+   The expected counts are computed from the config and the run.
 4. Where the time goes: torch.profiler over one steady decode step and
-   one prefill chunk of the same engine (device busy share, top kernels).
+   one prefill chunk of each engine (device busy share, top kernels).
 
-Prints the engine report and the profile as JSON, the kernels' JSON
+Prints the engine reports and the profiles as JSON, the kernels' JSON
 line, the card's name and power limit, and, as the last line,
-{"ok": true, "device": {...}}.  Exits non-zero, printing
-no result, without a CUDA device or without the repository's sources.
+{"ok": true, "device": {...}}.
+Exits non-zero, printing no result, without a CUDA device or without the
+repository's sources.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -75,31 +103,79 @@ def median_ms(fn, n: int = 25) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, n: int = 20):
+    """Device time of fn per call: the durations of the device activities
+    (kernels, copies, fills) of n calls under torch.profiler, summed and
+    divided by n, after warm-up.  Unlike `median_ms`, which brackets one
+    call with CUDA events, it counts no device idle time while the host
+    prepares a launch — at these sizes that host time is most of a call.
+
+    None (not measured) when two sessions, half a second apart, return no
+    device records: short sessions sometimes do, for a stretch of several
+    sessions, and later ones record again.  The event-timed `median_ms`
+    does not depend on the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / n
+    return None
+
+
 def bound(nbytes: float, ops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP8_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+TIME_KEYS = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+
+
+def timings(kernel, plain) -> dict:
+    """A kernel's and its plain version's time per call, each both ways:
+    `ms` / `plain_ms` the median CUDA-event time of one call (host launch
+    time included), `device_ms` / `plain_device_ms` the profiler's device
+    time per call."""
+    return {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain)}
+
+
+def fmt_times(t: dict) -> str:
+    def dev(v, digits):
+        return "not measured" if v is None else f"{v:.{digits}f}"
+    return (f"kernel_ms {t['ms']:.4f} (device {dev(t['device_ms'], 4)}) "
+            f"plain_ms {t['plain_ms']:.3f} (device "
+            f"{dev(t['plain_device_ms'], 3)})")
 
 
 # -----------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # -----------------------------------------------------------------------------
 
-def check_matmul(cfg, gen):
-    """Every (K, N) projection of the model at M = 4 and 32, bf16 x,
+def check_matmul(cfg, gen, projections):
+    """Every (K, N) of `projections` (name -> (K, N), the dense
+    projections one layer of the model runs through this kernel) at M = 4
+    (the engine's decode step) and 32 (a prefill chunk), bf16 x,
     packed-fp4 weights prepared as the model prepares them (and the
     kernel's (fp8, fp8) pair at M = 32, untimed)."""
     import torch
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import (dpa_matmul_fused_pipeline,
                                          prep_weights)
-    d, f = cfg.d_model, cfg.d_ff
-    q_out, kv_out = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    projections = {"wq": (d, q_out), "wk": (d, kv_out), "wv": (d, kv_out),
-                   "wo": (q_out, d), "wg": (d, f), "wu": (d, f),
-                   "wd": (f, d)}
     shapes = sorted(set(projections.values()))
     worst = 0.0
-    per_layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     timed = {}
     for K, N in shapes:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
@@ -124,18 +200,18 @@ def check_matmul(cfg, gen):
                                      f"{tuple(pipe.shape)}")
             if not ok:
                 raise AssertionError(
-                    f"dpa_matmul_fused K={K} N={N} M={M}: max err "
+                    f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M}: max err "
                     f"{float(err.max())} over rtol {MATMUL_RTOL} / atol "
                     f"{MATMUL_ATOL}")
-            ms = median_ms(lambda: DM.dpa_matmul_fused(*args, **kw))
-            plain = median_ms(lambda: DM.dpa_matmul_fused_ref(*args, **kw))
+            t = timings(lambda: DM.dpa_matmul_fused(*args, **kw),
+                        lambda: DM.dpa_matmul_fused_ref(*args, **kw))
             nbytes = (xp.numel() * 2 + prep["wq"].numel()
                       + prep["sw"].numel() * 4 + xp.shape[0] * N * 4)
-            b_ms, b_by = bound(nbytes, 2.0 * xp.shape[0] * K * N)
-            timed[(K, N, M)] = (ms, plain, b_ms)
-            print(f"dpa_matmul_fused K={K} N={N} M={M}: max_abs_err "
-                  f"{float(err.max()):.3g} kernel_ms {ms:.4f} plain_ms "
-                  f"{plain:.3f} bound_ms {b_ms:.5f} ({b_by})")
+            t["bound_ms"], b_by = bound(nbytes, 2.0 * xp.shape[0] * K * N)
+            timed[(K, N, M)] = t
+            print(f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M}: "
+                  f"max_abs_err {float(err.max()):.3g} {fmt_times(t)} "
+                  f"bound_ms {t['bound_ms']:.5f} ({b_by})")
         # the kernel's other fmt pair, (fp8, fp8) weights: checked, untimed
         prep8 = prep_weights(w.to(torch.bfloat16), "fp8_dpa_fused")
         args = (xp, prep8["wq"], prep8["sw"])
@@ -144,21 +220,16 @@ def check_matmul(cfg, gen):
         want = DM.dpa_matmul_fused_ref(*args, **kw)
         err = (got - want).abs()
         if not bool((err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all()):
-            raise AssertionError(f"dpa_matmul_fused fp8 weights K={K} N={N}:"
-                                 f" max err {float(err.max())}")
+            raise AssertionError(f"dpa_matmul_fused {cfg.name} fp8 weights "
+                                 f"K={K} N={N}: max err {float(err.max())}")
         worst = max(worst, float(err.max()))
-        print(f"dpa_matmul_fused K={K} N={N} M=32 fp8 weights: max_abs_err "
-              f"{float(err.max()):.3g}")
-    for K, N in projections.values():
-        ms, plain, b_ms = timed[(K, N, 4)]
-        per_layer["ms"] += ms
-        per_layer["plain_ms"] += plain
-        per_layer["bound_ms"] += b_ms
-    print(f"dpa_matmul_fused: {len(projections)} launches per layer per "
-          f"step, {len(projections) * cfg.n_layers} per decode step; one "
-          f"decode layer (M=4): kernel {per_layer['ms']:.4f} ms, plain "
-          f"{per_layer['plain_ms']:.3f} ms, bound "
-          f"{per_layer['bound_ms']:.5f} ms")
+        print(f"dpa_matmul_fused {cfg.name} K={K} N={N} M=32 fp8 weights: "
+              f"max_abs_err {float(err.max()):.3g}")
+    per_layer = _per_layer(timed, projections, 4)
+    print(f"dpa_matmul_fused {cfg.name}: {len(projections)} launches per "
+          f"layer per model call, {len(projections) * cfg.n_layers} per "
+          f"decode step; one decode layer (M=4): {fmt_times(per_layer)}, "
+          f"bound {per_layer['bound_ms']:.5f} ms")
     return worst, per_layer
 
 
@@ -208,7 +279,7 @@ def check_paged(cfg, pol, gen, ecfg):
         if not bool(torch.isfinite(got).all()) or float(err.max()) > TOL:
             raise AssertionError(f"paged_decode_attention {name}: max err "
                                  f"{float(err.max())} > {TOL}")
-        print(f"paged_decode_attention {name}: max_abs_err "
+        print(f"paged_decode_attention hd={cfg.hd} {name}: max_abs_err "
               f"{float(err.max()):.3g}, {int((err > 0).sum())} of "
               f"{err.numel()} outputs differ")
         return float(err.max()), args
@@ -233,9 +304,8 @@ def check_paged(cfg, pol, gen, ecfg):
     worst = max(worst, compare("idle slot on the scratch page", q, cache,
                                pos)[0])
 
-    ms = median_ms(lambda: PD.paged_decode_attention(*main_args, **kw))
-    plain = median_ms(lambda: PD.paged_decode_attention_ref(*main_args,
-                                                            **kw))
+    t = timings(lambda: PD.paged_decode_attention(*main_args, **kw),
+                lambda: PD.paged_decode_attention_ref(*main_args, **kw))
     q, table, pos = main_args[0], main_args[5], main_args[6]
     live_rows = sum(lengths) * cfg.n_kv_heads
     row_bytes = cfg.hd // 2 + 4                   # packed codes + scale
@@ -243,12 +313,220 @@ def check_paged(cfg, pol, gen, ecfg):
     nbytes = (2 * live_rows * row_bytes + 2 * q.numel() * 2
               + table.numel() * 4 + pos.numel() * 4)
     ops = 2 * 2 * sum(lengths) * cfg.n_heads * cfg.hd
-    b_ms, b_by = bound(nbytes, ops)
-    print(f"paged_decode_attention B=4: kernel_ms {ms:.4f} plain_ms "
-          f"{plain:.3f} bound_ms {b_ms:.6f} ({b_by}); 1 launch per layer, "
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+    print(f"paged_decode_attention hd={cfg.hd} B=4: {fmt_times(t)} bound_ms "
+          f"{t['bound_ms']:.6f} ({t['bound_by']}); 1 launch per layer, "
           f"{cfg.n_layers} per decode step")
-    return worst, {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": b_by}
+    return worst, t
+
+
+def _expert_shapes(cfg):
+    """(K, N) of the expert matrices per decode layer: wg, wu, wd."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+
+
+def _dense_shapes(cfg):
+    """(K, N) of the projections one layer runs through the dense fused
+    kernel: attention, and the MLP of a dense model."""
+    return _attn_shapes(cfg) if cfg.is_moe else {
+        **_attn_shapes(cfg), "wg": (cfg.d_model, cfg.d_ff),
+        "wu": (cfg.d_model, cfg.d_ff), "wd": (cfg.d_ff, cfg.d_model)}
+
+
+def _attn_shapes(cfg):
+    d, q_out, kv_out = cfg.d_model, cfg.n_heads * cfg.hd, \
+        cfg.n_kv_heads * cfg.hd
+    return {"wq": (d, q_out), "wk": (d, kv_out), "wv": (d, kv_out),
+            "wo": (q_out, d)}
+
+
+def _drop(x, live):
+    """Zero the rows of each expert past its live count: capacity slots no
+    token filled, or whose assignment was dropped, hold zeros."""
+    for e, n in enumerate(live):
+        x[e, n:] = 0
+    return x
+
+
+def check_grouped_fused(cfg, gen):
+    """The grouped fused kernel at the experts' shapes, bf16 x, packed-fp4
+    expert weights prepared from the f32 masters as the model prepares
+    them; M = 8 is the decode step (4 live rows, padded as the pipeline
+    pads them), M = 11 a 32-token prefill chunk's capacity.  Zero rows
+    must give exactly 0."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels.ops import prep_grouped_weights
+    E = cfg.n_experts
+    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+    worst, timed = 0.0, {}
+    for K, N in sorted(set(_expert_shapes(cfg).values())):
+        w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
+        prep = prep_grouped_weights(w, cfg.policy)
+        for M, live in ((8, [4] * (E - 2) + [1, 0]),
+                        (11, [11] * (E - 3) + [7, 3, 0])):
+            x = torch.randn((E, M, K), generator=gen, device="cuda")
+            x = _drop(x, live).to(torch.bfloat16)
+            args = (x, prep["wq"], prep["sw"])
+            got = GM.dpa_grouped_matmul_fused(*args, **kw)
+            want = GM.dpa_grouped_matmul_fused_ref(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            ok = bool((err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
+            dropped = torch.cat([got[e, n:].reshape(-1)
+                                 for e, n in enumerate(live)])
+            if not ok or bool((dropped != 0).any()):
+                raise AssertionError(
+                    f"dpa_grouped_matmul_fused E={E} K={K} N={N} M={M}: max "
+                    f"err {float(err.max())}, {int((dropped != 0).sum())} "
+                    "nonzero outputs on dropped rows")
+            worst = max(worst, float(err.max()))
+            t = timings(lambda: GM.dpa_grouped_matmul_fused(*args, **kw),
+                        lambda: GM.dpa_grouped_matmul_fused_ref(*args, **kw))
+            nbytes = (x.numel() * 2 + prep["wq"].numel()
+                      + prep["sw"].numel() * 4 + E * M * N * 4)
+            t["bound_ms"], b_by = bound(nbytes, 2.0 * E * M * K * N)
+            timed[(K, N, M)] = t
+            print(f"dpa_grouped_matmul_fused E={E} K={K} N={N} M={M}: "
+                  f"max_abs_err {float(err.max()):.3g}, {dropped.numel()} "
+                  f"dropped-row outputs all 0; {fmt_times(t)} bound_ms "
+                  f"{t['bound_ms']:.5f} ({b_by})")
+    per_layer = _per_layer(timed, _expert_shapes(cfg), 8)
+    print(f"dpa_grouped_matmul_fused: 3 launches per layer per model call; "
+          f"one decode layer (M=8): {fmt_times(per_layer)}, bound "
+          f"{per_layer['bound_ms']:.5f} ms")
+    return worst, per_layer
+
+
+def _per_layer(timed, shapes, M):
+    """Sums of each time over one layer's matrices at M rows (None where
+    one of them was not measured)."""
+    out = {}
+    for key in TIME_KEYS + ("bound_ms",):
+        vals = [timed[(K, N, M)][key] for K, N in shapes.values()]
+        out[key] = None if None in vals else sum(vals)
+    return out
+
+
+def _e4m3_operands(xq, wq):
+    """Packed E2M1 codes widened onto e4m3 (exact: every E2M1 value is an
+    e4m3 value), rows padded to 16 for the library's alignment, the
+    weights column-major: the library's inputs for the same product."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import widen
+    x8 = widen(xq, "fp4_e2m1", packed=True, dim=-1)
+    x8 = torch.nn.functional.pad(x8, (0, 0, 0, -x8.shape[-2] % 16))
+    w8 = widen(wq, "fp4_e2m1", packed=True, dim=-2)
+    w8 = w8.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return (x8.to(torch.float8_e4m3fn).contiguous(),
+            w8.to(torch.float8_e4m3fn))
+
+
+def library_prequant(xq, wq, sx, sw, want):
+    """One PyTorch call computing the prequant product on the same codes
+    and scales (`torch._scaled_mm`, or `torch._scaled_grouped_mm` for an
+    expert stack; bf16 out, the only output rowwise scaling takes):
+    -> (ms, device ms, max_abs_err vs the plain version, note), timed as
+    `timings` times a kernel."""
+    import torch
+    grouped = xq.ndim == 3
+    fn_name = "_scaled_grouped_mm" if grouped else "_scaled_mm"
+    if not hasattr(torch, fn_name):
+        return (None, None, None,
+                f"none: torch {torch.__version__} has no {fn_name}")
+    x8, w8 = _e4m3_operands(xq, wq)
+    M = xq.shape[-2]
+    sa = torch.nn.functional.pad(sx.reshape(*sx.shape[:-2], -1),
+                                 (0, x8.shape[-2] - M))
+    if grouped:
+        sb = sw.reshape(sw.shape[0], -1).contiguous()
+        call = lambda: torch._scaled_grouped_mm(  # noqa: E731
+            x8, w8, sa.contiguous(), sb, out_dtype=torch.bfloat16)
+    else:
+        call = lambda: torch._scaled_mm(  # noqa: E731
+            x8, w8, scale_a=sa.reshape(-1, 1).contiguous(),
+            scale_b=sw.contiguous(), out_dtype=torch.bfloat16)
+    try:
+        out = call()
+    except (RuntimeError, TypeError, ValueError) as e:   # a yardstick only
+        return (None, None, None,
+                f"none: torch.{fn_name} refused ({str(e)[:120]})")
+    err = float((out[..., :M, :].float() - want).abs().max())
+    return (median_ms(call), device_ms(call), err,
+            f"torch.{fn_name}, bf16 out (outputs up to "
+            f"{float(want.abs().max()):.4g})")
+
+
+def check_prequant(cfg, gen):
+    """The prequant kernels, dense at the attention projections and
+    grouped at the experts, on random packed-fp4 codes with random
+    positive scales: M = 8 is `generate`'s decode step (2 live rows,
+    padded), M = 11 a prefill chunk's expert capacity.  Kernel and plain
+    version must agree exactly."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    E = cfg.n_experts
+    kw = dict(fmt_x="fp4_e2m1", fmt_w="fp4_e2m1", pack_x=True, pack_w=True)
+
+    def codes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.uint8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") + 0.05
+
+    out = {}
+    for what, shapes, lead in (("dense", _attn_shapes(cfg), ()),
+                               ("grouped", _expert_shapes(cfg), (E,))):
+        kern = DM.dpa_matmul_prequant if not lead else \
+            GM.dpa_grouped_matmul_prequant
+        ref = DM.dpa_matmul_prequant_ref if not lead else \
+            GM.dpa_grouped_matmul_prequant_ref
+        worst, timed, lib = 0.0, {}, {}
+        for K, N in sorted(set(shapes.values())):
+            wq, sw = codes(*lead, K // 2, N), scales(*lead, 1, N)
+            for M in (8, 11):
+                xq, sx = codes(*lead, M, K // 2), scales(*lead, M, 1)
+                if lead:
+                    xq = _drop(xq, [M // 2] * (E - 1) + [0])
+                args = (xq, wq, sx, sw)
+                got = kern(*args, **kw)
+                want = ref(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if err != 0.0 or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{kern.__name__} {lead} K={K} N={N}"
+                                         f" M={M}: max err {err} != 0")
+                worst = max(worst, err)
+                t = timings(lambda: kern(*args, **kw),
+                            lambda: ref(*args, **kw))
+                n_e = E if lead else 1
+                nbytes = (xq.numel() + sx.numel() * 4 + wq.numel()
+                          + sw.numel() * 4 + n_e * M * N * 4)
+                t["bound_ms"], b_by = bound(nbytes, 2.0 * n_e * M * K * N)
+                timed[(K, N, M)] = t
+                lib_ms, lib_dev, lib_err, note = library_prequant(*args, want)
+                lib[(K, N, M)] = (lib_ms, lib_dev)
+                print(f"{kern.__name__} {'E=%d ' % E if lead else ''}K={K} "
+                      f"N={N} M={M}: max_abs_err {err:.3g}; {fmt_times(t)} "
+                      f"bound_ms {t['bound_ms']:.5f} ({b_by}); library {note}"
+                      + (f" {lib_ms:.4f} ms (device {lib_dev}), "
+                         f"max_abs_err {lib_err:.3g}"
+                         if lib_ms is not None else ""))
+        per_layer = _per_layer(timed, shapes, 8)
+        for i, key in enumerate(("library_ms", "library_device_ms")):
+            libs = [lib[(K, N, 8)][i] for K, N in shapes.values()]
+            per_layer[key] = None if None in libs else sum(libs)
+        per_layer["max_abs_err"] = worst
+        print(f"{kern.__name__}: {len(shapes)} launches per layer per model "
+              f"call; one decode layer (M=8): {fmt_times(per_layer)}, bound "
+              f"{per_layer['bound_ms']:.5f} ms, library "
+              f"{per_layer['library_ms']} ms (device "
+              f"{per_layer['library_device_ms']})")
+        out[what] = per_layer
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -285,15 +563,49 @@ def teacher_forced(model, params, req, s_ctx):
           f"logit scale {scale:.3g})")
 
 
-def run_engine(cfg, ecfg):
-    import numpy as np
-    import torch
+KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
+                "dpa_matmul_prequant", "dpa_grouped_matmul_fused",
+                "dpa_grouped_matmul_prequant")
+
+
+def _wrappers():
+    from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels import paged_decode as PD
-    from repro_torch.launch.engine import Engine, synthetic_workload
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import build_model
+    return {"dpa_matmul_fused": DM.dpa_matmul_fused,
+            "paged_decode_attention": PD.paged_decode_attention,
+            "dpa_matmul_prequant": DM.dpa_matmul_prequant,
+            "dpa_grouped_matmul_fused": GM.dpa_grouped_matmul_fused,
+            "dpa_grouped_matmul_prequant": GM.dpa_grouped_matmul_prequant}
 
+
+def zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def check_counts(what, got, want):
+    """Every kernel's launches over one path equal the count its config
+    and run imply (0 for the kernels the path does not run)."""
+    want = {k: want.get(k, 0) for k in KERNEL_NAMES}
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, want {want}")
+    print(f"launches on the {what} path: " + ", ".join(
+        f"{k} {v}" for k, v in got.items() if v))
+
+
+def per_call_projections(cfg):
+    """(dense projections, expert matmuls) one model call runs per layer."""
+    return (4, 3) if cfg.is_moe else (7, 0)
+
+
+def build(cfg):
+    import torch
+    from repro_torch.models import build_model
     t0 = time.monotonic()
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -302,27 +614,68 @@ def run_engine(cfg, ecfg):
           f"policy={cfg.policy} dtype={cfg.dtype}, init + weight prep "
           f"{time.monotonic() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    return model, params
 
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+def finite_steps(model):
+    """Wrap model.decode_step to AND every call's logits' finiteness into
+    one device flag; -> (flag holder, restore)."""
+    import torch
+    state = {"finite": torch.ones((), dtype=torch.bool, device="cuda")}
     step_fn = model.decode_step
 
     def checked_step(p, batch, caches):
-        nonlocal finite
         logits, caches = step_fn(p, batch, caches)
-        finite = finite & torch.isfinite(logits).all()
+        state["finite"] = state["finite"] & torch.isfinite(logits).all()
         return logits, caches
 
     model.decode_step = checked_step
+
+    def restore():
+        model.decode_step = step_fn
+        return bool(state["finite"])
+    return restore
+
+
+def moe_repeatable(params, cfg, runs: int = 3):
+    """The first layer's `apply_moe` on a prefill chunk's worth of bf16
+    tokens (4 x 32), run again and again: its dispatch scatter and its
+    combine use no atomics, so every run must give the same bits."""
+    import torch
+    from repro_torch.models.layers import apply_moe
+    mlp = params["layers"][0]["mlp"]
+    x = torch.randn((4, 32, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3)
+                    ).to(torch.bfloat16)
+    first, _ = apply_moe(mlp, x, cfg)
+    for _ in range(runs - 1):
+        again, _ = apply_moe(mlp, x, cfg)
+        if not torch.equal(first, again):
+            raise AssertionError("apply_moe gave different bf16 outputs on "
+                                 "two runs of the same input")
+    if first.dtype != torch.bfloat16 or not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"apply_moe gave {first.dtype}, finite "
+                             f"{bool(torch.isfinite(first).all())}")
+    print(f"apply_moe {cfg.name} layer 0, bf16 x (4, 32, {cfg.d_model}): "
+          f"{runs} runs bit-identical")
+
+
+def run_engine(cfg, ecfg, *, agreement: bool):
+    import numpy as np
+    import torch
+    from repro_torch.launch.engine import Engine, synthetic_workload
+    from repro_torch.launch.serve import generate
+
+    model, params = build(cfg)
+    restore = finite_steps(model)
     reqs = synthetic_workload(8, vocab=cfg.vocab_size, seed=0, rate=0,
                               prompt_range=(64, 192), gen_range=(16, 32))
     engine = Engine(model, params, ecfg, device="cuda")
-    DM.dpa_matmul_fused.launches = 0
-    PD.paged_decode_attention.launches = 0
+    zero_counts()
     rep = engine.run(reqs)
     torch.cuda.synchronize()
-    n_mm = DM.dpa_matmul_fused.launches
-    n_pd = PD.paged_decode_attention.launches
-    model.decode_step = step_fn
+    counts = read_counts()
+    finite = restore()
 
     for r in reqs:
         if r.n_generated != r.max_new:
@@ -330,18 +683,31 @@ def run_engine(cfg, ecfg):
                                  f"{r.max_new} tokens")
     if engine.alloc.in_use != 0 or np.any(engine._table != 0):
         raise AssertionError("pages not evicted / table not back to scratch")
-    if not bool(finite):
+    if not finite:
         raise AssertionError("non-finite logits")
     calls = rep["prefill_calls"] + rep["decode_steps"]
-    want_mm = 7 * cfg.n_layers * calls
-    want_pd = cfg.n_layers * rep["decode_steps"]
-    if n_mm != want_mm or n_pd != want_pd:
-        raise AssertionError(f"launches: fused {n_mm} (want {want_mm}), "
-                             f"paged {n_pd} (want {want_pd})")
-    print(f"engine: {rep['n_requests']} requests, {rep['gen_tokens']} "
-          f"tokens in {rep['wall_s']:.2f} s = {rep['tokens_per_s']:.2f} "
-          f"tok/s; {rep['prefill_calls']} prefill calls, "
-          f"{rep['decode_steps']} decode steps, {rep['steps']} ticks; "
+    dense, experts = per_call_projections(cfg)
+    check_counts(f"{cfg.name} engine", counts, {
+        "dpa_matmul_fused": dense * cfg.n_layers * calls,
+        "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
+        "paged_decode_attention": cfg.n_layers * rep["decode_steps"]})
+    print(f"  = {dense * cfg.n_layers} dense"
+          + (f" + {experts * cfg.n_layers} grouped" if experts else "")
+          + f" per model call x {calls} calls, {cfg.n_layers} paged per "
+          f"decode step x {rep['decode_steps']} steps")
+    if cfg.is_moe:
+        moe_repeatable(params, cfg)
+        want = {"moe_experts": cfg.n_experts, "moe_top_k": cfg.top_k,
+                "moe_grouped_route": "cuda_grouped_fused",
+                "moe_grouped_backend": "cuda",
+                "expert_w_reduction_vs_f32": 8.0}
+        bad = {k: rep.get(k) for k, v in want.items() if rep.get(k) != v}
+        if bad or not rep.get("moe_grouped_bytes_per_step_layer"):
+            raise AssertionError(f"moe report fields {bad}")
+    print(f"engine: {cfg.name} {rep['n_requests']} requests, "
+          f"{rep['gen_tokens']} tokens in {rep['wall_s']:.2f} s = "
+          f"{rep['tokens_per_s']:.2f} tok/s; {rep['prefill_calls']} prefill "
+          f"calls, {rep['decode_steps']} decode steps, {rep['steps']} ticks; "
           f"TTFT p50 {rep['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
           f"{rep['p50_latency_s'] * 1e3:.0f} ms p99 "
           f"{rep['p99_latency_s'] * 1e3:.0f} ms")
@@ -350,14 +716,17 @@ def run_engine(cfg, ecfg):
           f" MB of pages vs static {rep['static_bytes'] / 1e6:.2f} MB / f32 "
           f"{rep['static_f32_bytes'] / 1e6:.2f} MB; decode route "
           f"{rep['decode_route']} [{rep['decode_backend']}]")
-    print(f"launches on the main path: dpa_matmul_fused {n_mm} "
-          f"(= 252 x {calls}), paged_decode_attention {n_pd} "
-          f"(= 36 x {rep['decode_steps']})")
+    if cfg.is_moe:
+        print(f"moe: {rep['moe_experts']} experts top-{rep['moe_top_k']} via "
+              f"{rep['moe_grouped_route']} [{rep['moe_grouped_backend']}]; "
+              f"expert weights {rep['expert_w_bytes'] / 1e6:.2f} MB vs f32 "
+              f"{rep['expert_w_bytes_f32'] / 1e6:.2f} MB "
+              f"({rep['expert_w_reduction_vs_f32']:.1f}x)")
 
     # greedy agreement with the static path on the card (printed, not
     # asserted: the paged kernel and the contiguous plain path sum in
     # different orders, and random weights leave near-tied logits)
-    for r in reqs[:2]:
+    for r in reqs[:2] if agreement else ():
         out = generate(model, params, r.prompt[None], r.max_new, ecfg.s_max,
                        device="cuda")
         same = np.asarray(r.out_tokens) == out[0, r.n_prompt:].cpu().numpy()
@@ -366,7 +735,50 @@ def run_engine(cfg, ecfg):
               f"{int(same.sum())}/{r.max_new}, identical up to token "
               f"{first}")
         teacher_forced(model, params, r, ecfg.s_max)
-    return model, params, rep, n_mm, n_pd
+    return model, params, rep, counts
+
+
+def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
+    """Static greedy serving (`generate`) under cfg's policy, over params
+    built for the same model (the weights prepared again for the policy):
+    the launch counters over the run, finite logits, the output's shape
+    and range."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = model.prepare_params(params)
+    restore = finite_steps(model)
+    prompt = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len),
+                           generator=torch.Generator().manual_seed(2))
+    s_ctx = prompt_len + n_new
+    zero_counts()
+    t0 = time.monotonic()
+    out = generate(model, params, prompt, n_new, s_ctx, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    if not restore():
+        raise AssertionError("non-finite logits")
+    if tuple(out.shape) != (n_prompts, s_ctx) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()) or not torch.equal(
+            out[:, :prompt_len].cpu(), prompt.to(torch.int32)):
+        raise AssertionError(f"generate returned {tuple(out.shape)} "
+                             f"{out.dtype}")
+    calls = s_ctx - 1
+    dense, experts = per_call_projections(cfg)
+    check_counts(f"{cfg.name} generate ({cfg.policy})", counts, {
+        "dpa_matmul_prequant": dense * cfg.n_layers * calls,
+        "dpa_grouped_matmul_prequant": experts * cfg.n_layers * calls})
+    print(f"  = {dense * cfg.n_layers} dense + {experts * cfg.n_layers} "
+          f"grouped per model call x {calls} calls")
+    new_tokens = out[:, prompt_len:].tolist()
+    print(f"generate: {cfg.name} {n_prompts} prompts x {prompt_len} tokens "
+          f"+ {n_new} new in {wall:.2f} s ({calls} model calls, "
+          f"{wall / calls * 1e3:.1f} ms each); new tokens {new_tokens}")
+    return counts, {"wall_s": wall, "model_calls": calls,
+                    "ms_per_call": wall / calls * 1e3}
 
 
 # -----------------------------------------------------------------------------
@@ -413,11 +825,13 @@ def profile_engine(model, params, ecfg):
             by_name[e.name] = by_name.get(e.name, 0.0) + dt
         busy = sum(by_name.values())
         if not kernels:
-            print(f"profile {name}: wall {wall_ms:.1f} ms; the profiler "
-                  "saw no device events (busy share not measured)")
+            print(f"profile {model.cfg.name} {name}: wall {wall_ms:.1f} ms; "
+                  "the profiler saw no device events (busy share not "
+                  "measured)")
             out[name] = {"wall_ms": wall_ms, "busy_ms": None}
             continue
-        print(f"profile {name}: wall {wall_ms:.1f} ms, device busy "
+        print(f"profile {model.cfg.name} {name}: wall {wall_ms:.1f} ms, "
+              f"device busy "
               f"{busy:.2f} ms ({busy / wall_ms:.1%}), {len(kernels)} "
               f"kernel launches")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -459,39 +873,107 @@ def main() -> None:
         if "registers" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    cfg = get_config("qwen3-4b").replace(policy="w4a8_kv4_attn8")
-    pol = get_policy(cfg.policy)
+    qwen = get_config("qwen3-4b").replace(policy="w4a8_kv4_attn8")
+    granite = get_config("granite-moe-1b-a400m").replace(
+        policy="w4a8_kv4_attn8")
+    pol = get_policy(qwen.policy)
     ecfg = EngineConfig(page_size=16, n_pages=80, max_batch=4,
                         max_pages_per_req=16, token_budget=64,
                         prefill_chunk=32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
-    mm_err, mm_t = check_matmul(cfg, gen)
-    pd_err, pd_t = check_paged(cfg, pol, gen, ecfg)
-    model, params, rep, n_mm, n_pd = run_engine(cfg, ecfg)
-    prof = profile_engine(model, params, ecfg)
+
+    # phase 2: every kernel against its plain version
+    mm_err, mm_t = check_matmul(qwen, gen, _dense_shapes(qwen))
+    gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite))
+    pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
+    gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
+    gf_err, gf_t = check_grouped_fused(granite, gen)
+    pq_t = check_prequant(granite, gen)
+    t_kernels = time.monotonic() - t_start
+
+    # phase 3a / 4: qwen3-4b through the engine
+    model, params, rep_q, n_q = run_engine(qwen, ecfg, agreement=True)
+    prof_q = profile_engine(model, params, ecfg)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_qwen = time.monotonic() - t_start
+
+    # phase 3b / 4: granite-moe-1b through the engine (path A)
+    model, params, rep_g, n_g = run_engine(granite, ecfg, agreement=False)
+    prof_g = profile_engine(model, params, ecfg)
+    # phase 3c: granite-moe-1b through generate under fp4_dpa_packed
+    # (path B), on the same weights prepared for that policy
+    n_b, gen_b = run_generate(granite.replace(policy="fp4_dpa_packed"),
+                              params)
+    del model, params
+    t_total = time.monotonic() - t_start
+    print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b "
+          f"{t_qwen - t_kernels:.1f} s, granite-moe-1b "
+          f"{t_total - t_qwen:.1f} s")
+
+    def times(t):
+        return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
 
     kernels = [
         {"name": "dpa_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": n_mm, "max_abs_err": mm_err, "ms": mm_t["ms"],
-         "plain_ms": mm_t["plain_ms"], "bound_ms": mm_t["bound_ms"],
+         "launches": n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"],
+         "max_abs_err": max(mm_err, gmm_err), **times(mm_t),
          "bound_by": "bytes", "library_ms": None,
-         "at": "one decoder layer's 7 projections at decode M=4"},
+         "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4",
+         "granite": {"max_abs_err": gmm_err, **times(gmm_t),
+                     "at": "granite-moe-1b, one layer's 4 attention "
+                           "projections at decode M=4"}},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:332",
-         "launches": n_pd, "max_abs_err": pd_err, "ms": pd_t["ms"],
-         "plain_ms": pd_t["plain_ms"], "bound_ms": pd_t["bound_ms"],
+         "launches": (n_q["paged_decode_attention"]
+                      + n_g["paged_decode_attention"]),
+         "max_abs_err": max(pd_err, gpd_err), **times(pd_t),
          "bound_by": pd_t["bound_by"], "library_ms": None,
          "at": "one layer, B=4 H=32 KV=8 hd=128 page=16 lengths "
-               "[256,201,101,18]"},
+               "[256,201,101,18]",
+         "hd64": {"max_abs_err": gpd_err, **times(gpd_t),
+                  "at": "granite-moe-1b, H=16 KV=8 hd=64, same lengths"}},
+        {"name": "dpa_matmul_prequant", "route": "cuda",
+         "source": "src/repro_torch/csrc/dpa_prequant.cu",
+         "replaces": "src/repro/kernels/dpa_matmul.py:95",
+         "launches": n_b["dpa_matmul_prequant"],
+         "max_abs_err": pq_t["dense"]["max_abs_err"], **times(pq_t["dense"]),
+         "bound_by": "bytes", "library_ms": pq_t["dense"]["library_ms"],
+         "library_device_ms": pq_t["dense"]["library_device_ms"],
+         "at": "granite-moe-1b, one layer's 4 attention projections at "
+               "M=8 (2 rows padded)"},
+        {"name": "dpa_grouped_matmul_fused", "route": "cuda",
+         "source": "src/repro_torch/csrc/dpa_matmul.cu",
+         "replaces": "src/repro/kernels/dpa_grouped_matmul.py:154",
+         "launches": n_g["dpa_grouped_matmul_fused"],
+         "max_abs_err": gf_err, **times(gf_t),
+         "bound_by": "bytes", "library_ms": None,
+         "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
+               "M=8 (4 rows padded)"},
+        {"name": "dpa_grouped_matmul_prequant", "route": "cuda",
+         "source": "src/repro_torch/csrc/dpa_prequant.cu",
+         "replaces": "src/repro/kernels/dpa_grouped_matmul.py:75",
+         "launches": n_b["dpa_grouped_matmul_prequant"],
+         "max_abs_err": pq_t["grouped"]["max_abs_err"],
+         **times(pq_t["grouped"]),
+         "bound_by": "bytes", "library_ms": pq_t["grouped"]["library_ms"],
+         "library_device_ms": pq_t["grouped"]["library_device_ms"],
+         "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
+               "M=8 (2 rows padded)"},
     ]
-    print(f"engine report: {json.dumps(rep)}")
-    print(f"profile: {json.dumps(prof)}")
-    print(f"total {time.monotonic() - t_start:.1f} s")
+    print("engine report: " + json.dumps(
+        {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g}))
+    print("generate: " + json.dumps(
+        {"granite-moe-1b-a400m fp4_dpa_packed": gen_b}))
+    print("profile: " + json.dumps(
+        {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
+    print(f"total {t_total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Config registry of the port: the decoder configurations it serves,
-and `reduce_config`, the CPU smoke variant of the same family (port of
-`repro.configs.base`; the other families join with their slices)."""
+"""Config registry of the port: the decoder and MoE configurations it
+serves, and `reduce_config`, the CPU smoke variant of the same family
+(port of `repro.configs.base`; the other families join with their
+slices)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "llama3.2-3b": "llama32_3b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
 }
 
 

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dpa_matmul.cu", "paged_decode.cu")
+SOURCES = ("dpa_matmul.cu", "dpa_prequant.cu", "paged_decode.cu")
 HEADERS = ("dpa_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,8 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, x_bf16, wq, w_fmt, sw, out, M, K, N, stream
-    "dpa_matmul_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
+    # x, x_bf16, wq, w_fmt, sw, out, E (1 for a dense product), M, K, N,
+    # stream
+    "dpa_grouped_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                                 _P),
+    # xq, sx, wq, sw, out, E, M, K, N, stream
+    "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, q_bf16, kc, ks, vc, vs, table, positions, out,
     # B, H, KV, hd, page, max_pages, kv_fmt, scale, stream
     "paged_decode_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -1,11 +1,17 @@
-"""Fused quantize -> DPA matmul: the plain PyTorch version and the
-wrapper around the CUDA kernel (`csrc/dpa_matmul.cu`).
+"""Dense DPA matmuls: the plain PyTorch versions and the wrappers around
+the CUDA kernels.
 
-Replaces the Pallas TPU kernel `repro/kernels/dpa_matmul.py`
-`dpa_matmul_fused`: raw (M, K) f32/bf16 activations are absmax-quantized
-per (row, K block of 128) onto the E4M3 grid, each block's partial
-product over pre-quantized weights is scaled by its row scale and added
-into an f32 accumulator, and the weight column scales apply at the end.
+`dpa_matmul_fused` (`csrc/dpa_matmul.cu`) replaces the Pallas TPU kernel
+`repro/kernels/dpa_matmul.py` `dpa_matmul_fused`: raw (M, K) f32/bf16
+activations are absmax-quantized per (row, K block of 128) onto the E4M3
+grid, each block's partial product over pre-quantized weights is scaled
+by its row scale and added into an f32 accumulator, and the weight
+column scales apply at the end.
+
+`dpa_matmul_prequant` (`csrc/dpa_prequant.cu`) replaces
+`dpa_matmul_prequant` of the same file: both operands arrive quantized
+(codes plus per-row / per-column f32 scales), the codes' products sum
+in f32, and the epilogue is `(acc * sx) * sw`.
 """
 from __future__ import annotations
 
@@ -19,14 +25,14 @@ from repro_torch.core.quantize import (absmax_block_scale, decode_fp4,
 from repro_torch.kernels import build
 
 BK = 128                     # the K block: part of the numerics contract
-_KERNEL_W = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
+KERNEL_W = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
 
 
-def widen(wq, fmt_w: str, *, pack_w: bool = False):
-    """Weight codes -> f32 values (fp4 unpacked along K first)."""
-    if fmt_w == "fp4_e2m1":
-        return decode_fp4(unpack_fp4_axis(wq, 0) if pack_w else wq)
-    return wq.to(torch.float32)
+def widen(codes, fmt: str, *, packed: bool = False, dim: int = 0):
+    """Operand codes -> f32 values (fp4 unpacked along K, `dim`, first)."""
+    if fmt == "fp4_e2m1":
+        return decode_fp4(unpack_fp4_axis(codes, dim) if packed else codes)
+    return codes.to(torch.float32)
 
 
 def dpa_matmul_fused_ref(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
@@ -35,35 +41,77 @@ def dpa_matmul_fused_ref(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     `repro.kernels.ref.dpa_matmul_fused_ref`), block by block.  Every
     product row sums in one fixed order (`rowwise_dot`), so row i does
     not depend on how many rows x has."""
+    wt = widen(wq, fmt_w, packed=pack_w).t()          # (N, K)
+    return fused_blocks(x, wt, fmt_x, bk, rowwise_dot) * sw.to(torch.float32)
+
+
+def fused_blocks(x, wt, fmt_x: str, bk: int, dot):
+    """x (..., M, K) raw, wt (..., N, K) widened weights -> (..., M, N) f32
+    before the column scales: per K block, the rows' absmax scales, the
+    grid values, a fresh partial product `dot(q, wt_block)` scaled by the
+    block's row scale and added into the running sum."""
     target = get_format(fmt_x).quant_target
     xf = x.to(torch.float32)
-    wt = widen(wq, fmt_w, pack_w=pack_w).t()          # (N, K)
-    out = torch.zeros((x.shape[0], wt.shape[0]), dtype=torch.float32,
+    out = torch.zeros(x.shape[:-1] + (wt.shape[-2],), dtype=torch.float32,
                       device=x.device)
-    for k0 in range(0, x.shape[1], bk):
-        xb = xf[:, k0:k0 + bk]
-        scale = absmax_block_scale(xb, target)
+    for k0 in range(0, x.shape[-1], bk):
+        xb = xf[..., k0:k0 + bk]
+        scale = absmax_block_scale(xb, target, dim=-1)
         y = torch.clamp(xb / scale, -target, target)
         if fmt_x == "fp4_e2m1":
             q = decode_fp4(encode_fp4(y))
         else:
             q = y.to(torch_dtype(fmt_x)).to(torch.float32)
-        out = out + rowwise_dot(q, wt[:, k0:k0 + bk]) * scale
-    return out * sw.to(torch.float32)
+        out = out + dot(q, wt[..., k0:k0 + bk]) * scale
+    return out
 
 
-def _check(x, wq, sw, pack_w):
-    if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be 2-D f32/bf16, got {x.dtype} {x.shape}")
-    K, N = x.shape[1], wq.shape[1]
-    if wq.ndim != 2 or wq.shape[0] * (2 if pack_w else 1) != K:
+def check_fused(x, wq, sw, pack_w, lead=()):
+    """Operand checks shared by the dense and grouped fused wrappers:
+    x (*lead, M, K) f32/bf16, wq (*lead, K', N), sw (*lead, 1, N) f32,
+    one device."""
+    nd = len(lead) + 2
+    if x.ndim != nd or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be {nd}-D f32/bf16, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    K, N = x.shape[-1], wq.shape[-1]
+    if wq.ndim != nd or tuple(x.shape[:-2]) != lead \
+            or tuple(wq.shape[:-2]) != lead \
+            or wq.shape[-2] * (2 if pack_w else 1) != K:
         raise ValueError(f"x {tuple(x.shape)} does not contract with wq "
                          f"{tuple(wq.shape)} (pack_w={pack_w})")
-    if sw.shape != (1, N) or sw.dtype != torch.float32:
-        raise ValueError(f"sw must be (1, {N}) f32, got {sw.dtype} "
+    if sw.shape != (*lead, 1, N) or sw.dtype != torch.float32:
+        raise ValueError(f"sw must be {(*lead, 1, N)} f32, got {sw.dtype} "
                          f"{tuple(sw.shape)}")
     if not (x.device == wq.device == sw.device):
         raise ValueError("x, wq and sw must share one device")
+
+
+def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
+                 what, item):
+    """Launch `csrc/dpa_matmul.cu` on CUDA operands (E = 1 dense), or
+    raise for what the kernel does not serve."""
+    w_fmt = KERNEL_W.get((fmt_w, pack_w))
+    if fmt_x != "fp8_e4m3" or w_fmt is None:
+        raise NotImplementedError(
+            f"{what} kernel serves (fp8_e4m3, packed fp4_e2m1) and "
+            f"(fp8_e4m3, fp8_e4m3); ({fmt_x}, {fmt_w}, pack_w={pack_w}) is "
+            f"ROADMAP Queue 2 item {item}, other fmt pairs")
+    if bk != BK or K % BK or N % 32:
+        raise ValueError(f"kernel needs bk == {BK}, K % {BK} == 0 and "
+                         f"N % 32 == 0; got bk={bk}, K={K}, N={N}")
+    if fmt_w == "fp8_e4m3" and wq.dtype != torch.float8_e4m3fn:
+        raise TypeError(f"fp8 weights must be float8_e4m3fn, got {wq.dtype}")
+    if fmt_w == "fp4_e2m1" and wq.dtype != torch.uint8:
+        raise TypeError(f"packed fp4 weights must be uint8, got {wq.dtype}")
+    if not (x.is_contiguous() and wq.is_contiguous() and sw.is_contiguous()):
+        raise ValueError(f"{what} kernel needs contiguous operands")
+    lib = build.load_library()
+    err = lib.dpa_grouped_fused_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(), w_fmt,
+        sw.data_ptr(), out.data_ptr(), E, M, K, N,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, what)
 
 
 def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
@@ -73,38 +121,109 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_fused.launches` counts launches."""
-    _check(x, wq, sw, pack_w)
+    check_fused(x, wq, sw, pack_w)
     if x.device.type == "cpu":
         return dpa_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x, fmt_w=fmt_w,
                                     bk=bk, pack_w=pack_w)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    w_fmt = _KERNEL_W.get((fmt_w, pack_w))
-    if fmt_x != "fp8_e4m3" or w_fmt is None:
-        raise NotImplementedError(
-            f"dpa_matmul_fused kernel serves (fp8_e4m3, packed fp4_e2m1) and "
-            f"(fp8_e4m3, fp8_e4m3); ({fmt_x}, {fmt_w}, pack_w={pack_w}) is "
-            "ROADMAP Queue 2 item 1, other fmt pairs")
     M, K = x.shape
     N = wq.shape[1]
-    if bk != BK or K % BK or N % 32:
-        raise ValueError(f"kernel needs bk == {BK}, K % {BK} == 0 and "
-                         f"N % 32 == 0; got bk={bk}, K={K}, N={N}")
-    if fmt_w == "fp8_e4m3" and wq.dtype != torch.float8_e4m3fn:
-        raise TypeError(f"fp8 weights must be float8_e4m3fn, got {wq.dtype}")
-    if fmt_w == "fp4_e2m1" and wq.dtype != torch.uint8:
-        raise TypeError(f"packed fp4 weights must be uint8, got {wq.dtype}")
-    if not (x.is_contiguous() and wq.is_contiguous() and sw.is_contiguous()):
-        raise ValueError("dpa_matmul_fused kernel needs contiguous operands")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    lib = build.load_library()
-    err = lib.dpa_matmul_fused_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(), w_fmt,
-        sw.data_ptr(), out.data_ptr(), M, K, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dpa_matmul_fused")
+    launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x, fmt_w=fmt_w,
+                 pack_w=pack_w, bk=bk, what="dpa_matmul_fused", item=1)
     dpa_matmul_fused.launches += 1
     return out
 
 
 dpa_matmul_fused.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# pre-quantized operands
+# -----------------------------------------------------------------------------
+
+def dpa_matmul_prequant_ref(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
+                            pack_x: bool = False, pack_w: bool = False):
+    """Plain version (port of the reference kernel's contract): widen both
+    code operands, f32 products summed over K in one fixed order, then
+    `(acc * sx) * sw`.  For fp4 x fp4 every partial sum is exact, so any
+    order gives the same bits."""
+    x = widen(xq, fmt_x, packed=pack_x, dim=-1)
+    w = widen(wq, fmt_w, packed=pack_w, dim=-2)
+    acc = rowwise_dot(x, w.t())
+    return acc * sx.to(torch.float32) * sw.to(torch.float32)
+
+
+def check_prequant(xq, wq, sx, sw, pack_x, pack_w, lead=()):
+    """Operand checks shared by the dense and grouped prequant wrappers:
+    xq (*lead, M, K'), wq (*lead, K', N), sx (*lead, M, 1), sw (*lead, 1,
+    N), f32 scales, one device."""
+    nd = len(lead) + 2
+    if xq.ndim != nd or wq.ndim != nd or tuple(xq.shape[:-2]) != lead \
+            or tuple(wq.shape[:-2]) != lead:
+        raise ValueError(f"xq {tuple(xq.shape)} and wq {tuple(wq.shape)} "
+                         f"must be {nd}-D with leading dims {lead}")
+    M, N = xq.shape[-2], wq.shape[-1]
+    K = xq.shape[-1] * (2 if pack_x else 1)
+    if wq.shape[-2] * (2 if pack_w else 1) != K:
+        raise ValueError(f"xq {tuple(xq.shape)} does not contract with wq "
+                         f"{tuple(wq.shape)} (pack_x={pack_x}, "
+                         f"pack_w={pack_w})")
+    if sx.shape != (*lead, M, 1) or sw.shape != (*lead, 1, N) \
+            or sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise ValueError(f"sx must be {(*lead, M, 1)} and sw {(*lead, 1, N)}"
+                         f" f32; got {sx.dtype} {tuple(sx.shape)}, "
+                         f"{sw.dtype} {tuple(sw.shape)}")
+    if not (xq.device == wq.device == sx.device == sw.device):
+        raise ValueError("xq, wq, sx and sw must share one device")
+    return M, K, N
+
+
+def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
+                    pack_x, pack_w, what):
+    """Launch `csrc/dpa_prequant.cu` on CUDA operands (E = 1 dense), or
+    raise for what the kernel does not serve."""
+    if (fmt_x, fmt_w, pack_x, pack_w) != ("fp4_e2m1", "fp4_e2m1", True,
+                                         True):
+        raise NotImplementedError(
+            f"{what} kernel serves packed fp4_e2m1 x packed fp4_e2m1; "
+            f"({fmt_x}, {fmt_w}, pack_x={pack_x}, pack_w={pack_w}) is "
+            "ROADMAP Queue 2 item 3, other fmt pairs")
+    if K % BK or N % 32:
+        raise ValueError(f"kernel needs K % {BK} == 0 and N % 32 == 0; got "
+                         f"K={K}, N={N}")
+    if xq.dtype != torch.uint8 or wq.dtype != torch.uint8:
+        raise TypeError(f"packed fp4 operands must be uint8, got {xq.dtype} "
+                        f"and {wq.dtype}")
+    if not all(t.is_contiguous() for t in (xq, wq, sx, sw)):
+        raise ValueError(f"{what} kernel needs contiguous operands")
+    lib = build.load_library()
+    err = lib.dpa_prequant_launch(
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), E, M, K, N,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, what)
+
+
+def dpa_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
+                        pack_x: bool = False, pack_w: bool = False):
+    """(M, K') codes xq times (K', N) codes wq with (M, 1) row and (1, N)
+    column f32 scales -> (M, N) f32; K' = K / 2 on a packed side.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises.  `dpa_matmul_prequant.launches` counts launches."""
+    M, K, N = check_prequant(xq, wq, sx, sw, pack_x, pack_w)
+    kw = dict(fmt_x=fmt_x, fmt_w=fmt_w, pack_x=pack_x, pack_w=pack_w)
+    if xq.device.type == "cpu":
+        return dpa_matmul_prequant_ref(xq, wq, sx, sw, **kw)
+    if xq.device.type != "cuda":
+        raise ValueError(f"unsupported device {xq.device}")
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    launch_prequant(xq, wq, sx, sw, out, 1, M, K, N, what="dpa_matmul_prequant",
+                    **kw)
+    dpa_matmul_prequant.launches += 1
+    return out
+
+
+dpa_matmul_prequant.launches = 0

@@ -15,6 +15,7 @@ from repro_torch.kernels import build
 from repro_torch.models.decode_attn import dpa_paged_decode_attn
 
 _KERNEL_KV = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
+KERNEL_HEAD_DIMS = (64, 128)     # the kernel's head-dim template instances
 
 
 def paged_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
@@ -77,9 +78,9 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
             f"packed fp4_e2m1 or fp8_e4m3 KV; (fmt={fmt}, fmt_kv={fmt_kv}, "
             f"kv_packed={kv_packed}) is ROADMAP Queue 2 item 2, other KV "
             "formats")
-    if hd != 128 or H % KV or H // KV > 8:
-        raise ValueError(f"kernel needs hd == 128 and H/KV <= 8; got hd={hd},"
-                         f" H={H}, KV={KV}")
+    if hd not in KERNEL_HEAD_DIMS or H % KV or H // KV > 8:
+        raise ValueError(f"kernel needs hd in {KERNEL_HEAD_DIMS} and H/KV <= "
+                         f"8; got hd={hd}, H={H}, KV={KV}")
     tensors = (q, k_codes, k_scale, v_codes, v_scale, block_table, positions)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention kernel needs contiguous "

@@ -10,18 +10,21 @@ kernel route off.
 
 Uniform run signatures per op:
 
-  matmul        run(x, lin, policy) -> (..., N)
-  flash_attn    run(q, k, v, *, policy, causal, window, offset, valid,
-                    scale, kv_on_grid) -> (B, Sq, H, hd)
-  decode_attn   run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
-  paged_decode  run(q, cache, positions, *, policy, scale) -> (B, 1, H, hd)
-  unembed       run(x, table, policy) -> (B, S, V) f32
+  matmul          run(x, lin, policy) -> (..., N)
+  grouped_matmul  run(x, lin, policy, *, eq) -> einsum output, x.dtype
+  flash_attn      run(q, k, v, *, policy, causal, window, offset, valid,
+                      scale, kv_on_grid) -> (B, Sq, H, hd)
+  decode_attn     run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
+  paged_decode    run(q, cache, positions, *, policy, scale)
+                      -> (B, 1, H, hd)
+  unembed         run(x, table, policy) -> (B, S, V) f32
 """
 from __future__ import annotations
 
 
 from repro_torch.core import exec_plan
-from repro_torch.core.device import rowwise_dot
+from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
+from repro_torch.core.linear import GROUPED_EQS
 from repro_torch.core.packing import operand_nbytes
 from repro_torch.core.quantize import fake_quant
 from repro_torch.kernels import ops as kops
@@ -45,12 +48,21 @@ def _kv_fmt(policy):
 # matmul
 # -----------------------------------------------------------------------------
 
-def _mm_fused(x, lin, policy):
+def _prepared(lin):
     if "wq" not in lin:
-        raise ValueError("the fused DPA kernel consumes load-time weights: "
-                         "prepare the params (core.linear.prepare_linear, "
-                         "done by Model.init and models.convert)")
-    return kops.dpa_matmul_fused_pipeline(x, lin, policy)
+        raise ValueError("the DPA kernels consume load-time weights: "
+                         "prepare the params (core.linear.prepare_linear / "
+                         "prepare_grouped_linear, done by Model.init and "
+                         "models.convert)")
+    return lin
+
+
+def _mm_fused(x, lin, policy):
+    return kops.dpa_matmul_fused_pipeline(x, _prepared(lin), policy)
+
+
+def _mm_prequant(x, lin, policy):
+    return kops.dpa_matmul_prequant_pipeline(x, _prepared(lin), policy)
 
 
 def _mm_fake_quant(x, lin, policy):
@@ -92,6 +104,17 @@ exec_plan.register(
     note="in-kernel activation quantize, per-(row, K-block) scales")
 
 exec_plan.register(
+    "matmul", "cuda_prequant", backend="cuda", run=_mm_prequant,
+    priority=25, reference="torch_fake_quant", tol=0.35,
+    predicate=lambda policy, ctx: {
+        "kernel_path": policy.use_kernel,
+        "prequant": not policy.fused_quant,
+        "float_weights": ctx.get("w_dtype") not in NATIVE_NARROW,
+        "dpa_enabled": policy.enabled},
+    bytes_moved=_mm_operand_bytes,
+    note="plain quantize pass, packed fp4 operand bytes when policy.packed")
+
+exec_plan.register(
     "matmul", "torch_fake_quant", backend="torch", run=_mm_fake_quant,
     priority=10,
     predicate=lambda policy, ctx: {"dpa_enabled": policy.enabled},
@@ -100,6 +123,104 @@ exec_plan.register(
 exec_plan.register(
     "matmul", "torch_f32", backend="torch", run=_mm_f32, priority=0,
     note="DPA disabled: the f32 datapath")
+
+
+# -----------------------------------------------------------------------------
+# grouped_matmul: per-expert einsums (grouped linear / MoE)
+# -----------------------------------------------------------------------------
+
+def _gmm_fused(x, lin, policy, *, eq):
+    return kops.dpa_grouped_fused_pipeline(x, _prepared(lin), policy, eq=eq)
+
+
+def _gmm_prequant(x, lin, policy, *, eq):
+    return kops.dpa_grouped_prequant_pipeline(x, _prepared(lin), policy,
+                                              eq=eq)
+
+
+def _grouped_einsum(eq, x, w):
+    """einsum `eq` in f32, each output summed over K in one fixed order
+    (`batched_rowwise_dot` per expert)."""
+    x3, unview = kops.grouped_views(eq, x)
+    return unview(batched_rowwise_dot(x3, w.transpose(1, 2)))
+
+
+def _gmm_fake_quant(x, lin, policy, *, eq):
+    # quantize the *master* weights (no pre-cast through x.dtype, which
+    # would round them twice); the stacked (E, d_in, d_out) layout puts
+    # the contraction axis at 1 where dense has it at 0
+    wq = fake_quant(
+        lin["w"], policy.fmt_weights,
+        dim=1 if policy.w_granularity == "per_channel" else None,
+        block=policy.block_size if policy.w_granularity == "per_block"
+        else None)
+    xq = fake_quant(
+        x, policy.fmt_acts,
+        dim=-1 if policy.a_granularity == "per_channel" else None,
+        block=policy.block_size if policy.a_granularity == "per_block"
+        else None)
+    return _grouped_einsum(eq, xq, wq).to(x.dtype)
+
+
+def _gmm_f32(x, lin, policy, *, eq):
+    return _grouped_einsum(eq, x, lin["w"].to(x.dtype)).to(x.dtype)
+
+
+def _gmm_operand_bytes(policy, ctx):
+    """Format-width operand bytes for the stacked per-expert matmuls."""
+    e, m, k, n = ctx.get("e"), ctx.get("m"), ctx.get("k"), ctx.get("n")
+    if not (e and m and k and n):
+        return None
+    return (operand_nbytes(e * m * k, policy.fmt_acts, packed=policy.packed)
+            + operand_nbytes(e * k * n, policy.fmt_weights,
+                             packed=policy.packed))
+
+
+def _gmm_wide_bytes(policy, ctx):
+    """Both operand stacks at full f32 width."""
+    e, m, k, n = ctx.get("e"), ctx.get("m"), ctx.get("k"), ctx.get("n")
+    if not (e and m and k and n):
+        return None
+    return 4 * (e * m * k + e * k * n)
+
+
+def _gmm_kernel_bits(policy, ctx, quant_bit, quant_ok):
+    return {"kernel_path": policy.use_kernel,
+            quant_bit: quant_ok,
+            "float_weights": ctx.get("w_dtype") not in NATIVE_NARROW,
+            "known_grouped_eq": ctx.get("eq") in GROUPED_EQS,
+            "dpa_enabled": policy.enabled}
+
+
+exec_plan.register(
+    "grouped_matmul", "cuda_grouped_fused", backend="cuda", run=_gmm_fused,
+    priority=30, reference="torch_fake_quant", tol=0.35,
+    predicate=lambda policy, ctx: _gmm_kernel_bits(
+        policy, ctx, "fused_quant", policy.fused_quant),
+    bytes_moved=_gmm_operand_bytes,
+    note="per-expert in-kernel activation quantize; packed fp4 expert "
+         "weights move 8x fewer resident bytes")
+
+exec_plan.register(
+    "grouped_matmul", "cuda_grouped_prequant", backend="cuda",
+    run=_gmm_prequant, priority=25, reference="torch_fake_quant", tol=0.35,
+    predicate=lambda policy, ctx: _gmm_kernel_bits(
+        policy, ctx, "prequant", not policy.fused_quant),
+    bytes_moved=_gmm_operand_bytes,
+    note="plain quantize pass over both stacks; packed fp4 operand bytes "
+         "when policy.packed")
+
+exec_plan.register(
+    "grouped_matmul", "torch_fake_quant", backend="torch",
+    run=_gmm_fake_quant, priority=10,
+    predicate=lambda policy, ctx: {"dpa_enabled": policy.enabled},
+    bytes_moved=_gmm_wide_bytes,
+    note="per-expert STE quant-dequant, f32 accumulation")
+
+exec_plan.register(
+    "grouped_matmul", "torch_f32", backend="torch", run=_gmm_f32,
+    priority=0, bytes_moved=_gmm_wide_bytes,
+    note="DPA disabled: plain grouped einsum")
 
 
 # -----------------------------------------------------------------------------

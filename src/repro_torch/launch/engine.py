@@ -29,9 +29,12 @@ admitted request.
 
 Greedy outputs equal `launch.serve.generate` token for token per request
 on the CPU, where every plain path is row-invariant
-(`core.device.rowwise_dot`).  Speculative decoding, the adaptive draft
-ladder, the prefix cache, tensor parallelism and MoE are later slices of
-the port (ROADMAP Queue 1 items 6-9).
+(`core.device.rowwise_dot`) — for a MoE model with `prefill_chunk=1`,
+since expert capacity is computed per model call.  MoE configs serve
+through the `grouped_matmul` plan, resolved at construction.
+Speculative decoding, the adaptive draft ladder, the prefix cache and
+tensor parallelism are later slices of the port (ROADMAP Queue 1 items
+6, 7 and 9).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
 from repro_torch.core.device import resolve_device
+from repro_torch.core.packing import operand_nbytes
 from repro_torch.core.policy import get_policy
 from repro_torch.serving.sampler import SamplerConfig, greedy_tokens
 
@@ -147,6 +151,17 @@ class Engine:
                 "engine stores format-width codes — pick a fmt_kv preset "
                 "(e.g. kv8_attn_f32 for f32 arithmetic over an fp8 cache)"
             ) from e
+        # MoE configs serve through the grouped_matmul plan, stated at the
+        # decode step's dispatch shape: each batch row buffers its single
+        # token into (B, E, C, d) with C = f(S=1)
+        self.moe_plan, self._moe_ctx = None, None
+        if cfg.is_moe:
+            c = int(cfg.capacity_factor * cfg.top_k / cfg.n_experts) + 1
+            self._moe_ctx = dict(w_dtype="float32", eq="becd,edf->becf",
+                                 e=cfg.n_experts, m=ecfg.max_batch * c,
+                                 k=cfg.d_model, n=cfg.d_ff)
+            self.moe_plan = exec_plan.describe("grouped_matmul", pol,
+                                               **self._moe_ctx)
         if ecfg.s_max % ecfg.prefill_chunk:
             raise ValueError(f"S_max ({ecfg.s_max}) must be a multiple of "
                              f"prefill_chunk ({ecfg.prefill_chunk})")
@@ -357,7 +372,7 @@ class Engine:
         def pct(a, q):
             return float(np.percentile(a, q)) if len(a) else 0.0
 
-        return {
+        rep = {
             "n_requests": len(self.finished),
             "wall_s": wall,
             "steps": self.n_steps,
@@ -373,4 +388,28 @@ class Engine:
             "decode_bytes_per_step_layer": self.plan["bytes_moved"],
             "device": str(self.device),
             **self.kv_bytes_report(),
+        }
+        if self.cfg.is_moe:
+            rep.update(self.moe_report())
+        return rep
+
+    def moe_report(self) -> dict:
+        """Which grouped route the expert contraction runs, and the expert
+        weights' bytes at format width (all layers x gate/up/down) vs the
+        f32 masters' residency."""
+        cfg, plan = self.cfg, self.moe_plan
+        n_w = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+        w_bytes = operand_nbytes(n_w, self.pol.fmt_weights,
+                                 packed=self.pol.packed)
+        return {
+            "moe_experts": cfg.n_experts,
+            "moe_top_k": cfg.top_k,
+            "moe_grouped_route": plan["route"],
+            "moe_grouped_backend": plan["backend"],
+            # the port has no tuned table: resolution is the priority scan
+            "moe_grouped_selection": "prior",
+            "moe_grouped_bytes_per_step_layer": plan["bytes_moved"],
+            "expert_w_bytes": w_bytes,
+            "expert_w_bytes_f32": 4 * n_w,
+            "expert_w_reduction_vs_f32": 4 * n_w / w_bytes,
         }

@@ -4,7 +4,8 @@ torch cannot reproduce JAX's threefry init, so the tests move weights
 across: `jax.tree.map(np.asarray, params)` on the JAX side, then
 `convert_params` here.  The reference stacks per-layer params on a
 leading scan axis (`stack.groups.p0`, plus an unscanned tail); the port
-keeps a per-layer list.
+keeps a per-layer list.  A MoE block's router and (E, d_in, d_out)
+expert stacks cross like any other leaf, as f32 masters.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ def _tree(node, fn):
 
 
 def convert_params(np_params: dict, model) -> dict:
-    """Nested dict of numpy arrays (the reference's decoder params) ->
-    the port's prepared params on the model's device."""
+    """Nested dict of numpy arrays (the reference's decoder or MoE params)
+    -> the port's prepared params on the model's device."""
     dev = model.device
     stack = np_params["stack"]
     groups = stack["groups"]

@@ -1,5 +1,5 @@
-"""Layer library of the port's dense decoder (port of the parts of
-`repro.models.layers` the serving path runs).
+"""Layer library of the port's decoders, dense and MoE (port of the parts
+of `repro.models.layers` the serving path runs).
 
 Every projection goes through `core.linear.apply_linear` (the DPA
 contract) and every attention/unembed through an `exec_plan` route, so
@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
-from repro_torch.core.linear import apply_linear, init_linear
+from repro_torch.core.linear import (apply_linear, dpa_grouped_dot,
+                                     init_grouped_linear, init_linear)
 from repro_torch.core.policy import get_policy
 from repro_torch.core.quantize import recip
 
@@ -190,6 +191,100 @@ def apply_mlp(params, x, cfg):
     u = apply_linear(params["wu"], x, policy)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     return apply_linear(params["wd"], h, policy)
+
+
+# -----------------------------------------------------------------------------
+# MoE: top-k routing with sort-based capacity dispatch
+# -----------------------------------------------------------------------------
+
+def init_moe(generator, cfg, device="cpu"):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    if cfg.act != "silu":
+        raise NotImplementedError("the port's MoE experts are SwiGLU; GELU "
+                                  "experts join with their families "
+                                  "(ROADMAP Queue 1 item 12)")
+    return {"router": init_linear(generator, d, E, device=device),
+            "wg": init_grouped_linear(generator, E, d, f, device=device),
+            "wu": init_grouped_linear(generator, E, d, f, device=device),
+            "wd": init_grouped_linear(generator, E, f, d, device=device)}
+
+
+def _softmax(x):
+    """jax.nn.softmax's formula: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def apply_moe(params, x, cfg):
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Group-local dispatch, as in the reference: each batch row routes its
+    own S tokens into an (E, C, d) buffer, C = int(cf * S * K / E) + 1,
+    and the reference's vmap over rows is the leading batch dim here.
+    Assignments sort by expert (stably, so a row's tokens keep their
+    order within an expert); an assignment past its expert's capacity is
+    dropped, and still scatter-adds a zero into slot 0.  The combine sums
+    each token's weighted expert outputs in x's dtype in the reference's
+    scatter order — ascending expert — one add at a time, so it is
+    deterministic on the card (no atomics)."""
+    policy = get_policy(cfg.policy)
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = int(cfg.capacity_factor * S * K / E) + 1
+    dev = x.device
+
+    logits = apply_linear(params["router"], x.to(torch.float32), "fp32")
+    probs = _softmax(logits)                                     # (B, S, E)
+    # lax.top_k: descending, ties to the lower index — a stable sort
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_i = top.values[..., :K], top.indices[..., :K]  # (B, S, K)
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+
+    # aux load-balancing loss (Switch style); a mean is a sum times
+    # f32(1/n), as the jitted reference computes it
+    inv_n = recip(B * S)
+    density = torch.nn.functional.one_hot(gate_i[..., 0], E).to(
+        torch.float32).sum((0, 1)) * inv_n
+    density_prob = probs.sum((0, 1)) * inv_n
+    aux = (density * density_prob).sum() * E * cfg.router_aux_coef
+
+    # dispatch: (B, S*K) assignments sorted by expert, positions within
+    # each expert's capacity
+    flat_e = gate_i.reshape(B, S * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(1, order)
+    counts = torch.nn.functional.one_hot(flat_e, E).sum(1)      # (B, E)
+    start = counts.cumsum(1) - counts
+    pos = torch.arange(S * K, device=dev) - start.gather(1, sorted_e)
+    keep = pos < C
+    pos_c = torch.where(keep, pos, 0)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, S * K)
+    xt = x.gather(1, (order // K)[..., None].expand(B, S * K, d))
+    buf = torch.zeros((B, E, C, d), dtype=x.dtype, device=dev)
+    buf.index_put_((rows, sorted_e, pos_c),
+                   torch.where(keep[..., None], xt, 0).to(x.dtype),
+                   accumulate=True)
+
+    def expert_mm(name, z):
+        return dpa_grouped_dot(z, params[name], policy, eq="becd,edf->becf")
+
+    h = torch.nn.functional.silu(expert_mm("wg", buf).to(torch.float32)
+                                 ).to(x.dtype) * expert_mm("wu", buf)
+    out_buf = expert_mm("wd", h)                                 # (B,E,C,d)
+
+    # combine, per assignment in (token, slot) order: its expert's output
+    # row (zero when dropped) times its gate weight, rounded to x's dtype
+    inv = torch.argsort(order, dim=-1)
+    keep_f, pos_f = keep.gather(1, inv), pos_c.gather(1, inv)
+    g = torch.where(keep_f[..., None], out_buf[rows, flat_e, pos_f], 0)
+    contrib = (g.to(torch.float32) * gate_w.reshape(B, S * K, 1)).to(
+        x.dtype).reshape(B, S, K, d)
+    by_expert = torch.argsort(gate_i, dim=-1)     # a token's experts differ
+    contrib = contrib.gather(2, by_expert[..., None].expand(B, S, K, d))
+    y = torch.zeros((B, S, d), dtype=x.dtype, device=dev)
+    for j in range(K):
+        y = y + contrib[:, :, j]
+    return y, aux
 
 
 # -----------------------------------------------------------------------------

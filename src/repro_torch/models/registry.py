@@ -1,5 +1,5 @@
-"""Model builder of the port: the dense decoder family (port of the
-decoder path of `repro.models.registry`).
+"""`build_model` and `Model`: the port's dense decoder and MoE families
+(port of the decoder path of `repro.models.registry`).
 
 Batch conventions, as in the reference:
   prefill: tokens (B, S) -> (logits of the last position, caches)
@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.linear import needs_prep, prepare_linear
+from repro_torch.core.linear import (needs_prep, prepare_grouped_linear,
+                                     prepare_linear)
 
 from . import layers as L
 from .config import ModelConfig
@@ -20,25 +21,27 @@ from .transformer import apply_stack, init_block, init_block_cache
 _DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
            "bfloat16": torch.bfloat16, "fp16": torch.float16}
 
-LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-           ("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
+ATTN_LINEARS = ("wq", "wk", "wv", "wo")
+MLP_LINEARS = ("wg", "wu", "wd")        # dense MLP, or the MoE expert stacks
 
 
 class Model:
-    """A dense decoder bound to a config and a device.
+    """A dense or MoE decoder bound to a config and a device.
 
     Params are a dict {"layers": [block dicts], "norm_f", "embed"}; a
-    linear is {"w": f32 master} plus, for the fused-kernel policies, the
-    load-time serving weights (`prepare_params`)."""
+    linear is {"w": f32 master} plus, for the kernel policies, the
+    load-time serving weights (`prepare_params`); a MoE block's "mlp"
+    holds the router and the (E, d_in, d_out) expert stacks."""
 
     def __init__(self, cfg: ModelConfig, device):
-        if cfg.family != "decoder":
+        if cfg.family not in ("decoder", "moe"):
             raise NotImplementedError(
                 f"{cfg.family} models join the port in a later slice "
-                "(ROADMAP Queue 1 items 8 and 12)")
+                "(ROADMAP Queue 1 item 12)")
         if not cfg.tie_embeddings:
             raise NotImplementedError("the port serves tied-embedding "
-                                      "decoders (qwen3, llama3.2)")
+                                      "decoders (qwen3, llama3.2, "
+                                      "granite-moe)")
         self.cfg = cfg
         self.device = device
         self.dtype = _DTYPES[cfg.dtype]
@@ -56,12 +59,20 @@ class Model:
         return self.prepare_params(params)
 
     def prepare_params(self, params: dict) -> dict:
-        """Add the fused kernel's load-time weights to every linear when
-        the policy routes linears to it (a no-op otherwise)."""
-        if needs_prep(self.cfg.policy):
-            for lp in params["layers"]:
-                for blk, name in LINEARS:
-                    prepare_linear(lp[blk][name], self.cfg.policy, self.dtype)
+        """Add the kernels' load-time weights to every linear and expert
+        stack whose route consumes them (a no-op otherwise).  The router
+        stays f32 (the reference's "fp32" policy)."""
+        pol, moe = self.cfg.policy, self.cfg.is_moe
+        prep_dense = needs_prep(pol)
+        prep_experts = moe and needs_prep(pol, "grouped_matmul")
+        for lp in params["layers"]:
+            for name in ATTN_LINEARS if prep_dense else ():
+                prepare_linear(lp["attn"][name], pol, self.dtype)
+            for name in MLP_LINEARS:
+                if prep_experts:
+                    prepare_grouped_linear(lp["mlp"][name], pol)
+                elif prep_dense and not moe:
+                    prepare_linear(lp["mlp"][name], pol, self.dtype)
         return params
 
     def init_caches(self, batch_size: int, s_ctx: int) -> list:

@@ -1,5 +1,5 @@
-"""Decoder blocks and the layer stack (port of the decoder path of
-`repro.models.transformer`).
+"""Decoder blocks and the layer stack, dense or MoE (port of the decoder
+path of `repro.models.transformer`).
 
 The reference stacks per-layer params on a scan axis; the port keeps a
 plain per-layer list (`models.convert` unstacks), and caches are a
@@ -21,7 +21,8 @@ def init_block(generator, cfg: ModelConfig, device="cpu"):
     return {"norm1": L.init_norm(d, device),
             "attn": L.init_attention(generator, cfg, device),
             "norm2": L.init_norm(d, device),
-            "mlp": L.init_mlp(generator, cfg, device)}
+            "mlp": (L.init_moe(generator, cfg, device) if cfg.is_moe
+                    else L.init_mlp(generator, cfg, device))}
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, s_ctx: int, dtype,
@@ -44,7 +45,13 @@ def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None):
                                  cache=cache)
     x = x + y.to(x.dtype)
     h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps)
-    x = x + L.apply_mlp(params["mlp"], h, cfg).to(x.dtype)
+    if cfg.is_moe:
+        # serving drops the aux loss, as the reference's prefill and
+        # decode_step do
+        y, _ = L.apply_moe(params["mlp"], h, cfg)
+    else:
+        y = L.apply_mlp(params["mlp"], h, cfg)
+    x = x + y.to(x.dtype)
     return x, cache
 
 

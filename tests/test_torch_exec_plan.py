@@ -14,6 +14,17 @@ def test_selection_pins():
         ("matmul", "fp8_dpa", dict(w_dtype="float32"), "torch_fake_quant"),
         ("matmul", "w4a8_kv4_attn8", dict(w_dtype="float32"), "cuda_fused"),
         ("matmul", "fp8_dpa_fused", dict(w_dtype="bfloat16"), "cuda_fused"),
+        ("matmul", "fp4_dpa_packed", dict(w_dtype="float32"),
+         "cuda_prequant"),
+        ("grouped_matmul", "w4a8_kv4_attn8",
+         dict(w_dtype="float32", eq="becd,edf->becf"), "cuda_grouped_fused"),
+        ("grouped_matmul", "fp4_dpa_packed",
+         dict(w_dtype="float32", eq="gti,gio->gto"),
+         "cuda_grouped_prequant"),
+        ("grouped_matmul", "w4a8_kv4_attn8",
+         dict(w_dtype="float32", eq="bcd,df->bcf"), "torch_fake_quant"),
+        ("grouped_matmul", "fp32", dict(w_dtype="float32",
+                                        eq="becd,edf->becf"), "torch_f32"),
         ("flash_attn", "fp32", dict(sq=16, skv=16), "torch_ref_attn"),
         ("flash_attn", "w4a8_kv4_attn8", dict(sq=32, skv=256,
                                               kv_on_grid=True),
@@ -48,7 +59,8 @@ def test_describe_and_table_integrity():
     # packed fp4 codes + f32 scales, K and V, over 4 x 256 rows x 8 heads
     assert d["bytes_moved"] == 2 * (4 * 256 * 8 * (64 + 4))
     assert set(d["candidates"]) == {"cuda_block_table", "torch_gather"}
-    assert set(exec_plan.ops()) == {"matmul", "flash_attn", "decode_attn",
+    assert set(exec_plan.ops()) == {"matmul", "grouped_matmul",
+                                    "flash_attn", "decode_attn",
                                     "paged_decode", "unembed"}
     for op in exec_plan.ops():
         for e in exec_plan.candidates(op):

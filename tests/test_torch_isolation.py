@@ -37,6 +37,22 @@ engine = Engine(model, params, EngineConfig(page_size=8, n_pages=8,
 rep = engine.run([Request(rid=0, prompt=np.arange(5, dtype=np.int32),
                           max_new=3)])
 assert rep["gen_tokens"] == 3 and engine.alloc.in_use == 0
+# the MoE slice: both granite paths, engine (grouped fused) and generate
+# (dense and grouped prequant)
+from repro_torch.launch.serve import generate
+moe = reduce_config(get_config("granite-moe-1b-a400m"))
+model = build_model(moe.replace(policy="w4a8_kv4_attn8"), device="cpu")
+params = model.init(torch.Generator().manual_seed(0))
+engine = Engine(model, params, EngineConfig(page_size=8, n_pages=8,
+                max_batch=2, max_pages_per_req=2, prefill_chunk=8),
+                device="cpu")
+rep = engine.run([Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                          max_new=3)])
+assert rep["moe_grouped_route"] == "cuda_grouped_fused", rep
+model = build_model(moe.replace(policy="fp4_dpa_packed"), device="cpu")
+out = generate(model, model.init(torch.Generator().manual_seed(0)),
+               np.arange(4)[None], 2, 8, device="cpu")
+assert tuple(out.shape) == (1, 6)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
              and sys.modules[m] is not None)
@@ -50,7 +66,7 @@ def test_port_imports_and_serves_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 33
 
 
 def _imported_roots(path):
@@ -80,6 +96,8 @@ def test_entry_points_default_to_the_card():
         policy="kv4_attn8_packed")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(reduce_config(get_config("granite-moe-1b-a400m")))
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(model, None, EngineConfig())

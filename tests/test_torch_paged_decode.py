@@ -35,19 +35,19 @@ PS, N_KV, HD, H = 8, 2, 16, 4
 TOL = 1e-4
 
 
-def _caches(pol, lengths, seed=3):
+def _caches(pol, lengths, seed=3, hd=HD):
     B = len(lengths)
     S = max(-(-n // PS) for n in lengths) * PS
     rng = np.random.default_rng(seed)
-    k = rng.standard_normal((B, S, N_KV, HD)).astype(np.float32)
-    v = rng.standard_normal((B, S, N_KV, HD)).astype(np.float32)
+    k = rng.standard_normal((B, S, N_KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, N_KV, hd)).astype(np.float32)
     kw = dict(fmt=pol.fmt_kv, packed=pol.kv_packed)
     ref = RKV.paged_from_contiguous(
-        RKV.update_kv_cache(RKV.init_kv_cache(B, S, N_KV, HD, **kw),
+        RKV.update_kv_cache(RKV.init_kv_cache(B, S, N_KV, hd, **kw),
                             jnp.asarray(k), jnp.asarray(v), 0, **kw),
         lengths, page_size=PS)
     got = TKV.paged_from_contiguous(
-        TKV.update_kv_cache(TKV.init_kv_cache(B, S, N_KV, HD, **kw),
+        TKV.update_kv_cache(TKV.init_kv_cache(B, S, N_KV, hd, **kw),
                             torch.from_numpy(k), torch.from_numpy(v), 0,
                             **kw),
         lengths, page_size=PS)
@@ -55,31 +55,32 @@ def _caches(pol, lengths, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _route(name, preset):
+def _route(name, preset, hd=HD):
     pol = importlib.import_module("repro.core.policy").get_policy(preset)
     entry = RPLAN.route("paged_decode", name)
     return jax.jit(lambda q, c, p: entry.run(q, c, p, policy=pol,
-                                             scale=HD ** -0.5))
+                                             scale=hd ** -0.5))
 
 
 def _port(q, cache, pos, pol):
     return TPD.paged_decode_attention(
         q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
         cache["v_scale"], cache["block_table"], pos, fmt=pol.fmt_attn,
-        fmt_kv=pol.fmt_kv, kv_packed=pol.kv_packed, scale=HD ** -0.5)
+        fmt_kv=pol.fmt_kv, kv_packed=pol.kv_packed,
+        scale=q.shape[-1] ** -0.5)
 
 
-def _compare(preset, lengths, positions, seed):
+def _compare(preset, lengths, positions, seed, hd=HD):
     pol = get_policy(preset)
-    ref, got = _caches(pol, lengths)
+    ref, got = _caches(pol, lengths, hd=hd)
     q = np.random.default_rng(seed).standard_normal(
-        (len(lengths), 1, H, HD)).astype(np.float32)
+        (len(lengths), 1, H, hd)).astype(np.float32)
     pos = np.asarray(positions, np.int32)
     out = _port(torch.from_numpy(q), got, torch.from_numpy(pos), pol).numpy()
     errs = []
     for name in ("pallas_block_table", "jnp_gather"):
-        want = np.asarray(_route(name, preset)(jnp.asarray(q), ref,
-                                               jnp.asarray(pos)))
+        want = np.asarray(_route(name, preset, hd)(jnp.asarray(q), ref,
+                                                   jnp.asarray(pos)))
         assert out.shape == want.shape
         errs.append(float(np.max(np.abs(out - want))))
     return errs
@@ -90,6 +91,17 @@ def test_plain_matches_pallas_kernel_and_gather(preset):
     lengths = [13, 5, 17]                     # partial tail pages
     errs = _compare(preset, lengths, [n - 1 for n in lengths], seed=9)
     assert max(errs) <= TOL, errs
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_head_dim_64_matches_pallas_kernel_and_gather(preset):
+    """granite-moe-1b's head dim (64, H/KV = 2), which the CUDA kernel
+    serves beside qwen3-4b's 128."""
+    lengths = [13, 5, 17]
+    errs = _compare(preset, lengths, [n - 1 for n in lengths], seed=10,
+                    hd=64)
+    assert max(errs) <= TOL, errs
+    assert 64 in TPD.KERNEL_HEAD_DIMS and 128 in TPD.KERNEL_HEAD_DIMS
 
 
 @pytest.mark.parametrize("positions", [[0, 16], [7, 8], [15, 3]])
