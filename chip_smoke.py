@@ -21,7 +21,16 @@ Phases (every failure raises; the exit code is then non-zero):
      zero rows, which must come out exactly 0;
    - `dpa_matmul_prequant` at granite's attention projections and
      `dpa_grouped_matmul_prequant` at its expert shapes, held to
-     `max_abs_err == 0` (fp4 x fp4 sums are exact in f32).
+     `max_abs_err == 0` (fp4 x fp4 sums are exact in f32);
+   - `flash_attention` at one layer of qwen3-4b's prefill (S 4096, H 32,
+     KV 8, hd 128) on f32 and bf16 inputs, at hd 64 and at S 1000 (key
+     blocks of 125), against the global-softmax plain version, with
+     `scaled_dot_product_attention` in f32 as the library yardstick;
+   - `dpa_flash_attention` at the same layer (raw K/V on the fp4 grid,
+     bf16), with fp8 K/V, and in cache mode (packed and unpacked fp4,
+     fp8 codes), counting the probability codes that differ;
+   - `quantize_rows` and `quantize_pack_rows` at M 4096, K 2560 and 9728,
+     every format, held to identical codes and scales.
    Each kernel, its plain version and (for the prequant pair)
    `torch._scaled_mm` / `torch._scaled_grouped_mm` on the e4m3-widened
    codes are timed two ways: `ms` / `plain_ms` / `library_ms`, the median
@@ -29,7 +38,8 @@ Phases (every failure raises; the exit code is then non-zero):
    time), and `device_ms` / `plain_device_ms` / `library_device_ms`, the
    profiler's device time per call over 20 calls; beside them the least
    time the card could take (bytes over 3.35 TB/s, or operations over the
-   fp8 peak, whichever is larger).
+   fp8 peak — the f32 peak for the f32 flash kernel — whichever is
+   larger).
 3. Serving at full width, seeded random weights, policy w4a8_kv4_attn8
    unless said otherwise; the kernel launch counters are zeroed just
    before each path and read just after:
@@ -45,19 +55,34 @@ Phases (every failure raises; the exit code is then non-zero):
    c. granite-moe-1b under fp4_dpa_packed through `generate` (2 prompts
       of 32 tokens, 16 new): attention projections through the dense
       prequant kernel, experts through the grouped prequant kernel,
-      attention in f32 over a raw bf16 cache.
-   The expected counts are computed from the config and the run.
+      attention in f32 over a raw bf16 cache;
+   d. qwen3-4b's prefill of one 4096-token prompt (`make_prefill_step`)
+      under its own policy fp8_dpa with use_flash, on the engine's
+      weights: every layer's attention through the f32 flash kernel;
+   e. qwen3-4b's full-sequence scoring (the forward of `make_loss_fn`,
+      chunked cross-entropy) of one 4096-token sequence under
+      w4a8_kv4_attn8 with use_flash: every layer's attention through the
+      DPA flash kernel, every projection through the fused matmul;
+   f. the `quantize_pack` op (`kernels.ops.quantize_rows`) on a prompt's
+      MLP activations: both row quantizers.
+   The expected counts are computed from the config and the run; d and e
+   are each compared with the same call with use_flash off, and every
+   layer's attention output on them with the kernel's plain version on
+   the same inputs.
 4. Where the time goes: torch.profiler over one steady decode step and
-   one prefill chunk of each engine (device busy share, top kernels).
+   one prefill chunk of each engine, and over one call of paths d and e
+   (device busy share, top kernels).
 
-Prints the engine reports and the profiles as JSON, the kernels' JSON
-line, the card's name and power limit, and, as the last line,
+Prints the engine reports, the prefill and scoring results and the
+profiles as JSON, the phase times, the kernels' JSON line, the card's
+name and power limit, and, as the last line,
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -68,7 +93,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (data sheet)
 FP8_OPS_PER_S = 1979e12           # H100 SXM dense fp8 tensor-core peak
+F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4   # the reference's fused-route pin
+FLASH_F32_RTOL = 2e-6             # the f32 flash route's pin (no TF32)
+# DPA flash kernel vs plain version: at most this share of the live
+# probability codes may differ (a logit summed in another order can cross
+# an E4M3 rounding boundary); each output is held to one bf16 ulp plus
+# FLASH_F32_RTOL of its row's largest output, plus, in a row with flipped
+# codes, what those flips can move it by
+DPA_FLASH_MAX_FLIPS = 1e-5
+# path D against use_flash off (global-max p quantization): 10x the gap
+# measured on an H100 (1.1e-3, PERF.md)
+SCORING_REF_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -135,8 +171,8 @@ def device_ms(fn, n: int = 20):
     return None
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP8_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, peak: float = FP8_OPS_PER_S):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -529,6 +565,244 @@ def check_prequant(cfg, gen):
     return out
 
 
+def _attn_inputs(gen, H, KV, S, hd, dtype):
+    import torch
+    q = torch.randn((1, H, S, hd), generator=gen, device="cuda")
+    k = torch.randn((1, KV, S, hd), generator=gen, device="cuda")
+    v = torch.randn((1, KV, S, hd), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _attn_work(H, KV, S, hd, elem_bytes):
+    """(bytes, operations) of one causal attention call: q, k, v read and
+    the output written once; QK^T and PV over the live (q, k) pairs."""
+    nbytes = elem_bytes * hd * S * (2 * H + 2 * KV)
+    return nbytes, 4.0 * H * hd * S * (S + 1) / 2
+
+
+def _library_sdpa(q, k, v, want):
+    """One PyTorch call for the same f32 attention (causal, GQA), TF32 off:
+    -> (ms, device ms, max_abs_err vs the plain version, note)."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    call = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
+                        enable_gqa=True)
+    try:
+        out = call()
+    except (RuntimeError, TypeError, ValueError) as e:   # a yardstick only
+        return None, None, None, f"none: sdpa refused ({str(e)[:120]})"
+    err = float((out - want).abs().max())
+    return (median_ms(call), device_ms(call), err,
+            "torch.nn.functional.scaled_dot_product_attention(is_causal, "
+            "enable_gqa), f32")
+
+
+def check_flash(gen):
+    """The f32 flash kernel against the plain global-softmax version: one
+    layer of qwen3-4b's prefill (B 1, S 4096, H 32, KV 8, hd 128) on f32
+    inputs at FLASH_F32_RTOL relative to the largest output, and on bf16
+    inputs within one bf16 ulp over that f32 tolerance; hd 64 (H 16, KV 8, S 1024) and S 1000 (bq
+    = bk = 125) on f32.  Timed at the first shape in f32, beside the
+    library's attention."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import _fit_block
+    worst, out = 0.0, None
+    for H, KV, S, hd, dtype in ((32, 8, 4096, 128, torch.float32),
+                                (32, 8, 4096, 128, torch.bfloat16),
+                                (16, 8, 1024, 64, torch.float32),
+                                (32, 8, 1000, 128, torch.float32)):
+        q, k, v = _attn_inputs(gen, H, KV, S, hd, dtype)
+        b = _fit_block(128, S)
+        got = FA.flash_attention(q, k, v, bq=b, bk=b)
+        want = FA.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            rel = float(err.max() / want.abs().max())
+            ok, what = rel <= FLASH_F32_RTOL, f"relative {rel:.3g}"
+        else:
+            # one bf16 ulp of each output (8 significant bits), over the f32
+            # tolerance of the sums before the rounding: near-zero outputs
+            # have ulps far below the f32 noise of a 4096-term average
+            ulp = _bf16_ulp(want.float())
+            ok = bool((err <= ulp + FLASH_F32_RTOL
+                       * float(want.float().abs().max())).all())
+            what = (f"{int((err > 0).sum())} of {err.numel()} outputs "
+                    f"differ, {int((err > ulp).sum())} by more than one "
+                    "bf16 ulp")
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention H={H} S={S} hd={hd} "
+                                 f"{dtype}: max err {float(err.max())} "
+                                 f"({what})")
+        worst = max(worst, float(err.max()))
+        print(f"flash_attention H={H} KV={KV} S={S} hd={hd} bq=bk={b} "
+              f"{dtype}: max_abs_err {float(err.max()):.3g}, {what}")
+        if out is None:
+            args = (q, k, v)
+            t = timings(lambda: FA.flash_attention(*args),
+                        lambda: FA.flash_attention_ref(*args))
+            nbytes, ops = _attn_work(H, KV, S, hd, 4)
+            t["bound_ms"], t["bound_by"] = bound(nbytes, ops, F32_OPS_PER_S)
+            lib_ms, lib_dev, lib_err, note = _library_sdpa(q, k, v, want)
+            t.update(library_ms=lib_ms, library_device_ms=lib_dev)
+            print(f"flash_attention S={S} f32: {fmt_times(t)} bound_ms "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}, f32 peak); "
+                  f"library {note} {lib_ms} ms (device {lib_dev}), "
+                  f"max_abs_err {lib_err}")
+            out = t
+    out["max_abs_err"] = worst
+    return out
+
+
+def _bf16_ulp(want):
+    """One bf16 ulp (8 significant bits) of each f32 value in `want`."""
+    import torch
+    _, e = torch.frexp(want)
+    return torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def _dpa_flash_misses(err, want, codes, v):
+    """-> (outputs past their bound, flipped p codes).  Each output may be
+    off by one bf16 ulp of itself plus FLASH_F32_RTOL of its row's largest
+    output.  A flipped code moves its probability by |p0 - p1| <= the gap
+    of the two E4M3 values / 448 (p <= 1, scale amax / 448), and moves the
+    row's output by at most twice that times max |V| (once through acc,
+    once through l >= 1): that is added to its row's bound."""
+    import torch
+    tol = _bf16_ulp(want) \
+        + FLASH_F32_RTOL * want.abs().amax(dim=-1, keepdim=True)
+    flipped = codes[0] != codes[1]
+    flips = int(flipped.sum())
+    if flips:
+        idx = flipped.nonzero(as_tuple=True)
+        gap = (codes[0][idx].view(torch.float8_e4m3fn).float()
+               - codes[1][idx].view(torch.float8_e4m3fn).float()).abs()
+        moved = torch.zeros(err.shape[:-1], device=err.device)
+        moved.index_put_(idx[:-1], gap / 448.0, accumulate=True)
+        tol = tol + 2.0 * float(v.float().abs().max()) * moved[..., None]
+    return int((err > tol).sum()), flips
+
+
+def check_dpa_flash(gen):
+    """The DPA flash kernel against its plain version (the same key-block
+    loop): raw mode at one layer of qwen3-4b's scoring (B 1, S 4096, H 32,
+    KV 8, hd 128, bf16, K/V on the fp4 grid), then fp8 K/V raw, and cache
+    mode (packed and unpacked fp4, fp8 codes) at hd 64 and at S 1000.
+    Both sides write every probability's E4M3 code: at most
+    DPA_FLASH_MAX_FLIPS of the live codes may differ, and every output is
+    held to its own bound (`_dpa_flash_misses`), which is one bf16 ulp
+    where no code flipped.  Cache rows made from the same K/V give the raw
+    mode's bits."""
+    import torch
+    from repro_torch.core import kvcache as KVC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import _fit_block
+    worst, out = 0.0, None
+    cases = (("raw fp4", 32, 8, 4096, 128, "fp4_e2m1", False, False),
+             ("raw fp8", 16, 8, 1024, 64, "fp8_e4m3", False, False),
+             ("cache packed fp4", 32, 8, 1000, 128, "fp4_e2m1", True, True),
+             ("cache fp4", 16, 8, 1024, 64, "fp4_e2m1", True, False),
+             ("cache fp8", 32, 8, 1000, 128, "fp8_e4m3", True, False))
+    for name, H, KV, S, hd, fmt_kv, cache, packed in cases:
+        q, k, v = _attn_inputs(gen, H, KV, S, hd, torch.bfloat16)
+        b = _fit_block(128, S)
+        kw = dict(fmt="fp8_e4m3", fmt_kv=fmt_kv, bq=b, bk=b)
+        if cache:
+            kc, ks = KVC.quantize_kv(k, fmt=fmt_kv, packed=packed)
+            vc, vs = KVC.quantize_kv(v, fmt=fmt_kv, packed=packed)
+            args = (q, kc, vc, ks, vs)
+            kw.update(kv_quant=True, kv_packed=packed)
+        else:
+            args = (q, k, v)
+        ref_kw = {x: y for x, y in kw.items() if x != "bq"}   # bk only
+        codes = [torch.zeros((1, H, S, S), dtype=torch.uint8, device="cuda")
+                 for _ in range(2)]
+        got = FA.dpa_flash_attention(*args, p_codes=codes[0], **kw)
+        want = FA.dpa_flash_attention_ref(*args, p_codes=codes[1], **ref_kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        live = H * S * (S + 1) // 2
+        bad, flips = _dpa_flash_misses(err, want.float(), codes, v)
+        if not bool(torch.isfinite(got).all()) or bad or \
+                flips > DPA_FLASH_MAX_FLIPS * live:
+            raise AssertionError(f"dpa_flash_attention {name} S={S} hd={hd}"
+                                 f": {bad} outputs off their bound (max "
+                                 f"err {float(err.max())}), {flips} of "
+                                 f"{live} p codes flipped")
+        if cache:
+            raw = FA.dpa_flash_attention(q, k, v, fmt="fp8_e4m3",
+                                         fmt_kv=fmt_kv, bq=b, bk=b)
+            if not torch.equal(raw, got):
+                raise AssertionError(f"dpa_flash_attention {name}: cache "
+                                     "rows gave other bits than raw K/V")
+        del codes
+        worst = max(worst, float(err.max()))
+        print(f"dpa_flash_attention {name} H={H} KV={KV} S={S} hd={hd} "
+              f"bq=bk={b}: max_abs_err {float(err.max()):.3g}, "
+              f"{int((err > 0).sum())} of {err.numel()} outputs differ; "
+              f"{flips} of {live} live p codes flipped"
+              + ("; == raw mode bit for bit" if cache else ""))
+        if out is None:
+            t = timings(lambda: FA.dpa_flash_attention(*args, **kw),
+                        lambda: FA.dpa_flash_attention_ref(*args, **ref_kw))
+            nbytes, ops = _attn_work(H, KV, S, hd, 2)
+            t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+            print(f"dpa_flash_attention S={S} raw fp4 K/V: {fmt_times(t)} "
+                  f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}, fp8 "
+                  "peak); library none")
+            out = t
+    out["max_abs_err"] = worst
+    return out
+
+
+def check_quantizers(gen):
+    """Both row quantizers against their plain versions at M = 4096 (a
+    4096-token prompt's rows), K = 2560 (d_model) and 9728 (d_ff), bf16 x,
+    every format: codes and scales must be identical.  Timed at K = 9728,
+    E4M3 codes (quantize_rows) and packed E2M1 (quantize_pack_rows)."""
+    import torch
+    from repro_torch.kernels import quantize as QZ
+
+    def same(a, b):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype in (torch.float8_e4m3fn, torch.float16, torch.bfloat16):
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        return torch.equal(a, b)
+
+    out = {}
+    for K in (2560, 9728):
+        x = (torch.randn((4096, K), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        x[7] = 0                                   # an all-zero row
+        for fmt in ("fp8_e4m3", "fp4_e2m1", "fp16", "bf16", "packed"):
+            if fmt == "packed":
+                fn, ref, kw = (QZ.quantize_pack_rows,
+                               QZ.quantize_pack_rows_ref, {})
+            else:
+                fn, ref, kw = QZ.quantize_rows, QZ.quantize_rows_ref, \
+                    {"fmt": fmt}
+            (gq, gs), (wq, ws) = fn(x, **kw), ref(x, **kw)
+            torch.cuda.synchronize()
+            if not (same(gq, wq) and torch.equal(gs, ws)):
+                raise AssertionError(f"{fn.__name__} {fmt} K={K}: codes or "
+                                     "scales differ from the plain version")
+            print(f"{fn.__name__} {fmt} M=4096 K={K} bf16: codes and scales "
+                  "identical (max_abs_err 0)")
+            if K == 9728 and fmt in ("fp8_e4m3", "packed"):
+                t = timings(lambda: fn(x, **kw), lambda: ref(x, **kw))
+                nbytes = x.numel() * 2 + gq.numel() * gq.element_size() \
+                    + gs.numel() * 4
+                t["bound_ms"], t["bound_by"] = bound(nbytes, 0.0)
+                t["max_abs_err"] = 0.0
+                print(f"{fn.__name__} {fmt} M=4096 K={K}: {fmt_times(t)} "
+                      f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
+                      "library none")
+                out[fn.__name__] = t
+    return out
+
+
 # -----------------------------------------------------------------------------
 # phase 3: the engine at full width
 # -----------------------------------------------------------------------------
@@ -565,18 +839,25 @@ def teacher_forced(model, params, req, s_ctx):
 
 KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
                 "dpa_matmul_prequant", "dpa_grouped_matmul_fused",
-                "dpa_grouped_matmul_prequant")
+                "dpa_grouped_matmul_prequant", "dpa_flash_attention",
+                "flash_attention", "quantize_rows", "quantize_pack_rows")
 
 
 def _wrappers():
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import quantize as QZ
     return {"dpa_matmul_fused": DM.dpa_matmul_fused,
             "paged_decode_attention": PD.paged_decode_attention,
             "dpa_matmul_prequant": DM.dpa_matmul_prequant,
             "dpa_grouped_matmul_fused": GM.dpa_grouped_matmul_fused,
-            "dpa_grouped_matmul_prequant": GM.dpa_grouped_matmul_prequant}
+            "dpa_grouped_matmul_prequant": GM.dpa_grouped_matmul_prequant,
+            "dpa_flash_attention": FA.dpa_flash_attention,
+            "flash_attention": FA.flash_attention,
+            "quantize_rows": QZ.quantize_rows,
+            "quantize_pack_rows": QZ.quantize_pack_rows}
 
 
 def zero_counts():
@@ -781,6 +1062,214 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
                     "ms_per_call": wall / calls * 1e3}
 
 
+def _prompt(cfg, S, seed):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (1, S),
+                         generator=torch.Generator().manual_seed(seed)
+                         ).to("cuda")
+
+
+@contextlib.contextmanager
+def recorded_attention(calls):
+    """Inside, every `models.layers._sdpa` call appends its (q, k, v, out)
+    to `calls`, in the (B, S, heads, hd) layout the model hands over."""
+    from repro_torch.models import layers
+    inner = layers._sdpa
+
+    def record(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        calls.append((q, k, v, out))
+        return out
+
+    layers._sdpa = record
+    try:
+        yield
+    finally:
+        layers._sdpa = inner
+
+
+def check_path_attention(what, calls, plain):
+    """Each layer's attention output on a path (`recorded_attention`)
+    against `plain`, the kernel's plain version, on the same inputs laid
+    out heads-first here and not by the route: one bf16 ulp of each output
+    plus FLASH_F32_RTOL of the layer's largest, the bound phase 2 holds the
+    kernels to.  Pins what lies between the model and the kernel: the
+    route's transposes, blocks and arguments.  -> the largest error."""
+    worst = 0.0
+    for i, (q, k, v, out) in enumerate(calls):
+        want = plain(q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2)).transpose(1, 2).float()
+        err = (out.float() - want).abs()
+        tol = _bf16_ulp(want) + FLASH_F32_RTOL * float(want.abs().max())
+        if out.shape != want.shape or not bool((err <= tol).all()):
+            raise AssertionError(f"{what}: layer {i}'s attention is "
+                                 f"{float(err.max())} off the plain version"
+                                 f" ({int((err > tol).sum())} outputs past "
+                                 "one bf16 ulp)")
+        worst = max(worst, float(err.max()))
+    print(f"{what}: {len(calls)} layers' attention outputs within one bf16 "
+          f"ulp of the plain version (max |diff| {worst:.3g})")
+    return worst
+
+
+def run_prefill(cfg, params, S=4096):
+    """Path C: `make_prefill_step` over one S-token prompt under cfg's own
+    policy (fp8_dpa) with use_flash, on params built for the engine (the
+    masters serve the fake-quant linears): every layer's attention through
+    the f32 flash kernel and nothing else.  One call warms up, the next is
+    timed (the time to the first token) and counted.  Against the same
+    call with use_flash off (f32 logits, softmax rounded to bf16 before
+    PV, as the reference's route rounds it): the last position's logits
+    and greedy token, reported; 36 layers of fp8 fake-quant activations
+    amplify the routes' rounding differences, so these logits are only
+    required to stay correlated (cosine >= 0.95).  What they cannot see,
+    the wiring between model and kernel, is held per layer: every
+    layer's attention output against the plain version on its inputs
+    (`check_path_attention`)."""
+    import torch
+    from repro_torch.distributed.step import make_prefill_step
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cuda")
+    params = model.prepare_params(params)
+    step = make_prefill_step(model)
+    tokens = _prompt(cfg, S, 4)
+    step(params, tokens)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    logits, caches = step(params, tokens)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    del caches
+    check_counts(f"{cfg.name} prefill ({cfg.policy}, use_flash)", counts,
+                 {"flash_attention": cfg.n_layers})
+    ref, caches = make_prefill_step(build_model(
+        cfg.replace(use_flash=False), device="cuda"))(params, tokens)
+    del caches
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        logits.reshape(1, -1), ref.reshape(1, -1)))
+    tok, ref_tok = int(logits[0, -1].argmax()), int(ref[0, -1].argmax())
+    top = torch.topk(ref[0, -1], 2).values
+    if cos < 0.95:
+        raise AssertionError(f"prefill logits decorrelated from the f32 "
+                             f"route: cosine {cos}, max diff {err}")
+    calls = []
+    with recorded_attention(calls):
+        step(params, tokens)
+    layer_err = check_path_attention(
+        "prefill", calls, lambda q, k, v: FA.flash_attention_ref(q, k, v))
+    del calls
+    print(f"prefill: {cfg.name} {S}-token prompt in {wall:.3f} s (time to "
+          f"the first token); first greedy token {tok} (use_flash off: "
+          f"{ref_tok}, its top-2 margin {float(top[0] - top[1]):.3g}); "
+          f"last-position logits vs use_flash off: max |diff| {err:.4g}, "
+          f"logit scale {scale:.4g}, cosine {cos:.6f}")
+    prof = profile_window(f"{cfg.name} prefill ({S} tokens)",
+                          lambda: step(params, tokens))
+    return counts, {"wall_s": wall, "first_token": tok, "ref_token": ref_tok,
+                    "max_abs_diff_vs_ref_attn": err, "logit_scale": scale,
+                    "cosine_vs_ref_attn": cos,
+                    "attn_max_abs_err_vs_plain": layer_err,
+                    "profile": prof}
+
+
+def run_scoring(cfg, params, S=4096):
+    """Path D: the forward of `make_loss_fn` over one S-token sequence
+    under w4a8_kv4_attn8 with use_flash (logits_chunk divides S: the
+    chunked cross-entropy over backbone_features): every layer's attention
+    through the DPA flash kernel on raw K/V, every projection through the
+    fused matmul kernel.  Warm-up, then a timed and counted call.  Against
+    use_flash off (global-max p quantization): a small, nonzero loss
+    difference, within SCORING_REF_TOL.  Every layer's attention output
+    against the plain version on its inputs (`check_path_attention`)."""
+    import math
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.step import make_loss_fn
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cuda")
+    params = model.prepare_params(params)
+    loss_fn = make_loss_fn(model)
+    batch = {"tokens": _prompt(cfg, S, 5), "labels": _prompt(cfg, S, 6)}
+    loss_fn(params, batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    total, parts = loss_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    dense, _ = per_call_projections(cfg)
+    check_counts(f"{cfg.name} scoring ({cfg.policy}, use_flash)", counts,
+                 {"dpa_flash_attention": cfg.n_layers,
+                  "dpa_matmul_fused": dense * cfg.n_layers})
+    ref_total, ref_parts = make_loss_fn(build_model(
+        cfg.replace(use_flash=False), device="cuda"))(params, batch)
+    loss, ref_loss = float(parts["loss"]), float(ref_parts["loss"])
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(loss) and 0.5 * ln_v < loss < 1.5 * ln_v
+            and abs(loss - ref_loss) <= SCORING_REF_TOL
+            and float(parts["aux"]) == 0.0):
+        raise AssertionError(f"scoring loss {loss} (use_flash off "
+                             f"{ref_loss}, limit {SCORING_REF_TOL}; ln V "
+                             f"{ln_v:.4f}), aux {float(parts['aux'])}")
+    print(f"scoring: {cfg.name} {S} tokens, loss {loss:.6f} (use_flash off "
+          f"{ref_loss:.6f}, diff {loss - ref_loss:.3g}; ln V {ln_v:.4f}) in "
+          f"{wall:.3f} s = {S / wall:.1f} tokens/s")
+    pol = get_policy(cfg.policy)
+    calls = []
+    with recorded_attention(calls):
+        loss_fn(params, batch)
+    layer_err = check_path_attention(
+        "scoring", calls, lambda q, k, v: FA.dpa_flash_attention_ref(
+            q, k, v, fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, bk=128))
+    del calls
+    prof = profile_window(f"{cfg.name} scoring ({S} tokens)",
+                          lambda: loss_fn(params, batch))
+    return counts, {"wall_s": wall, "tokens_per_s": S / wall, "loss": loss,
+                    "loss_ref_attn": ref_loss, "loss_diff": loss - ref_loss,
+                    "attn_max_abs_err_vs_plain": layer_err,
+                    "profile": prof}
+
+
+def run_quantize_op(gen, M=4096, K=9728):
+    """The `quantize_pack` op (`kernels.ops.quantize_rows`) on one
+    prompt's MLP activations (bf16 (4096, 9728)): packed E2M1 and E4M3
+    codes, each held to the plain route exactly."""
+    import torch
+    from repro_torch.core import exec_plan
+    from repro_torch.kernels import ops
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    plain = exec_plan.route("quantize_pack", "torch_quantize")
+    zero_counts()
+    got = [ops.quantize_rows(x, "fp4_e2m1", pack=True),
+           ops.quantize_rows(x, "fp8_e4m3")]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("quantize_pack op", counts,
+                 {"quantize_pack_rows": 1, "quantize_rows": 1})
+    for (q, s), (fmt, pack) in zip(got, (("fp4_e2m1", True),
+                                         ("fp8_e4m3", False))):
+        wq, ws = plain.run(x, fmt=fmt, pack=pack)
+        if not (torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+                and torch.equal(s, ws)):
+            raise AssertionError(f"quantize_pack {fmt} pack={pack}: differs "
+                                 "from the plain route")
+    print(f"quantize_pack op: ({M}, {K}) bf16 -> packed E2M1 and E4M3 "
+          "codes, both identical to the plain route")
+    return counts
+
+
 # -----------------------------------------------------------------------------
 # phase 4: where the time goes (torch.profiler over one decode step and one
 # prefill chunk of the full-width engine)
@@ -788,7 +1277,6 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
 
 def profile_engine(model, params, ecfg):
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.engine import DECODE, Engine, synthetic_workload
 
     engine = Engine(model, params, ecfg, device="cuda")
@@ -807,40 +1295,43 @@ def profile_engine(model, params, ecfg):
         "prefill chunk (32 tokens)": lambda: model.decode_step(
             params, {"tokens": chunk, "index": 0}, engine._staging),
     }
-    out = {}
-    for name, fn in windows.items():
+    return {name: profile_window(f"{model.cfg.name} {name}", fn)
+            for name, fn in windows.items()}
+
+
+def profile_window(label, fn):
+    """torch.profiler over one call of fn after a warm-up call: wall time,
+    device busy time and share, launches, the top kernels by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = {}
-        for e in kernels:
-            dt = (e.time_range.end - e.time_range.start) / 1e3
-            by_name[e.name] = by_name.get(e.name, 0.0) + dt
-        busy = sum(by_name.values())
-        if not kernels:
-            print(f"profile {model.cfg.name} {name}: wall {wall_ms:.1f} ms; "
-                  "the profiler saw no device events (busy share not "
-                  "measured)")
-            out[name] = {"wall_ms": wall_ms, "busy_ms": None}
-            continue
-        print(f"profile {model.cfg.name} {name}: wall {wall_ms:.1f} ms, "
-              f"device busy "
-              f"{busy:.2f} ms ({busy / wall_ms:.1%}), {len(kernels)} "
-              f"kernel launches")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        for kname, ms in top:
-            print(f"    {ms:8.3f} ms  {kname[:100]}")
-        out[name] = {"wall_ms": wall_ms, "busy_ms": busy,
-                     "launches": len(kernels),
-                     "top": [[k[:100], v] for k, v in top]}
-    return out
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        dt = (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + dt
+    busy = sum(by_name.values())
+    if not kernels:
+        print(f"profile {label}: wall {wall_ms:.1f} ms; the profiler saw no "
+              "device events (busy share not measured)")
+        return {"wall_ms": wall_ms, "busy_ms": None}
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.2f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel "
+          "launches")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for kname, ms in top:
+        print(f"    {ms:8.3f} ms  {kname[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(kernels),
+            "top": [[k[:100], v] for k, v in top]}
 
 
 def main() -> None:
@@ -891,12 +1382,25 @@ def main() -> None:
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
     pq_t = check_prequant(granite, gen)
+    fa_t = check_flash(gen)
+    dfa_t = check_dpa_flash(gen)
+    qz_t = check_quantizers(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     t_kernels = time.monotonic() - t_start
 
     # phase 3a / 4: qwen3-4b through the engine
     model, params, rep_q, n_q = run_engine(qwen, ecfg, agreement=True)
     prof_q = profile_engine(model, params, ecfg)
-    del model, params
+    del model
+    t_engine_q = time.monotonic() - t_start
+    # phase 3d: qwen3-4b's long-prompt prefill under its own policy
+    # (fp8_dpa) with use_flash, on the engine's params
+    n_c, pre_c = run_prefill(get_config("qwen3-4b").replace(use_flash=True),
+                             params)
+    # phase 3e: full-sequence scoring under w4a8_kv4_attn8 with use_flash
+    n_d, score_d = run_scoring(qwen.replace(use_flash=True), params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     t_qwen = time.monotonic() - t_start
@@ -909,19 +1413,28 @@ def main() -> None:
     n_b, gen_b = run_generate(granite.replace(policy="fp4_dpa_packed"),
                               params)
     del model, params
+    t_granite = time.monotonic() - t_start
+    # phase 3f: the quantize_pack op
+    n_qp = run_quantize_op(gen)
     t_total = time.monotonic() - t_start
-    print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b "
-          f"{t_qwen - t_kernels:.1f} s, granite-moe-1b "
-          f"{t_total - t_qwen:.1f} s")
+    print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b engine "
+          f"{t_engine_q - t_kernels:.1f} s, qwen3-4b prefill and scoring "
+          f"{t_qwen - t_engine_q:.1f} s, granite-moe-1b "
+          f"{t_granite - t_qwen:.1f} s, quantize_pack op "
+          f"{t_total - t_granite:.1f} s")
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
+
+    def lib(t):
+        return {k: t[k] for k in ("library_ms", "library_device_ms")}
 
     kernels = [
         {"name": "dpa_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"],
+         "launches": (n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"]
+                      + n_d["dpa_matmul_fused"]),
          "max_abs_err": max(mm_err, gmm_err), **times(mm_t),
          "bound_by": "bytes", "library_ms": None,
          "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4",
@@ -966,11 +1479,49 @@ def main() -> None:
          "library_device_ms": pq_t["grouped"]["library_device_ms"],
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
                "M=8 (2 rows padded)"},
+        {"name": "dpa_flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:218",
+         "launches": n_d["dpa_flash_attention"],
+         "max_abs_err": dfa_t["max_abs_err"], **times(dfa_t),
+         "bound_by": dfa_t["bound_by"], "library_ms": None,
+         "library": "none: no PyTorch call quantizes q, K/V and the "
+                    "probabilities per (row, key block) inside attention",
+         "at": "one layer of qwen3-4b scoring: B=1 S=4096 H=32 KV=8 hd=128 "
+               "causal, bf16, raw K/V on the fp4 grid"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:100",
+         "launches": n_c["flash_attention"],
+         "max_abs_err": fa_t["max_abs_err"], **times(fa_t),
+         "bound_by": fa_t["bound_by"], **lib(fa_t),
+         "at": "one layer of qwen3-4b prefill: B=1 S=4096 H=32 KV=8 hd=128 "
+               "causal, f32 (bound at the f32 peak)"},
+        {"name": "quantize_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/quantize_rows.cu",
+         "replaces": "src/repro/kernels/quantize.py:70",
+         "launches": n_qp["quantize_rows"],
+         "max_abs_err": 0.0, **times(qz_t["quantize_rows"]),
+         "bound_by": "bytes", "library_ms": None,
+         "library": "none: no PyTorch call computes per-row absmax scales "
+                    "and the saturating cast in one pass",
+         "at": "M=4096 K=9728 bf16 -> E4M3 codes"},
+        {"name": "quantize_pack_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/quantize_rows.cu",
+         "replaces": "src/repro/kernels/quantize.py:50",
+         "launches": n_qp["quantize_pack_rows"],
+         "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
+         "bound_by": "bytes", "library_ms": None,
+         "library": "none: PyTorch has no E2M1 encode or nibble pack",
+         "at": "M=4096 K=9728 bf16 -> packed E2M1 codes"},
     ]
     print("engine report: " + json.dumps(
         {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g}))
     print("generate: " + json.dumps(
         {"granite-moe-1b-a400m fp4_dpa_packed": gen_b}))
+    print("prefill and scoring: " + json.dumps(
+        {"qwen3-4b prefill fp8_dpa use_flash S=4096": pre_c,
+         "qwen3-4b scoring w4a8_kv4_attn8 use_flash S=4096": score_d}))
     print("profile: " + json.dumps(
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
     print(f"total {t_total:.1f} s")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import exec_plan
 from repro_torch.core.formats import get_format
 from repro_torch.core.packing import pack_fp4_axis
 from repro_torch.core.policy import get_policy
@@ -161,3 +162,13 @@ def dpa_grouped_prequant_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
         xq, prep["wq"], sx, prep["sw"], fmt_x=policy.fmt_acts,
         fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"])
     return unview(out[:, :M, :N].to(x.dtype))
+
+
+def quantize_rows(x, fmt: str, *, pack: bool = False):
+    """Row quantization of a 2-D x: -> (codes, (M, 1) f32 scales); with
+    `pack` (fp4 only) the E2M1 codes come two per byte, (M, K // 2).
+    Resolved through `core.exec_plan` op ``quantize_pack``.  The CUDA
+    kernel takes any row count, so the reference's `bm` row tile (and its
+    padding of rows to it) has no counterpart here."""
+    entry = exec_plan.resolve("quantize_pack", None, fmt=fmt, pack=pack)
+    return entry.run(x, fmt=fmt, pack=pack)

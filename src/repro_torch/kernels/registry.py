@@ -1,5 +1,6 @@
-"""The port's routing table: every `core.exec_plan` route of this slice
-(port of `repro.kernels.registry`, restricted to the serving path).
+"""The port's routing table: every `core.exec_plan` route of the port's
+slices (port of `repro.kernels.registry`, without the reference's
+training, TP and speculative-decoding ops).
 
 Each op's lowest-priority route is a plain PyTorch route whose predicate
 checks only semantic viability.  The kernel routes' predicates follow the
@@ -18,6 +19,8 @@ Uniform run signatures per op:
   paged_decode    run(q, cache, positions, *, policy, scale)
                       -> (B, 1, H, hd)
   unembed         run(x, table, policy) -> (B, S, V) f32
+  quantize_pack   run(x, *, fmt, pack, bm=None) -> (codes, (M, 1) f32
+                      scales); bm, the reference's row tile, is ignored
 """
 from __future__ import annotations
 
@@ -25,10 +28,12 @@ from __future__ import annotations
 from repro_torch.core import exec_plan
 from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
 from repro_torch.core.linear import GROUPED_EQS
-from repro_torch.core.packing import operand_nbytes
+from repro_torch.core.packing import operand_nbytes, pack_fp4_axis
 from repro_torch.core.quantize import fake_quant
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_decode as PD
+from repro_torch.kernels import quantize as QZ
 from repro_torch.models import decode_attn as D
 
 # torch dtypes accepted as pre-quantized weights (their route is a later
@@ -38,6 +43,10 @@ NATIVE_NARROW = ("float8_e4m3fn", "float8_e5m2")
 # kernel vs plain version on the card: the max-abs error chip_smoke.py
 # holds the paged-decode kernel to (its check_paged says why)
 PAGED_DECODE_CARD_TOL = 2e-2
+
+# the flash routes' q and key block, cut to divide the sequence: part of
+# the DPA flash numerics (p is quantized per key block)
+FLASH_BLOCK = 128
 
 
 def _kv_fmt(policy):
@@ -227,6 +236,38 @@ exec_plan.register(
 # flash_attn: full-sequence attention (models.layers._sdpa)
 # -----------------------------------------------------------------------------
 
+def _fit_block(b, s):
+    """Largest block <= b that divides the sequence length (the flash
+    kernels need Sq % bq == 0 and Sk % bk == 0)."""
+    b = max(1, min(b, s))
+    while s % b:
+        b -= 1
+    return b
+
+
+def _heads_first(t):
+    return t.transpose(1, 2).contiguous()         # (B,S,H,d) -> (B,H,S,d)
+
+
+def _fa_cuda_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
+                 kv_on_grid):
+    out = FA.dpa_flash_attention(
+        _heads_first(q), _heads_first(k), _heads_first(v),
+        fmt=policy.fmt_attn, fmt_kv=_kv_fmt(policy), causal=causal,
+        window=window, bq=_fit_block(FLASH_BLOCK, q.shape[1]),
+        bk=_fit_block(FLASH_BLOCK, k.shape[1]))
+    return out.transpose(1, 2)
+
+
+def _fa_cuda_f32(q, k, v, *, policy, causal, window, offset, valid, scale,
+                 kv_on_grid):
+    out = FA.flash_attention(
+        _heads_first(q), _heads_first(k), _heads_first(v), causal=causal,
+        window=window, bq=_fit_block(FLASH_BLOCK, q.shape[1]),
+        bk=_fit_block(FLASH_BLOCK, k.shape[1]))
+    return out.transpose(1, 2)
+
+
 def _fa_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
             kv_on_grid):
     mask = D.build_sdpa_mask(q.shape[1], k.shape[1], offset, causal, window,
@@ -242,6 +283,29 @@ def _fa_ref(q, k, v, *, policy, causal, window, offset, valid, scale,
                              valid, device=q.device)
     return D.sdpa_reference(q, k, v, mask[None, None], scale=scale)
 
+
+def _fa_common_bits(policy, ctx):
+    return {"flash_enabled": ctx.get("use_flash", False),
+            "is_prefill": ctx.get("sq", 1) > 1,
+            "no_valid_mask": not ctx.get("has_valid", False)}
+
+
+exec_plan.register(
+    "flash_attn", "cuda_dpa_flash", backend="cuda", run=_fa_cuda_dpa,
+    priority=30, reference="torch_dpa_attn", tol=0.075,
+    predicate=lambda policy, ctx: dict(
+        _fa_common_bits(policy, ctx),
+        dpa_attn=policy.attn_enabled,
+        raw_kv=not ctx.get("kv_on_grid", False)),
+    note="online-softmax tiling; tol vs the global-softmax route is the "
+         "blocked-p-quantization budget")
+
+exec_plan.register(
+    "flash_attn", "cuda_f32_flash", backend="cuda", run=_fa_cuda_f32,
+    priority=20, reference="torch_ref_attn", tol=2e-6,
+    predicate=lambda policy, ctx: dict(
+        _fa_common_bits(policy, ctx), f32_attn=not policy.attn_enabled),
+    note="the seed f32 flash kernel")
 
 exec_plan.register(
     "flash_attn", "torch_dpa_attn", backend="torch", run=_fa_dpa,
@@ -337,3 +401,47 @@ exec_plan.register(
     priority=0,
     bytes_moved=lambda policy, ctx: 4 * ctx.get("size", 0),
     note="f32-accumulation logits over the embedding table")
+
+
+# -----------------------------------------------------------------------------
+# quantize_pack: row quantization (+fp4 nibble pack)
+# -----------------------------------------------------------------------------
+
+def _qp_cuda(x, *, fmt, pack, **_):
+    # bm, the reference's row tile, is swallowed: the kernel runs one warp
+    # per row over any row count
+    if pack:
+        if fmt != "fp4_e2m1":
+            raise ValueError("pack=True is the fp4 pipeline")
+        return QZ.quantize_pack_rows(x.contiguous())
+    return QZ.quantize_rows(x.contiguous(), fmt=fmt)
+
+
+def _qp_torch(x, *, fmt, pack, **_):
+    # swallows bm: the plain quantizer has no tiling to tune
+    q, s = QZ.quantize_rows_ref(x, fmt=fmt)
+    if pack:
+        q = pack_fp4_axis(q, 1)
+    return q, s
+
+
+exec_plan.register(
+    "quantize_pack", "cuda_quantize_pack", backend="cuda", run=_qp_cuda,
+    priority=20, reference="torch_quantize", tol=0.0,
+    predicate=lambda policy, ctx: {"fp4": ctx.get("fmt") == "fp4_e2m1",
+                                   "pack": ctx.get("pack", False)},
+    note="absmax -> E2M1 cast -> nibble pack, one kernel")
+
+exec_plan.register(
+    "quantize_pack", "cuda_quantize_rows", backend="cuda", run=_qp_cuda,
+    priority=10, reference="torch_quantize", tol=0.0,
+    predicate=lambda policy, ctx: {"unpacked": not ctx.get("pack", False)},
+    note="absmax + cast row quantizer")
+
+exec_plan.register(
+    "quantize_pack", "torch_quantize", backend="torch", run=_qp_torch,
+    priority=0,
+    predicate=lambda policy, ctx: {
+        "pack_needs_fp4": (not ctx.get("pack", False))
+        or ctx.get("fmt") == "fp4_e2m1"},
+    note="plain quantizer (+ nibble pack)")

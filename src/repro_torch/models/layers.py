@@ -76,13 +76,15 @@ def init_attention(generator, cfg, device="cpu"):
     return p
 
 
-def _sdpa(q, k, v, *, causal, window, offset, valid=None, policy=None,
-          kv_on_grid=False):
+def _sdpa(q, k, v, *, causal, window, offset, valid=None, use_flash=False,
+          policy=None, kv_on_grid=False):
     """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd) -> (B,Sq,H,hd), through the
-    `flash_attn` route the plan resolves."""
+    `flash_attn` route the plan resolves; `use_flash` (the config's) makes
+    the flash kernels eligible for a prefill with no extra key mask."""
     policy = get_policy(policy if policy is not None else "fp32")
     entry = exec_plan.resolve("flash_attn", policy, sq=q.shape[1],
-                              skv=k.shape[1], has_valid=valid is not None,
+                              skv=k.shape[1], use_flash=use_flash,
+                              has_valid=valid is not None,
                               kv_on_grid=kv_on_grid)
     return entry.run(q, k, v, policy=policy, causal=causal, window=window,
                      offset=offset, valid=valid, scale=q.shape[-1] ** -0.5,
@@ -165,7 +167,7 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None):
         k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
     y = _sdpa(q, k, v, causal=True, window=None,
               offset=int(offset) if cache is not None or Sq > 1 else 0,
-              policy=policy, kv_on_grid=kv_on_grid)
+              use_flash=cfg.use_flash, policy=policy, kv_on_grid=kv_on_grid)
     y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd), policy)
     return y, cache
 

@@ -2,6 +2,8 @@
 (port of the decoder path of `repro.models.registry`).
 
 Batch conventions, as in the reference:
+  forward: {"tokens": (B, S)} -> backbone_features (hidden states, aux)
+           or train_logits (logits (B, S, V) f32, aux), no caches
   prefill: tokens (B, S) -> (logits of the last position, caches)
   decode:  {"tokens": (B, S), "index": int or (B,) int32 tensor} with the
            caches -> (logits (B, S, V) f32, caches)
@@ -81,25 +83,40 @@ class Model:
                 for _ in range(self.cfg.n_layers)]
 
     def _forward(self, params, tokens, offset, caches):
+        """-> (final hidden states, caches, aux); serving drops the aux
+        loss, as the reference's prefill and decode_step do."""
         x = L.apply_embedding(params["embed"], tokens, self.dtype)
-        x, caches = apply_stack(params["layers"], x, self.cfg, offset=offset,
-                                caches=caches)
+        x, caches, aux = apply_stack(params["layers"], x, self.cfg,
+                                     offset=offset, caches=caches)
         return L.apply_norm(params["norm_f"], x, eps=self.cfg.norm_eps), \
-            caches
+            caches, aux
+
+    @torch.no_grad()
+    def backbone_features(self, params, batch):
+        """The cacheless full-sequence forward: batch {"tokens": (B, S)}
+        -> (final hidden states (B, S, d), aux loss); forward only."""
+        x, _, aux = self._forward(params, batch["tokens"], 0, None)
+        return x, aux
+
+    @torch.no_grad()
+    def train_logits(self, params, batch):
+        """-> (f32 logits (B, S, V), aux loss); forward only."""
+        x, aux = self.backbone_features(params, batch)
+        return L.apply_unembed(x, params["embed"]["table"]), aux
 
     @torch.no_grad()
     def prefill(self, params, tokens):
         """tokens (B, S) -> (f32 logits of the last position, caches)."""
         caches = self.init_caches(tokens.shape[0], tokens.shape[1])
-        x, caches = self._forward(params, tokens, 0, caches)
+        x, caches, _ = self._forward(params, tokens, 0, caches)
         return L.apply_unembed(x[:, -1:], params["embed"]["table"]), caches
 
     @torch.no_grad()
     def decode_step(self, params, batch, caches):
         """One step over batch["tokens"] (B, S) at batch["index"]; the
         caches update in place and are returned."""
-        x, caches = self._forward(params, batch["tokens"], batch["index"],
-                                  caches)
+        x, caches, _ = self._forward(params, batch["tokens"],
+                                     batch["index"], caches)
         return L.apply_unembed(x, params["embed"]["table"]), caches
 
 

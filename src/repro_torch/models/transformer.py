@@ -40,24 +40,27 @@ def init_block_cache(cfg: ModelConfig, batch: int, s_ctx: int, dtype,
 
 
 def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None):
+    """-> (x, cache, aux): aux is the MoE load-balancing loss, 0 for a
+    dense block."""
     h = L.apply_norm(params["norm1"], x, eps=cfg.norm_eps)
     y, cache = L.apply_attention(params["attn"], h, cfg, offset=offset,
                                  cache=cache)
     x = x + y.to(x.dtype)
     h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps)
     if cfg.is_moe:
-        # serving drops the aux loss, as the reference's prefill and
-        # decode_step do
-        y, _ = L.apply_moe(params["mlp"], h, cfg)
+        y, aux = L.apply_moe(params["mlp"], h, cfg)
     else:
-        y = L.apply_mlp(params["mlp"], h, cfg)
+        y, aux = L.apply_mlp(params["mlp"], h, cfg), 0.0
     x = x + y.to(x.dtype)
-    return x, cache
+    return x, cache, aux
 
 
 def apply_stack(layers, x, cfg: ModelConfig, *, offset=0, caches=None):
-    """-> (x, caches); caches None runs without state."""
+    """-> (x, caches, aux summed over the layers in f32); caches None runs
+    without state."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(layers):
         c = None if caches is None else caches[i]
-        x, c = apply_block(lp, x, cfg, offset=offset, cache=c)
-    return x, caches
+        x, c, a = apply_block(lp, x, cfg, offset=offset, cache=c)
+        aux = aux + a
+    return x, caches, aux

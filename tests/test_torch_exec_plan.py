@@ -29,6 +29,21 @@ def test_selection_pins():
         ("flash_attn", "w4a8_kv4_attn8", dict(sq=32, skv=256,
                                               kv_on_grid=True),
          "torch_dpa_attn"),
+        # use_flash: the flash kernels serve a prefill with no extra key
+        # mask; the DPA one only over raw K/V (a quantized cache's values
+        # are already on the grid)
+        ("flash_attn", "fp8_dpa", dict(sq=16, skv=16, use_flash=True),
+         "cuda_f32_flash"),
+        ("flash_attn", "w4a8_kv4_attn8", dict(sq=16, skv=16,
+                                              use_flash=True),
+         "cuda_dpa_flash"),
+        ("flash_attn", "w4a8_kv4_attn8", dict(sq=16, skv=16, use_flash=True,
+                                              kv_on_grid=True),
+         "torch_dpa_attn"),
+        ("flash_attn", "fp8_dpa", dict(sq=1, skv=16, use_flash=True),
+         "torch_ref_attn"),
+        ("flash_attn", "fp8_dpa", dict(sq=16, skv=16, use_flash=True,
+                                       has_valid=True), "torch_ref_attn"),
         ("decode_attn", "kv4_attn8_packed", {}, "torch_dpa_decode"),
         ("paged_decode", "w4a8_kv4_attn8", {}, "cuda_block_table"),
         ("unembed", None, {}, "torch_tied_table"),
@@ -61,7 +76,8 @@ def test_describe_and_table_integrity():
     assert set(d["candidates"]) == {"cuda_block_table", "torch_gather"}
     assert set(exec_plan.ops()) == {"matmul", "grouped_matmul",
                                     "flash_attn", "decode_attn",
-                                    "paged_decode", "unembed"}
+                                    "paged_decode", "unembed",
+                                    "quantize_pack"}
     for op in exec_plan.ops():
         for e in exec_plan.candidates(op):
             ref = exec_plan.reference_entry(e)

@@ -53,6 +53,20 @@ model = build_model(moe.replace(policy="fp4_dpa_packed"), device="cpu")
 out = generate(model, model.init(torch.Generator().manual_seed(0)),
                np.arange(4)[None], 2, 8, device="cpu")
 assert tuple(out.shape) == (1, 6)
+# slice 3: long-prompt prefill (f32 flash) and full-sequence scoring (DPA
+# flash), through the step builders
+from repro_torch.distributed.step import make_loss_fn, make_prefill_step
+qwen = reduce_config(get_config("qwen3-4b")).replace(use_flash=True)
+model = build_model(qwen, device="cpu")
+toks = torch.arange(32)[None] % qwen.vocab_size
+logits, _ = make_prefill_step(model)(model.init(torch.Generator()
+                                                .manual_seed(0)), toks)
+assert tuple(logits.shape) == (1, 1, qwen.vocab_size)
+model = build_model(qwen.replace(policy="w4a8_kv4_attn8"), device="cpu")
+total, parts = make_loss_fn(model)(model.init(torch.Generator()
+                                              .manual_seed(0)),
+                                   {"tokens": toks, "labels": toks})
+assert bool(torch.isfinite(total)) and float(parts["aux"]) == 0.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
              and sys.modules[m] is not None)
