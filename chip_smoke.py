@@ -21,7 +21,13 @@ Phases (every failure raises; the exit code is then non-zero):
      zero rows, which must come out exactly 0;
    - `dpa_matmul_prequant` at granite's attention projections and
      `dpa_grouped_matmul_prequant` at its expert shapes, held to
-     `max_abs_err == 0` (fp4 x fp4 sums are exact in f32);
+     `max_abs_err == 0` (fp4 x fp4 sums are exact) at M = 8 and 11 and at
+     the launch plan's row-tile edges M = 1, 16, 17, 64, with every code
+     at +-6, and at the largest |acc| the plan admits (K = 2^16 - 128);
+     each shape's plan (column tile, split) is printed, one decode layer
+     is also timed cold (rotating over 24 layers' weight codes, as path
+     c walks them, for the kernel and the library call alike), and every
+     (column tile, split) the kernel takes is timed at path c's shapes;
    - `flash_attention` at one layer of qwen3-4b's prefill (S 4096, H 32,
      KV 8, hd 128) on f32 and bf16 inputs, at hd 64 and at S 1000 (key
      blocks of 125), against the global-softmax plain version, with
@@ -70,8 +76,9 @@ Phases (every failure raises; the exit code is then non-zero):
    layer's attention output on them with the kernel's plain version on
    the same inputs.
 4. Where the time goes: torch.profiler over one steady decode step and
-   one prefill chunk of each engine, and over one call of paths d and e
-   (device busy share, top kernels).
+   one prefill chunk of each engine, over one model call of path c (with
+   the prequant kernels' share of device time) and over one call of
+   paths d and e (device busy share, top kernels).
 
 Prints the engine reports, the prefill and scoring results and the
 profiles as JSON, the phase times, the kernels' JSON line, the card's
@@ -459,59 +466,92 @@ def _e4m3_operands(xq, wq):
             w8.to(torch.float8_e4m3fn))
 
 
-def library_prequant(xq, wq, sx, sw, want):
+def _library_call(xq, wq, sx, sw):
     """One PyTorch call computing the prequant product on the same codes
     and scales (`torch._scaled_mm`, or `torch._scaled_grouped_mm` for an
-    expert stack; bf16 out, the only output rowwise scaling takes):
-    -> (ms, device ms, max_abs_err vs the plain version, note), timed as
-    `timings` times a kernel."""
+    expert stack; bf16 out, the only output rowwise scaling takes), as a
+    function of no arguments, or (None, why) where there is none."""
     import torch
     grouped = xq.ndim == 3
     fn_name = "_scaled_grouped_mm" if grouped else "_scaled_mm"
     if not hasattr(torch, fn_name):
-        return (None, None, None,
-                f"none: torch {torch.__version__} has no {fn_name}")
+        return None, f"none: torch {torch.__version__} has no {fn_name}"
     x8, w8 = _e4m3_operands(xq, wq)
-    M = xq.shape[-2]
     sa = torch.nn.functional.pad(sx.reshape(*sx.shape[:-2], -1),
-                                 (0, x8.shape[-2] - M))
+                                 (0, x8.shape[-2] - xq.shape[-2]))
     if grouped:
         sb = sw.reshape(sw.shape[0], -1).contiguous()
-        call = lambda: torch._scaled_grouped_mm(  # noqa: E731
-            x8, w8, sa.contiguous(), sb, out_dtype=torch.bfloat16)
-    else:
-        call = lambda: torch._scaled_mm(  # noqa: E731
-            x8, w8, scale_a=sa.reshape(-1, 1).contiguous(),
-            scale_b=sw.contiguous(), out_dtype=torch.bfloat16)
+        return (lambda: torch._scaled_grouped_mm(
+            x8, w8, sa.contiguous(), sb, out_dtype=torch.bfloat16)), fn_name
+    return (lambda: torch._scaled_mm(
+        x8, w8, scale_a=sa.reshape(-1, 1).contiguous(),
+        scale_b=sw.contiguous(), out_dtype=torch.bfloat16)), fn_name
+
+
+def library_prequant(xq, wq, sx, sw, want):
+    """The library call of `_library_call`: -> (ms, device ms, max_abs_err
+    vs the plain version, note), timed as `timings` times a kernel."""
+    call, fn_name = _library_call(xq, wq, sx, sw)
+    if call is None:
+        return None, None, None, fn_name
     try:
         out = call()
     except (RuntimeError, TypeError, ValueError) as e:   # a yardstick only
         return (None, None, None,
                 f"none: torch.{fn_name} refused ({str(e)[:120]})")
-    err = float((out[..., :M, :].float() - want).abs().max())
+    err = float((out[..., :want.shape[-2], :].float() - want).abs().max())
     return (median_ms(call), device_ms(call), err,
             f"torch.{fn_name}, bf16 out (outputs up to "
             f"{float(want.abs().max()):.4g})")
+
+
+# the prequant kernels' operands: packed E2M1 on both sides
+FP4_PACKED = dict(fmt_x="fp4_e2m1", fmt_w="fp4_e2m1", pack_x=True,
+                  pack_w=True)
+# tile edges of the prequant kernel's launch plan, checked untimed
+PREQUANT_EDGE_ROWS = (1, 16, 17, 64)
+# packed bytes whose two codes are both +-6 (E2M1 codes 0x7 and 0xF)
+SIX_BYTES = (0x77, 0x7F, 0xF7, 0xFF)
+# path B walks this many layers' weights between two calls of one matrix
+COLD_LAYERS = 24
 
 
 def check_prequant(cfg, gen):
     """The prequant kernels, dense at the attention projections and
     grouped at the experts, on random packed-fp4 codes with random
     positive scales: M = 8 is `generate`'s decode step (2 live rows,
-    padded), M = 11 a prefill chunk's expert capacity.  Kernel and plain
-    version must agree exactly."""
+    padded), M = 11 a prefill chunk's expert capacity, M = 1, 16, 17 and
+    64 the launch plan's row-tile edges; then every code at +-6, and the
+    largest |acc| the plan admits (K = 2^16 - 128, all +6 x all -6).
+    Kernel and plain version must agree exactly.  M = 8 and 11 are timed
+    warm (one call repeated: the weights sit in L2), and one decode layer
+    also cold, rotating over `COLD_LAYERS` layers' weights."""
     import torch
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     E = cfg.n_experts
-    kw = dict(fmt_x="fp4_e2m1", fmt_w="fp4_e2m1", pack_x=True, pack_w=True)
+    kw = FP4_PACKED
 
-    def codes(*shape):
-        return torch.randint(0, 256, shape, generator=gen, device="cuda",
-                             dtype=torch.int32).to(torch.uint8)
+    def codes(*shape, choices=None):
+        if choices is None:
+            return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                 dtype=torch.int32).to(torch.uint8)
+        idx = torch.randint(0, len(choices), shape, generator=gen,
+                            device="cuda")
+        return torch.tensor(choices, dtype=torch.uint8, device="cuda")[idx]
 
     def scales(*shape):
         return torch.rand(shape, generator=gen, device="cuda") + 0.05
+
+    def check(kern, ref, args, label):
+        got = kern(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err != 0.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{kern.__name__} {label}: max err {err} "
+                                 "!= 0")
+        return want, err
 
     out = {}
     for what, shapes, lead in (("dense", _attn_shapes(cfg), ()),
@@ -520,49 +560,172 @@ def check_prequant(cfg, gen):
             GM.dpa_grouped_matmul_prequant
         ref = DM.dpa_matmul_prequant_ref if not lead else \
             GM.dpa_grouped_matmul_prequant_ref
+        n_e = E if lead else 1
         worst, timed, lib = 0.0, {}, {}
         for K, N in sorted(set(shapes.values())):
             wq, sw = codes(*lead, K // 2, N), scales(*lead, 1, N)
-            for M in (8, 11):
+            for M in (8, 11) + PREQUANT_EDGE_ROWS:
                 xq, sx = codes(*lead, M, K // 2), scales(*lead, M, 1)
                 if lead:
-                    xq = _drop(xq, [M // 2] * (E - 1) + [0])
+                    xq = _drop(xq, [max(1, M // 2)] * (E - 1) + [0])
                 args = (xq, wq, sx, sw)
-                got = kern(*args, **kw)
-                want = ref(*args, **kw)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if err != 0.0 or not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"{kern.__name__} {lead} K={K} N={N}"
-                                         f" M={M}: max err {err} != 0")
+                label = f"{'E=%d ' % E if lead else ''}K={K} N={N} M={M}"
+                want, err = check(kern, ref, args, label)
                 worst = max(worst, err)
+                plan = DM.prequant_plan(n_e, M, K, N)
+                line = (f"{kern.__name__} {label}: plan bn {plan.bn} split "
+                        f"{plan.split} rows {plan.row_tile} ({plan.blocks} "
+                        f"blocks); max_abs_err {err:.3g}")
+                if M not in (8, 11):
+                    print(line)
+                    continue
                 t = timings(lambda: kern(*args, **kw),
                             lambda: ref(*args, **kw))
-                n_e = E if lead else 1
                 nbytes = (xq.numel() + sx.numel() * 4 + wq.numel()
                           + sw.numel() * 4 + n_e * M * N * 4)
                 t["bound_ms"], b_by = bound(nbytes, 2.0 * n_e * M * K * N)
                 timed[(K, N, M)] = t
                 lib_ms, lib_dev, lib_err, note = library_prequant(*args, want)
                 lib[(K, N, M)] = (lib_ms, lib_dev)
-                print(f"{kern.__name__} {'E=%d ' % E if lead else ''}K={K} "
-                      f"N={N} M={M}: max_abs_err {err:.3g}; {fmt_times(t)} "
-                      f"bound_ms {t['bound_ms']:.5f} ({b_by}); library {note}"
+                print(f"{line}; {fmt_times(t)} bound_ms {t['bound_ms']:.5f}"
+                      f" ({b_by}); library {note}"
                       + (f" {lib_ms:.4f} ms (device {lib_dev}), "
                          f"max_abs_err {lib_err:.3g}"
                          if lib_ms is not None else ""))
+            args = (codes(*lead, 8, K // 2, choices=SIX_BYTES),
+                    codes(*lead, K // 2, N, choices=SIX_BYTES),
+                    scales(*lead, 8, 1), sw)
+            _, err = check(kern, ref, args, f"K={K} N={N} codes +-6")
+            print(f"{kern.__name__} K={K} N={N} M=8, every code +-6: "
+                  f"max_abs_err {err:.3g}")
         per_layer = _per_layer(timed, shapes, 8)
         for i, key in enumerate(("library_ms", "library_device_ms")):
             libs = [lib[(K, N, 8)][i] for K, N in shapes.values()]
             per_layer[key] = None if None in libs else sum(libs)
         per_layer["max_abs_err"] = worst
+        per_layer["plans"] = {
+            f"{K}x{N}": DM.prequant_plan(n_e, 8, K, N)._asdict()
+            for K, N in sorted(set(shapes.values()))}
         print(f"{kern.__name__}: {len(shapes)} launches per layer per model "
-              f"call; one decode layer (M=8): {fmt_times(per_layer)}, bound "
-              f"{per_layer['bound_ms']:.5f} ms, library "
+              f"call; one decode layer (M=8), warm: {fmt_times(per_layer)}, "
+              f"bound {per_layer['bound_ms']:.5f} ms, library "
               f"{per_layer['library_ms']} ms (device "
               f"{per_layer['library_device_ms']})")
+        per_layer["cold"] = cold_prequant_layer(kern, shapes, lead, codes,
+                                                scales)
         out[what] = per_layer
+
+    # the largest |acc| the plan admits: 144 K / 4 at K = 2^16 - 128
+    K = DM.K_EXACT - DM.BK
+    xq = torch.full((8, K // 2), 0x77, dtype=torch.uint8, device="cuda")
+    wq = torch.full((K // 2, 64), 0xFF, dtype=torch.uint8, device="cuda")
+    sx, sw = scales(8, 1), scales(1, 64)
+    got = DM.dpa_matmul_prequant(xq, wq, sx, sw, **kw)
+    exact = torch.full_like(got, -36.0 * K) * sx * sw
+    if not torch.equal(got, exact):
+        raise AssertionError(f"dpa_matmul_prequant K={K}, acc {-36 * K}: "
+                             f"max err {float((got - exact).abs().max())}")
+    print(f"dpa_matmul_prequant K={K} M=8 N=64, all +6 x all -6 (acc "
+          f"{-36 * K}): equal to (acc * sx) * sw; plan "
+          f"{DM.prequant_plan(1, 8, K, 64)}")
     return out
+
+
+def sweep_prequant_plans(gen, M=8):
+    """Every launch (bn, split) the kernel takes at path B's prequant
+    shapes (M = 8; dense K x N 1024 x 1024 and 1024 x 512, grouped E 32
+    at 1024 x 512 and 512 x 1024), through the C entry point (not the
+    wrapper: these launches are no path's), each held to the plain
+    version and timed on the device: the evidence for `prequant_plan`."""
+    import torch
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    lib = B.load_library()
+    res = {}
+    for E, K, N in ((1, 1024, 1024), (1, 1024, 512), (32, 1024, 512),
+                    (32, 512, 1024)):
+        xq = torch.randint(0, 256, (E, M, K // 2), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.uint8)
+        wq = torch.randint(0, 256, (E, K // 2, N), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.uint8)
+        sx = torch.rand((E, M, 1), generator=gen, device="cuda") + 0.05
+        sw = torch.rand((E, 1, N), generator=gen, device="cuda") + 0.05
+        want = GM.dpa_grouped_matmul_prequant_ref(xq, wq, sx, sw,
+                                                  **FP4_PACKED)
+        out = torch.empty_like(want)
+        times = {}
+        for bn in DM.COL_TILES:
+            for split in range(1, DM.MAX_CLUSTER + 1):
+                if (K // DM.BK) % split:
+                    continue
+
+                def call(bn=bn, split=split):
+                    B.check(lib.dpa_prequant_launch(
+                        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
+                        sw.data_ptr(), out.data_ptr(), E, M, K, N, bn, split,
+                        torch.cuda.current_stream().cuda_stream),
+                        "dpa_prequant_launch")
+                out.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"prequant E={E} K={K} N={N} bn {bn}"
+                                         f" split {split}: differs from the "
+                                         "plain version")
+                times[f"bn{bn}/s{split}"] = device_ms(call)
+        plan = DM.prequant_plan(E, M, K, N)
+        res[f"E{E} {K}x{N}"] = {"plan": f"bn{plan.bn}/s{plan.split}",
+                                "device_us": {k: None if v is None else
+                                              v * 1e3
+                                              for k, v in times.items()}}
+        print(f"prequant plans E={E} K={K} N={N} M={M} (device us; the plan "
+              f"takes bn{plan.bn}/s{plan.split}): " + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
+                  for k, v in times.items()))
+    return res
+
+
+def cold_prequant_layer(kern, shapes, lead, codes, scales, M=8,
+                        layers=COLD_LAYERS):
+    """One decode layer of `kern` and of its library call, rotating over
+    `layers` layers' distinct weight codes, as path B walks them: each
+    matrix is read again only after the other layers' (for the expert
+    stacks, 24 x 24 MB, far past the 50 MB L2).  -> per layer: event ms
+    and device ms of the kernel and of the library call."""
+    kcalls, lcalls = [], []
+    xs = {name: (codes(*lead, M, K // 2), scales(*lead, M, 1))
+          for name, (K, N) in shapes.items()}
+    for _ in range(layers):
+        for name, (K, N) in shapes.items():
+            x, sx = xs[name]
+            args = (x, codes(*lead, K // 2, N), sx, scales(*lead, 1, N))
+            kcalls.append(lambda a=args: kern(*a, **FP4_PACKED))
+            lcalls.append(_library_call(*args)[0])
+
+    def run(calls):
+        return lambda: [c() for c in calls]
+
+    res = {"layers": layers,
+           "ms": median_ms(run(kcalls), n=5) / layers,
+           "device_ms": _per(device_ms(run(kcalls), n=3), layers),
+           "library_ms": None, "library_device_ms": None}
+    if None not in lcalls:
+        try:
+            res["library_ms"] = median_ms(run(lcalls), n=5) / layers
+            res["library_device_ms"] = _per(device_ms(run(lcalls), n=3),
+                                            layers)
+        except (RuntimeError, TypeError, ValueError) as e:  # a yardstick
+            print(f"  library refused ({str(e)[:120]})")
+    print(f"{kern.__name__}: one decode layer (M={M}), cold (rotating over "
+          f"{layers} layers' weights): {res['ms']:.4f} ms (device "
+          f"{res['device_ms']}), library {res['library_ms']} ms (device "
+          f"{res['library_device_ms']})")
+    return res
+
+
+def _per(v, n):
+    return None if v is None else v / n
 
 
 def _attn_inputs(gen, H, KV, S, hd, dtype):
@@ -1058,8 +1221,16 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
     print(f"generate: {cfg.name} {n_prompts} prompts x {prompt_len} tokens "
           f"+ {n_new} new in {wall:.2f} s ({calls} model calls, "
           f"{wall / calls * 1e3:.1f} ms each); new tokens {new_tokens}")
+    # phase 4: one model call as generate makes its last one
+    caches = model.init_caches(n_prompts, s_ctx)
+    tok = prompt[:, :1].to("cuda")
+    prof = profile_window(
+        f"{cfg.name} generate model call (B={n_prompts}, {cfg.policy})",
+        lambda: model.decode_step(params, {"tokens": tok,
+                                           "index": s_ctx - 2}, caches),
+        watch=("dpa_prequant_kernel",))
     return counts, {"wall_s": wall, "model_calls": calls,
-                    "ms_per_call": wall / calls * 1e3}
+                    "ms_per_call": wall / calls * 1e3, "profile": prof}
 
 
 def _prompt(cfg, S, seed):
@@ -1299,10 +1470,11 @@ def profile_engine(model, params, ecfg):
             for name, fn in windows.items()}
 
 
-def profile_window(label, fn):
+def profile_window(label, fn, watch=()):
     """torch.profiler over one call of fn after a warm-up call: wall time,
     device busy time and share, launches, the top kernels by device
-    time."""
+    time, and for each name in `watch` the device time and share of the
+    kernels whose names contain it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1330,8 +1502,15 @@ def profile_window(label, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for kname, ms in top:
         print(f"    {ms:8.3f} ms  {kname[:100]}")
+    watched = {}
+    for w in watch:
+        ms = sum(v for k, v in by_name.items() if w in k)
+        n = sum(1 for e in kernels if w in e.name)
+        watched[w] = {"ms": ms, "share": ms / busy, "launches": n}
+        print(f"    {w}: {ms:.3f} ms in {n} launches, {ms / busy:.1%} of "
+              "device busy time")
     return {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(kernels),
-            "top": [[k[:100], v] for k, v in top]}
+            "top": [[k[:100], v] for k, v in top], "watch": watched}
 
 
 def main() -> None:
@@ -1382,6 +1561,7 @@ def main() -> None:
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
     pq_t = check_prequant(granite, gen)
+    pq_plans = sweep_prequant_plans(gen)
     fa_t = check_flash(gen)
     dfa_t = check_dpa_flash(gen)
     qz_t = check_quantizers(gen)
@@ -1459,6 +1639,7 @@ def main() -> None:
          "max_abs_err": pq_t["dense"]["max_abs_err"], **times(pq_t["dense"]),
          "bound_by": "bytes", "library_ms": pq_t["dense"]["library_ms"],
          "library_device_ms": pq_t["dense"]["library_device_ms"],
+         "cold": pq_t["dense"]["cold"], "plans": pq_t["dense"]["plans"],
          "at": "granite-moe-1b, one layer's 4 attention projections at "
                "M=8 (2 rows padded)"},
         {"name": "dpa_grouped_matmul_fused", "route": "cuda",
@@ -1477,6 +1658,7 @@ def main() -> None:
          **times(pq_t["grouped"]),
          "bound_by": "bytes", "library_ms": pq_t["grouped"]["library_ms"],
          "library_device_ms": pq_t["grouped"]["library_device_ms"],
+         "cold": pq_t["grouped"]["cold"], "plans": pq_t["grouped"]["plans"],
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
                "M=8 (2 rows padded)"},
         {"name": "dpa_flash_attention", "route": "cuda",
@@ -1524,6 +1706,7 @@ def main() -> None:
          "qwen3-4b scoring w4a8_kv4_attn8 use_flash S=4096": score_d}))
     print("profile: " + json.dumps(
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
+    print("prequant plans: " + json.dumps(pq_plans))
     print(f"total {t_total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,8 +37,9 @@ _SIGNATURES = {
     # stream
     "dpa_grouped_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                  _P),
-    # xq, sx, wq, sw, out, E, M, K, N, stream
-    "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xq, sx, wq, sw, out, E, M, K, N, bn, split, stream
+    "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P),
     # q, q_bf16, kc, ks, vc, vs, table, positions, out,
     # B, H, KV, hd, page, max_pages, kv_fmt, scale, stream
     "paged_decode_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,

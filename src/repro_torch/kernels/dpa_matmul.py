@@ -11,9 +11,14 @@ column scales apply at the end.
 `dpa_matmul_prequant` (`csrc/dpa_prequant.cu`) replaces
 `dpa_matmul_prequant` of the same file: both operands arrive quantized
 (codes plus per-row / per-column f32 scales), the codes' products sum
-in f32, and the epilogue is `(acc * sx) * sw`.
+exactly (int8 tensor cores on the card), and the epilogue is
+`(acc * sx) * sw`.  `prequant_plan` chooses its launch: the output
+columns per block and the split of K across a thread-block cluster.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -180,28 +185,77 @@ def check_prequant(xq, wq, sx, sw, pack_x, pack_w, lead=()):
     return M, K, N
 
 
+SMS = 132                    # H100 SXM streaming multiprocessors
+MAX_CLUSTER = 8              # the portable thread-block cluster size
+COL_TILES = (64, 32, 16)     # output columns per block, widest first
+ROW_TILES = (8, 16, 32, 64)  # rows per block
+MAX_TILE = 2048              # rows x columns a block: 64 int32 sums a thread
+K_EXACT = 2 ** 16            # K below it: |4 acc| <= 144 K < 2^24, exact
+
+
+class PrequantPlan(NamedTuple):
+    """The prequant kernel's launch: `bn` output columns and `row_tile`
+    rows per block, K split over a cluster of `split` blocks, `blocks` in
+    the grid (E x row tiles x N / bn x split)."""
+    bn: int
+    split: int
+    row_tile: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
+    """The smallest split (a cluster size <= 8 dividing K / 128), and at
+    it the widest column tile (rows x columns <= `MAX_TILE`), that bring
+    the grid to `SMS` blocks; where none does, 16 columns at the largest
+    split.  Raises for what the kernel cannot take exactly: K not a
+    positive multiple of 128 or not below 2^16, N not a multiple of 16,
+    E outside [1, 65535], M < 1.  Memoized: one lookup per call."""
+    if K <= 0 or K % BK or K >= K_EXACT:
+        raise ValueError(f"prequant kernel needs 0 < K < {K_EXACT} with K % "
+                         f"{BK} == 0 (int32 sums exact in f32); got K={K}")
+    if N <= 0 or N % COL_TILES[-1]:
+        raise ValueError(f"prequant kernel needs N % {COL_TILES[-1]} == 0; "
+                         f"got N={N}")
+    if not 1 <= E <= 65535 or M < 1:
+        raise ValueError(f"prequant kernel needs 1 <= E <= 65535 and M >= 1;"
+                         f" got E={E}, M={M}")
+    row_tile = next((t for t in ROW_TILES if M <= t), ROW_TILES[-1])
+    tiles = E * -(-M // row_tile)
+    splits = [s for s in range(1, MAX_CLUSTER + 1) if (K // BK) % s == 0]
+    for split in splits:
+        for bn in COL_TILES:
+            blocks = tiles * (N // bn) * split
+            if N % bn == 0 and bn * row_tile <= MAX_TILE and blocks >= SMS:
+                return PrequantPlan(bn, split, row_tile, blocks)
+    bn = COL_TILES[-1]
+    return PrequantPlan(bn, splits[-1], row_tile,
+                        tiles * (N // bn) * splits[-1])
+
+
 def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
                     pack_x, pack_w, what):
-    """Launch `csrc/dpa_prequant.cu` on CUDA operands (E = 1 dense), or
-    raise for what the kernel does not serve."""
+    """Launch `csrc/dpa_prequant.cu` on CUDA operands (E = 1 dense) with
+    the shape's `prequant_plan`, or raise for what the kernel does not
+    serve."""
     if (fmt_x, fmt_w, pack_x, pack_w) != ("fp4_e2m1", "fp4_e2m1", True,
                                          True):
         raise NotImplementedError(
             f"{what} kernel serves packed fp4_e2m1 x packed fp4_e2m1; "
             f"({fmt_x}, {fmt_w}, pack_x={pack_x}, pack_w={pack_w}) is "
             "ROADMAP Queue 2 item 3, other fmt pairs")
-    if K % BK or N % 32:
-        raise ValueError(f"kernel needs K % {BK} == 0 and N % 32 == 0; got "
-                         f"K={K}, N={N}")
+    plan = prequant_plan(E, M, K, N)
     if xq.dtype != torch.uint8 or wq.dtype != torch.uint8:
         raise TypeError(f"packed fp4 operands must be uint8, got {xq.dtype} "
                         f"and {wq.dtype}")
     if not all(t.is_contiguous() for t in (xq, wq, sx, sw)):
         raise ValueError(f"{what} kernel needs contiguous operands")
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs 16-byte aligned codes")
     lib = build.load_library()
     err = lib.dpa_prequant_launch(
         xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), E, M, K, N,
+        out.data_ptr(), E, M, K, N, plan.bn, plan.split,
         torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(err, what)
 
