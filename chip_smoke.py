@@ -10,7 +10,18 @@ Phases (every failure raises; the exit code is then non-zero):
    serving paths' shapes:
    - `dpa_matmul_fused` at every projection of qwen3-4b and at the
      attention projections of granite-moe-1b (M = 4 decode, M = 32
-     prefill chunk);
+     prefill chunk), which the launch plan keeps on the present kernel;
+   - its tiled route (`fused_plan` from `TILED_MIN_M` rows on: the
+     pre-pass `dpa_act_quant`, then fp16 tensor cores) at M = 4096 at
+     each of qwen3-4b's five projection shapes with packed-fp4 weights,
+     the (fp8, fp8) pair at K x N 2560 x 1024, the threshold M and a
+     ragged M (threshold + 44), and grouped at E 32, M 256, K x N 1024 x
+     512; the pre-pass's codes and scales held to its plain version
+     exactly; one qwen3-4b layer at M = 4096 timed, with the pre-pass
+     alone, the fp8 and fp16 operations bounds and, as speed references,
+     bf16 `torch.matmul` and `torch._scaled_mm` with block scales (or its
+     refusal); and both routes swept at M = 8 .. 512 on qwen3-4b's wg
+     (and wk), the evidence for the threshold;
    - `paged_decode_attention` at the engine's decode geometry plus the
      block-table edge cases (odd lengths, mid-page positions, an idle
      slot on the scratch page), for qwen3-4b (hd 128, H 32, KV 8) and
@@ -68,7 +79,9 @@ Phases (every failure raises; the exit code is then non-zero):
    e. qwen3-4b's full-sequence scoring (the forward of `make_loss_fn`,
       chunked cross-entropy) of one 4096-token sequence under
       w4a8_kv4_attn8 with use_flash: every layer's attention through the
-      DPA flash kernel, every projection through the fused matmul;
+      DPA flash kernel, every projection through the fused matmul's
+      tiled route (M = 4096: as many tiled and pre-pass launches as
+      fused ones; every other path makes no tiled launch);
    f. the `quantize_pack` op (`kernels.ops.quantize_rows`) on a prompt's
       MLP activations: both row quantizers.
    The expected counts are computed from the config and the run; d and e
@@ -274,6 +287,229 @@ def check_matmul(cfg, gen, projections):
           f"decode step; one decode layer (M=4): {fmt_times(per_layer)}, "
           f"bound {per_layer['bound_ms']:.5f} ms")
     return worst, per_layer
+
+
+FP16_OPS_PER_S = 989e12           # H100 SXM dense fp16 tensor-core peak
+LARGE_M = 4096                    # path D's rows: one 4096-token sequence
+
+
+def _close(got, want):
+    """-> (max |got - want|, within the fused route's pin)."""
+    err = (got - want).abs()
+    return float(err.max()), bool(
+        (err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
+
+
+def _scaled_mm_blockwise(codes, scales, wq, N):
+    """`torch._scaled_mm` on the same E4M3 activation codes with their
+    1 x 128 block scales and the weights widened to e4m3 (128 x 128 block
+    scales of 1, so not the same function: a speed reference only), as a
+    function of no arguments, or (None, why)."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import widen
+    if not hasattr(torch, "_scaled_mm"):
+        return None, f"torch {torch.__version__} has no _scaled_mm"
+    x8 = codes.view(torch.float8_e4m3fn)
+    w8 = widen(wq, "fp4_e2m1", packed=True).t().contiguous().t().to(
+        torch.float8_e4m3fn)
+    K = x8.shape[1]
+    sb = torch.ones((K // 128, N // 128), device=codes.device)
+    why = "refused"
+    for sa_, sb_ in ((scales, sb), (scales.t().contiguous().t(),
+                                    sb.t().contiguous().t())):
+        call = (lambda a=sa_, b=sb_: torch._scaled_mm(  # noqa: E731
+            x8, w8, scale_a=a, scale_b=b, out_dtype=torch.bfloat16))
+        try:
+            call()
+            return call, "torch._scaled_mm, 1x128 x 128x128 block scales"
+        except (RuntimeError, TypeError, ValueError) as e:   # a yardstick
+            why = f"refused: {str(e)[:160]}"
+    return None, why
+
+
+def check_fused_tiled(cfg, gen, projections):
+    """The fused kernel's tiled route (`fused_plan` from TILED_MIN_M rows
+    on) against the plain version at the fused route's pin: M = 4096 at
+    every (K, N) of `projections` (one qwen3-4b layer) with packed-fp4
+    weights (a row with an all-zero K block, a row scaled by 1e3), the
+    (fp8, fp8) pair at the first, the threshold M and a ragged M, and the
+    grouped kernel at E = 32, M = 256 (or the threshold), K x N = 1024 x
+    512.  One layer at M = 4096 is timed: the route (pre-pass included),
+    the pre-pass alone, the plain version, the fp8 and fp16 operations
+    bounds and, as speed references for the same (M, K, N), bf16
+    `torch.matmul` and `torch._scaled_mm` with block scales."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels.ops import prep_grouped_weights, prep_weights
+    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+    worst, timed = 0.0, {}
+
+    def check(fn, ref, args, label, E=1, **kw_):
+        M, K = args[0].shape[-2:]
+        plan = DM.fused_plan(E, M, K, args[1].shape[-1])
+        if plan.route != "tiled":
+            raise AssertionError(f"{label}: plan {plan}, not the tiled route")
+        got = fn(*args, **kw_)
+        err, ok = _close(got, ref(*args, **kw_))
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{fn.__name__} tiled {label}: max err {err}"
+                                 f" over rtol {MATMUL_RTOL} / atol "
+                                 f"{MATMUL_ATOL}")
+        print(f"{fn.__name__} tiled {label}: max_abs_err {err:.3g} (plan "
+              f"{plan.bm}x{plan.bn}, {plan.blocks} blocks)")
+        return err
+
+    for K, N in sorted(set(projections.values())):
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        prep = prep_weights(w.to(torch.bfloat16), cfg.policy)
+        x = torch.randn((LARGE_M, K), generator=gen, device="cuda")
+        x[7, 128:256] = 0
+        x[9] *= 1e3
+        x = x.to(torch.bfloat16)
+        args = (x, prep["wq"], prep["sw"])
+        worst = max(worst, check(DM.dpa_matmul_fused, DM.dpa_matmul_fused_ref,
+                                 args, f"{cfg.name} K={K} N={N} "
+                                 f"M={LARGE_M}", **kw))
+        codes, scales = DM.dpa_act_quant(x)
+        want_c, want_s = DM.dpa_act_quant_ref(x)
+        if not (torch.equal(codes, want_c) and torch.equal(scales, want_s)):
+            raise AssertionError(f"dpa_act_quant K={K}: codes or scales "
+                                 "differ from the plain version")
+        t = timings(lambda: DM.dpa_matmul_fused(*args, **kw),
+                    lambda: DM.dpa_matmul_fused_ref(*args, **kw))
+        pre = timings(lambda: DM.dpa_act_quant(x),
+                      lambda: DM.dpa_act_quant_ref(x))
+        ops = 2.0 * LARGE_M * K * N
+        nbytes = (x.numel() * 2 + prep["wq"].numel() + prep["sw"].numel() * 4
+                  + LARGE_M * N * 4)
+        t["bound_ms"], _ = bound(nbytes, ops)
+        t["fp16_bound_ms"], _ = bound(nbytes, ops, FP16_OPS_PER_S)
+        t["prepass_ms"], t["prepass_device_ms"] = pre["ms"], pre["device_ms"]
+        pre["bound_ms"], _ = bound(x.numel() * 2 + codes.numel()
+                                   + scales.numel() * 4, 0.0)
+        timed[("pre", K)] = pre
+        wb = w.to(torch.bfloat16)
+        t["bf16_matmul_ms"] = median_ms(lambda: torch.matmul(x, wb))
+        t["bf16_matmul_device_ms"] = device_ms(lambda: torch.matmul(x, wb))
+        call, note = _scaled_mm_blockwise(codes, scales, prep["wq"], N)
+        t["scaled_mm_ms"] = None if call is None else median_ms(call)
+        t["scaled_mm_device_ms"] = None if call is None else device_ms(call)
+        t["scaled_mm"] = note
+        timed[(K, N, LARGE_M)] = t
+        print(f"dpa_matmul_fused tiled K={K} N={N} M={LARGE_M}: "
+              f"{fmt_times(t)} bound_ms {t['bound_ms']:.4f} (fp8 ops; fp16 "
+              f"{t['fp16_bound_ms']:.4f}); pre-pass {pre['ms']:.4f} ms "
+              f"(device {pre['device_ms']}), bound {pre['bound_ms']:.4f}; "
+              f"speed references (not the same function): bf16 "
+              f"torch.matmul {t['bf16_matmul_ms']:.4f} ms (device "
+              f"{t['bf16_matmul_device_ms']}), {note} {t['scaled_mm_ms']} "
+              f"ms (device {t['scaled_mm_device_ms']})")
+        if (K, N) == sorted(set(projections.values()))[0]:
+            prep8 = prep_weights(w.to(torch.bfloat16), "fp8_dpa_fused")
+            kw8 = dict(fmt_x="fp8_e4m3", fmt_w="fp8_e4m3", pack_w=False)
+            worst = max(worst, check(
+                DM.dpa_matmul_fused, DM.dpa_matmul_fused_ref,
+                (x, prep8["wq"], prep8["sw"]),
+                f"{cfg.name} K={K} N={N} M={LARGE_M} fp8 weights", **kw8))
+            for M in (DM.TILED_MIN_M, DM.TILED_MIN_M + 44):
+                xm = x[:M].contiguous()
+                worst = max(worst, check(
+                    DM.dpa_matmul_fused, DM.dpa_matmul_fused_ref,
+                    (xm, prep["wq"], prep["sw"]),
+                    f"{cfg.name} K={K} N={N} M={M}", **kw))
+    # grouped: granite's expert shape at a large capacity
+    E, M, K, N = 32, max(256, DM.TILED_MIN_M), 1024, 512
+    w3 = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
+    prep = prep_grouped_weights(w3, "w4a8_kv4_attn8")
+    x = torch.randn((E, M, K), generator=gen, device="cuda")
+    x = _drop(x, [M] * (E - 2) + [M // 3, 0]).to(torch.bfloat16)
+    worst = max(worst, check(
+        GM.dpa_grouped_matmul_fused, GM.dpa_grouped_matmul_fused_ref,
+        (x, prep["wq"], prep["sw"]), f"E={E} K={K} N={N} M={M}", E=E,
+        **kw))
+    layer = _per_layer(timed, projections, LARGE_M)
+    for key in ("fp16_bound_ms", "bf16_matmul_ms", "bf16_matmul_device_ms",
+                "scaled_mm_ms", "scaled_mm_device_ms", "prepass_ms",
+                "prepass_device_ms"):
+        vals = [timed[(K, N, LARGE_M)][key] for K, N in projections.values()]
+        layer[key] = None if None in vals else sum(vals)
+    pre = {key: [timed[("pre", K)][key] for K, _ in projections.values()]
+           for key in TIME_KEYS + ("bound_ms",)}
+    layer["prepass"] = {k: None if None in v else sum(v)
+                        for k, v in pre.items()}
+    layer["prepass"]["max_abs_err"] = 0.0
+    layer["scaled_mm"] = note
+    layer["max_abs_err"] = worst
+    print(f"dpa_matmul_fused tiled, one {cfg.name} layer at M={LARGE_M} "
+          f"({len(projections)} calls): {fmt_times(layer)}, bound "
+          f"{layer['bound_ms']:.4f} ms (fp8 ops; fp16 "
+          f"{layer['fp16_bound_ms']:.4f}); pre-pass {layer['prepass_ms']} "
+          f"ms (device {layer['prepass_device_ms']}); bf16 torch.matmul "
+          f"{layer['bf16_matmul_ms']} ms (device "
+          f"{layer['bf16_matmul_device_ms']}); _scaled_mm "
+          f"{layer['scaled_mm_ms']} ms (device {layer['scaled_mm_device_ms']})")
+    return worst, layer
+
+
+SWEEP_M = (8, 16, 32, 64, 128, 256, 512)
+SWEEP_SHAPES = ((2560, 9728), (2560, 1024))   # qwen3-4b wg (the sweep), wk
+
+
+def sweep_fused_plan(gen):
+    """Both routes of the fused kernel at qwen3-4b's wg (K 2560, N 9728;
+    and, for the record, its narrowest projection wk, N 1024), M = 8 ..
+    512, through the C entry points (not the wrappers: no path's
+    launches), each held to the plain version and timed on the device
+    (the tiled route with its pre-pass): the evidence for
+    `TILED_MIN_M`."""
+    import torch
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels.ops import prep_weights
+    lib = B.load_library()
+    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for (K, N), M in ((kn, M) for kn in SWEEP_SHAPES for M in SWEEP_M):
+        prep = prep_weights((torch.randn((K, N), generator=gen, device="cuda")
+                             * K ** -0.5).to(torch.bfloat16), "w4a8_kv4_attn8")
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        want = DM.dpa_matmul_fused_ref(x, prep["wq"], prep["sw"], **kw)
+        out = torch.empty_like(want)
+        codes = torch.empty((M, K), dtype=torch.uint8, device="cuda")
+        scales = torch.empty((M, K // 128), device="cuda")
+
+        def simt():
+            B.check(lib.dpa_grouped_fused_launch(
+                x.data_ptr(), 1, prep["wq"].data_ptr(), 0,
+                prep["sw"].data_ptr(), out.data_ptr(), 1, M, K, N, stream),
+                "dpa_grouped_fused_launch")
+
+        def tiled():
+            B.check(lib.dpa_act_quant_launch(
+                x.data_ptr(), 1, codes.data_ptr(), scales.data_ptr(), M, K,
+                stream), "dpa_act_quant_launch")
+            B.check(lib.dpa_fused_tiled_launch(
+                codes.data_ptr(), scales.data_ptr(), prep["wq"].data_ptr(),
+                0, prep["sw"].data_ptr(), out.data_ptr(), 1, M, K, N,
+                stream), "dpa_fused_tiled_launch")
+
+        row = {}
+        for name, fn in (("simt", simt), ("tiled", tiled)):
+            out.fill_(float("nan"))
+            fn()
+            err, ok = _close(out, want)
+            if not ok:
+                raise AssertionError(f"fused {name} M={M}: max err {err}")
+            row[name] = device_ms(fn)
+        res[f"{K}x{N} M={M}"] = {**row,
+                                 "plan": DM.fused_plan(1, M, K, N).route}
+        print(f"fused plan sweep K={K} N={N} M={M}: simt {row['simt']} ms, "
+              f"tiled {row['tiled']} ms (device, per call); the plan takes "
+              f"{DM.fused_plan(1, M, K, N).route}")
+    return res
 
 
 def _paged_case(cfg, pol, gen, lengths, page, positions=None):
@@ -1003,7 +1239,10 @@ def teacher_forced(model, params, req, s_ctx):
 KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
                 "dpa_matmul_prequant", "dpa_grouped_matmul_fused",
                 "dpa_grouped_matmul_prequant", "dpa_flash_attention",
-                "flash_attention", "quantize_rows", "quantize_pack_rows")
+                "flash_attention", "quantize_rows", "quantize_pack_rows",
+                "dpa_act_quant")
+# per-route counts: the fused wrappers' launches that took the tiled route
+ROUTE_COUNTS = ("dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled")
 
 
 def _wrappers():
@@ -1020,22 +1259,30 @@ def _wrappers():
             "dpa_flash_attention": FA.dpa_flash_attention,
             "flash_attention": FA.flash_attention,
             "quantize_rows": QZ.quantize_rows,
-            "quantize_pack_rows": QZ.quantize_pack_rows}
+            "quantize_pack_rows": QZ.quantize_pack_rows,
+            "dpa_act_quant": DM.dpa_act_quant}
 
 
 def zero_counts():
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    for name in ROUTE_COUNTS:
+        wrappers[name.split(".")[0]].tiled_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ROUTE_COUNTS:
+        counts[name] = wrappers[name.split(".")[0]].tiled_launches
+    return counts
 
 
 def check_counts(what, got, want):
     """Every kernel's launches over one path equal the count its config
     and run imply (0 for the kernels the path does not run)."""
-    want = {k: want.get(k, 0) for k in KERNEL_NAMES}
+    want = {k: want.get(k, 0) for k in KERNEL_NAMES + ROUTE_COUNTS}
     if got != want:
         raise AssertionError(f"{what} launches {got}, want {want}")
     print(f"launches on the {what} path: " + ", ".join(
@@ -1382,7 +1629,9 @@ def run_scoring(cfg, params, S=4096):
     dense, _ = per_call_projections(cfg)
     check_counts(f"{cfg.name} scoring ({cfg.policy}, use_flash)", counts,
                  {"dpa_flash_attention": cfg.n_layers,
-                  "dpa_matmul_fused": dense * cfg.n_layers})
+                  "dpa_matmul_fused": dense * cfg.n_layers,
+                  "dpa_matmul_fused.tiled": dense * cfg.n_layers,
+                  "dpa_act_quant": dense * cfg.n_layers})
     ref_total, ref_parts = make_loss_fn(build_model(
         cfg.replace(use_flash=False), device="cuda"))(params, batch)
     loss, ref_loss = float(parts["loss"]), float(ref_parts["loss"])
@@ -1528,6 +1777,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import build
+    from repro_torch.kernels.dpa_matmul import TILED_MIN_M
     from repro_torch.launch.engine import EngineConfig
 
     t_start = time.monotonic()
@@ -1557,6 +1807,8 @@ def main() -> None:
     # phase 2: every kernel against its plain version
     mm_err, mm_t = check_matmul(qwen, gen, _dense_shapes(qwen))
     gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite))
+    tl_err, tl_t = check_fused_tiled(qwen, gen, _dense_shapes(qwen))
+    fused_sweep = sweep_fused_plan(gen)
     pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
@@ -1615,12 +1867,40 @@ def main() -> None:
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": (n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"]
                       + n_d["dpa_matmul_fused"]),
-         "max_abs_err": max(mm_err, gmm_err), **times(mm_t),
+         "max_abs_err": max(mm_err, gmm_err, tl_err), **times(mm_t),
          "bound_by": "bytes", "library_ms": None,
          "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4",
          "granite": {"max_abs_err": gmm_err, **times(gmm_t),
                      "at": "granite-moe-1b, one layer's 4 attention "
-                           "projections at decode M=4"}},
+                           "projections at decode M=4"},
+         "tiled": {
+             "name": "dpa_matmul_fused", "route": "cuda",
+             "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
+             "replaces": "src/repro/kernels/dpa_matmul.py:184",
+             "launches": n_d["dpa_matmul_fused.tiled"],
+             "max_abs_err": tl_err, **times(tl_t),
+             "bound_by": "operations", "library_ms": None,
+             "fp16_bound_ms": tl_t["fp16_bound_ms"],
+             "prepass_ms": tl_t["prepass_ms"],
+             "prepass_device_ms": tl_t["prepass_device_ms"],
+             "speed_references": {
+                 "bf16_matmul_ms": tl_t["bf16_matmul_ms"],
+                 "bf16_matmul_device_ms": tl_t["bf16_matmul_device_ms"],
+                 "scaled_mm_ms": tl_t["scaled_mm_ms"],
+                 "scaled_mm_device_ms": tl_t["scaled_mm_device_ms"],
+                 "scaled_mm": tl_t["scaled_mm"]},
+             "at": "path D: one qwen3-4b layer's 7 projections at M=4096, "
+                   "pre-pass included (bound at the fp8 peak)"}},
+        {"name": "dpa_act_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
+         "replaces": "src/repro/kernels/dpa_matmul.py:184",
+         "launches": n_d["dpa_act_quant"],
+         "max_abs_err": 0.0, **times(tl_t["prepass"]),
+         "bound_by": "bytes", "library_ms": None,
+         "library": "none: no PyTorch call quantizes per (row, K block of "
+                    "128) with the contract's scale in one pass",
+         "at": "path D: one qwen3-4b layer's 7 projections' activations at "
+               "M=4096, bf16 -> E4M3 codes and block scales"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:332",
@@ -1707,6 +1987,8 @@ def main() -> None:
     print("profile: " + json.dumps(
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
     print("prequant plans: " + json.dumps(pq_plans))
+    print("fused plan sweep: " + json.dumps(
+        {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))
     print(f"total {t_total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dpa_matmul.cu", "dpa_prequant.cu", "paged_decode.cu",
-           "flash_attention.cu", "quantize_rows.cu")
+SOURCES = ("dpa_matmul.cu", "dpa_fused_tiled.cu", "dpa_prequant.cu",
+           "paged_decode.cu", "flash_attention.cu", "quantize_rows.cu")
 HEADERS = ("dpa_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +37,10 @@ _SIGNATURES = {
     # stream
     "dpa_grouped_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                  _P),
+    # x, x_bf16, codes, scales, rows, K, stream
+    "dpa_act_quant_launch": (_P, _I, _P, _P, _I, _I, _P),
+    # xq, xs, wq, w_fmt, sw, out, E, M, K, N, stream
+    "dpa_fused_tiled_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     # xq, sx, wq, sw, out, E, M, K, N, bn, split, stream
     "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),

@@ -1,12 +1,16 @@
 """Dense DPA matmuls: the plain PyTorch versions and the wrappers around
 the CUDA kernels.
 
-`dpa_matmul_fused` (`csrc/dpa_matmul.cu`) replaces the Pallas TPU kernel
+`dpa_matmul_fused` replaces the Pallas TPU kernel
 `repro/kernels/dpa_matmul.py` `dpa_matmul_fused`: raw (M, K) f32/bf16
 activations are absmax-quantized per (row, K block of 128) onto the E4M3
 grid, each block's partial product over pre-quantized weights is scaled
 by its row scale and added into an f32 accumulator, and the weight
-column scales apply at the end.
+column scales apply at the end.  `fused_plan` picks one of two routes by
+shape: below `TILED_MIN_M` rows, `csrc/dpa_matmul.cu` (f32 FMAs, x
+quantized in the prologue; decode steps and prefill chunks); from it on,
+`csrc/dpa_fused_tiled.cu`, the pre-pass `dpa_act_quant` (x quantized
+once) and then a tiled product on the fp16 tensor cores.
 
 `dpa_matmul_prequant` (`csrc/dpa_prequant.cu`) replaces
 `dpa_matmul_prequant` of the same file: both operands arrive quantized
@@ -22,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.device import rowwise_dot
+from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
 from repro_torch.core.formats import get_format
 from repro_torch.core.packing import unpack_fp4_axis
 from repro_torch.core.quantize import (absmax_block_scale, decode_fp4,
@@ -92,31 +96,83 @@ def check_fused(x, wq, sw, pack_w, lead=()):
         raise ValueError("x, wq and sw must share one device")
 
 
+# From this many rows per expert on, the tiled route: the smallest M of
+# chip_smoke.py's sweep (M = 8 .. 512, PERF.md) at which it beats the
+# present kernel at both swept qwen3-4b shapes (at wg, N 9728, it wins
+# from M = 8; at wk, N 1024, from 128).  The engines' calls (M <= 64)
+# stay on csrc/dpa_matmul.cu.
+TILED_MIN_M = 128
+TILE = 128                   # the tiled route's output tile, rows and columns
+SIMT_COLS = 32               # dpa_matmul.cu: output columns per block
+
+
+class FusedPlan(NamedTuple):
+    """The fused kernel's launch: `route` "simt" (`csrc/dpa_matmul.cu`) or
+    "tiled" (`csrc/dpa_fused_tiled.cu`), `bm` x `bn` outputs per block,
+    `blocks` in the grid."""
+    route: str
+    bm: int
+    bn: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
+    """The route by shape alone: "tiled" from `TILED_MIN_M` rows per
+    expert on, else "simt" (8 rows a block up to M = 8, else 16).  Raises
+    for what no route takes: K not a positive multiple of 128, N not a
+    positive multiple of 32, E outside [1, 65535], M < 1.  Memoized."""
+    if K <= 0 or K % BK:
+        raise ValueError(f"fused kernel needs K % {BK} == 0, K > 0; got "
+                         f"K={K}")
+    if N <= 0 or N % SIMT_COLS:
+        raise ValueError(f"fused kernel needs N % {SIMT_COLS} == 0, N > 0;"
+                         f" got N={N}")
+    if not 1 <= E <= 65535 or M < 1:
+        raise ValueError(f"fused kernel needs 1 <= E <= 65535 and M >= 1; "
+                         f"got E={E}, M={M}")
+    if M >= TILED_MIN_M:
+        return FusedPlan("tiled", TILE, TILE,
+                         E * -(-M // TILE) * -(-N // TILE))
+    bm = 8 if M <= 8 else 16
+    return FusedPlan("simt", bm, SIMT_COLS, E * -(-M // bm) * (N // SIMT_COLS))
+
+
 def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
-                 what, item):
-    """Launch `csrc/dpa_matmul.cu` on CUDA operands (E = 1 dense), or
-    raise for what the kernel does not serve."""
+                 what, item) -> FusedPlan:
+    """Launch the shape's `fused_plan` route on CUDA operands (E = 1
+    dense), or raise for what the kernels do not serve.  -> the plan."""
     w_fmt = KERNEL_W.get((fmt_w, pack_w))
     if fmt_x != "fp8_e4m3" or w_fmt is None:
         raise NotImplementedError(
             f"{what} kernel serves (fp8_e4m3, packed fp4_e2m1) and "
             f"(fp8_e4m3, fp8_e4m3); ({fmt_x}, {fmt_w}, pack_w={pack_w}) is "
             f"ROADMAP Queue 2 item {item}, other fmt pairs")
-    if bk != BK or K % BK or N % 32:
-        raise ValueError(f"kernel needs bk == {BK}, K % {BK} == 0 and "
-                         f"N % 32 == 0; got bk={bk}, K={K}, N={N}")
+    if bk != BK:
+        raise ValueError(f"kernel needs bk == {BK}; got bk={bk}")
+    plan = fused_plan(E, M, K, N)
     if fmt_w == "fp8_e4m3" and wq.dtype != torch.float8_e4m3fn:
         raise TypeError(f"fp8 weights must be float8_e4m3fn, got {wq.dtype}")
     if fmt_w == "fp4_e2m1" and wq.dtype != torch.uint8:
         raise TypeError(f"packed fp4 weights must be uint8, got {wq.dtype}")
     if not (x.is_contiguous() and wq.is_contiguous() and sw.is_contiguous()):
         raise ValueError(f"{what} kernel needs contiguous operands")
+    if plan.route == "tiled" and any(t.data_ptr() % 16
+                                     for t in (x, wq, sw, out)):
+        raise ValueError(f"{what} tiled route needs 16-byte aligned operands")
     lib = build.load_library()
-    err = lib.dpa_grouped_fused_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(), w_fmt,
-        sw.data_ptr(), out.data_ptr(), E, M, K, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.route == "tiled":
+        codes, scales = dpa_act_quant(x)
+        err = lib.dpa_fused_tiled_launch(
+            codes.data_ptr(), scales.data_ptr(), wq.data_ptr(), w_fmt,
+            sw.data_ptr(), out.data_ptr(), E, M, K, N, stream)
+    else:
+        err = lib.dpa_grouped_fused_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
+            w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, stream)
     build.check(err, what)
+    return plan
 
 
 def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
@@ -135,13 +191,85 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     M, K = x.shape
     N = wq.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x, fmt_w=fmt_w,
-                 pack_w=pack_w, bk=bk, what="dpa_matmul_fused", item=1)
+    plan = launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x,
+                        fmt_w=fmt_w, pack_w=pack_w, bk=bk,
+                        what="dpa_matmul_fused", item=1)
     dpa_matmul_fused.launches += 1
+    dpa_matmul_fused.tiled_launches += plan.route == "tiled"
     return out
 
 
 dpa_matmul_fused.launches = 0
+dpa_matmul_fused.tiled_launches = 0
+
+
+# -----------------------------------------------------------------------------
+# the tiled route's two stages
+# -----------------------------------------------------------------------------
+
+def dpa_act_quant_ref(x, bk: int = BK):
+    """Plain version of the tiled route's pre-pass: x (..., M, K) f32/bf16
+    -> (E4M3 codes (..., M, K) uint8, scales (..., M, K / bk) f32), the
+    per-(row, K block) quantization of `fused_blocks`."""
+    target = get_format("fp8_e4m3").quant_target
+    xb = x.to(torch.float32).unflatten(-1, (x.shape[-1] // bk, bk))
+    scale = absmax_block_scale(xb, target, dim=-1)
+    y = torch.clamp(xb / scale, -target, target)
+    codes = y.to(torch.float8_e4m3fn).view(torch.uint8).flatten(-2)
+    return codes, scale.squeeze(-1)
+
+
+def dpa_act_quant(x, bk: int = BK):
+    """Stage one of the tiled route (`csrc/dpa_fused_tiled.cu`
+    `act_quant_kernel`): x (..., M, K) quantized once per (row, K block).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises.  `dpa_act_quant.launches` counts launches."""
+    if x.device.type == "cpu":
+        return dpa_act_quant_ref(x, bk)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    K = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim < 2:
+        raise TypeError(f"x must be f32/bf16 (..., M, K), got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if bk != BK or K % BK or K == 0:
+        raise ValueError(f"kernel needs bk == {BK} and K % {BK} == 0; got "
+                         f"bk={bk}, K={K}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("dpa_act_quant needs contiguous 16-byte aligned x")
+    codes = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    scales = torch.empty(x.shape[:-1] + (K // BK,), dtype=torch.float32,
+                         device=x.device)
+    err = build.load_library().dpa_act_quant_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+        scales.data_ptr(), x.numel() // K, K,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dpa_act_quant")
+    dpa_act_quant.launches += 1
+    return codes, scales
+
+
+dpa_act_quant.launches = 0
+
+
+def dpa_fused_tiled_ref(codes, scales, wq, sw, *, fmt_w: str,
+                        pack_w: bool = False, bk: int = BK):
+    """Plain version of the tiled route's product: E4M3 codes (..., M, K)
+    and scales (..., M, K / bk) of `dpa_act_quant`, times wq (..., K', N)
+    with column scales sw (..., 1, N), per K block a fresh partial scaled
+    by its row scale and added into the running sum.  Equals
+    `dpa_matmul_fused_ref` (dense) and `dpa_grouped_matmul_fused_ref`
+    (an expert stack) on the raw x bit for bit."""
+    wt = widen(wq, fmt_w, packed=pack_w, dim=-2).transpose(-1, -2)
+    dot = rowwise_dot if codes.ndim == 2 else batched_rowwise_dot
+    q = codes.view(torch.float8_e4m3fn).to(torch.float32)
+    out = torch.zeros(codes.shape[:-1] + (wt.shape[-2],),
+                      dtype=torch.float32, device=codes.device)
+    for i, k0 in enumerate(range(0, codes.shape[-1], bk)):
+        out = out + dot(q[..., k0:k0 + bk], wt[..., k0:k0 + bk]) \
+            * scales[..., i:i + 1]
+    return out * sw.to(torch.float32)
 
 
 # -----------------------------------------------------------------------------
