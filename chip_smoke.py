@@ -9,8 +9,16 @@ Phases (every failure raises; the exit code is then non-zero):
 2. Kernels against their plain PyTorch versions on the card, at the
    serving paths' shapes:
    - `dpa_matmul_fused` at every projection of qwen3-4b and at the
-     attention projections of granite-moe-1b (M = 4 decode, M = 32
-     prefill chunk), which the launch plan keeps on the present kernel;
+     attention projections of granite-moe-1b (M = 4 decode, padded to 8,
+     and M = 32 prefill chunk; packed-fp4 weights timed, (fp8, fp8)
+     checked), which the launch plan sends to its split-K route
+     (`csrc/dpa_matmul.cu`); at each model's projection with the largest
+     split also ragged M = 1, 17, 64, 127 for both weight formats, and
+     the rows of M = 8 and 1 calls held to the same rows of an M = 64
+     call with `torch.equal`; one decode layer also timed cold, rotating
+     over the model's layers' weights; every (column tile, split) the
+     route takes timed at the engines' shapes (the evidence for
+     `splitk_cols`);
    - its tiled route (`fused_plan` from `TILED_MIN_M` rows on: the
      pre-pass `dpa_act_quant`, then fp16 tensor cores) at M = 4096 at
      each of qwen3-4b's five projection shapes with packed-fp4 weights,
@@ -21,15 +29,18 @@ Phases (every failure raises; the exit code is then non-zero):
      alone, the fp8 and fp16 operations bounds and, as speed references,
      bf16 `torch.matmul` and `torch._scaled_mm` with block scales (or its
      refusal); and both routes swept at M = 8 .. 512 on qwen3-4b's wg
-     (and wk), the evidence for the threshold;
+     (and wk) — the split-K route at its plan also past the threshold —
+     the evidence for the threshold;
    - `paged_decode_attention` at the engine's decode geometry plus the
      block-table edge cases (odd lengths, mid-page positions, an idle
      slot on the scratch page), for qwen3-4b (hd 128, H 32, KV 8) and
      granite-moe-1b (hd 64, H 16, KV 8);
    - `dpa_grouped_matmul_fused` at granite's expert shapes (E 32, K x N
      1024 x 512 and 512 x 1024) for M = 8 (decode, 4 rows padded) and
-     M = 11 (a 32-token prefill chunk's capacity), with capacity-dropped
-     zero rows, which must come out exactly 0;
+     M = 11 (a 32-token prefill chunk's capacity), both weight formats,
+     with capacity-dropped zero rows, which must come out exactly 0; at
+     the first shape ragged M and the row-invariance check as above; one
+     decode layer timed cold over 24 layers' expert weights;
    - `dpa_matmul_prequant` at granite's attention projections and
      `dpa_grouped_matmul_prequant` at its expert shapes, held to
      `max_abs_err == 0` (fp4 x fp4 sums are exact) at M = 8 and 11 and at
@@ -53,7 +64,9 @@ Phases (every failure raises; the exit code is then non-zero):
    codes are timed two ways: `ms` / `plain_ms` / `library_ms`, the median
    of 25 CUDA-event-bracketed calls (which includes the host's launch
    time), and `device_ms` / `plain_device_ms` / `library_device_ms`, the
-   profiler's device time per call over 20 calls; beside them the least
+   profiler's device time per call over 20 calls (or, where the profiler
+   records no device activity, CUDA events around a CUDA-graph replay of
+   20 calls; `device_from` says which); beside them the least
    time the card could take (bytes over 3.35 TB/s, or operations over the
    fp8 peak — the f32 peak for the f32 flash kernel — whichever is
    larger).
@@ -62,11 +75,15 @@ Phases (every failure raises; the exit code is then non-zero):
    before each path and read just after:
    a. qwen3-4b (36 layers) serves 8 synthetic requests through the
       continuous-batching engine: every projection through the fused
-      kernel, every decode step's attention through the paged kernel;
+      kernel's split-K route, every decode step's attention through the
+      paged kernel; two requests are replayed through `generate` and
+      teacher-forced through the static path (greedy agreement and the
+      top-2 margins where the paths differ, reported);
    b. granite-moe-1b-a400m (24 layers, 32 experts top-8) serves 8
       synthetic requests through the engine: attention projections
       through the fused kernel, expert matmuls through the grouped fused
-      kernel, decode attention through the paged kernel (hd 64); and
+      kernel (both on the split-K route), decode attention through the
+      paged kernel (hd 64), the same replay against `generate`; and
       its first layer's `apply_moe` runs three times on one bf16 input,
       which must give the same bits each time;
    c. granite-moe-1b under fp4_dpa_packed through `generate` (2 prompts
@@ -159,17 +176,19 @@ def median_ms(fn, n: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, n: int = 20):
-    """Device time of fn per call: the durations of the device activities
-    (kernels, copies, fills) of n calls under torch.profiler, summed and
-    divided by n, after warm-up.  Unlike `median_ms`, which brackets one
-    call with CUDA events, it counts no device idle time while the host
-    prepares a launch — at these sizes that host time is most of a call.
+def device_ms_from(fn, n: int = 20):
+    """Device time of fn per call, and where it came from: the durations
+    of the device activities (kernels, copies, fills) of n calls under
+    torch.profiler, summed and divided by n, after warm-up ("profiler").
+    Unlike `median_ms`, which brackets one call with CUDA events, it
+    counts no device idle time while the host prepares a launch — at
+    these sizes that host time is most of a call.
 
-    None (not measured) when two sessions, half a second apart, return no
-    device records: short sessions sometimes do, for a stretch of several
-    sessions, and later ones record again.  The event-timed `median_ms`
-    does not depend on the profiler."""
+    Short profiler sessions sometimes return no device records, for a
+    stretch of several sessions.  Where two sessions half a second apart
+    both return none, the time comes from CUDA events around one replay
+    of n calls captured in a CUDA graph ("graph replay"), which has no
+    host gaps between the launches; (None, None) where capture fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -187,8 +206,42 @@ def device_ms(fn, n: int = 20):
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if spans:
-            return sum(spans) / 1e3 / n
-    return None
+            return sum(spans) / 1e3 / n, "profiler"
+    ms = graph_ms(fn, n)
+    return ms, None if ms is None else "graph replay"
+
+
+def device_ms(fn, n: int = 20):
+    """`device_ms_from`'s time alone."""
+    return device_ms_from(fn, n)[0]
+
+
+def graph_ms(fn, n: int = 20):
+    """CUDA-event time per call of one replay of n calls of fn captured
+    in a CUDA graph, after a warm-up replay; None where fn cannot be
+    captured (it synchronizes or touches the host)."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+    except RuntimeError as e:      # not capturable: not measured
+        print(f"  graph capture refused ({str(e)[:100]})")
+        return None
 
 
 def bound(nbytes: float, ops: float, peak: float = FP8_OPS_PER_S):
@@ -202,10 +255,13 @@ TIME_KEYS = ("ms", "plain_ms", "device_ms", "plain_device_ms")
 def timings(kernel, plain) -> dict:
     """A kernel's and its plain version's time per call, each both ways:
     `ms` / `plain_ms` the median CUDA-event time of one call (host launch
-    time included), `device_ms` / `plain_device_ms` the profiler's device
-    time per call."""
+    time included), `device_ms` / `plain_device_ms` the device time per
+    call (`device_ms_from`; `device_from` says where the kernel's came
+    from)."""
+    dev, src = device_ms_from(kernel)
     return {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
-            "device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain)}
+            "device_ms": dev, "plain_device_ms": device_ms(plain),
+            "device_from": src}
 
 
 def fmt_times(t: dict) -> str:
@@ -220,73 +276,155 @@ def fmt_times(t: dict) -> str:
 # phase 2: kernels against their plain versions
 # -----------------------------------------------------------------------------
 
-def check_matmul(cfg, gen, projections):
+FP4_FUSED = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+FP8_FUSED = dict(fmt_x="fp8_e4m3", fmt_w="fp8_e4m3", pack_w=False)
+# rows at which the split-K route is also checked (untimed): one row, a
+# ragged tile, the token budget, the last row count below TILED_MIN_M
+RAGGED_M = (1, 17, 64, 127)
+
+
+def _plan_str(plan) -> str:
+    return (f"plan {plan.route} bm {plan.bm} bn {plan.bn} split "
+            f"{plan.split} ({plan.blocks} blocks)")
+
+
+def _held(what, got, want):
+    """got within the fused route's pin of want and finite, or raise; ->
+    max |got - want|."""
+    import torch
+    err, ok = _close(got, want)
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: max err {err} over rtol {MATMUL_RTOL}"
+                             f" / atol {MATMUL_ATOL}")
+    return err
+
+
+def rows_invariant(what, kern, x, args, kw, sub=(8, 1)):
+    """The first `sub` rows of x alone give the same bits as the same rows
+    of the whole call (x has 64 rows; the rows sit on dim -2)."""
+    import torch
+    full = kern(x, *args, **kw)
+    for m in sub:
+        part = kern(x[..., :m, :].contiguous(), *args, **kw)
+        if not torch.equal(part, full[..., :m, :]):
+            raise AssertionError(
+                f"{what}: rows of an M={m} call differ from the same rows of "
+                f"an M={x.shape[-2]} call (max "
+                f"{float((part - full[..., :m, :]).abs().max())})")
+    print(f"{what}: the rows of M={', '.join(map(str, sub))} calls equal the "
+          f"same rows of an M={x.shape[-2]} call (torch.equal)")
+
+
+def check_matmul(cfg, gen, projections, cold_layers):
     """Every (K, N) of `projections` (name -> (K, N), the dense
     projections one layer of the model runs through this kernel) at M = 4
-    (the engine's decode step) and 32 (a prefill chunk), bf16 x,
-    packed-fp4 weights prepared as the model prepares them (and the
-    kernel's (fp8, fp8) pair at M = 32, untimed)."""
+    (the engine's decode step, padded to 8 as the pipeline pads it) and
+    32 (a prefill chunk), bf16 x, packed-fp4 weights prepared as the model
+    prepares them, timed; the (fp8, fp8) pair at both, untimed.  At the
+    projection with the largest split: ragged M (`RAGGED_M`) for both
+    pairs, and the rows of M = 8 and 1 against those of M = 64.  One
+    decode layer is also timed cold, rotating over `cold_layers` layers'
+    weights."""
     import torch
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import (dpa_matmul_fused_pipeline,
                                          prep_weights)
     shapes = sorted(set(projections.values()))
+    edge = max(shapes, key=lambda kn: (DM.fused_plan(1, 8, *kn).split, kn))
     worst = 0.0
-    timed = {}
+    timed, plans = {}, {}
     for K, N in shapes:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         prep = prep_weights(w.to(torch.bfloat16), cfg.policy)
+        prep8 = prep_weights(w.to(torch.bfloat16), "fp8_dpa_fused")
         for M in (4, 32):
             x = torch.randn((M, K), generator=gen, device="cuda").to(
                 torch.bfloat16)
             # the kernel's own inputs: the pipeline's padding of M
             xp = torch.nn.functional.pad(x, (0, 0, 0, max(8, M) - M))
             args = (xp, prep["wq"], prep["sw"])
-            kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+            kw = FP4_FUSED
+            plan = DM.fused_plan(1, xp.shape[0], K, N)
+            plans[f"{K}x{N} M={xp.shape[0]}"] = plan._asdict()
             got = DM.dpa_matmul_fused(*args, **kw)
             want = DM.dpa_matmul_fused_ref(*args, **kw)
             torch.cuda.synchronize()
-            err = (got - want).abs()
-            ok = bool((err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
-            worst = max(worst, float(err.max()))
+            err = _held(f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M}",
+                        got, want)
+            worst = max(worst, err)
             # and through the pipeline the model calls (pads, slices, casts)
             pipe = dpa_matmul_fused_pipeline(x, prep, cfg.policy)
             if pipe.shape != (M, N) or pipe.dtype != torch.bfloat16:
                 raise AssertionError(f"pipeline gave {pipe.dtype} "
                                      f"{tuple(pipe.shape)}")
-            if not ok:
-                raise AssertionError(
-                    f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M}: max err "
-                    f"{float(err.max())} over rtol {MATMUL_RTOL} / atol "
-                    f"{MATMUL_ATOL}")
             t = timings(lambda: DM.dpa_matmul_fused(*args, **kw),
                         lambda: DM.dpa_matmul_fused_ref(*args, **kw))
             nbytes = (xp.numel() * 2 + prep["wq"].numel()
                       + prep["sw"].numel() * 4 + xp.shape[0] * N * 4)
             t["bound_ms"], b_by = bound(nbytes, 2.0 * xp.shape[0] * K * N)
             timed[(K, N, M)] = t
+            # the kernel's other fmt pair, (fp8, fp8) weights: untimed
+            err8 = _held(f"dpa_matmul_fused {cfg.name} fp8 weights K={K} "
+                         f"N={N} M={M}",
+                         DM.dpa_matmul_fused(xp, prep8["wq"], prep8["sw"],
+                                             **FP8_FUSED),
+                         DM.dpa_matmul_fused_ref(xp, prep8["wq"],
+                                                 prep8["sw"], **FP8_FUSED))
+            worst = max(worst, err8)
             print(f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M}: "
-                  f"max_abs_err {float(err.max()):.3g} {fmt_times(t)} "
-                  f"bound_ms {t['bound_ms']:.5f} ({b_by})")
-        # the kernel's other fmt pair, (fp8, fp8) weights: checked, untimed
-        prep8 = prep_weights(w.to(torch.bfloat16), "fp8_dpa_fused")
-        args = (xp, prep8["wq"], prep8["sw"])
-        kw = dict(fmt_x="fp8_e4m3", fmt_w="fp8_e4m3", pack_w=False)
-        got = DM.dpa_matmul_fused(*args, **kw)
-        want = DM.dpa_matmul_fused_ref(*args, **kw)
-        err = (got - want).abs()
-        if not bool((err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all()):
-            raise AssertionError(f"dpa_matmul_fused {cfg.name} fp8 weights "
-                                 f"K={K} N={N}: max err {float(err.max())}")
-        worst = max(worst, float(err.max()))
-        print(f"dpa_matmul_fused {cfg.name} K={K} N={N} M=32 fp8 weights: "
-              f"max_abs_err {float(err.max()):.3g}")
+                  f"{_plan_str(plan)}; max_abs_err {err:.3g} (fp8 weights "
+                  f"{err8:.3g}) {fmt_times(t)} bound_ms {t['bound_ms']:.5f} "
+                  f"({b_by})")
+        if (K, N) != edge:
+            continue
+        for M in RAGGED_M:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for kw, p_ in ((FP4_FUSED, prep), (FP8_FUSED, prep8)):
+                args = (x, p_["wq"], p_["sw"])
+                err = _held(f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M} "
+                            f"{kw['fmt_w']}", DM.dpa_matmul_fused(*args, **kw),
+                            DM.dpa_matmul_fused_ref(*args, **kw))
+                worst = max(worst, err)
+                print(f"dpa_matmul_fused {cfg.name} K={K} N={N} M={M} "
+                      f"{kw['fmt_w']} weights: "
+                      f"{_plan_str(DM.fused_plan(1, M, K, N))}; max_abs_err "
+                      f"{err:.3g}")
+        x = torch.randn((64, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        rows_invariant(f"dpa_matmul_fused {cfg.name} K={K} N={N}",
+                       DM.dpa_matmul_fused, x, (prep["wq"], prep["sw"]),
+                       FP4_FUSED)
     per_layer = _per_layer(timed, projections, 4)
+    per_layer["plans"] = plans
+    per_layer["cold"] = cold_fused_layer(DM.dpa_matmul_fused, projections, (),
+                                         8, cold_layers, gen)
     print(f"dpa_matmul_fused {cfg.name}: {len(projections)} launches per "
           f"layer per model call, {len(projections) * cfg.n_layers} per "
-          f"decode step; one decode layer (M=4): {fmt_times(per_layer)}, "
-          f"bound {per_layer['bound_ms']:.5f} ms")
+          f"decode step; one decode layer (M=4, padded to 8), warm: "
+          f"{fmt_times(per_layer)}, cold {per_layer['cold']['device_ms']} "
+          f"(device), bound {per_layer['bound_ms']:.5f} ms")
     return worst, per_layer
+
+
+def cold_fused_layer(kern, shapes, lead, M, layers, gen):
+    """One decode layer of a fused wrapper rotating over `layers` layers'
+    distinct weights (random packed E2M1 codes and positive column
+    scales: the kernel's work does not depend on their values), as the
+    engine walks them (`cold_layer`; no library call computes this
+    function)."""
+    import torch
+    xs = {name: torch.randn(lead + (M, K), generator=gen, device="cuda").to(
+        torch.bfloat16) for name, (K, N) in shapes.items()}
+    calls = []
+    for _ in range(layers):
+        for name, (K, N) in shapes.items():
+            wq = torch.randint(0, 256, lead + (K // 2, N), generator=gen,
+                               device="cuda", dtype=torch.int32).to(
+                                   torch.uint8)
+            sw = torch.rand(lead + (1, N), generator=gen, device="cuda") + 0.05
+            calls.append(lambda a=(xs[name], wq, sw): kern(*a, **FP4_FUSED))
+    return cold_layer(kern.__name__, M, layers, calls)
 
 
 FP16_OPS_PER_S = 989e12           # H100 SXM dense fp16 tensor-core peak
@@ -342,7 +480,7 @@ def check_fused_tiled(cfg, gen, projections):
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import prep_grouped_weights, prep_weights
-    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
+    kw = FP4_FUSED
     worst, timed = 0.0, {}
 
     def check(fn, ref, args, label, E=1, **kw_):
@@ -407,11 +545,11 @@ def check_fused_tiled(cfg, gen, projections):
               f"ms (device {t['scaled_mm_device_ms']})")
         if (K, N) == sorted(set(projections.values()))[0]:
             prep8 = prep_weights(w.to(torch.bfloat16), "fp8_dpa_fused")
-            kw8 = dict(fmt_x="fp8_e4m3", fmt_w="fp8_e4m3", pack_w=False)
             worst = max(worst, check(
                 DM.dpa_matmul_fused, DM.dpa_matmul_fused_ref,
                 (x, prep8["wq"], prep8["sw"]),
-                f"{cfg.name} K={K} N={N} M={LARGE_M} fp8 weights", **kw8))
+                f"{cfg.name} K={K} N={N} M={LARGE_M} fp8 weights",
+                **FP8_FUSED))
             for M in (DM.TILED_MIN_M, DM.TILED_MIN_M + 44):
                 xm = x[:M].contiguous()
                 worst = max(worst, check(
@@ -456,19 +594,29 @@ SWEEP_M = (8, 16, 32, 64, 128, 256, 512)
 SWEEP_SHAPES = ((2560, 9728), (2560, 1024))   # qwen3-4b wg (the sweep), wk
 
 
+def _splitk_launch(lib, x, wq, w_fmt, sw, out, E, M, K, N, bm, bn, split):
+    """One launch of csrc/dpa_matmul.cu through its C entry point (bf16
+    x): no wrapper, so no path's launch count."""
+    import torch
+    from repro_torch.kernels import build as B
+    B.check(lib.dpa_grouped_fused_launch(
+        x.data_ptr(), 1, wq.data_ptr(), w_fmt, sw.data_ptr(), out.data_ptr(),
+        E, M, K, N, bm, bn, split, torch.cuda.current_stream().cuda_stream),
+        "dpa_grouped_fused_launch")
+
+
 def sweep_fused_plan(gen):
-    """Both routes of the fused kernel at qwen3-4b's wg (K 2560, N 9728;
-    and, for the record, its narrowest projection wk, N 1024), M = 8 ..
-    512, through the C entry points (not the wrappers: no path's
-    launches), each held to the plain version and timed on the device
-    (the tiled route with its pre-pass): the evidence for
-    `TILED_MIN_M`."""
+    """Both routes of the fused kernel at qwen3-4b's wg (K 2560, N 9728)
+    and its narrowest projection wk (N 1024), M = 8 .. 512, through the C
+    entry points (no path's launches): the split-K route at its plan's
+    (bn, split) and rows, also past the threshold, and the tiled route
+    with its pre-pass; each held to the plain version and timed on the
+    device: the evidence for `TILED_MIN_M`."""
     import torch
     from repro_torch.kernels import build as B
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import prep_weights
     lib = B.load_library()
-    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
     stream = torch.cuda.current_stream().cuda_stream
     res = {}
     for (K, N), M in ((kn, M) for kn in SWEEP_SHAPES for M in SWEEP_M):
@@ -476,16 +624,16 @@ def sweep_fused_plan(gen):
                              * K ** -0.5).to(torch.bfloat16), "w4a8_kv4_attn8")
         x = torch.randn((M, K), generator=gen, device="cuda").to(
             torch.bfloat16)
-        want = DM.dpa_matmul_fused_ref(x, prep["wq"], prep["sw"], **kw)
+        want = DM.dpa_matmul_fused_ref(x, prep["wq"], prep["sw"], **FP4_FUSED)
         out = torch.empty_like(want)
         codes = torch.empty((M, K), dtype=torch.uint8, device="cuda")
         scales = torch.empty((M, K // 128), device="cuda")
+        bn, split = DM.splitk_cols(1, K, N)
+        bm = DM.splitk_rows(M, K, bn, split)
 
-        def simt():
-            B.check(lib.dpa_grouped_fused_launch(
-                x.data_ptr(), 1, prep["wq"].data_ptr(), 0,
-                prep["sw"].data_ptr(), out.data_ptr(), 1, M, K, N, stream),
-                "dpa_grouped_fused_launch")
+        def splitk():
+            _splitk_launch(lib, x, prep["wq"], 0, prep["sw"], out, 1, M, K, N,
+                           bm, bn, split)
 
         def tiled():
             B.check(lib.dpa_act_quant_launch(
@@ -497,18 +645,76 @@ def sweep_fused_plan(gen):
                 stream), "dpa_fused_tiled_launch")
 
         row = {}
-        for name, fn in (("simt", simt), ("tiled", tiled)):
+        for name, fn in (("splitk", splitk), ("tiled", tiled)):
             out.fill_(float("nan"))
             fn()
             err, ok = _close(out, want)
             if not ok:
                 raise AssertionError(f"fused {name} M={M}: max err {err}")
-            row[name] = device_ms(fn)
-        res[f"{K}x{N} M={M}"] = {**row,
-                                 "plan": DM.fused_plan(1, M, K, N).route}
-        print(f"fused plan sweep K={K} N={N} M={M}: simt {row['simt']} ms, "
-              f"tiled {row['tiled']} ms (device, per call); the plan takes "
-              f"{DM.fused_plan(1, M, K, N).route}")
+            row[name], row[name + "_from"] = device_ms_from(fn)
+        route = DM.fused_plan(1, M, K, N).route
+        res[f"{K}x{N} M={M}"] = {**row, "splitk_plan": f"bm{bm}/bn{bn}/s"
+                                 f"{split}", "plan": route}
+        print(f"fused plan sweep K={K} N={N} M={M}: splitk (bm {bm} bn {bn} "
+              f"split {split}) {row['splitk']} ms, tiled {row['tiled']} ms "
+              f"(device, per call); the plan takes {route}")
+    return res
+
+
+def sweep_splitk_plans(gen, M=8):
+    """Every (bn, split) the split-K route takes at the engines' shapes
+    (qwen3-4b's five projections, granite-moe-1b's two attention shapes
+    and its two expert shapes at E 32) at the decode step's M = 8,
+    through the C entry point (no path's launches), each held to the
+    plain version at the pin and timed on the device: the evidence for
+    `splitk_cols`."""
+    import torch
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels.ops import prep_grouped_weights
+    lib = B.load_library()
+    res = {}
+    shapes = [(1, K, N) for K, N in ((2560, 4096), (2560, 1024), (4096, 2560),
+                                     (2560, 9728), (9728, 2560), (1024, 1024),
+                                     (1024, 512))]
+    shapes += [(32, 1024, 512), (32, 512, 1024)]
+    for E, K, N in shapes:
+        w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
+        prep = prep_grouped_weights(w, "w4a8_kv4_attn8")
+        x = torch.randn((E, M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        want = GM.dpa_grouped_matmul_fused_ref(x, prep["wq"], prep["sw"],
+                                               **FP4_FUSED)
+        out = torch.empty_like(want)
+        times = {}
+        for bn in DM.SPLITK_COLS:
+            for split in range(1, DM.MAX_CLUSTER + 1):
+                if N % bn or (K // DM.BK) % split or DM.splitk_smem_bytes(
+                        8, bn, K, split) > DM.SMEM_LIMIT:
+                    continue
+
+                def call(bn=bn, split=split):
+                    _splitk_launch(lib, x, prep["wq"], 0, prep["sw"], out, E,
+                                   M, K, N, 8, bn, split)
+                out.fill_(float("nan"))
+                call()
+                err, ok = _close(out, want)
+                if not ok:
+                    raise AssertionError(f"splitk E={E} K={K} N={N} bn {bn} "
+                                         f"split {split}: max err {err}")
+                times[f"bn{bn}/s{split}"] = device_ms(call)
+        bn, split = DM.splitk_cols(E, K, N)
+        best = min((v, k) for k, v in times.items() if v is not None)[1] \
+            if any(v is not None for v in times.values()) else None
+        res[f"E{E} {K}x{N}"] = {"plan": f"bn{bn}/s{split}", "best": best,
+                                "device_us": {k: None if v is None else
+                                              v * 1e3
+                                              for k, v in times.items()}}
+        print(f"splitk plans E={E} K={K} N={N} M={M} (device us; the plan "
+              f"takes bn{bn}/s{split}, the fastest {best}): " + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
+                  for k, v in times.items()))
     return res
 
 
@@ -632,48 +838,88 @@ def check_grouped_fused(cfg, gen):
     """The grouped fused kernel at the experts' shapes, bf16 x, packed-fp4
     expert weights prepared from the f32 masters as the model prepares
     them; M = 8 is the decode step (4 live rows, padded as the pipeline
-    pads them), M = 11 a 32-token prefill chunk's capacity.  Zero rows
-    must give exactly 0."""
+    pads them), M = 11 a 32-token prefill chunk's capacity, both timed;
+    the (fp8, fp8) pair at both, untimed; at the first shape also ragged M
+    (`RAGGED_M`, both pairs) and the rows of M = 8 and 1 against those of
+    M = 64.  Zero rows must give exactly 0.  One decode layer is also
+    timed cold, rotating over the model's layers' expert weights."""
     import torch
     from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import prep_grouped_weights
     E = cfg.n_experts
-    kw = dict(fmt_x="fp8_e4m3", fmt_w="fp4_e2m1", pack_w=True)
-    worst, timed = 0.0, {}
-    for K, N in sorted(set(_expert_shapes(cfg).values())):
+    worst, timed, plans = 0.0, {}, {}
+
+    def check(args, kw, live, label):
+        got = GM.dpa_grouped_matmul_fused(*args, **kw)
+        want = GM.dpa_grouped_matmul_fused_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = _held(f"dpa_grouped_matmul_fused {label} {kw['fmt_w']}", got,
+                    want)
+        dropped = torch.cat([got[e, n:].reshape(-1)
+                             for e, n in enumerate(live)])
+        if bool((dropped != 0).any()):
+            raise AssertionError(
+                f"dpa_grouped_matmul_fused {label} {kw['fmt_w']}: "
+                f"{int((dropped != 0).sum())} nonzero outputs on dropped rows")
+        return err, dropped.numel()
+
+    shapes = sorted(set(_expert_shapes(cfg).values()))
+    for K, N in shapes:
         w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
         prep = prep_grouped_weights(w, cfg.policy)
+        prep8 = prep_grouped_weights(w, "fp8_dpa_fused")
         for M, live in ((8, [4] * (E - 2) + [1, 0]),
                         (11, [11] * (E - 3) + [7, 3, 0])):
             x = torch.randn((E, M, K), generator=gen, device="cuda")
             x = _drop(x, live).to(torch.bfloat16)
             args = (x, prep["wq"], prep["sw"])
-            got = GM.dpa_grouped_matmul_fused(*args, **kw)
-            want = GM.dpa_grouped_matmul_fused_ref(*args, **kw)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            ok = bool((err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
-            dropped = torch.cat([got[e, n:].reshape(-1)
-                                 for e, n in enumerate(live)])
-            if not ok or bool((dropped != 0).any()):
-                raise AssertionError(
-                    f"dpa_grouped_matmul_fused E={E} K={K} N={N} M={M}: max "
-                    f"err {float(err.max())}, {int((dropped != 0).sum())} "
-                    "nonzero outputs on dropped rows")
-            worst = max(worst, float(err.max()))
-            t = timings(lambda: GM.dpa_grouped_matmul_fused(*args, **kw),
-                        lambda: GM.dpa_grouped_matmul_fused_ref(*args, **kw))
+            label = f"E={E} K={K} N={N} M={M}"
+            err, n_drop = check(args, FP4_FUSED, live, label)
+            err8, _ = check((x, prep8["wq"], prep8["sw"]), FP8_FUSED, live,
+                            label)
+            worst = max(worst, err, err8)
+            plan = DM.fused_plan(E, M, K, N)
+            plans[f"{K}x{N} M={M}"] = plan._asdict()
+            t = timings(lambda: GM.dpa_grouped_matmul_fused(*args,
+                                                            **FP4_FUSED),
+                        lambda: GM.dpa_grouped_matmul_fused_ref(*args,
+                                                                **FP4_FUSED))
             nbytes = (x.numel() * 2 + prep["wq"].numel()
                       + prep["sw"].numel() * 4 + E * M * N * 4)
             t["bound_ms"], b_by = bound(nbytes, 2.0 * E * M * K * N)
             timed[(K, N, M)] = t
-            print(f"dpa_grouped_matmul_fused E={E} K={K} N={N} M={M}: "
-                  f"max_abs_err {float(err.max()):.3g}, {dropped.numel()} "
+            print(f"dpa_grouped_matmul_fused {label}: {_plan_str(plan)}; "
+                  f"max_abs_err {err:.3g} (fp8 weights {err8:.3g}), {n_drop} "
                   f"dropped-row outputs all 0; {fmt_times(t)} bound_ms "
                   f"{t['bound_ms']:.5f} ({b_by})")
+        if (K, N) != shapes[0]:
+            continue
+        for M in RAGGED_M:
+            live = [M] * (E - 3) + [M // 2, 1, 0]
+            x = _drop(torch.randn((E, M, K), generator=gen, device="cuda"),
+                      live).to(torch.bfloat16)
+            for kw, p_ in ((FP4_FUSED, prep), (FP8_FUSED, prep8)):
+                err, _ = check((x, p_["wq"], p_["sw"]), kw, live,
+                               f"E={E} K={K} N={N} M={M}")
+                worst = max(worst, err)
+                print(f"dpa_grouped_matmul_fused E={E} K={K} N={N} M={M} "
+                      f"{kw['fmt_w']} weights: "
+                      f"{_plan_str(DM.fused_plan(E, M, K, N))}; max_abs_err "
+                      f"{err:.3g}; dropped rows 0")
+        x = torch.randn((E, 64, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        rows_invariant(f"dpa_grouped_matmul_fused E={E} K={K} N={N}",
+                       GM.dpa_grouped_matmul_fused, x,
+                       (prep["wq"], prep["sw"]), FP4_FUSED)
     per_layer = _per_layer(timed, _expert_shapes(cfg), 8)
+    per_layer["plans"] = plans
+    per_layer["cold"] = cold_fused_layer(GM.dpa_grouped_matmul_fused,
+                                         _expert_shapes(cfg), (E,), 8,
+                                         cfg.n_layers, gen)
     print(f"dpa_grouped_matmul_fused: 3 launches per layer per model call; "
-          f"one decode layer (M=8): {fmt_times(per_layer)}, bound "
+          f"one decode layer (M=8), warm: {fmt_times(per_layer)}, cold "
+          f"{per_layer['cold']['device_ms']} (device), bound "
           f"{per_layer['bound_ms']:.5f} ms")
     return worst, per_layer
 
@@ -924,11 +1170,9 @@ def sweep_prequant_plans(gen, M=8):
 
 def cold_prequant_layer(kern, shapes, lead, codes, scales, M=8,
                         layers=COLD_LAYERS):
-    """One decode layer of `kern` and of its library call, rotating over
-    `layers` layers' distinct weight codes, as path B walks them: each
-    matrix is read again only after the other layers' (for the expert
-    stacks, 24 x 24 MB, far past the 50 MB L2).  -> per layer: event ms
-    and device ms of the kernel and of the library call."""
+    """One decode layer of a prequant wrapper and of its library call,
+    rotating over `layers` layers' distinct weight codes, as path B walks
+    them (`cold_layer`)."""
     kcalls, lcalls = [], []
     xs = {name: (codes(*lead, M, K // 2), scales(*lead, M, 1))
           for name, (K, N) in shapes.items()}
@@ -938,24 +1182,35 @@ def cold_prequant_layer(kern, shapes, lead, codes, scales, M=8,
             args = (x, codes(*lead, K // 2, N), sx, scales(*lead, 1, N))
             kcalls.append(lambda a=args: kern(*a, **FP4_PACKED))
             lcalls.append(_library_call(*args)[0])
+    return cold_layer(kern.__name__, M, layers, kcalls, lcalls)
 
+
+def cold_layer(name, M, layers, kcalls, lcalls=()):
+    """Time `layers` decode layers' calls in order, each matrix read again
+    only after every other layer's (for the stacks here, 24-36 x 25-50
+    MB, far past the 50 MB L2), and the library's calls likewise where
+    there are any.  -> per layer: event ms and device ms (with its
+    source) of the kernel and of the library call."""
     def run(calls):
-        return lambda: [c() for c in calls]
+        def go():
+            for c in calls:
+                c()
+        return go
 
-    res = {"layers": layers,
-           "ms": median_ms(run(kcalls), n=5) / layers,
-           "device_ms": _per(device_ms(run(kcalls), n=3), layers),
+    dev, src = device_ms_from(run(kcalls), n=3)
+    res = {"layers": layers, "ms": median_ms(run(kcalls), n=5) / layers,
+           "device_ms": _per(dev, layers), "device_from": src,
            "library_ms": None, "library_device_ms": None}
-    if None not in lcalls:
+    if lcalls and None not in lcalls:
         try:
             res["library_ms"] = median_ms(run(lcalls), n=5) / layers
             res["library_device_ms"] = _per(device_ms(run(lcalls), n=3),
                                             layers)
         except (RuntimeError, TypeError, ValueError) as e:  # a yardstick
             print(f"  library refused ({str(e)[:120]})")
-    print(f"{kern.__name__}: one decode layer (M={M}), cold (rotating over "
-          f"{layers} layers' weights): {res['ms']:.4f} ms (device "
-          f"{res['device_ms']}), library {res['library_ms']} ms (device "
+    print(f"{name}: one decode layer (M={M}), cold (rotating over {layers} "
+          f"layers' weights): {res['ms']:.4f} ms (device {res['device_ms']},"
+          f" {src}), library {res['library_ms']} ms (device "
           f"{res['library_device_ms']})")
     return res
 
@@ -1206,19 +1461,27 @@ def check_quantizers(gen):
 # phase 3: the engine at full width
 # -----------------------------------------------------------------------------
 
-def teacher_forced(model, params, req, s_ctx):
+def teacher_forced(model, params, req, s_ctx, chunk):
     """Step the static contiguous-cache path over the engine's own token
-    timeline and compare its argmax with each engine token: where they
-    differ, the static logits' top-1/top-2 margin says whether the two
-    paths split a near-tie (numerics) or disagree outright (a fault)."""
+    timeline and compare its argmax with each engine token.  The prompt
+    runs in the engine's padded `chunk`-token prefill calls, so its MoE
+    capacity (computed per call) and its first logits are the engine's
+    own computation; after it the paths differ only in decode attention
+    (the paged kernel against the contiguous plain version).  Where they
+    differ, the static logits' top-1/top-2 margin says whether they split
+    a near-tie (numerics) or disagree outright (a fault)."""
     import numpy as np
     import torch
     toks = torch.from_numpy(req.tokens().astype(np.int64)).to("cuda")[None]
     n0 = req.n_prompt
     caches = model.init_caches(1, s_ctx)
-    logits, caches = model.decode_step(
-        params, {"tokens": toks[:, :n0], "index": 0}, caches)
-    rows = [logits[0, -1]]
+    for c0 in range(0, n0, chunk):
+        n = min(chunk, n0 - c0)
+        x = torch.zeros((1, chunk), dtype=torch.int64, device="cuda")
+        x[0, :n] = toks[0, c0:c0 + n]
+        logits, caches = model.decode_step(params, {"tokens": x, "index": c0},
+                                           caches)
+    rows = [logits[0, n - 1]]
     for j in range(1, req.max_new):
         logits, caches = model.decode_step(
             params, {"tokens": toks[:, n0 + j - 1:n0 + j], "index": n0 + j - 1},
@@ -1230,10 +1493,16 @@ def teacher_forced(model, params, req, s_ctx):
     agree = (lg.argmax(-1).cpu().numpy() == np.asarray(req.out_tokens))
     scale = float(lg.abs().max())
     worst = float(margin[~agree].max()) if (~agree).any() else 0.0
-    print(f"request {req.rid}: teacher-forced agreement {int(agree.sum())}/"
-          f"{req.max_new}; largest static top-2 margin where they differ "
-          f"{worst:.3g} (median margin {float(np.median(margin)):.3g}, "
-          f"logit scale {scale:.3g})")
+    res = {"agree": int(agree.sum()), "tokens": req.max_new,
+           "first_token_agrees": bool(agree[0]),
+           "worst_margin_where_differ": worst,
+           "median_margin": float(np.median(margin)), "logit_scale": scale}
+    print(f"request {req.rid}: teacher-forced agreement {res['agree']}/"
+          f"{req.max_new} (first token {'equal' if agree[0] else 'differs'});"
+          f" largest static top-2 margin where they differ {worst:.3g} "
+          f"(median margin {res['median_margin']:.3g}, logit scale "
+          f"{scale:.3g})")
+    return res
 
 
 KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
@@ -1241,8 +1510,9 @@ KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
                 "dpa_grouped_matmul_prequant", "dpa_flash_attention",
                 "flash_attention", "quantize_rows", "quantize_pack_rows",
                 "dpa_act_quant")
-# per-route counts: the fused wrappers' launches that took the tiled route
-ROUTE_COUNTS = ("dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled")
+# per-route counts: the fused wrappers' launches on each of their routes
+ROUTE_COUNTS = ("dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
+                "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled")
 
 
 def _wrappers():
@@ -1268,14 +1538,16 @@ def zero_counts():
     for fn in wrappers.values():
         fn.launches = 0
     for name in ROUTE_COUNTS:
-        wrappers[name.split(".")[0]].tiled_launches = 0
+        fn, route = name.split(".")
+        setattr(wrappers[fn], f"{route}_launches", 0)
 
 
 def read_counts() -> dict:
     wrappers = _wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ROUTE_COUNTS:
-        counts[name] = wrappers[name.split(".")[0]].tiled_launches
+        fn, route = name.split(".")
+        counts[name] = getattr(wrappers[fn], f"{route}_launches")
     return counts
 
 
@@ -1351,7 +1623,7 @@ def moe_repeatable(params, cfg, runs: int = 3):
           f"{runs} runs bit-identical")
 
 
-def run_engine(cfg, ecfg, *, agreement: bool):
+def run_engine(cfg, ecfg):
     import numpy as np
     import torch
     from repro_torch.launch.engine import Engine, synthetic_workload
@@ -1380,7 +1652,9 @@ def run_engine(cfg, ecfg, *, agreement: bool):
     dense, experts = per_call_projections(cfg)
     check_counts(f"{cfg.name} engine", counts, {
         "dpa_matmul_fused": dense * cfg.n_layers * calls,
+        "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
         "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
+        "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
         "paged_decode_attention": cfg.n_layers * rep["decode_steps"]})
     print(f"  = {dense * cfg.n_layers} dense"
           + (f" + {experts * cfg.n_layers} grouped" if experts else "")
@@ -1414,10 +1688,17 @@ def run_engine(cfg, ecfg, *, agreement: bool):
               f"{rep['expert_w_bytes_f32'] / 1e6:.2f} MB "
               f"({rep['expert_w_reduction_vs_f32']:.1f}x)")
 
-    # greedy agreement with the static path on the card (printed, not
-    # asserted: the paged kernel and the contiguous plain path sum in
-    # different orders, and random weights leave near-tied logits)
-    for r in reqs[:2] if agreement else ():
+    # greedy agreement with `generate` on the card, reported: its one-call
+    # prefill of the whole prompt takes the tiled route from 128 tokens on
+    # and, for a MoE model, other expert capacities than the engine's
+    # 32-token chunks, and random weights leave near-tied logits.  The
+    # teacher-forced replay runs the engine's own prefill calls, so the
+    # first token must be the engine's; after it only decode attention
+    # differs, which splits near-ties: a wrong page, position or cache row
+    # would leave next to no token in agreement, so at least half must
+    # agree (the margins where they differ are reported beside)
+    rep["agreement"] = []
+    for r in reqs[:2]:
         out = generate(model, params, r.prompt[None], r.max_new, ecfg.s_max,
                        device="cuda")
         same = np.asarray(r.out_tokens) == out[0, r.n_prompt:].cpu().numpy()
@@ -1425,7 +1706,13 @@ def run_engine(cfg, ecfg, *, agreement: bool):
         print(f"request {r.rid}: engine vs generate greedy agreement "
               f"{int(same.sum())}/{r.max_new}, identical up to token "
               f"{first}")
-        teacher_forced(model, params, r, ecfg.s_max)
+        tf = teacher_forced(model, params, r, ecfg.s_max, ecfg.prefill_chunk)
+        if not tf["first_token_agrees"] or 2 * tf["agree"] < tf["tokens"]:
+            raise AssertionError(f"request {r.rid}: teacher-forced replay "
+                                 f"{tf}")
+        rep["agreement"].append({
+            "rid": r.rid, "n_prompt": r.n_prompt, "greedy_agree":
+            int(same.sum()), "identical_up_to": first, "teacher_forced": tf})
     return model, params, rep, counts
 
 
@@ -1715,7 +2002,9 @@ def profile_engine(model, params, ecfg):
         "prefill chunk (32 tokens)": lambda: model.decode_step(
             params, {"tokens": chunk, "index": 0}, engine._staging),
     }
-    return {name: profile_window(f"{model.cfg.name} {name}", fn)
+    return {name: profile_window(f"{model.cfg.name} {name}", fn,
+                                 watch=("dpa_fused_kernel",
+                                        "paged_decode"))
             for name, fn in windows.items()}
 
 
@@ -1805,10 +2094,13 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     # phase 2: every kernel against its plain version
-    mm_err, mm_t = check_matmul(qwen, gen, _dense_shapes(qwen))
-    gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite))
+    mm_err, mm_t = check_matmul(qwen, gen, _dense_shapes(qwen),
+                                qwen.n_layers)
+    gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite),
+                                  granite.n_layers)
     tl_err, tl_t = check_fused_tiled(qwen, gen, _dense_shapes(qwen))
     fused_sweep = sweep_fused_plan(gen)
+    splitk_plans = sweep_splitk_plans(gen)
     pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
@@ -1822,7 +2114,7 @@ def main() -> None:
     t_kernels = time.monotonic() - t_start
 
     # phase 3a / 4: qwen3-4b through the engine
-    model, params, rep_q, n_q = run_engine(qwen, ecfg, agreement=True)
+    model, params, rep_q, n_q = run_engine(qwen, ecfg)
     prof_q = profile_engine(model, params, ecfg)
     del model
     t_engine_q = time.monotonic() - t_start
@@ -1838,7 +2130,7 @@ def main() -> None:
     t_qwen = time.monotonic() - t_start
 
     # phase 3b / 4: granite-moe-1b through the engine (path A)
-    model, params, rep_g, n_g = run_engine(granite, ecfg, agreement=False)
+    model, params, rep_g, n_g = run_engine(granite, ecfg)
     prof_g = profile_engine(model, params, ecfg)
     # phase 3c: granite-moe-1b through generate under fp4_dpa_packed
     # (path B), on the same weights prepared for that policy
@@ -1867,12 +2159,19 @@ def main() -> None:
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": (n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"]
                       + n_d["dpa_matmul_fused"]),
+         "splitk_launches": (n_q["dpa_matmul_fused.splitk"]
+                             + n_g["dpa_matmul_fused.splitk"]),
          "max_abs_err": max(mm_err, gmm_err, tl_err), **times(mm_t),
+         "device_from": mm_t.get("device_from"),
          "bound_by": "bytes", "library_ms": None,
-         "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4",
+         "cold": mm_t["cold"], "plans": mm_t["plans"],
+         "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4 "
+               "(padded to 8), split-K route; cold: 36 layers' weights",
          "granite": {"max_abs_err": gmm_err, **times(gmm_t),
+                     "cold": gmm_t["cold"], "plans": gmm_t["plans"],
                      "at": "granite-moe-1b, one layer's 4 attention "
-                           "projections at decode M=4"},
+                           "projections at decode M=4 (padded to 8); cold: "
+                           "24 layers' weights"},
          "tiled": {
              "name": "dpa_matmul_fused", "route": "cuda",
              "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
@@ -1926,10 +2225,13 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_grouped_matmul.py:154",
          "launches": n_g["dpa_grouped_matmul_fused"],
+         "splitk_launches": n_g["dpa_grouped_matmul_fused.splitk"],
          "max_abs_err": gf_err, **times(gf_t),
          "bound_by": "bytes", "library_ms": None,
+         "cold": gf_t["cold"], "plans": gf_t["plans"],
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
-               "M=8 (4 rows padded)"},
+               "M=8 (4 rows padded), split-K route; cold: 24 layers' "
+               "expert weights"},
         {"name": "dpa_grouped_matmul_prequant", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_prequant.cu",
          "replaces": "src/repro/kernels/dpa_grouped_matmul.py:75",
@@ -1989,6 +2291,7 @@ def main() -> None:
     print("prequant plans: " + json.dumps(pq_plans))
     print("fused plan sweep: " + json.dumps(
         {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))
+    print("splitk plans: " + json.dumps(splitk_plans))
     print(f"total {t_total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,8 +19,9 @@
 //
 // What bounds it: operations.  At path D's M = 4096 one qwen3-4b layer is
 // 8.27e11 operations, 0.42 ms at the fp8 peak and 0.84 ms at the fp16
-// peak, against 0.02-0.05 ms for its bytes.  dpa_matmul.cu re-quantizes
-// x for every 32 output columns and runs f32 FMAs on the CUDA cores.
+// peak, against 0.02-0.05 ms for its bytes.  dpa_matmul.cu quantizes x
+// again in every block of a column tile and re-reads the weights for
+// every 32 rows: right where the weight bytes bound a call, not here.
 //
 // Stage one, act_quant_kernel: x (E, M, K) f32/bf16 -> E4M3 codes (E, M,
 // K) uint8 and scales (E, M, K/128) f32, one warp per (row, K block),
@@ -53,7 +54,8 @@
 // column 4g serves all four n-tiles; a packed byte becomes an f16x2 by
 // two byte-permutes from an 8-entry magnitude table plus the sign bits.
 // The row pitch (144 B) puts every fragment load of a warp on distinct
-// banks (2-way on the E4M3-weight loads).
+// banks (2-way on the E4M3-weight loads).  The conversions, cp.async and
+// the MMA are dpa_mma.cuh's, shared with dpa_matmul.cu.
 //   Rows at or past M and columns at or past N (N % 32 == 0) are
 // zero-filled and never stored.
 //   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 3.9 ms per
@@ -64,6 +66,7 @@
 // and TMA (operands from shared memory, asynchronous, a producer warp) are
 // the next step.
 #include "dpa_common.cuh"
+#include "dpa_mma.cuh"
 
 namespace {
 
@@ -87,95 +90,6 @@ struct Stage {
   static constexpr int kBytes = kS + kBM * 4;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two E4M3 codes (low 16 bits; the lower code in the lower byte) -> f16x2
-// (exact).
-__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t v) {
-  uint32_t r;
-  const unsigned short h = static_cast<unsigned short>(v & 0xFFFFu);
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"(h));
-  return r;
-}
-
-// Four packed E2M1 bytes (byte j: low nibble even k, high nibble odd k)
-// -> four f16x2 (exact), out[j] from byte j.  The magnitude (code & 7)
-// picks the f16's high byte from an 8-entry table (0, 0.5, 1, 1.5, 2, 3,
-// 4, 6); bit 3 of the code is the sign; the f16s' low bytes are 0.
-__device__ __forceinline__ void fp4x8_to_f16x2(uint32_t w, uint32_t (&out)[4]) {
-  constexpr uint32_t kLut0 = 0x3E3C3800u, kLut1 = 0x46444240u;
-  const uint32_t mag = w & 0x77777777u;
-  const uint32_t sgn = (w >> 3) & 0x11111111u;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t hi = __byte_perm(kLut0, kLut1, mag >> (16 * h)) |
-                        __byte_perm(0x8000u, 0u, sgn >> (16 * h));
-    out[2 * h] = __byte_perm(hi, 0u, 0x1404u);
-    out[2 * h + 1] = __byte_perm(hi, 0u, 0x3424u);
-  }
-}
-
-__device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0,
-                                        uint32_t a1, uint32_t a2,
-                                        uint32_t a3, uint32_t b0,
-                                        uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xFFFF0000u);
-}
-
 // Stage one: warp b quantizes K block (b % nkb) of row (b / nkb); its
 // scale lands at scales[b], which is the (rows, K / 128) layout.
 template <typename XT>
@@ -188,7 +102,7 @@ act_quant_kernel(const XT* __restrict__ x, uint8_t* __restrict__ codes,
   const int lane = threadIdx.x & 31, nkb = K / kBK;
   const size_t off = (size_t)(b / nkb) * K + (b % nkb) * kBK + lane * 4;
   float v[4];
-  load4(x + off, v);
+  dpa::load4(x + off, v);
   const float a = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
                         fmaxf(fabsf(v[2]), fabsf(v[3])));
   const float s = dpa::e4m3_scale(dpa::warp_max(a));
@@ -236,7 +150,7 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
       for (int i = tid; i < kBM * 8; i += kThreads) {
         const int r = i >> 3, v = i & 7;
         const bool live = m0 + r < M;
-        cp_async16(st + r * kPitch + v * 16,
+        dpa::cp_async16(st + r * kPitch + v * 16,
                    live ? xq + (size_t)(m0 + r) * K + k0 + v * 16 : xq,
                    live ? 16 : 0);
       }
@@ -244,18 +158,18 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
       for (int i = tid; i < S::kWRows * 8; i += kThreads) {
         const int r = i >> 3, v = i & 7;
         const bool live = n0 + v * 16 < N;
-        cp_async16(st + S::kW + r * kPitch + v * 16,
+        dpa::cp_async16(st + S::kW + r * kPitch + v * 16,
                    live ? wq + (size_t)(kr0 + r) * N + n0 + v * 16 : wq,
                    live ? 16 : 0);
       }
       if (tid < kBM) {
         const bool live = m0 + tid < M;
-        cp_async4(st + S::kS + tid * 4,
+        dpa::cp_async4(st + S::kS + tid * 4,
                   live ? xs + (size_t)(m0 + tid) * nkb + c : xs,
                   live ? 4 : 0);
       }
     }
-    cp_async_commit();
+    dpa::cp_async_commit();
   };
 
   float acc[kMT][4][4];
@@ -275,12 +189,12 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) fetch(c);
   for (int c = 0; c < nkb; ++c) {
-    cp_async_wait<kStages - 2>();  // block c has landed (this thread's)
+    dpa::cp_async_wait<kStages - 2>();  // block c has landed (this thread's)
     __syncthreads();               // ... everyone's; block c - 1 is read
     fetch(c + kStages - 1);        // into block c - 1's slot
 
     const uint8_t* st = smem + (c % kStages) * S::kBytes;
-    const uint32_t a_base = smem_u32(st) + a_off;
+    const uint32_t a_base = dpa::smem_u32(st) + a_off;
     const uint8_t* w_base = st + S::kW + wn * 32 + 4 * g;
     float part[kMT][4][4];
 #pragma unroll
@@ -297,39 +211,31 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
       uint32_t a[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
-        ldmatrix_x4(a[mt], a_base + mt * 16 * kPitch + q * 32);
+        dpa::ldmatrix_x4(a[mt], a_base + mt * 16 * kPitch + q * 32);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int s = 2 * q + h;
         uint32_t b0[4], b1[4];   // n-tile j: column 4g + j
         if constexpr (kFp4) {
           const uint8_t* wr = w_base + (8 * s + 2 * t) * kPitch;
-          fp4x8_to_f16x2(lds32(wr), b0);            // k 4t, 4t+1
-          fp4x8_to_f16x2(lds32(wr + kPitch), b1);   // k 4t+2, 4t+3
+          dpa::fp4x8_to_f16x2(dpa::lds32(wr), b0);            // k 4t, 4t+1
+          dpa::fp4x8_to_f16x2(dpa::lds32(wr + kPitch), b1);   // k 4t+2, 4t+3
         } else {
           const uint8_t* wr = w_base + (16 * s + 4 * t) * kPitch;
-          const uint32_t r0 = lds32(wr), r1 = lds32(wr + kPitch);
-          const uint32_t r2 = lds32(wr + 2 * kPitch),
-                         r3 = lds32(wr + 3 * kPitch);
-          const uint32_t p01 = __byte_perm(r0, r1, 0x5140u),
-                         p23 = __byte_perm(r0, r1, 0x7362u);
-          const uint32_t q01 = __byte_perm(r2, r3, 0x5140u),
-                         q23 = __byte_perm(r2, r3, 0x7362u);
-          b0[0] = e4m3x2_to_f16x2(p01), b0[1] = e4m3x2_to_f16x2(p01 >> 16);
-          b0[2] = e4m3x2_to_f16x2(p23), b0[3] = e4m3x2_to_f16x2(p23 >> 16);
-          b1[0] = e4m3x2_to_f16x2(q01), b1[1] = e4m3x2_to_f16x2(q01 >> 16);
-          b1[2] = e4m3x2_to_f16x2(q23), b1[3] = e4m3x2_to_f16x2(q23 >> 16);
+          dpa::e4m3x16_to_f16x2(dpa::lds32(wr), dpa::lds32(wr + kPitch),
+                                dpa::lds32(wr + 2 * kPitch),
+                                dpa::lds32(wr + 3 * kPitch), b0, b1);
         }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           const uint32_t lo = a[mt][2 * h], hi = a[mt][2 * h + 1];
-          const uint32_t a0 = e4m3x2_to_f16x2(lo);
-          const uint32_t a1 = e4m3x2_to_f16x2(hi);
-          const uint32_t a2 = e4m3x2_to_f16x2(lo >> 16);
-          const uint32_t a3 = e4m3x2_to_f16x2(hi >> 16);
+          const uint32_t a0 = dpa::e4m3x2_to_f16x2(lo);
+          const uint32_t a1 = dpa::e4m3x2_to_f16x2(hi);
+          const uint32_t a2 = dpa::e4m3x2_to_f16x2(lo >> 16);
+          const uint32_t a3 = dpa::e4m3x2_to_f16x2(hi >> 16);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma_f16(part[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+            dpa::mma_f16(part[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
         }
       }
     }
@@ -350,7 +256,7 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
       }
     }
   }
-  cp_async_wait<0>();
+  dpa::cp_async_wait<0>();
 
   // epilogue: c0 of n-tile j is column 8t + j, c1 column 8t + 4 + j, so a
   // thread's outputs of a row are 8 adjacent columns: two 16-byte stores

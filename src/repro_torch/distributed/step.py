@@ -2,7 +2,7 @@
 of `repro.distributed.step`).
 
 Forward only: the gradients, the optimizer and the train steps are
-ROADMAP Queue 1 item 11.  The cross-entropy is evaluated in sequence
+ROADMAP Queue 1, "Training".  The cross-entropy is evaluated in sequence
 chunks when the config's `logits_chunk` divides the sequence, so the
 (B, S, V) logits of a 150k vocabulary never exist at once.  A mean is a
 sum times f32(1/n), as the jitted reference computes it.

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("dpa_matmul.cu", "dpa_fused_tiled.cu", "dpa_prequant.cu",
            "paged_decode.cu", "flash_attention.cu", "quantize_rows.cu")
-HEADERS = ("dpa_common.cuh",)
+HEADERS = ("dpa_common.cuh", "dpa_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,9 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x, x_bf16, wq, w_fmt, sw, out, E (1 for a dense product), M, K, N,
-    # stream
+    # bm, bn, split, stream
     "dpa_grouped_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
-                                 _P),
+                                 _I, _I, _I, _P),
     # x, x_bf16, codes, scales, rows, K, stream
     "dpa_act_quant_launch": (_P, _I, _P, _P, _I, _I, _P),
     # xq, xs, wq, w_fmt, sw, out, E, M, K, N, stream

@@ -6,8 +6,9 @@ Replaces the Pallas TPU kernels `repro/kernels/dpa_grouped_matmul.py`
 contracts of `kernels.dpa_matmul`, one (M, K) x (K, N) product per
 expert of an (E, M, K) x (E, K, N) stack.  The CUDA kernels are the
 dense ones with the expert as grid dimension z (`csrc/dpa_matmul.cu`
-`dpa_grouped_fused_launch` or, at `fused_plan`'s large M, the tiled
-route of `csrc/dpa_fused_tiled.cu`; `csrc/dpa_prequant.cu` at E > 1).
+`dpa_grouped_fused_launch`, the split-K route, or, at `fused_plan`'s
+large M, the tiled route of `csrc/dpa_fused_tiled.cu`;
+`csrc/dpa_prequant.cu` at E > 1).
 """
 from __future__ import annotations
 
@@ -52,14 +53,16 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
     plan = DM.launch_fused(x, wq, sw, out, E, M, K, N, fmt_x=fmt_x,
                            fmt_w=fmt_w, pack_w=pack_w, bk=bk,
-                           what="dpa_grouped_matmul_fused", item=6)
+                           what="dpa_grouped_matmul_fused")
     dpa_grouped_matmul_fused.launches += 1
     dpa_grouped_matmul_fused.tiled_launches += plan.route == "tiled"
+    dpa_grouped_matmul_fused.splitk_launches += plan.route == "splitk"
     return out
 
 
 dpa_grouped_matmul_fused.launches = 0
 dpa_grouped_matmul_fused.tiled_launches = 0
+dpa_grouped_matmul_fused.splitk_launches = 0
 
 
 # -----------------------------------------------------------------------------

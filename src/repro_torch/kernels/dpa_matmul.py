@@ -7,9 +7,10 @@ activations are absmax-quantized per (row, K block of 128) onto the E4M3
 grid, each block's partial product over pre-quantized weights is scaled
 by its row scale and added into an f32 accumulator, and the weight
 column scales apply at the end.  `fused_plan` picks one of two routes by
-shape: below `TILED_MIN_M` rows, `csrc/dpa_matmul.cu` (f32 FMAs, x
-quantized in the prologue; decode steps and prefill chunks); from it on,
-`csrc/dpa_fused_tiled.cu`, the pre-pass `dpa_act_quant` (x quantized
+shape: below `TILED_MIN_M` rows, `csrc/dpa_matmul.cu` ("splitk": swapped
+fp16 tensor-core products, K split across a thread-block cluster whose
+blocks share x's quantization; decode steps and prefill chunks); from it
+on, `csrc/dpa_fused_tiled.cu`, the pre-pass `dpa_act_quant` (x quantized
 once) and then a tiled product on the fp16 tensor cores.
 
 `dpa_matmul_prequant` (`csrc/dpa_prequant.cu`) replaces
@@ -97,49 +98,113 @@ def check_fused(x, wq, sw, pack_w, lead=()):
 
 
 # From this many rows per expert on, the tiled route: the smallest M of
-# chip_smoke.py's sweep (M = 8 .. 512, PERF.md) at which it beats the
-# present kernel at both swept qwen3-4b shapes (at wg, N 9728, it wins
-# from M = 8; at wk, N 1024, from 128).  The engines' calls (M <= 64)
-# stay on csrc/dpa_matmul.cu.
+# chip_smoke.py's sweep (M = 8 .. 512, PERF.md) at which it takes less
+# device time than the split-K route over the two swept qwen3-4b shapes
+# together (wg, N 9728, alone crosses over between 32 and 64 rows; wk, N
+# 1024, between 256 and 512).  The engines' calls (decode steps of 8
+# rows, prefill chunks of 32) stay on csrc/dpa_matmul.cu.
 TILED_MIN_M = 128
 TILE = 128                   # the tiled route's output tile, rows and columns
-SIMT_COLS = 32               # dpa_matmul.cu: output columns per block
+SMS = 132                    # H100 SXM streaming multiprocessors
+MAX_CLUSTER = 8              # the portable thread-block cluster size
+SMEM_LIMIT = 232448          # shared memory a block may use (227 KB)
+# csrc/dpa_matmul.cu, the split-K route
+SPLITK_COLS = (64, 32)       # output columns per block
+SPLITK_ROWS = (8, 16, 32)    # rows per block
+SPLITK_WARPS = 4             # each folds K blocks warp, warp + 4, ...
+SPLITK_STAGE_ROWS = 64       # weight rows per ring stage
+SPLITK_SLICE = 1280          # K per cluster rank the plan aims below
+SPLITK_MIN_BLOCKS = 64       # ... and blocks it aims at, about half the SMs
+
+
+def splitk_smem_bytes(bm: int, bn: int, K: int, split: int) -> int:
+    """Shared memory of one split-K block (`smem_layout` of
+    csrc/dpa_matmul.cu): bm rows of x as E4M3 codes over the K slice (row
+    pitch K / split + 16 bytes), their block scales, the warps' weight
+    rings (no deeper than a warp's K blocks fill, counted at E4M3
+    weights' two stages a K block: at least the packed weights' need);
+    then the cluster's receive slots."""
+    ks = K // split
+    slots = min({32: 4, 64: 3}[bn],
+                -(-(ks // BK) // SPLITK_WARPS) * 2)
+    ring = -(-(bm * (ks + 16) + ks // BK * bm * 4) // 16) * 16 \
+        + SPLITK_WARPS * slots * SPLITK_STAGE_ROWS * (bn + 16)
+    return (max(ring, SPLITK_WARPS * bm * bn * 4)
+            + split * -(-bm * bn // split) * 4)
 
 
 class FusedPlan(NamedTuple):
-    """The fused kernel's launch: `route` "simt" (`csrc/dpa_matmul.cu`) or
-    "tiled" (`csrc/dpa_fused_tiled.cu`), `bm` x `bn` outputs per block,
+    """The fused kernel's launch: `route` "splitk" (`csrc/dpa_matmul.cu`:
+    swapped fp16 MMAs, K split over a cluster of `split` blocks) or "tiled"
+    (`csrc/dpa_fused_tiled.cu`, `split` 1), `bm` x `bn` outputs per block,
     `blocks` in the grid."""
     route: str
     bm: int
     bn: int
+    split: int
     blocks: int
 
 
 @functools.lru_cache(maxsize=None)
+def splitk_cols(E: int, K: int, N: int):
+    """The split-K route's (bn, split) from (E, K, N) alone — the split
+    decides the bits of the fold, so no row's output depends on M.  64
+    columns a block where that alone gives `SMS` column tiles, else 32;
+    then the smallest split (a cluster size <= 8 dividing K / 128) that
+    leaves each rank at most `SPLITK_SLICE` of K and brings the grid to
+    `SPLITK_MIN_BLOCKS`, else the largest, among those whose block fits its
+    shared memory at 8 rows (chip_smoke.py's sweep of every (bn, split)
+    at the engines' shapes, PERF.md).  None where no split fits (K too
+    long for the x slice in shared memory)."""
+    splits = [s for s in range(1, MAX_CLUSTER + 1) if (K // BK) % s == 0]
+    for bn in ((64, 32) if N % 64 == 0 and E * (N // 64) >= SMS else (32,)):
+        fits = [s for s in splits
+                if splitk_smem_bytes(8, bn, K, s) <= SMEM_LIMIT]
+        if fits:
+            return bn, next((s for s in fits if K // s <= SPLITK_SLICE
+                             and E * (N // bn) * s >= SPLITK_MIN_BLOCKS),
+                            fits[-1])
+    return None
+
+
+def splitk_rows(M: int, K: int, bn: int, split: int) -> int:
+    """Rows per split-K block: the smallest tile holding M, else the
+    largest, halved until the block fits its shared memory.  Any tile
+    gives every row the same bits."""
+    bm = next((r for r in SPLITK_ROWS if M <= r), SPLITK_ROWS[-1])
+    while bm > 8 and splitk_smem_bytes(bm, bn, K, split) > SMEM_LIMIT:
+        bm //= 2
+    return bm
+
+
+@functools.lru_cache(maxsize=None)
 def fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
-    """The route by shape alone: "tiled" from `TILED_MIN_M` rows per
-    expert on, else "simt" (8 rows a block up to M = 8, else 16).  Raises
-    for what no route takes: K not a positive multiple of 128, N not a
-    positive multiple of 32, E outside [1, 65535], M < 1.  Memoized."""
+    """The route by shape: "tiled" from `TILED_MIN_M` rows per expert on
+    (or where no split-K launch fits), else "splitk" with `splitk_cols`'
+    (bn, split) and `splitk_rows`' rows.  Raises for what no route takes:
+    K not a positive multiple of 128, N not a positive multiple of 32, E
+    outside [1, 65535], M < 1.  Memoized."""
     if K <= 0 or K % BK:
         raise ValueError(f"fused kernel needs K % {BK} == 0, K > 0; got "
                          f"K={K}")
-    if N <= 0 or N % SIMT_COLS:
-        raise ValueError(f"fused kernel needs N % {SIMT_COLS} == 0, N > 0;"
-                         f" got N={N}")
+    if N <= 0 or N % SPLITK_COLS[-1]:
+        raise ValueError(f"fused kernel needs N % {SPLITK_COLS[-1]} == 0, "
+                         f"N > 0; got N={N}")
     if not 1 <= E <= 65535 or M < 1:
         raise ValueError(f"fused kernel needs 1 <= E <= 65535 and M >= 1; "
                          f"got E={E}, M={M}")
-    if M >= TILED_MIN_M:
-        return FusedPlan("tiled", TILE, TILE,
+    cols = splitk_cols(E, K, N)
+    if M >= TILED_MIN_M or cols is None:
+        return FusedPlan("tiled", TILE, TILE, 1,
                          E * -(-M // TILE) * -(-N // TILE))
-    bm = 8 if M <= 8 else 16
-    return FusedPlan("simt", bm, SIMT_COLS, E * -(-M // bm) * (N // SIMT_COLS))
+    bn, split = cols
+    bm = splitk_rows(M, K, bn, split)
+    return FusedPlan("splitk", bm, bn, split,
+                     E * -(-M // bm) * (N // bn) * split)
 
 
 def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
-                 what, item) -> FusedPlan:
+                 what) -> FusedPlan:
     """Launch the shape's `fused_plan` route on CUDA operands (E = 1
     dense), or raise for what the kernels do not serve.  -> the plan."""
     w_fmt = KERNEL_W.get((fmt_w, pack_w))
@@ -147,7 +212,7 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
         raise NotImplementedError(
             f"{what} kernel serves (fp8_e4m3, packed fp4_e2m1) and "
             f"(fp8_e4m3, fp8_e4m3); ({fmt_x}, {fmt_w}, pack_w={pack_w}) is "
-            f"ROADMAP Queue 2 item {item}, other fmt pairs")
+            "open in ROADMAP Queue 2 under dpa_matmul_fused (formats open)")
     if bk != BK:
         raise ValueError(f"kernel needs bk == {BK}; got bk={bk}")
     plan = fused_plan(E, M, K, N)
@@ -157,9 +222,10 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
         raise TypeError(f"packed fp4 weights must be uint8, got {wq.dtype}")
     if not (x.is_contiguous() and wq.is_contiguous() and sw.is_contiguous()):
         raise ValueError(f"{what} kernel needs contiguous operands")
-    if plan.route == "tiled" and any(t.data_ptr() % 16
-                                     for t in (x, wq, sw, out)):
-        raise ValueError(f"{what} tiled route needs 16-byte aligned operands")
+    aligned = (x, wq, sw, out) if plan.route == "tiled" else (x, wq)
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{what} {plan.route} route needs 16-byte aligned "
+                         "operands")
     lib = build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.route == "tiled":
@@ -170,7 +236,8 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
     else:
         err = lib.dpa_grouped_fused_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
-            w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, stream)
+            w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, plan.bm,
+            plan.bn, plan.split, stream)
     build.check(err, what)
     return plan
 
@@ -193,14 +260,16 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     plan = launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x,
                         fmt_w=fmt_w, pack_w=pack_w, bk=bk,
-                        what="dpa_matmul_fused", item=1)
+                        what="dpa_matmul_fused")
     dpa_matmul_fused.launches += 1
     dpa_matmul_fused.tiled_launches += plan.route == "tiled"
+    dpa_matmul_fused.splitk_launches += plan.route == "splitk"
     return out
 
 
 dpa_matmul_fused.launches = 0
 dpa_matmul_fused.tiled_launches = 0
+dpa_matmul_fused.splitk_launches = 0
 
 
 # -----------------------------------------------------------------------------
@@ -313,8 +382,6 @@ def check_prequant(xq, wq, sx, sw, pack_x, pack_w, lead=()):
     return M, K, N
 
 
-SMS = 132                    # H100 SXM streaming multiprocessors
-MAX_CLUSTER = 8              # the portable thread-block cluster size
 COL_TILES = (64, 32, 16)     # output columns per block, widest first
 ROW_TILES = (8, 16, 32, 64)  # rows per block
 MAX_TILE = 2048              # rows x columns a block: 64 int32 sums a thread
@@ -371,7 +438,8 @@ def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
         raise NotImplementedError(
             f"{what} kernel serves packed fp4_e2m1 x packed fp4_e2m1; "
             f"({fmt_x}, {fmt_w}, pack_x={pack_x}, pack_w={pack_w}) is "
-            "ROADMAP Queue 2 item 3, other fmt pairs")
+            "open in ROADMAP Queue 2 under dpa_matmul_prequant (formats "
+            "open)")
     plan = prequant_plan(E, M, K, N)
     if xq.dtype != torch.uint8 or wq.dtype != torch.uint8:
         raise TypeError(f"packed fp4 operands must be uint8, got {xq.dtype} "

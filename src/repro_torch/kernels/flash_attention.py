@@ -231,8 +231,8 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
             f"dpa_flash_attention kernel serves fp8_e4m3 attention over "
             f"fp8_e4m3 or fp4_e2m1 K/V (raw, cache codes, packed fp4); "
             f"(fmt={fmt}, fmt_kv={fmt_kv}, kv_quant={kv_quant}, "
-            f"kv_packed={kv_packed}) is ROADMAP Queue 2 item 4, other "
-            "formats")
+            f"kv_packed={kv_packed}) is open in ROADMAP Queue 2 under "
+            "dpa_flash_attention (formats open)")
     B, Hkv, Sk = k.shape[:3]
     ks = vs = None
     if kv_quant:

@@ -76,8 +76,8 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
         raise NotImplementedError(
             f"paged_decode_attention kernel serves fp8_e4m3 attention over "
             f"packed fp4_e2m1 or fp8_e4m3 KV; (fmt={fmt}, fmt_kv={fmt_kv}, "
-            f"kv_packed={kv_packed}) is ROADMAP Queue 2 item 2, other KV "
-            "formats")
+            f"kv_packed={kv_packed}) is open in ROADMAP Queue 2 under "
+            "paged_decode_attention (formats open)")
     if hd not in KERNEL_HEAD_DIMS or H % KV or H // KV > 8:
         raise ValueError(f"kernel needs hd in {KERNEL_HEAD_DIMS} and H/KV <= "
                          f"8; got hd={hd}, H={H}, KV={KV}")

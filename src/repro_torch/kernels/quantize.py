@@ -82,7 +82,7 @@ def quantize_rows(x, *, fmt: str):
     if name not in _KERNEL_FMT:
         raise NotImplementedError(
             f"quantize_rows kernel serves {sorted(_KERNEL_FMT)}; {fmt} is "
-            "ROADMAP Queue 2 item 5, other formats")
+            "open in ROADMAP Queue 2 under quantize_rows (formats open)")
     codes = torch.empty(x.shape, dtype=torch_dtype(name), device=x.device)
     out = _launch(x, codes, _KERNEL_FMT[name], "quantize_rows")
     quantize_rows.launches += 1

@@ -33,8 +33,9 @@ on the CPU, where every plain path is row-invariant
 since expert capacity is computed per model call.  MoE configs serve
 through the `grouped_matmul` plan, resolved at construction.
 Speculative decoding, the adaptive draft ladder, the prefix cache and
-tensor parallelism are later slices of the port (ROADMAP Queue 1 items
-6, 7 and 9).
+tensor parallelism are later slices of the port (ROADMAP Queue 1:
+"Speculative decoding and the adaptive draft ladder", "Prefix caching",
+"Tensor-parallel serving and collectives").
 """
 from __future__ import annotations
 
@@ -137,7 +138,8 @@ class Engine:
         if not self.sampler.greedy:
             raise NotImplementedError(
                 "sampled decoding needs per-request threefry streams "
-                "(ROADMAP Queue 1 item 5); the port serves greedy")
+                "(ROADMAP Queue 1, \"Sampled decoding and the serving "
+                "front end\"); the port serves greedy")
         self._plan_ctx = dict(batch=ecfg.max_batch, page_size=ecfg.page_size,
                               max_pages=ecfg.max_pages_per_req,
                               kv_heads=cfg.n_kv_heads, hd=cfg.hd,

@@ -130,7 +130,8 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None):
         if Sq != 1:
             raise NotImplementedError(
                 "multi-token paged attention is the speculative verify "
-                "pass (ROADMAP Queue 1 item 6)")
+                "pass (ROADMAP Queue 1, \"Speculative decoding and the "
+                "adaptive draft ladder\")")
         KV.paged_write_tokens(cache, k, v, offset, fmt=policy.fmt_kv,
                               packed=policy.kv_packed)
         entry = exec_plan.resolve(
@@ -180,8 +181,8 @@ def init_mlp(generator, cfg, device="cpu"):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act != "silu":
         raise NotImplementedError("the port's decoder is SwiGLU; GELU MLPs "
-                                  "join with their families (ROADMAP Queue "
-                                  "1 item 12)")
+                                  "are ROADMAP Queue 1, \"Decoder "
+                                  "breadth\"")
     return {"wg": init_linear(generator, d, f, device=device),
             "wu": init_linear(generator, d, f, device=device),
             "wd": init_linear(generator, f, d, device=device)}
@@ -203,8 +204,8 @@ def init_moe(generator, cfg, device="cpu"):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     if cfg.act != "silu":
         raise NotImplementedError("the port's MoE experts are SwiGLU; GELU "
-                                  "experts join with their families "
-                                  "(ROADMAP Queue 1 item 12)")
+                                  "experts are ROADMAP Queue 1, \"Decoder "
+                                  "breadth\"")
     return {"router": init_linear(generator, d, E, device=device),
             "wg": init_grouped_linear(generator, E, d, f, device=device),
             "wu": init_grouped_linear(generator, E, d, f, device=device),

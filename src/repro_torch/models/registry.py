@@ -39,7 +39,7 @@ class Model:
         if cfg.family not in ("decoder", "moe"):
             raise NotImplementedError(
                 f"{cfg.family} models join the port in a later slice "
-                "(ROADMAP Queue 1 item 12)")
+                "(ROADMAP Queue 1, \"Other families\")")
         if not cfg.tie_embeddings:
             raise NotImplementedError("the port serves tied-embedding "
                                       "decoders (qwen3, llama3.2, "

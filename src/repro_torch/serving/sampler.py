@@ -1,7 +1,8 @@
 """Token sampling (port of `repro.serving.sampler`, greedy mode).
 
 Sampled mode draws from per-request JAX threefry streams, which torch
-cannot reproduce; it joins the port later (ROADMAP Queue 1 item 5).  The
+cannot reproduce; it joins the port later (ROADMAP Queue 1, "Sampled
+decoding and the serving front end").  The
 greedy path is the engine's anchor: raw-logits argmax with NaN logits
 masked, bit-identical to a plain argmax on NaN-free rows, and token 0 for
 an all-NaN row.

@@ -153,7 +153,8 @@ def test_off_the_cpu_the_wrappers_launch_or_raise():
     a served one goes to the launch (which refuses a non-CUDA device)."""
     q = torch.empty((1, 4, 128, 64), device="meta")
     k = torch.empty((1, 2, 128, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 2 under dpa_flash_attention"):
         TFA.dpa_flash_attention(q, k, k, fmt="fp4_e2m1")
     for call in (lambda: TFA.dpa_flash_attention(q, k, k, fmt="fp8_e4m3",
                                                  fmt_kv="fp4_e2m1"),

@@ -134,7 +134,8 @@ def test_quantize_pack_routes():
 
 def test_off_the_cpu_the_wrappers_launch_or_raise():
     x = torch.empty((8, 32), device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 2 under quantize_rows"):
         TQ.quantize_rows(x, fmt="fp8_e5m2")
     for call in (lambda: TQ.quantize_rows(x, fmt="fp8_e4m3"),
                  lambda: TQ.quantize_pack_rows(x)):

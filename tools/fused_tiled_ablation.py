@@ -82,9 +82,20 @@ def variants(src: str) -> dict:
     return out
 
 
+def inline_mma_header(src: str) -> str:
+    """The source with `dpa_mma.cuh` pasted in place of its include, so
+    the stubs reach the conversions and the MMA it defines."""
+    from repro_torch.kernels import build
+    inc = '#include "dpa_mma.cuh"\n'
+    src.index(inc)
+    head = (build.CSRC / "dpa_mma.cuh").read_text().replace("#pragma once\n",
+                                                            "")
+    return src.replace(inc, head)
+
+
 def build_all(out: Path) -> dict:
     from repro_torch.kernels import build
-    src = (build.CSRC / "dpa_fused_tiled.cu").read_text()
+    src = inline_mma_header((build.CSRC / "dpa_fused_tiled.cu").read_text())
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variants(src).items():
