@@ -55,8 +55,11 @@ Phases (every failure raises; the exit code is then non-zero):
      blocks of 125), against the global-softmax plain version, with
      `scaled_dot_product_attention` in f32 as the library yardstick;
    - `dpa_flash_attention` at the same layer (raw K/V on the fp4 grid,
-     bf16), with fp8 K/V, and in cache mode (packed and unpacked fp4,
-     fp8 codes), counting the probability codes that differ;
+     bf16: the wrapper's pre-pass quantizes K and V once with the row
+     quantizers, then the kernel runs on the packed codes), with fp8 K/V,
+     and in cache mode (packed and unpacked fp4, fp8 codes), counting the
+     probability codes that differ; timed with the pre-pass and without,
+     beside bf16 `scaled_dot_product_attention` as a speed reference;
    - `quantize_rows` and `quantize_pack_rows` at M 4096, K 2560 and 9728,
      every format, held to identical codes and scales.
    Each kernel, its plain version and (for the prequant pair)
@@ -96,15 +99,17 @@ Phases (every failure raises; the exit code is then non-zero):
    e. qwen3-4b's full-sequence scoring (the forward of `make_loss_fn`,
       chunked cross-entropy) of one 4096-token sequence under
       w4a8_kv4_attn8 with use_flash: every layer's attention through the
-      DPA flash kernel, every projection through the fused matmul's
-      tiled route (M = 4096: as many tiled and pre-pass launches as
-      fused ones; every other path makes no tiled launch);
+      DPA flash kernel after its pre-pass (two `quantize_pack_rows`
+      launches a layer, K and V), every projection through the fused
+      matmul's tiled route (M = 4096: as many tiled and pre-pass
+      launches as fused ones; every other path makes no tiled launch);
    f. the `quantize_pack` op (`kernels.ops.quantize_rows`) on a prompt's
       MLP activations: both row quantizers.
    The expected counts are computed from the config and the run; d and e
    are each compared with the same call with use_flash off, and every
    layer's attention output on them with the kernel's plain version on
-   the same inputs.
+   the same inputs (on e with both sides' probability codes, to phase
+   2's flip-aware bound).
 4. Where the time goes: torch.profiler over one steady decode step and
    one prefill chunk of each engine, over one model call of path c (with
    the prequant kernels' share of device time) and over one call of
@@ -130,6 +135,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (data sheet)
 FP8_OPS_PER_S = 1979e12           # H100 SXM dense fp8 tensor-core peak
+FP16_OPS_PER_S = 989e12           # H100 SXM dense fp16 tensor-core peak
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4   # the reference's fused-route pin
 FLASH_F32_RTOL = 2e-6             # the f32 flash route's pin (no TF32)
@@ -1316,17 +1322,21 @@ def _bf16_ulp(want):
     return torch.ldexp(torch.ones_like(want), e - 8)
 
 
-def _dpa_flash_misses(err, want, codes, v):
+def _dpa_flash_misses(err, want, codes, v, live):
     """-> (outputs past their bound, flipped p codes).  Each output may be
     off by one bf16 ulp of itself plus FLASH_F32_RTOL of its row's largest
     output.  A flipped code moves its probability by |p0 - p1| <= the gap
     of the two E4M3 values / 448 (p <= 1, scale amax / 448), and moves the
     row's output by at most twice that times max |V| (once through acc,
-    once through l >= 1): that is added to its row's bound."""
+    once through l >= 1): that is added to its row's bound.  Codes are
+    compared where `live` ((Sq, Sk) bool) holds: a masked key's code is 0,
+    or 448 in a block before the row's first live key, which alpha = 0
+    wipes later — the kernel skips the key blocks that hold only such
+    codes (a sliding window's), and leaves their codes 0."""
     import torch
     tol = _bf16_ulp(want) \
         + FLASH_F32_RTOL * want.abs().amax(dim=-1, keepdim=True)
-    flipped = codes[0] != codes[1]
+    flipped = (codes[0] != codes[1]) & live
     flips = int(flipped.sum())
     if flips:
         idx = flipped.nonzero(as_tuple=True)
@@ -1338,30 +1348,52 @@ def _dpa_flash_misses(err, want, codes, v):
     return int((err > tol).sum()), flips
 
 
+def _library_sdpa_bf16(q, k, v):
+    """A speed reference, not the same function: bf16
+    scaled_dot_product_attention (causal, GQA) on the same q, k, v.
+    -> (ms, device ms, note)."""
+    sdpa = __import__("torch").nn.functional.scaled_dot_product_attention
+    call = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
+                        enable_gqa=True)
+    try:
+        call()
+    except (RuntimeError, TypeError, ValueError) as e:   # a yardstick only
+        return None, None, f"sdpa refused ({str(e)[:120]})"
+    return (median_ms(call), device_ms(call),
+            "torch.nn.functional.scaled_dot_product_attention(is_causal, "
+            "enable_gqa), bf16")
+
+
 def check_dpa_flash(gen):
-    """The DPA flash kernel against its plain version (the same key-block
-    loop): raw mode at one layer of qwen3-4b's scoring (B 1, S 4096, H 32,
-    KV 8, hd 128, bf16, K/V on the fp4 grid), then fp8 K/V raw, and cache
-    mode (packed and unpacked fp4, fp8 codes) at hd 64 and at S 1000.
-    Both sides write every probability's E4M3 code: at most
+    """The DPA flash kernel (`csrc/dpa_flash.cu`) against its plain
+    version (the same key-block loop): raw mode at one layer of qwen3-4b's
+    scoring (B 1, S 4096, H 32, KV 8, hd 128, bf16, K/V on the fp4 grid:
+    the wrapper's pre-pass, then the kernel on packed codes), then fp8 K/V
+    raw, cache mode (packed and unpacked fp4, fp8 codes) at hd 64 and at
+    S 1000, and a sliding window of 300 keys at S 2048.  Both sides write every probability's E4M3 code: at most
     DPA_FLASH_MAX_FLIPS of the live codes may differ, and every output is
     held to its own bound (`_dpa_flash_misses`), which is one bf16 ulp
     where no code flipped.  Cache rows made from the same K/V give the raw
-    mode's bits."""
+    mode's bits.  Timed at the first case, pre-pass included (and alone),
+    beside the fp8 and fp16 operations bounds and, as a speed reference,
+    bf16 `scaled_dot_product_attention` on the same inputs."""
     import torch
     from repro_torch.core import kvcache as KVC
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.registry import _fit_block
-    worst, out = 0.0, None
+    worst, out, flips_per_case = 0.0, None, {}
     cases = (("raw fp4", 32, 8, 4096, 128, "fp4_e2m1", False, False),
              ("raw fp8", 16, 8, 1024, 64, "fp8_e4m3", False, False),
              ("cache packed fp4", 32, 8, 1000, 128, "fp4_e2m1", True, True),
              ("cache fp4", 16, 8, 1024, 64, "fp4_e2m1", True, False),
-             ("cache fp8", 32, 8, 1000, 128, "fp8_e4m3", True, False))
+             ("cache fp8", 32, 8, 1000, 128, "fp8_e4m3", True, False),
+             ("raw fp4 window 300", 32, 8, 2048, 128, "fp4_e2m1", False,
+              False))
     for name, H, KV, S, hd, fmt_kv, cache, packed in cases:
+        window = 300 if "window" in name else None
         q, k, v = _attn_inputs(gen, H, KV, S, hd, torch.bfloat16)
         b = _fit_block(128, S)
-        kw = dict(fmt="fp8_e4m3", fmt_kv=fmt_kv, bq=b, bk=b)
+        kw = dict(fmt="fp8_e4m3", fmt_kv=fmt_kv, bq=b, bk=b, window=window)
         if cache:
             kc, ks = KVC.quantize_kv(k, fmt=fmt_kv, packed=packed)
             vc, vs = KVC.quantize_kv(v, fmt=fmt_kv, packed=packed)
@@ -1376,8 +1408,9 @@ def check_dpa_flash(gen):
         want = FA.dpa_flash_attention_ref(*args, p_codes=codes[1], **ref_kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        live = H * S * (S + 1) // 2
-        bad, flips = _dpa_flash_misses(err, want.float(), codes, v)
+        mask = FA._mask(S, S, True, window, "cuda")
+        live = H * int(mask.sum())
+        bad, flips = _dpa_flash_misses(err, want.float(), codes, v, mask)
         if not bool(torch.isfinite(got).all()) or bad or \
                 flips > DPA_FLASH_MAX_FLIPS * live:
             raise AssertionError(f"dpa_flash_attention {name} S={S} hd={hd}"
@@ -1392,6 +1425,7 @@ def check_dpa_flash(gen):
                                      "rows gave other bits than raw K/V")
         del codes
         worst = max(worst, float(err.max()))
+        flips_per_case[name] = [flips, live]
         print(f"dpa_flash_attention {name} H={H} KV={KV} S={S} hd={hd} "
               f"bq=bk={b}: max_abs_err {float(err.max()):.3g}, "
               f"{int((err > 0).sum())} of {err.numel()} outputs differ; "
@@ -1402,11 +1436,35 @@ def check_dpa_flash(gen):
                         lambda: FA.dpa_flash_attention_ref(*args, **ref_kw))
             nbytes, ops = _attn_work(H, KV, S, hd, 2)
             t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+            t["fp16_bound_ms"] = bound(nbytes, ops, FP16_OPS_PER_S)[0]
+            # this design runs PV twice (p split into two fp16 pieces)
+            t["fp16_bound_pv_twice_ms"] = bound(nbytes, 1.5 * ops,
+                                                FP16_OPS_PER_S)[0]
+            t["live_logits"] = live     # each an expf and an IEEE division
+            pre = lambda: (FA._prepass(k, fmt_kv),  # noqa: E731
+                           FA._prepass(v, fmt_kv))
+            t["prepass_ms"] = median_ms(pre)
+            t["prepass_device_ms"] = device_ms(pre)
+            made = [c for x in pre() for c in x]   # K and V codes, scales
+            t["prepass_bound_ms"] = bound(
+                2 * k.numel() * 2 + sum(c.numel() * c.element_size()
+                                        for c in made), 0.0)[0]
+            sd_ms, sd_dev, note = _library_sdpa_bf16(q, k, v)
+            t["speed_references"] = {"sdpa_bf16_ms": sd_ms,
+                                     "sdpa_bf16_device_ms": sd_dev,
+                                     "sdpa_bf16": note}
             print(f"dpa_flash_attention S={S} raw fp4 K/V: {fmt_times(t)} "
-                  f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}, fp8 "
-                  "peak); library none")
+                  f"(pre-pass alone {t['prepass_ms']:.4f}, device "
+                  f"{t['prepass_device_ms']}, bound "
+                  f"{t['prepass_bound_ms']:.5f}); bound_ms "
+                  f"{t['bound_ms']:.5f} ({t['bound_by']}, fp8 peak; fp16 "
+                  f"{t['fp16_bound_ms']:.5f}, PV twice "
+                  f"{t['fp16_bound_pv_twice_ms']:.5f}); {live} live logits;"
+                  f" library none; speed reference {note}: {sd_ms} ms "
+                  f"(device {sd_dev})")
             out = t
     out["max_abs_err"] = worst
+    out["flips"] = flips_per_case
     return out
 
 
@@ -1510,9 +1568,11 @@ KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
                 "dpa_grouped_matmul_prequant", "dpa_flash_attention",
                 "flash_attention", "quantize_rows", "quantize_pack_rows",
                 "dpa_act_quant")
-# per-route counts: the fused wrappers' launches on each of their routes
+# per-route counts: the fused wrappers' launches on each of their routes,
+# and the DPA flash wrapper's launches on raw K/V (each after a pre-pass)
 ROUTE_COUNTS = ("dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
-                "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled")
+                "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled",
+                "dpa_flash_attention.prepass")
 
 
 def _wrappers():
@@ -1793,28 +1853,69 @@ def recorded_attention(calls):
         layers._sdpa = inner
 
 
-def check_path_attention(what, calls, plain):
+def check_path_attention(what, calls, plain, kernel=None):
     """Each layer's attention output on a path (`recorded_attention`)
     against `plain`, the kernel's plain version, on the same inputs laid
-    out heads-first here and not by the route: one bf16 ulp of each output
-    plus FLASH_F32_RTOL of the layer's largest, the bound phase 2 holds the
-    kernels to.  Pins what lies between the model and the kernel: the
-    route's transposes, blocks and arguments.  -> the largest error."""
-    worst = 0.0
+    out heads-first here and not by the route.  Pins what lies between
+    the model and the kernel: the route's transposes, blocks and
+    arguments.  -> (the largest error, flipped p codes per layer).
+
+    f32 route (`kernel` None): one bf16 ulp of each output plus
+    FLASH_F32_RTOL of the layer's largest.  DPA route: `kernel(q, k, v,
+    p_codes)` runs again on the layer's inputs with its probability codes
+    recorded, and must give the route's output bit for bit; the plain
+    version records its codes too, and the layer is held to phase 2's
+    bound (`_dpa_flash_misses`, at most DPA_FLASH_MAX_FLIPS of its live
+    codes flipped), one layer at a time (a code buffer is H x S x S
+    bytes)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    worst, flips = 0.0, []
+    codes = None
     for i, (q, k, v, out) in enumerate(calls):
-        want = plain(q.transpose(1, 2), k.transpose(1, 2),
-                     v.transpose(1, 2)).transpose(1, 2).float()
-        err = (out.float() - want).abs()
-        tol = _bf16_ulp(want) + FLASH_F32_RTOL * float(want.abs().max())
-        if out.shape != want.shape or not bool((err <= tol).all()):
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        got = out.transpose(1, 2)
+        if kernel is None:
+            want = plain(qh, kh, vh).float()
+            err = (got.float() - want).abs()
+            tol = _bf16_ulp(want) + FLASH_F32_RTOL * float(want.abs().max())
+            bad = int((err > tol).sum())
+        else:
+            B, H, S, _ = qh.shape
+            if codes is None:
+                codes = [torch.zeros((B, H, S, S), dtype=torch.uint8,
+                                     device=q.device) for _ in range(2)]
+                mask = FA._mask(S, kh.shape[2], True, None, q.device)
+            for c in codes:
+                c.zero_()
+            again = kernel(qh, kh, vh, codes[0])
+            if not torch.equal(again, got):
+                raise AssertionError(f"{what}: layer {i}'s kernel output "
+                                     "differs from the route's on the same "
+                                     "inputs")
+            want = plain(qh, kh, vh, codes[1]).float()
+            err = (got.float() - want).abs()
+            bad, n = _dpa_flash_misses(err, want, codes, vh, mask)
+            live = H * S * (S + 1) // 2
+            flips.append(n)
+            if n > DPA_FLASH_MAX_FLIPS * live:
+                raise AssertionError(f"{what}: layer {i}: {n} of {live} p "
+                                     "codes flipped")
+        if got.shape != want.shape or bad:
             raise AssertionError(f"{what}: layer {i}'s attention is "
                                  f"{float(err.max())} off the plain version"
-                                 f" ({int((err > tol).sum())} outputs past "
-                                 "one bf16 ulp)")
+                                 f" ({bad} outputs past their bound)")
         worst = max(worst, float(err.max()))
-    print(f"{what}: {len(calls)} layers' attention outputs within one bf16 "
-          f"ulp of the plain version (max |diff| {worst:.3g})")
-    return worst
+    del codes
+    if kernel is None:
+        print(f"{what}: {len(calls)} layers' attention outputs within one "
+              f"bf16 ulp of the plain version (max |diff| {worst:.3g})")
+    else:
+        print(f"{what}: {len(calls)} layers' attention outputs within "
+              f"phase 2's bound of the plain version (max |diff| "
+              f"{worst:.3g}); p codes flipped per layer {flips} (budget "
+              f"{DPA_FLASH_MAX_FLIPS:g} of each layer's live codes)")
+    return worst, flips
 
 
 def run_prefill(cfg, params, S=4096):
@@ -1869,7 +1970,7 @@ def run_prefill(cfg, params, S=4096):
     calls = []
     with recorded_attention(calls):
         step(params, tokens)
-    layer_err = check_path_attention(
+    layer_err, _ = check_path_attention(
         "prefill", calls, lambda q, k, v: FA.flash_attention_ref(q, k, v))
     del calls
     print(f"prefill: {cfg.name} {S}-token prompt in {wall:.3f} s (time to "
@@ -1890,20 +1991,26 @@ def run_scoring(cfg, params, S=4096):
     """Path D: the forward of `make_loss_fn` over one S-token sequence
     under w4a8_kv4_attn8 with use_flash (logits_chunk divides S: the
     chunked cross-entropy over backbone_features): every layer's attention
-    through the DPA flash kernel on raw K/V, every projection through the
-    fused matmul kernel.  Warm-up, then a timed and counted call.  Against
-    use_flash off (global-max p quantization): a small, nonzero loss
-    difference, within SCORING_REF_TOL.  Every layer's attention output
-    against the plain version on its inputs (`check_path_attention`)."""
+    through the DPA flash kernel on raw K/V (after the wrapper's pre-pass,
+    two row-quantizer launches), every projection through the fused matmul
+    kernel.  Warm-up, then a timed and counted call.  Against use_flash off
+    (global-max p quantization): a small, nonzero loss difference, within
+    SCORING_REF_TOL.  Every layer's attention output against the plain
+    version on its inputs, with the p codes flipped counted
+    (`check_path_attention`)."""
     import math
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.distributed.step import make_loss_fn
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import FLASH_BLOCK
     from repro_torch.models import build_model
     model = build_model(cfg, device="cuda")
     params = model.prepare_params(params)
     loss_fn = make_loss_fn(model)
+    pol = get_policy(cfg.policy)
+    prepass = ("quantize_pack_rows" if pol.fmt_kv == "fp4_e2m1"
+               else "quantize_rows")
     batch = {"tokens": _prompt(cfg, S, 5), "labels": _prompt(cfg, S, 6)}
     loss_fn(params, batch)
     torch.cuda.synchronize()
@@ -1916,6 +2023,8 @@ def run_scoring(cfg, params, S=4096):
     dense, _ = per_call_projections(cfg)
     check_counts(f"{cfg.name} scoring ({cfg.policy}, use_flash)", counts,
                  {"dpa_flash_attention": cfg.n_layers,
+                  "dpa_flash_attention.prepass": cfg.n_layers,
+                  prepass: 2 * cfg.n_layers,
                   "dpa_matmul_fused": dense * cfg.n_layers,
                   "dpa_matmul_fused.tiled": dense * cfg.n_layers,
                   "dpa_act_quant": dense * cfg.n_layers})
@@ -1932,19 +2041,23 @@ def run_scoring(cfg, params, S=4096):
     print(f"scoring: {cfg.name} {S} tokens, loss {loss:.6f} (use_flash off "
           f"{ref_loss:.6f}, diff {loss - ref_loss:.3g}; ln V {ln_v:.4f}) in "
           f"{wall:.3f} s = {S / wall:.1f} tokens/s")
-    pol = get_policy(cfg.policy)
     calls = []
     with recorded_attention(calls):
         loss_fn(params, batch)
-    layer_err = check_path_attention(
-        "scoring", calls, lambda q, k, v: FA.dpa_flash_attention_ref(
-            q, k, v, fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, bk=128))
+    kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, bk=FLASH_BLOCK)
+    layer_err, layer_flips = check_path_attention(
+        "scoring", calls,
+        lambda q, k, v, c: FA.dpa_flash_attention_ref(q, k, v, p_codes=c,
+                                                      **kw),
+        kernel=lambda q, k, v, c: FA.dpa_flash_attention(
+            q, k, v, p_codes=c, bq=FLASH_BLOCK, **kw))
     del calls
     prof = profile_window(f"{cfg.name} scoring ({S} tokens)",
                           lambda: loss_fn(params, batch))
     return counts, {"wall_s": wall, "tokens_per_s": S / wall, "loss": loss,
                     "loss_ref_attn": ref_loss, "loss_diff": loss - ref_loss,
                     "attn_max_abs_err_vs_plain": layer_err,
+                    "attn_p_codes_flipped_per_layer": layer_flips,
                     "profile": prof}
 
 
@@ -2244,15 +2357,28 @@ def main() -> None:
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
                "M=8 (2 rows padded)"},
         {"name": "dpa_flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/dpa_flash.cu",
          "replaces": "src/repro/kernels/flash_attention.py:218",
          "launches": n_d["dpa_flash_attention"],
+         "prepass_launches": n_d["dpa_flash_attention.prepass"],
          "max_abs_err": dfa_t["max_abs_err"], **times(dfa_t),
+         "device_from": dfa_t.get("device_from"),
          "bound_by": dfa_t["bound_by"], "library_ms": None,
          "library": "none: no PyTorch call quantizes q, K/V and the "
                     "probabilities per (row, key block) inside attention",
+         "fp16_bound_ms": dfa_t["fp16_bound_ms"],
+         "fp16_bound_pv_twice_ms": dfa_t["fp16_bound_pv_twice_ms"],
+         "live_logits": dfa_t["live_logits"],
+         "prepass_ms": dfa_t["prepass_ms"],
+         "prepass_device_ms": dfa_t["prepass_device_ms"],
+         "prepass_bound_ms": dfa_t["prepass_bound_ms"],
+         "speed_references": dfa_t["speed_references"],
+         "p_codes_flipped": dfa_t["flips"],
+         "path_d_p_codes_flipped_per_layer":
+             score_d["attn_p_codes_flipped_per_layer"],
          "at": "one layer of qwen3-4b scoring: B=1 S=4096 H=32 KV=8 hd=128 "
-               "causal, bf16, raw K/V on the fp4 grid"},
+               "causal, bf16, raw K/V on the fp4 grid, pre-pass included "
+               "(bound at the fp8 peak)"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:100",
@@ -2273,11 +2399,12 @@ def main() -> None:
         {"name": "quantize_pack_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:50",
-         "launches": n_qp["quantize_pack_rows"],
+         "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
          "bound_by": "bytes", "library_ms": None,
          "library": "none: PyTorch has no E2M1 encode or nibble pack",
-         "at": "M=4096 K=9728 bf16 -> packed E2M1 codes"},
+         "at": "M=4096 K=9728 bf16 -> packed E2M1 codes (launches: the "
+               "quantize_pack op's and path D's K/V pre-pass)"},
     ]
     print("engine report: " + json.dumps(
         {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g}))

@@ -1,27 +1,17 @@
-// flash_attention and dpa_flash_attention for Hopper (sm_90a): blocked
-// online-softmax prefill attention, f32 or DPA (template flag), GQA,
-// causal and sliding-window masks.
+// flash_attention for Hopper (sm_90a): blocked online-softmax f32 prefill
+// attention, GQA, causal and sliding-window masks.
 //
-// Replaces the Pallas TPU kernels repro/kernels/flash_attention.py
-// flash_attention (_flash_kernel) and dpa_flash_attention
-// (_dpa_flash_kernel).
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
+// flash_attention (_flash_kernel).  (The DPA kernel, dpa_flash_attention,
+// is dpa_flash.cu.)
 //
 // Contract, per (batch x head, q block of bq rows), over the key blocks
-// of bk keys in order (bk is part of the DPA numerics):
-//   f32:  q_s = q * scale;  s = q_s . k
-//   DPA:  qs = row absmax scale of q, qg = e4m3(clip(q / qs));
-//         k_eff = widen(k) per row — raw K quantized per row onto the
-//         fmt_kv grid (E4M3 or E2M1) times its scale, or cache codes
-//         times their stored row scales (E2M1 optionally packed two per
-//         byte along hd, low nibble = even index);
-//         s = ((qg . k_eff) * qs) * scale
+// of bk keys in order:
+//   q_s = q * scale;  s = q_s . k
 //   masked entries (kpos > qpos when causal, kpos <= qpos - window) are
 //   set to -1e30, with qpos = row + Sk - Sq;
 //   m_cur = max(m, rowmax(s)), p = exp(s - m_cur), alpha = exp(m - m_cur)
-//   DPA:  ps = max(max(rowmax(p), 1e-30) * f32(1/448), 2^-126),
-//         pg = e4m3(clip(p / ps))  (the row's p over this key block)
-//         l = l * alpha + rowsum(pg) * ps,  acc = acc * alpha + (pg . v_eff) * ps
-//   f32:  l = l * alpha + rowsum(p),        acc = acc * alpha + p . v
+//   l = l * alpha + rowsum(p),  acc = acc * alpha + p . v
 //   out = acc / max(l, 1e-30), cast to q's dtype.
 // Divisions are IEEE (__fdiv_rn), exp is expf (this file is never built
 // with --use_fast_math), and each multiply-then-add of the state is two
@@ -38,24 +28,21 @@
 //
 // What bounds it: operations.  A causal layer of qwen3-4b's prefill (S
 // 4096, 32 heads, hd 128) needs 1.37e11 flops: 2.05 ms at the H100's 67
-// Tflop/s in f32 (the f32 kernel's tolerance rules out TF32), 0.069 ms at
-// 1979 Tflop/s in fp8 for the DPA kernel, against 0.02 ms of bytes.
+// Tflop/s in f32 (the kernel's tolerance rules out TF32), against 0.02 ms
+// of bytes.
 //
-// Design (right and simple first; tensor-core wgmma on the fp8 grid, TMA
-// and a pipelined K/V ring are later work): one block of 256 threads per
-// (batch x head, q block), a 16 x 16 grid of threads, each owning 8 q rows
-// x 8 keys of a 128 x 128 logits tile and 8 rows x hd/16 dims of the
-// output.  The q tile (quantized or scaled once), the K tile and the p
-// tile sit transposed in dynamic shared memory with a padded leading
-// dimension, so the inner products read one address per half warp; the V
-// tile reuses the K tile's space.  198 KB at hd 128.  The running max,
-// denominator and accumulator stay in registers, replicated over the 16
-// threads that share a row (row reductions are xor shuffles, which give
-// every lane the same bits).  The widened K/V tiles are rebuilt for every
-// q block, as the TPU kernel's prologue does.  bq and bk may be any size
-// up to 128 (S = 1000 gives 125): tile rows and keys past them are zeros,
-// and keys past bk carry s = -inf, so they add exactly nothing.  Blocks
-// run the heaviest (last) causal q blocks first.
+// Design (right and simple first): one block of 256 threads per (batch x
+// head, q block), a 16 x 16 grid of threads, each owning 8 q rows x 8
+// keys of a 128 x 128 logits tile and 8 rows x hd/16 dims of the output.
+// The scaled q tile, the K tile and the p tile sit transposed in dynamic
+// shared memory with a padded leading dimension, so the inner products
+// read one address per half warp; the V tile reuses the K tile's space.
+// 198 KB at hd 128.  The running max, denominator and accumulator stay in
+// registers, replicated over the 16 threads that share a row (row
+// reductions are xor shuffles, which give every lane the same bits).  bq
+// and bk may be any size up to 128 (S = 1000 gives 125): tile rows and
+// keys past them are zeros, and keys past bk carry s = -inf, so they add
+// exactly nothing.  Blocks run the heaviest (last) causal q blocks first.
 #include <math.h>
 
 #include "dpa_common.cuh"
@@ -69,23 +56,12 @@ constexpr int kR = 8;           // q rows per thread
 constexpr int kC = 8;           // keys per thread
 constexpr int kLd = kT + 1;     // padded leading dim of the transposed tiles
 
-// K/V operand modes
-constexpr int kKvPlain = 0;       // f32 kernel: raw K/V in q's dtype
-constexpr int kKvRawE4M3 = 1;     // raw K/V quantized per row onto E4M3
-constexpr int kKvRawE2M1 = 2;     // ... onto E2M1
-constexpr int kKvCodesE4M3 = 3;   // cache: E4M3 bytes + row scales
-constexpr int kKvCodesE2M1 = 4;   // cache: one E2M1 code per byte + scales
-constexpr int kKvPackedE2M1 = 5;  // cache: E2M1 codes two per byte + scales
-
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const float* ks;
-  const float* vs;
   void* out;
-  uint8_t* p_codes;   // optional (B, H, Sq, Sk) E4M3 codes of pg
-  int H, KV, Sq, Sk, bq, bk, causal, window, kv_mode;
+  int H, KV, Sq, Sk, bq, bk, causal, window;
   float scale;
 };
 
@@ -102,78 +78,32 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// One warp per key row of the tile: the row widened to f32 (k_eff / v_eff)
-// into dst, transposed ([d][key], leading dim kLd) or not ([key][d]).
-// Lane l holds dims l + 32 e.  Keys >= bk are zeros.
+// One warp per key row of the tile: the row as f32 into dst, transposed
+// ([d][key], leading dim kLd) or not ([key][d]).  Lane l holds dims
+// l + 32 e.  Keys >= bk are zeros.
 template <int HD, typename QT>
-__device__ void load_kv_tile(const Params& p, const void* src,
-                             const float* scales, size_t row0, float* dst,
-                             bool transposed) {
+__device__ void load_kv_tile(const Params& p, const void* src, size_t row0,
+                             float* dst, bool transposed) {
   constexpr int kE = HD / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const QT* x = static_cast<const QT*>(src);
   for (int key = warp; key < kT; key += kWarps) {
     const bool ok = key < p.bk;                 // uniform over the warp
     const size_t row = row0 + key;
-    float vals[kE];
-    switch (p.kv_mode) {
-      case kKvCodesE4M3:
-      case kKvCodesE2M1:
-      case kKvPackedE2M1: {
-        const uint8_t* c = static_cast<const uint8_t*>(src);
-        const float rs = ok ? scales[row] : 0.0f;
-#pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          const int d = lane + 32 * e;
-          float g = 0.0f;
-          if (ok) {
-            if (p.kv_mode == kKvCodesE4M3) {
-              g = dpa::decode_e4m3(c[row * HD + d]);
-            } else if (p.kv_mode == kKvCodesE2M1) {
-              g = dpa::decode_fp4(c[row * HD + d]);
-            } else {
-              const uint8_t b = c[row * (HD / 2) + (d >> 1)];
-              g = dpa::decode_fp4((d & 1) ? (b >> 4) : (b & 15u));
-            }
-          }
-          vals[e] = __fmul_rn(g, rs);
-        }
-        break;
-      }
-      default: {
-        const QT* x = static_cast<const QT*>(src);
-        float a = 0.0f;
-#pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          vals[e] = ok ? dpa::to_f32(x[row * HD + lane + 32 * e]) : 0.0f;
-          a = fmaxf(a, fabsf(vals[e]));
-        }
-        if (p.kv_mode == kKvRawE4M3) {
-          const float s = dpa::e4m3_scale(dpa::warp_max(a));
-#pragma unroll
-          for (int e = 0; e < kE; ++e)
-            vals[e] = __fmul_rn(dpa::quantize_e4m3(vals[e], s), s);
-        } else if (p.kv_mode == kKvRawE2M1) {
-          const float s =
-              dpa::block_scale(dpa::warp_max(a), dpa::kInvE2M1Max);
-#pragma unroll
-          for (int e = 0; e < kE; ++e)
-            vals[e] = __fmul_rn(dpa::quantize_fp4(vals[e], s), s);
-        }
-      }
-    }
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
       const int d = lane + 32 * e;
+      const float val = ok ? dpa::to_f32(x[row * HD + d]) : 0.0f;
       if (transposed) {
-        dst[d * kLd + key] = vals[e];
+        dst[d * kLd + key] = val;
       } else {
-        dst[key * HD + d] = vals[e];
+        dst[key * HD + d] = val;
       }
     }
   }
 }
 
-template <int HD, typename QT, bool DPA>
+template <int HD, typename QT>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   constexpr int kE = HD / 32;
   constexpr int kD = HD / 16;     // output dims per thread
@@ -181,7 +111,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   float* Qs = smem;               // [HD][kLd] q tile, transposed
   float* KVs = Qs + HD * kLd;     // [HD][kLd] K tile, or [kT][HD] V tile
   float* Ps = KVs + HD * kLd;     // [kT][kLd] p tile, key-major
-  __shared__ float qsc[kT];       // DPA: q row scales
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tx = tid & 15, ty = tid >> 4;
@@ -193,27 +122,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   const int q0 = qb * bq;
   const int off = p.Sk - p.Sq;
 
-  // the q tile: scaled (f32) or quantized per row (DPA); rows >= bq zero
+  // the scaled q tile; rows >= bq zero
   const QT* qp = static_cast<const QT*>(p.q) + ((size_t)bh * p.Sq + q0) * HD;
   for (int r = warp; r < kT; r += kWarps) {
-    float vals[kE];
-    float a = 0.0f;
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
-      vals[e] = r < bq ? dpa::to_f32(qp[(size_t)r * HD + lane + 32 * e])
-                       : 0.0f;
-      a = fmaxf(a, fabsf(vals[e]));
-    }
-    if (DPA) {
-      const float s = dpa::e4m3_scale(dpa::warp_max(a));
-#pragma unroll
-      for (int e = 0; e < kE; ++e)
-        Qs[(lane + 32 * e) * kLd + r] = dpa::quantize_e4m3(vals[e], s);
-      if (lane == 0) qsc[r] = s;
-    } else {
-#pragma unroll
-      for (int e = 0; e < kE; ++e)
-        Qs[(lane + 32 * e) * kLd + r] = __fmul_rn(vals[e], p.scale);
+      const float val =
+          r < bq ? dpa::to_f32(qp[(size_t)r * HD + lane + 32 * e]) : 0.0f;
+      Qs[(lane + 32 * e) * kLd + r] = __fmul_rn(val, p.scale);
     }
   }
 
@@ -238,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   for (int j = j0; j < j1; ++j) {
     const int k0 = j * bk;
     __syncthreads();            // the previous block's reads of KVs / Ps
-    load_kv_tile<HD, QT>(p, p.k, p.ks, kv_row0 + k0, KVs, true);
+    load_kv_tile<HD, QT>(p, p.k, kv_row0 + k0, KVs, true);
     __syncthreads();
 
     float s[kR][kC];
@@ -259,8 +175,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
         for (int c = 0; c < kC; ++c) s[i][c] = fmaf(a[i], kk[c], s[i][c]);
     }
 
-    // online softmax, row by row; p (or pg) goes to Ps
-    float alpha[kR], ps[kR];
+    // online softmax, row by row; p goes to Ps
+    float alpha[kR];
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int r = ty * kR + i;
@@ -272,8 +188,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
         const int kpos = k0 + key;
         float sv = -INFINITY;               // keys past bk: not in the block
         if (key < bk) {
-          sv = DPA ? __fmul_rn(__fmul_rn(s[i][c], qsc[r]), p.scale)
-                   : s[i][c];
+          sv = s[i][c];
           const bool live = (!p.causal || kpos <= qpos) &&
                             (p.window <= 0 || kpos > qpos - p.window);
           if (!live) sv = -1e30f;
@@ -283,43 +198,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
       }
       const float m_cur = fmaxf(m[i], half_warp_max(mx));
       alpha[i] = expf(m[i] - m_cur);
-      float pmax = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        s[i][c] = expf(s[i][c] - m_cur);
-        pmax = fmaxf(pmax, s[i][c]);
-      }
+      for (int c = 0; c < kC; ++c) s[i][c] = expf(s[i][c] - m_cur);
       float sum = 0.0f;
-      if (DPA) {
-        ps[i] = dpa::e4m3_scale(half_warp_max(pmax));
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          s[i][c] = dpa::quantize_e4m3(s[i][c], ps[i]);
-          sum += s[i][c];
-        }
-        l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]),
-                         __fmul_rn(half_warp_sum(sum), ps[i]));
-        if (p.p_codes != nullptr && r < bq) {
-          uint8_t* pc = p.p_codes + ((size_t)bh * p.Sq + q0 + r) * p.Sk + k0;
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            const int key = tx + 16 * c;
-            if (key < bk) pc[key] = __nv_fp8_e4m3(s[i][c]).__x;
-          }
-        }
-      } else {
-        ps[i] = 1.0f;
-#pragma unroll
-        for (int c = 0; c < kC; ++c) sum += s[i][c];
-        l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), half_warp_sum(sum));
-      }
+      for (int c = 0; c < kC; ++c) sum += s[i][c];
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), half_warp_sum(sum));
       m[i] = m_cur;
 #pragma unroll
       for (int c = 0; c < kC; ++c) Ps[(tx + 16 * c) * kLd + r] = s[i][c];
     }
 
     __syncthreads();            // every thread's reads of the K tile
-    load_kv_tile<HD, QT>(p, p.v, p.vs, kv_row0 + k0, KVs, false);
+    load_kv_tile<HD, QT>(p, p.v, kv_row0 + k0, KVs, false);
     __syncthreads();
 
     float part[kR][kD];
@@ -343,9 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int dd = 0; dd < kD; ++dd)
-        acc[i][dd] = __fadd_rn(__fmul_rn(acc[i][dd], alpha[i]),
-                               DPA ? __fmul_rn(part[i][dd], ps[i])
-                                   : part[i][dd]);
+        acc[i][dd] = __fadd_rn(__fmul_rn(acc[i][dd], alpha[i]), part[i][dd]);
   }
 
   QT* op = static_cast<QT*>(p.out) + ((size_t)bh * p.Sq + q0) * HD;
@@ -362,11 +251,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   }
 }
 
-template <int HD, typename QT, bool DPA>
+template <int HD, typename QT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)HD * kLd +
                                        (size_t)kT * kLd);
-  auto kernel = flash_kernel<HD, QT, DPA>;
+  auto kernel = flash_kernel<HD, QT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -375,37 +264,28 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename QT, bool DPA>
+template <typename QT>
 cudaError_t launch_hd(int hd, const Params& p, int B, cudaStream_t s) {
-  return hd == 64 ? launch<64, QT, DPA>(p, B, s) : launch<128, QT, DPA>(p, B, s);
+  return hd == 64 ? launch<64, QT>(p, B, s) : launch<128, QT>(p, B, s);
 }
 
 }  // namespace
 
 // q/out: (B, H, Sq, hd) f32 (q_bf16 = 0) or bf16 (q_bf16 = 1), hd 64 or
-// 128.  k/v: (B, KV, Sk, hd) in q's dtype (kv_mode 0-2), (B, KV, Sk, hd)
-// E4M3 bytes or E2M1 codes (3, 4), or (B, KV, Sk, hd / 2) packed E2M1
-// (5); ks/vs: (B, KV, Sk) f32 row scales for modes 3-5, else null.
-// dpa = 0 needs kv_mode 0 and dpa = 1 a mode 1-5.  p_codes: null, or a
-// zeroed (B, H, Sq, Sk) uint8 buffer for the E4M3 codes of pg (DPA, a
-// check only).  window <= 0: none.  All contiguous.
-extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, const float* ks,
-    const float* vs, void* out, void* p_codes, int q_bf16, int hd, int dpa,
-    int kv_mode, int B, int H, int KV, int Sq, int Sk, int bq, int bk,
-    int causal, int window, float scale, void* stream) {
+// 128; k/v: (B, KV, Sk, hd) in q's dtype.  window <= 0: none.  All
+// contiguous.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int q_bf16,
+                                      int hd, int B, int H, int KV, int Sq,
+                                      int Sk, int bq, int bk, int causal,
+                                      int window, float scale,
+                                      void* stream) {
   if ((hd != 64 && hd != 128) || B <= 0 || KV <= 0 || H % KV ||
       bq < 1 || bq > kT || bk < 1 || bk > kT || Sq % bq || Sk % bk ||
-      (long long)B * H > 65535 || (dpa != 0) != (kv_mode != kKvPlain) ||
-      kv_mode < kKvPlain || kv_mode > kKvPackedE2M1 ||
-      (kv_mode >= kKvCodesE4M3 && (ks == nullptr || vs == nullptr)))
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, ks, vs, out, static_cast<uint8_t*>(p_codes), H, KV, Sq,
-           Sk, bq, bk, causal, window, kv_mode, scale};
+  Params p{q, k, v, out, H, KV, Sq, Sk, bq, bk, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16)
-    return (int)(dpa ? launch_hd<__nv_bfloat16, true>(hd, p, B, s)
-                     : launch_hd<__nv_bfloat16, false>(hd, p, B, s));
-  return (int)(dpa ? launch_hd<float, true>(hd, p, B, s)
-                   : launch_hd<float, false>(hd, p, B, s));
+  return (int)(q_bf16 ? launch_hd<__nv_bfloat16>(hd, p, B, s)
+                      : launch_hd<float>(hd, p, B, s));
 }

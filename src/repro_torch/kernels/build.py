@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("dpa_matmul.cu", "dpa_fused_tiled.cu", "dpa_prequant.cu",
-           "paged_decode.cu", "flash_attention.cu", "quantize_rows.cu")
+           "paged_decode.cu", "flash_attention.cu", "dpa_flash.cu",
+           "quantize_rows.cu")
 HEADERS = ("dpa_common.cuh", "dpa_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,11 +49,15 @@ _SIGNATURES = {
     # B, H, KV, hd, page, max_pages, kv_fmt, scale, stream
     "paged_decode_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
-    # q, k, v, ks, vs, out, p_codes, q_bf16, hd, dpa, kv_mode,
+    # q, k, v, out, q_bf16, hd, B, H, KV, Sq, Sk, bq, bk, causal, window,
+    # scale, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, ctypes.c_float, _P),
+    # q, q_bf16, k, v, ks, vs, out, p_codes, hd, kv_fmt,
     # B, H, KV, Sq, Sk, bq, bk, causal, window, scale, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _P),
+    "dpa_flash_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _P),
     # x, x_bf16, codes, scales, M, K, fmt, stream
     "quantize_rows_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
 }

@@ -1,5 +1,5 @@
 """Blocked prefill attention: the plain PyTorch versions and the wrappers
-around the CUDA kernel (`csrc/flash_attention.cu`).
+around the CUDA kernels (`csrc/flash_attention.cu`, `csrc/dpa_flash.cu`).
 
 `flash_attention` replaces the Pallas TPU kernel
 `repro/kernels/flash_attention.py` `flash_attention`: f32 online-softmax
@@ -15,6 +15,9 @@ rows (codes plus per-row f32 scales, E2M1 optionally packed along the
 head dim) and are widened; the probabilities are quantized per (row, key
 block of `bk`) after the exp under the running max, their scale folded
 into the numerator and the denominator.  `bk` is part of the numerics.
+On the card raw K/V are quantized once by the row-quantizer kernels
+(`kernels.quantize`) into the codes and scales a quantized cache holds,
+and the kernel reads those.
 """
 from __future__ import annotations
 
@@ -24,15 +27,15 @@ from repro_torch.core.device import batched_rowwise_dot
 from repro_torch.core.kvcache import dequantize_kv
 from repro_torch.core.quantize import quant_rows_grid
 from repro_torch.kernels import build
+from repro_torch.kernels.quantize import quantize_pack_rows, quantize_rows
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)     # the kernel's head-dim template instances
 MAX_BLOCK = 128                  # the kernel's tile: bq, bk <= 128
 
-# the kernel's K/V operand modes: (fmt_kv, cache, packed) -> mode
-_KV_MODE = {("fp8_e4m3", False, False): 1, ("fp4_e2m1", False, False): 2,
-            ("fp8_e4m3", True, False): 3, ("fp4_e2m1", True, False): 4,
-            ("fp4_e2m1", True, True): 5}
+# the DPA kernel's K/V code layouts: (fmt_kv, packed) -> kv_fmt
+_KV_FMT = {("fp8_e4m3", False): 0, ("fp4_e2m1", False): 1,
+           ("fp4_e2m1", True): 2}
 
 
 def _mask(sq: int, sk: int, causal: bool, window, device):
@@ -140,13 +143,11 @@ def _check(q, k, v, dk: int):
         raise ValueError("q, k and v must share one device")
 
 
-def _launch(q, k, v, ks, vs, *, dpa: bool, kv_mode: int, causal, window,
-            scale, bq, bk, p_codes, what):
-    """Launch `csrc/flash_attention.cu` on CUDA operands, or raise for what
-    the kernel does not take."""
+def _check_launch(q, bq, bk, window, tensors, what):
+    """Raise for what the kernels do not take (CUDA operands only)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, H, Sq, D = q.shape
+    B, H, _, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} kernel takes f32/bf16 q, got {q.dtype}")
     if D not in KERNEL_HEAD_DIMS:
@@ -158,22 +159,12 @@ def _launch(q, k, v, ks, vs, *, dpa: bool, kv_mode: int, causal, window,
         raise ValueError(f"{what} kernel needs bq, bk <= {MAX_BLOCK} and "
                          f"B * H <= 65535; got bq={bq}, bk={bk}, B={B}, "
                          f"H={H}")
-    tensors = [t for t in (q, k, v, ks, vs, p_codes) if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in tensors if t is not None):
         raise ValueError(f"{what} kernel needs contiguous operands")
-    if p_codes is not None and (p_codes.dtype != torch.uint8 or
-                                p_codes.shape != (B, H, Sq, k.shape[2])):
-        raise ValueError("p_codes must be a (B, H, Sq, Sk) uint8 tensor")
-    out = torch.empty_like(q)
-    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
-    err = build.load_library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
-        out.data_ptr(), ptr(p_codes), int(q.dtype == torch.bfloat16), D,
-        int(dpa), kv_mode, B, H, k.shape[1], Sq, k.shape[2], bq, bk,
-        int(causal), int(window or 0), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, what)
-    return out
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -188,13 +179,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    window=window)
+    _check_launch(q, bq, bk, window, (q, k, v), "flash_attention")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes k/v in q's dtype "
                         f"{q.dtype}, got {k.dtype}, {v.dtype}")
-    out = _launch(q, k, v, None, None, dpa=False, kv_mode=0, causal=causal,
-                  window=window,
-                  scale=scale if scale is not None else q.shape[3] ** -0.5,
-                  bq=bq, bk=bk, p_codes=None, what="flash_attention")
+    B, H, Sq, D = q.shape
+    out = torch.empty_like(q)
+    err = build.load_library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), D, B, H, k.shape[1], Sq, k.shape[2],
+        bq, bk, int(causal), int(window or 0),
+        float(scale if scale is not None else D ** -0.5), _stream(q))
+    build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
@@ -214,7 +210,9 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     `p_codes`: see `dpa_flash_attention_ref` (a check only).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  `dpa_flash_attention.launches` counts launches."""
+    kernel or raises: raw K/V first go through `_prepass` (two row
+    quantizer launches).  `dpa_flash_attention.launches` counts launches,
+    `.prepass_launches` those on raw K/V."""
     fmt_kv = fmt_kv or fmt
     D = q.shape[3]
     _check(q, k, v, D // 2 if kv_quant and kv_packed else D)
@@ -224,19 +222,23 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     if q.device.type == "cpu":
         return dpa_flash_attention_ref(q, k, v, k_scale, v_scale, bk=bk,
                                        p_codes=p_codes, **kw)
-    mode = _KV_MODE.get((fmt_kv, bool(kv_quant),
-                         bool(kv_quant and kv_packed)))
-    if fmt != "fp8_e4m3" or mode is None:
+    if fmt != "fp8_e4m3" or fmt_kv not in ("fp8_e4m3", "fp4_e2m1"):
         raise NotImplementedError(
             f"dpa_flash_attention kernel serves fp8_e4m3 attention over "
             f"fp8_e4m3 or fp4_e2m1 K/V (raw, cache codes, packed fp4); "
             f"(fmt={fmt}, fmt_kv={fmt_kv}, kv_quant={kv_quant}, "
             f"kv_packed={kv_packed}) is open in ROADMAP Queue 2 under "
             "dpa_flash_attention (formats open)")
-    B, Hkv, Sk = k.shape[:3]
-    ks = vs = None
+    _check_launch(q, bq, bk, window, (q, k, v, k_scale, v_scale, p_codes),
+                  "dpa_flash_attention")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1:3]
+    if p_codes is not None and (p_codes.dtype != torch.uint8 or
+                                p_codes.shape != (B, H, Sq, Sk)):
+        raise ValueError("p_codes must be a (B, H, Sq, Sk) uint8 tensor")
+    packed = bool(kv_quant and kv_packed)
     if kv_quant:
-        want = torch.float8_e4m3fn if mode == 3 else torch.uint8
+        want = torch.float8_e4m3fn if fmt_kv == "fp8_e4m3" else torch.uint8
         if k.dtype != want or v.dtype != want:
             raise TypeError(f"{fmt_kv} cache codes must be {want}, got "
                             f"{k.dtype}, {v.dtype}")
@@ -245,16 +247,46 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
                     s.dtype != torch.float32:
                 raise ValueError(f"cache mode needs ({B}, {Hkv}, {Sk}, 1) "
                                  "f32 k_scale and v_scale")
-        ks, vs = k_scale, v_scale
-    elif k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"raw k/v must be in q's dtype {q.dtype}, got "
-                        f"{k.dtype}, {v.dtype}")
-    out = _launch(q, k, v, ks, vs, dpa=True, kv_mode=mode, causal=causal,
-                  window=window,
-                  scale=scale if scale is not None else D ** -0.5, bq=bq,
-                  bk=bk, p_codes=p_codes, what="dpa_flash_attention")
+        if (k.data_ptr() | v.data_ptr()) % 16:
+            raise ValueError("dpa_flash_attention kernel needs 16-byte "
+                             "aligned cache codes")
+    else:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"raw k/v must be in q's dtype {q.dtype}, got "
+                            f"{k.dtype}, {v.dtype}")
+        k, k_scale = _prepass(k, fmt_kv)
+        v, v_scale = _prepass(v, fmt_kv)
+        packed = fmt_kv == "fp4_e2m1"
+    out = torch.empty_like(q)
+    err = build.load_library().dpa_flash_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+        v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), None if p_codes is None else p_codes.data_ptr(), D,
+        _KV_FMT[(fmt_kv, packed)], B, H, Hkv, Sq, Sk, bq, bk, int(causal),
+        int(window or 0), float(scale if scale is not None else D ** -0.5),
+        _stream(q))
+    build.check(err, "dpa_flash_attention")
     dpa_flash_attention.launches += 1
+    if not kv_quant:
+        dpa_flash_attention.prepass_launches += 1
     return out
 
 
+def _prepass(x, fmt_kv):
+    """Raw (B, Hkv, Sk, D) K or V quantized once per row by the row
+    quantizers' kernels: -> (E4M3 codes, or E2M1 codes packed two per
+    byte along D; (B, Hkv, Sk, 1) f32 scales), the rows
+    `core.kvcache.quantize_kv` writes for the same values (E2M1's negative
+    zero aside: the cache writes code 0 where the quantizer keeps code 8,
+    both the value 0)."""
+    rows = x.reshape(-1, x.shape[-1])
+    if fmt_kv == "fp8_e4m3":
+        codes, scales = quantize_rows(rows, fmt="fp8_e4m3")
+    else:
+        codes, scales = quantize_pack_rows(rows)
+    return (codes.view(x.shape[:-1] + (codes.shape[-1],)),
+            scales.view(x.shape[:-1] + (1,)))
+
+
 dpa_flash_attention.launches = 0
+dpa_flash_attention.prepass_launches = 0
