@@ -33,8 +33,11 @@ Phases (every failure raises; the exit code is then non-zero):
      the evidence for the threshold;
    - `paged_decode_attention` at the engine's decode geometry plus the
      block-table edge cases (odd lengths, mid-page positions, an idle
-     slot on the scratch page), for qwen3-4b (hd 128, H 32, KV 8) and
-     granite-moe-1b (hd 64, H 16, KV 8);
+     slot on the scratch page) and one long context (B 2, 2,048 pages of
+     16, positions 32767 and 9000, timed), for qwen3-4b (hd 128, H 32, KV
+     8) and granite-moe-1b (hd 64, H 16, KV 8); at the engine's shape
+     every cluster split 1-8 is checked and timed beside the launch
+     plan's (`paged_plan`);
    - `dpa_grouped_matmul_fused` at granite's expert shapes (E 32, K x N
      1024 x 512 and 512 x 1024) for M = 8 (decode, 4 rows padded) and
      M = 11 (a 32-token prefill chunk's capacity), both weight formats,
@@ -52,8 +55,11 @@ Phases (every failure raises; the exit code is then non-zero):
      (column tile, split) the kernel takes is timed at path c's shapes;
    - `flash_attention` at one layer of qwen3-4b's prefill (S 4096, H 32,
      KV 8, hd 128) on f32 and bf16 inputs, at hd 64 and at S 1000 (key
-     blocks of 125), against the global-softmax plain version, with
-     `scaled_dot_product_attention` in f32 as the library yardstick;
+     blocks of 125), against the global-softmax plain version; both
+     dtypes timed at S 4096 (both on split-bf16 tensor cores: bf16, path
+     C's instance, bound at three bf16 products; f32, after its K/V
+     pre-pass, at six), with `scaled_dot_product_attention` in f32 as the
+     library yardstick and in bf16 as a speed reference;
    - `dpa_flash_attention` at the same layer (raw K/V on the fp4 grid,
      bf16: the wrapper's pre-pass quantizes K and V once with the row
      quantizers, then the kernel runs on the packed codes), with fp8 K/V,
@@ -71,8 +77,8 @@ Phases (every failure raises; the exit code is then non-zero):
    records no device activity, CUDA events around a CUDA-graph replay of
    20 calls; `device_from` says which); beside them the least
    time the card could take (bytes over 3.35 TB/s, or operations over the
-   fp8 peak — the f32 peak for the f32 flash kernel — whichever is
-   larger).
+   fp8 peak — for the f32 flash kernel three (bf16 inputs) or six (f32
+   inputs) bf16 products at the bf16 peak — whichever is larger).
 3. Serving at full width, seeded random weights, policy w4a8_kv4_attn8
    unless said otherwise; the kernel launch counters are zeroed just
    before each path and read just after:
@@ -95,7 +101,8 @@ Phases (every failure raises; the exit code is then non-zero):
       attention in f32 over a raw bf16 cache;
    d. qwen3-4b's prefill of one 4096-token prompt (`make_prefill_step`)
       under its own policy fp8_dpa with use_flash, on the engine's
-      weights: every layer's attention through the f32 flash kernel;
+      weights: every layer's attention through the f32 flash kernel's
+      bf16 instance;
    e. qwen3-4b's full-sequence scoring (the forward of `make_loss_fn`,
       chunked cross-entropy) of one 4096-token sequence under
       w4a8_kv4_attn8 with use_flash: every layer's attention through the
@@ -746,6 +753,16 @@ def _paged_case(cfg, pol, gen, lengths, page, positions=None):
     return q, cache, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
+def _paged_bytes(cfg, lengths, q, table):
+    """Bytes one paged decode call must move: each live K and V row's
+    packed codes and scale once, q read and the output written, the block
+    table and positions."""
+    live_rows = sum(lengths) * cfg.n_kv_heads
+    return (2 * live_rows * (cfg.hd // 2 + 4)
+            + 2 * q.numel() * q.element_size() + table.numel() * 4
+            + len(lengths) * 4)
+
+
 def check_paged(cfg, pol, gen, ecfg):
     """The kernel against the gather + dpa_attention plain version.
 
@@ -754,11 +771,30 @@ def check_paged(cfg, pol, gen, ecfg):
     E4M3 neighbour where p / psq sits at a rounding midpoint.  The pin
     (`PAGED_DECODE_CARD_TOL`, 2e-2 absolute) admits such a flip where its
     weight is small against the denominator, and catches a wrong row,
-    page or mask, which moves outputs by O(1)."""
+    page, rank or mask, which moves outputs by O(1).  Cases: the engine's
+    decode geometry (timed), block-table edges, and one long context (B 2,
+    positions 32767 and 9000, 2,048 pages of 16; timed), each at the
+    launch plan's split; at the engine's shape every split 1-8 is also
+    checked and timed (`paged_plan`'s evidence)."""
     import torch
+    from repro_torch.kernels import build as B
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels.registry import PAGED_DECODE_CARD_TOL as TOL
     kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, kv_packed=pol.kv_packed)
+
+    def plan_of(q, cache):
+        return PD.paged_plan(q.shape[0], cfg.n_kv_heads,
+                             cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                             cache["k_codes"].shape[3],
+                             cache["k_codes"].shape[1],
+                             cache["block_table"].shape[1])
+
+    def held(name, got, want):
+        err = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got).all()) or float(err.max()) > TOL:
+            raise AssertionError(f"paged_decode_attention {name}: max err "
+                                 f"{float(err.max())} > {TOL}")
+        return err
 
     def compare(name, q, cache, pos):
         args = (q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
@@ -766,11 +802,10 @@ def check_paged(cfg, pol, gen, ecfg):
         got = PD.paged_decode_attention(*args, **kw)
         want = PD.paged_decode_attention_ref(*args, **kw)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if not bool(torch.isfinite(got).all()) or float(err.max()) > TOL:
-            raise AssertionError(f"paged_decode_attention {name}: max err "
-                                 f"{float(err.max())} > {TOL}")
-        print(f"paged_decode_attention hd={cfg.hd} {name}: max_abs_err "
+        err = held(name, got, want)
+        plan = plan_of(q, cache)
+        print(f"paged_decode_attention hd={cfg.hd} {name} (split "
+              f"{plan.split}, {plan.blocks} blocks): max_abs_err "
               f"{float(err.max()):.3g}, {int((err > 0).sum())} of "
               f"{err.numel()} outputs differ")
         return float(err.max()), args
@@ -782,6 +817,7 @@ def check_paged(cfg, pol, gen, ecfg):
     e, main_args = compare("B=4 page=16 lengths [256,201,101,18]", q, cache,
                            pos)
     worst = max(worst, e)
+    main_plan = plan_of(q, cache)
     # edge cases: partial tail pages at page 8, mid-page positions, and an
     # idle slot whose table row is all scratch
     q, cache, pos = _paged_case(cfg, pol, gen, [13, 5, 17], 8)
@@ -795,19 +831,62 @@ def check_paged(cfg, pol, gen, ecfg):
     worst = max(worst, compare("idle slot on the scratch page", q, cache,
                                pos)[0])
 
+    def bound_of(lengths, args):
+        ops = 2 * 2 * sum(lengths) * cfg.n_heads * cfg.hd
+        return bound(_paged_bytes(cfg, lengths, args[0], args[5]), ops)
+
     t = timings(lambda: PD.paged_decode_attention(*main_args, **kw),
                 lambda: PD.paged_decode_attention_ref(*main_args, **kw))
-    q, table, pos = main_args[0], main_args[5], main_args[6]
-    live_rows = sum(lengths) * cfg.n_kv_heads
-    row_bytes = cfg.hd // 2 + 4                   # packed codes + scale
-    # K and V live rows once, q read and out written (bf16), table, pos
-    nbytes = (2 * live_rows * row_bytes + 2 * q.numel() * 2
-              + table.numel() * 4 + pos.numel() * 4)
-    ops = 2 * 2 * sum(lengths) * cfg.n_heads * cfg.hd
-    t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+    t["bound_ms"], t["bound_by"] = bound_of(lengths, main_args)
+    t["split"] = main_plan.split
     print(f"paged_decode_attention hd={cfg.hd} B=4: {fmt_times(t)} bound_ms "
           f"{t['bound_ms']:.6f} ({t['bound_by']}); 1 launch per layer, "
           f"{cfg.n_layers} per decode step")
+
+    # every split at the engine's shape, each held to the plain version
+    lib = B.load_library()
+    qm, kc, ks, vc, vs, table, posm = main_args
+    want = PD.paged_decode_attention_ref(*main_args, **kw)
+    out = torch.empty_like(qm)
+    splits = {}
+    for split in range(1, PD.MAX_CLUSTER + 1):
+        def call(split=split):
+            B.check(lib.paged_decode_launch(
+                qm.data_ptr(), 1, kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
+                vs.data_ptr(), table.data_ptr(), posm.data_ptr(),
+                out.data_ptr(), qm.shape[0], cfg.n_heads, cfg.n_kv_heads,
+                cfg.hd, kc.shape[1], table.shape[1], 0, cfg.hd ** -0.5,
+                split, torch.cuda.current_stream().cuda_stream),
+                f"paged_decode split {split}")
+        call()
+        torch.cuda.synchronize()
+        err = held(f"split {split}", out, want)
+        splits[split] = device_ms(call)
+        print(f"  split {split}: max_abs_err {float(err.max()):.3g}, device "
+              f"{splits[split]} ms")
+    timed = {k: v for k, v in splits.items() if v is not None}
+    best = min(timed, key=timed.get) if timed else None
+    print(f"paged_decode_attention hd={cfg.hd} splits at the engine shape "
+          f"(device ms; the plan takes {main_plan.split}, the fastest "
+          f"{best}): " + ", ".join(f"{k} {v}" for k, v in splits.items()))
+    t["splits_device_ms"] = splits
+
+    # one long context, beyond the parent kernel's shared-memory cap
+    long_lengths = [32768, 9001]
+    q, cache, pos = _paged_case(cfg, pol, gen, long_lengths, 16,
+                                [32767, 9000])
+    e, long_args = compare("B=2 page=16 2048 pages positions [32767,9000]",
+                           q, cache, pos)
+    worst = max(worst, e)
+    lt = timings(lambda: PD.paged_decode_attention(*long_args, **kw),
+                 lambda: PD.paged_decode_attention_ref(*long_args, **kw))
+    lt["bound_ms"], lt["bound_by"] = bound_of(long_lengths, long_args)
+    lt["split"] = plan_of(q, cache).split
+    print(f"paged_decode_attention hd={cfg.hd} long context: "
+          f"{fmt_times(lt)} bound_ms {lt['bound_ms']:.6f} "
+          f"({lt['bound_by']})")
+    t["long"] = {k: lt[k] for k in TIME_KEYS + ("bound_ms", "split")}
+    del q, cache, pos, long_args
     return worst, t
 
 
@@ -1261,13 +1340,18 @@ def check_flash(gen):
     """The f32 flash kernel against the plain global-softmax version: one
     layer of qwen3-4b's prefill (B 1, S 4096, H 32, KV 8, hd 128) on f32
     inputs at FLASH_F32_RTOL relative to the largest output, and on bf16
-    inputs within one bf16 ulp over that f32 tolerance; hd 64 (H 16, KV 8, S 1024) and S 1000 (bq
-    = bk = 125) on f32.  Timed at the first shape in f32, beside the
-    library's attention."""
+    inputs (the split-bf16 tensor-core instance path C runs) within one
+    bf16 ulp over that f32 tolerance; hd 64 (H 16, KV 8, S 1024) and S
+    1000 (bq = bk = 125) on f32.  Both dtypes timed at the first shape,
+    each beside its bound: the kernel's bf16 products at the bf16
+    tensor-core peak (three exact ones for bf16 inputs, six for f32),
+    with the f32 peak's beside it; the library's f32 attention on the
+    same values, and (bf16) bf16 SDPA as a speed reference.  -> the bf16
+    instance's timings, the f32 instance's under "f32"."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.registry import _fit_block
-    worst, out = 0.0, None
+    worst, res = 0.0, {}
     for H, KV, S, hd, dtype in ((32, 8, 4096, 128, torch.float32),
                                 (32, 8, 4096, 128, torch.bfloat16),
                                 (16, 8, 1024, 64, torch.float32),
@@ -1298,19 +1382,39 @@ def check_flash(gen):
         worst = max(worst, float(err.max()))
         print(f"flash_attention H={H} KV={KV} S={S} hd={hd} bq=bk={b} "
               f"{dtype}: max_abs_err {float(err.max()):.3g}, {what}")
-        if out is None:
-            args = (q, k, v)
-            t = timings(lambda: FA.flash_attention(*args),
-                        lambda: FA.flash_attention_ref(*args))
-            nbytes, ops = _attn_work(H, KV, S, hd, 4)
-            t["bound_ms"], t["bound_by"] = bound(nbytes, ops, F32_OPS_PER_S)
+        if S != 4096:
+            continue
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        args = (q, k, v)
+        t = timings(lambda: FA.flash_attention(*args),
+                    lambda: FA.flash_attention_ref(*args))
+        nbytes, ops = _attn_work(H, KV, S, hd, q.element_size())
+        t["f32_bound_ms"] = bound(nbytes, ops, F32_OPS_PER_S)[0]
+        products = 3 if name == "bf16" else 6
+        t["bound_ms"], t["bound_by"] = bound(nbytes, products * ops,
+                                             FP16_OPS_PER_S)
+        if name == "bf16":
+            fq, fk, fv = q.float(), k.float(), v.float()
+            lib_ms, lib_dev, lib_err, note = _library_sdpa(fq, fk, fv,
+                                                           want.float())
+            ref_ms, ref_dev, ref_note = _library_sdpa_bf16(q, k, v)
+            t["speed_references"] = {"sdpa_bf16_ms": ref_ms,
+                                     "sdpa_bf16_device_ms": ref_dev,
+                                     "sdpa_bf16": ref_note}
+            note += " on the same values upcast (casts not timed)"
+        else:
             lib_ms, lib_dev, lib_err, note = _library_sdpa(q, k, v, want)
-            t.update(library_ms=lib_ms, library_device_ms=lib_dev)
-            print(f"flash_attention S={S} f32: {fmt_times(t)} bound_ms "
-                  f"{t['bound_ms']:.4f} ({t['bound_by']}, f32 peak); "
-                  f"library {note} {lib_ms} ms (device {lib_dev}), "
-                  f"max_abs_err {lib_err}")
-            out = t
+        t.update(library_ms=lib_ms, library_device_ms=lib_dev)
+        print(f"flash_attention S={S} {name}: {fmt_times(t)} bound_ms "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}, {products} bf16 "
+              f"products; f32 peak {t['f32_bound_ms']:.4f}); library {note} "
+              f"{lib_ms} ms "
+              f"(device {lib_dev}), max_abs_err {lib_err}"
+              + (f"; speed reference bf16 SDPA {ref_ms} ms (device "
+                 f"{ref_dev})" if name == "bf16" else ""))
+        res[name] = t
+    out = res["bf16"]
+    out["f32"] = res["f32"]
     out["max_abs_err"] = worst
     return out
 
@@ -1569,10 +1673,11 @@ KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
                 "flash_attention", "quantize_rows", "quantize_pack_rows",
                 "dpa_act_quant")
 # per-route counts: the fused wrappers' launches on each of their routes,
-# and the DPA flash wrapper's launches on raw K/V (each after a pre-pass)
+# the DPA flash wrapper's launches on raw K/V (each after a pre-pass), and
+# the f32 flash wrapper's K/V splits (its f32 instance; no path runs it)
 ROUTE_COUNTS = ("dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
                 "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled",
-                "dpa_flash_attention.prepass")
+                "dpa_flash_attention.prepass", "flash_attention.prepass")
 
 
 def _wrappers():
@@ -2320,9 +2425,15 @@ def main() -> None:
                       + n_g["paged_decode_attention"]),
          "max_abs_err": max(pd_err, gpd_err), **times(pd_t),
          "bound_by": pd_t["bound_by"], "library_ms": None,
+         "split": pd_t["split"], "splits_device_ms": pd_t["splits_device_ms"],
+         "long": pd_t["long"],
          "at": "one layer, B=4 H=32 KV=8 hd=128 page=16 lengths "
-               "[256,201,101,18]",
+               "[256,201,101,18]; long: B=2, 2048 pages of 16, positions "
+               "[32767,9000]",
          "hd64": {"max_abs_err": gpd_err, **times(gpd_t),
+                  "split": gpd_t["split"],
+                  "splits_device_ms": gpd_t["splits_device_ms"],
+                  "long": gpd_t["long"],
                   "at": "granite-moe-1b, H=16 KV=8 hd=64, same lengths"}},
         {"name": "dpa_matmul_prequant", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_prequant.cu",
@@ -2384,9 +2495,21 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention.py:100",
          "launches": n_c["flash_attention"],
          "max_abs_err": fa_t["max_abs_err"], **times(fa_t),
+         "device_from": fa_t.get("device_from"),
          "bound_by": fa_t["bound_by"], **lib(fa_t),
+         "f32_bound_ms": fa_t["f32_bound_ms"],
+         "speed_references": fa_t["speed_references"],
          "at": "one layer of qwen3-4b prefill: B=1 S=4096 H=32 KV=8 hd=128 "
-               "causal, f32 (bound at the f32 peak)"},
+               "causal, bf16 (path C's instance: split-bf16 tensor cores; "
+               "bound: three bf16 products at the bf16 peak; library: f32 "
+               "SDPA on the same values)",
+         "f32": {**times(fa_t["f32"]), "bound_by": fa_t["f32"]["bound_by"],
+                 **lib(fa_t["f32"]),
+                 "f32_bound_ms": fa_t["f32"]["f32_bound_ms"],
+                 "prepass_launches": n_c["flash_attention.prepass"],
+                 "at": "the same layer in f32 (K/V split by the pre-pass, "
+                       "included; six bf16 products; bound: six bf16 "
+                       "products at the bf16 peak)"}},
         {"name": "quantize_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:70",

@@ -1,8 +1,10 @@
-// Device helpers shared by the two tensor-core routes of dpa_matmul_fused
-// (dpa_matmul.cu below the launch plan's row threshold, dpa_fused_tiled.cu
-// from it on): cp.async copies into shared memory, ldmatrix, the exact
-// conversions of E4M3 and packed E2M1 codes to fp16 pairs, and the fp16
-// mma.sync with f32 accumulation.
+// Device helpers shared by the tensor-core kernels (dpa_matmul.cu,
+// dpa_fused_tiled.cu, dpa_flash.cu, flash_attention.cu) and the cp.async
+// copies of paged_decode.cu:
+// cp.async copies into shared memory, ldmatrix and the XOR swizzle of
+// 16-byte chunks it reads, the exact conversions of E4M3 and packed E2M1
+// codes to fp16 pairs, the fp16 and bf16 mma.sync with f32 accumulation,
+// and the quad reductions over an accumulator fragment's row.
 //
 // Why fp16 operands are exact here: every E4M3 value (4 significant bits,
 // 2^-9 .. 448) and every E2M1 value is an fp16 value, and a product of two
@@ -52,6 +54,36 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4],
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(addr)
       : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Index (in 16-bit elements) of chunk `ch` (8 elements) of row `row` of a
+// tile with HD elements a row: the chunk XOR the row's low three bits, so
+// the eight rows an ldmatrix reads at one chunk fall on eight different
+// 16-byte bank groups.
+template <int HD>
+__device__ __forceinline__ int swz(int row, int ch) {
+  return row * HD + ((ch ^ (row & 7)) << 3);
+}
+
+// Max and sum over the four lanes (a quad) that hold one row of an MMA
+// accumulator fragment; every lane gets the same bits.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
@@ -107,6 +139,18 @@ __device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0,
                                         uint32_t a3, uint32_t b0,
                                         uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// bf16 operands, f32 accumulation: a product of two bf16 values (8
+// significant bits each) is exact in f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));

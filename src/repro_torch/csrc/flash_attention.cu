@@ -1,5 +1,6 @@
 // flash_attention for Hopper (sm_90a): blocked online-softmax f32 prefill
-// attention, GQA, causal and sliding-window masks.
+// attention, GQA, causal and sliding-window masks, both products on bf16
+// tensor cores over operands split exactly into bf16 pieces.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // flash_attention (_flash_kernel).  (The DPA kernel, dpa_flash_attention,
@@ -15,7 +16,8 @@
 //   out = acc / max(l, 1e-30), cast to q's dtype.
 // Divisions are IEEE (__fdiv_rn), exp is expf (this file is never built
 // with --use_fast_math), and each multiply-then-add of the state is two
-// rounded operations, as in the reference.
+// rounded operations, as in the reference.  The route's pin is 2e-6
+// relative against the global-softmax plain version, which rules out TF32.
 //
 // Skipped key blocks, exactly: a block wholly above the causal diagonal
 // gives p = 0 and alpha = 1 for every row that has seen a live key, and
@@ -28,33 +30,52 @@
 //
 // What bounds it: operations.  A causal layer of qwen3-4b's prefill (S
 // 4096, 32 heads, hd 128) needs 1.37e11 flops: 2.05 ms at the H100's 67
-// Tflop/s in f32 (the kernel's tolerance rules out TF32), against 0.02 ms
-// of bytes.
+// Tflop/s in f32 on the CUDA cores, 0.42 ms as three bf16 products at 989
+// Tflop/s (the bf16 instance), 0.83 ms as six (the f32 instance), against
+// 0.02 ms of bytes.
 //
-// Design (right and simple first): one block of 256 threads per (batch x
-// head, q block), a 16 x 16 grid of threads, each owning 8 q rows x 8
-// keys of a 128 x 128 logits tile and 8 rows x hd/16 dims of the output.
-// The scaled q tile, the K tile and the p tile sit transposed in dynamic
-// shared memory with a padded leading dimension, so the inner products
-// read one address per half warp; the V tile reuses the K tile's space.
-// 198 KB at hd 128.  The running max, denominator and accumulator stay in
-// registers, replicated over the 16 threads that share a row (row
-// reductions are xor shuffles, which give every lane the same bits).  bq
-// and bk may be any size up to 128 (S = 1000 gives 125): tile rows and
-// keys past them are zeros, and keys past bk carry s = -inf, so they add
-// exactly nothing.  Blocks run the heaviest (last) causal q blocks first.
+// The products (tests/test_torch_attn_plan.py models this order): each
+// f32 operand x splits into three bf16 pieces hi = bf16(x), mid = bf16(x -
+// hi), lo = x - hi - mid (24 = 3 x 8 significant bits, and bf16 has f32's
+// exponent range: exact for |x| >= 2^-110, below which the dropped part
+// is under 2^-133).  The scaled q tile and p split so; bf16 K and V enter
+// as they are, so the bf16 instance's piece products are exact and it
+// differs from a scalar f32 kernel only in the order and rounding of its
+// sums.  f32 K and V go through a pre-pass (kv_split_kernel) that writes
+// their three pieces; the f32 instance keeps the six piece products of
+// weight 2^-16 or more (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid) and
+// drops terms near 2^-24 relative.  To keep the tensor cores' rounding of
+// a running sum off the small pieces, hi . hi products and the rest
+// accumulate apart (QK: over hd; PV: over the key tile, fresh per tile)
+// and meet in one f32 add; the state updates stay as above.
+//
+// Layout (FA2): one block of 8 warps per (batch x head, q block of <= 128
+// rows), warp w owning rows 16 w .. 16 w + 15 against a key tile, so a
+// row's max and sums are quad shuffles and p goes from the QK accumulators
+// straight into PV's A fragments.  The q tile is scaled and split once
+// into three swizzled bf16 tiles (96 KB at hd 128); K and V tiles (bf16
+// piece planes, 2 bytes a value) stream through a cp.async ring with one
+// barrier a tile, read by ldmatrix (V transposed): tiles of 64 keys in 3
+// stages for bf16 inputs, of 32 keys (three planes each) in 2 stages for
+// f32 (96 KB either way).  The block walks the keys of the caller's live
+// key blocks [j0 bk, j1 bk) in its own tiles (any bk <= 128: keys past j1
+// bk carry s = -inf and zero K/V rows), so the tile, not bk, sets where
+// the running max is taken; that changes only the f32 rounding, as the
+// plain version's global softmax already differs from any blocking.  Rows
+// past bq are zeros and are not stored.  One block an SM (255 registers).
+// Blocks run the heaviest (last) causal q blocks first.
 #include <math.h>
 
+#include <type_traits>
+
 #include "dpa_common.cuh"
+#include "dpa_mma.cuh"
 
 namespace {
 
-constexpr int kT = 128;         // tile rows and keys: bq, bk <= 128
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kWarps = kThreads / 32;
-constexpr int kR = 8;           // q rows per thread
-constexpr int kC = 8;           // keys per thread
-constexpr int kLd = kT + 1;     // padded leading dim of the transposed tiles
+constexpr int kT = 128;         // q tile rows; bq, bk <= 128
+constexpr int kWarps = 8;       // 16 q rows each
+constexpr int kThreads = 32 * kWarps;
 
 struct Params {
   const void* q;
@@ -65,73 +86,121 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One warp per key row of the tile: the row as f32 into dst, transposed
-// ([d][key], leading dim kLd) or not ([key][d]).  Lane l holds dims
-// l + 32 e.  Keys >= bk are zeros.
-template <int HD, typename QT>
-__device__ void load_kv_tile(const Params& p, const void* src, size_t row0,
-                             float* dst, bool transposed) {
-  constexpr int kE = HD / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const QT* x = static_cast<const QT*>(src);
-  for (int key = warp; key < kT; key += kWarps) {
-    const bool ok = key < p.bk;                 // uniform over the warp
-    const size_t row = row0 + key;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int d = lane + 32 * e;
-      const float val = ok ? dpa::to_f32(x[row * HD + d]) : 0.0f;
-      if (transposed) {
-        dst[d * kLd + key] = val;
-      } else {
-        dst[key * HD + d] = val;
-      }
-    }
+// KVP: bf16 pieces of a K or V value, 1 (bf16 inputs) or 3 (f32 inputs,
+// split by the pre-pass below).  The key tile and the ring's depth follow
+// from the shared memory the q pieces leave.
+template <int KVP>
+struct Tc {
+  static constexpr int kTN = KVP == 1 ? 64 : 32;   // keys a tile
+  static constexpr int kN8 = kTN / 8;   // the QK accumulators' 8-key columns
+  static constexpr int kStages = KVP == 1 ? 3 : 2;   // K/V ring stages
+  // the (q or p piece, K or V piece) pairs summed apart from hi . hi: all
+  // pairs of weight >= 2^-16 (with one K/V piece: mid and lo of q or p)
+  static constexpr int kLo = KVP == 1 ? 2 : 5;
+  __host__ __device__ static constexpr int lo_a(int i) {
+    return KVP == 1 ? 1 + i : (i == 0 || i == 2) ? 0 : i == 3 ? 2 : 1;
   }
+  __host__ __device__ static constexpr int lo_b(int i) {
+    return KVP == 1 ? 0 : i == 0 || i == 4 ? 1 : i == 2 ? 2 : 0;
+  }
+};
+
+// Shared memory, bytes: the three q pieces (kT rows of HD bf16 each), then
+// kStages ring stages of a K and a V tile (KVP piece planes of kTN rows of
+// HD bf16 each), all swizzled.
+template <int HD, int KVP>
+struct TcSmem {
+  static constexpr int kQPiece = kT * HD * 2;
+  static constexpr int kTile = Tc<KVP>::kTN * HD * 2;      // one plane
+  static constexpr int kStage = 2 * KVP * kTile;
+  static constexpr int kRing = 3 * kQPiece;
+  static constexpr int kBytes = kRing + Tc<KVP>::kStages * kStage;
+};
+
+// x0, x1 -> bf16 pairs hi, mid, lo with hi + mid + lo = x, exact for |x|
+// >= 2^-110 (the low half of each pair from x0).
+__device__ __forceinline__ void split3_bf16x2(float x0, float x1,
+                                              uint32_t& hi, uint32_t& mid,
+                                              uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int HD, typename QT>
-__global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
-  constexpr int kE = HD / 32;
-  constexpr int kD = HD / 16;     // output dims per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [HD][kLd] q tile, transposed
-  float* KVs = Qs + HD * kLd;     // [HD][kLd] K tile, or [kT][HD] V tile
-  float* Ps = KVs + HD * kLd;     // [kT][kLd] p tile, key-major
+// The f32 instance's pre-pass: rows of n f32 values -> three bf16 planes
+// of the same rows (row r's planes at out + (3 r + piece) n), two values a
+// thread.
+__global__ void __launch_bounds__(256) kv_split_kernel(
+    const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+    long long rows, int n) {
+  const long long i =
+      2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= rows * n) return;
+  const long long r = i / n;
+  const int c = (int)(i - r * n);
+  const float2 v = *reinterpret_cast<const float2*>(x + i);
+  uint32_t pc[3];
+  split3_bf16x2(v.x, v.y, pc[0], pc[1], pc[2]);
+#pragma unroll
+  for (int pi = 0; pi < 3; ++pi)
+    *reinterpret_cast<uint32_t*>(out + (3 * r + pi) * n + c) = pc[pi];
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tx = tid & 15, ty = tid >> 4;
+// cp.async copies of the K and V rows of keys [k0, k0 + kTN), each of its
+// KVP piece planes, into ring stage `stage` (16-byte chunks, swizzled);
+// keys at or past kend are zero-filled.  k and v hold, per (batch, KV
+// head), KVP planes of Sk rows.
+template <int HD, int KVP>
+__device__ __forceinline__ void load_tc_tile(const Params& p, uint8_t* sm,
+                                             int stage, size_t kv_head,
+                                             int k0, int kend) {
+  using L = TcSmem<HD, KVP>;
+  constexpr int kTN = Tc<KVP>::kTN;
+  constexpr int kCh = HD / 8;                 // 16-byte chunks a row
+  constexpr int kItems = kTN * kCh;           // a plane's
+  for (int i = threadIdx.x; i < 2 * KVP * kItems; i += kThreads) {
+    const int plane = i / kItems;             // K's planes, then V's
+    const int is_v = plane >= KVP, pi = plane - is_v * KVP;
+    const int key = (i % kItems) / kCh, c = i % kCh;
+    const bool ok = k0 + key < kend;
+    const __nv_bfloat16* src =
+        static_cast<const __nv_bfloat16*>(is_v ? p.v : p.k) +
+        ((kv_head * KVP + pi) * p.Sk + (ok ? k0 + key : 0)) * HD + 8 * c;
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
+        sm + L::kRing + stage * L::kStage + plane * L::kTile);
+    dpa::cp_async16(dst + dpa::swz<HD>(key, c), src, ok ? 16 : 0);
+  }
+  dpa::cp_async_commit();
+}
+
+template <int HD, int KVP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const Params p) {
+  using L = TcSmem<HD, KVP>;
+  using T = Tc<KVP>;
+  constexpr int kTN = T::kTN, kN8 = T::kN8, kStages = T::kStages;
+  constexpr int kE = HD / 32;          // q dims a lane while splitting
+  constexpr int kKSteps = HD / 16;     // QK's k16 steps
+  constexpr int kDHalf = HD / 16;      // PV's 8-dim columns per half of hd
+  extern __shared__ __align__(16) uint8_t sm[];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
   const int bh = blockIdx.y;
   const int h = bh % p.H, b = bh / p.H;
-  const size_t kv_row0 = ((size_t)b * p.KV + h / (p.H / p.KV)) * p.Sk;
+  const size_t kv_head = (size_t)b * p.KV + h / (p.H / p.KV);
   const int bq = p.bq, bk = p.bk;
   const int qb = gridDim.x - 1 - blockIdx.x;     // heaviest first
   const int q0 = qb * bq;
   const int off = p.Sk - p.Sq;
-
-  // the scaled q tile; rows >= bq zero
-  const QT* qp = static_cast<const QT*>(p.q) + ((size_t)bh * p.Sq + q0) * HD;
-  for (int r = warp; r < kT; r += kWarps) {
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const float val =
-          r < bq ? dpa::to_f32(qp[(size_t)r * HD + lane + 32 * e]) : 0.0f;
-      Qs[(lane + 32 * e) * kLd + r] = __fmul_rn(val, p.scale);
-    }
-  }
 
   // the key blocks that can change the result (see the note on skipping)
   const int n_k = p.Sk / bk;
@@ -141,139 +210,235 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     if (p.causal) j1 = min(n_k, qmax / bk + 1);
     if (p.window > 0) j0 = max(0, qmin - p.window + 1) / bk;
   }
+  const int kstart = j0 * bk, kend = j1 * bk;
+  const int n_tiles = (kend - kstart + kTN - 1) / kTN;
+  for (int s = 0; s < kStages - 1 && s < n_tiles; ++s)
+    load_tc_tile<HD, KVP>(p, sm, s, kv_head, kstart + s * kTN, kend);
 
-  float m[kR], l[kR], acc[kR][kD];
+  // q_s = fl(q * scale) split into three bf16 tiles; rows >= bq zero
+  using QT = typename std::conditional<KVP == 1, __nv_bfloat16, float>::type;
+  __nv_bfloat16* Qp = reinterpret_cast<__nv_bfloat16*>(sm);
+  const QT* qp = static_cast<const QT*>(p.q) + ((size_t)bh * p.Sq + q0) * HD;
+  for (int r = warp; r < kT; r += kWarps) {
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.0f;
+    for (int e = 0; e < kE; e += 2) {
+      const int d = lane * kE + e;
+      float2 v = make_float2(0.0f, 0.0f);
+      if (r < bq) {
+        if constexpr (KVP == 1)
+          v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              qp + (size_t)r * HD + d));
+        else
+          v = *reinterpret_cast<const float2*>(qp + (size_t)r * HD + d);
+      }
+      uint32_t pc[3];
+      split3_bf16x2(__fmul_rn(v.x, p.scale), __fmul_rn(v.y, p.scale), pc[0],
+                    pc[1], pc[2]);
 #pragma unroll
-    for (int dd = 0; dd < kD; ++dd) acc[i][dd] = 0.0f;
+      for (int pi = 0; pi < 3; ++pi)
+        *reinterpret_cast<uint32_t*>(Qp + pi * kT * HD +
+                                     dpa::swz<HD>(r, d >> 3) + (d & 7)) =
+            pc[pi];
+    }
   }
 
-  for (int j = j0; j < j1; ++j) {
-    const int k0 = j * bk;
-    __syncthreads();            // the previous block's reads of KVs / Ps
-    load_kv_tile<HD, QT>(p, p.k, kv_row0 + k0, KVs, true);
-    __syncthreads();
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f};
+  float acc[2 * kDHalf][4];
+#pragma unroll
+  for (int n = 0; n < 2 * kDHalf; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  const int qlo = q0 + r0 + off;               // this warp's first qpos
 
-    float s[kR][kC];
+  // One barrier per tile: after it tile `it` (and the q pieces) have
+  // landed for every thread, and every warp is done with tile it - 1,
+  // whose stage then takes tile it + kStages - 1.
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kstart + it * kTN, stage = it % kStages;
+    if (it + 1 < n_tiles)
+      dpa::cp_async_wait<kStages - 2>();
+    else
+      dpa::cp_async_wait<0>();
+    __syncthreads();
+    if (it + kStages - 1 < n_tiles)
+      load_tc_tile<HD, KVP>(p, sm, (it + kStages - 1) % kStages, kv_head,
+                            k0 + (kStages - 1) * kTN, kend);
+    const __nv_bfloat16* Kt = reinterpret_cast<const __nv_bfloat16*>(
+        sm + L::kRing + stage * L::kStage);
+    const __nv_bfloat16* Vt = Kt + KVP * kTN * HD;
+
+    // s = q_s . k over the tile: hi . hi products apart from the rest
+    float sh[kN8][4], sl[kN8][4];
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
-      for (int c = 0; c < kC; ++c) s[i][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[kR], kk[kC];
+      for (int e = 0; e < 4; ++e) sh[n][e] = sl[n][e] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kR; ++i) a[i] = Qs[d * kLd + ty * kR + i];
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t a[3][4];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) kk[c] = KVs[d * kLd + tx + 16 * c];
+      for (int pi = 0; pi < 3; ++pi)
+        dpa::ldmatrix_x4(a[pi], dpa::smem_u32(
+            Qp + pi * kT * HD +
+            dpa::swz<HD>(r0 + (lane & 15), 2 * kk + (lane >> 4))));
 #pragma unroll
-      for (int i = 0; i < kR; ++i)
+      for (int np = 0; np < kN8 / 2; ++np) {
+        uint32_t bf[KVP][4];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) s[i][c] = fmaf(a[i], kk[c], s[i][c]);
+        for (int pi = 0; pi < KVP; ++pi)
+          dpa::ldmatrix_x4(bf[pi], dpa::smem_u32(
+              Kt + pi * kTN * HD +
+              dpa::swz<HD>(16 * np + (lane & 7) + ((lane >> 4) << 3),
+                           2 * kk + ((lane >> 3) & 1))));
+        dpa::mma_bf16(sh[2 * np], a[0][0], a[0][1], a[0][2], a[0][3],
+                      bf[0][0], bf[0][1]);
+        dpa::mma_bf16(sh[2 * np + 1], a[0][0], a[0][1], a[0][2], a[0][3],
+                      bf[0][2], bf[0][3]);
+#pragma unroll
+        for (int i = 0; i < T::kLo; ++i) {
+          const uint32_t(&x)[4] = a[T::lo_a(i)];
+          const uint32_t(&y)[4] = bf[T::lo_b(i)];
+          dpa::mma_bf16(sl[2 * np], x[0], x[1], x[2], x[3], y[0], y[1]);
+          dpa::mma_bf16(sl[2 * np + 1], x[0], x[1], x[2], x[3], y[2], y[3]);
+        }
+      }
     }
 
-    // online softmax, row by row; p goes to Ps
-    float alpha[kR];
+    // logits, masks and the running max; element e of column block n is
+    // row r0 + g + 8 (e >> 1), key k0 + 8 n + 2 t + (e & 1).  A tile whose
+    // every (row, key) of this warp is live skips the mask.
+    const bool all_live = k0 + kTN <= kend &&
+                          (!p.causal || k0 + kTN - 1 <= qlo) &&
+                          (p.window <= 0 || k0 > qlo + 15 - p.window);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int r = ty * kR + i;
-      const int qpos = q0 + r + off;
-      float mx = -INFINITY;
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int key = tx + 16 * c;
-        const int kpos = k0 + key;
-        float sv = -INFINITY;               // keys past bk: not in the block
-        if (key < bk) {
-          sv = s[i][c];
+      for (int e = 0; e < 4; ++e) {
+        float sv = __fadd_rn(sh[n][e], sl[n][e]);
+        if (!all_live) {
+          const int qpos = qlo + g + 8 * (e >> 1);
+          const int kpos = k0 + 8 * n + 2 * t + (e & 1);
           const bool live = (!p.causal || kpos <= qpos) &&
                             (p.window <= 0 || kpos > qpos - p.window);
           if (!live) sv = -1e30f;
+          if (kpos >= kend) sv = -INFINITY;   // not in a live key block
         }
-        s[i][c] = sv;
-        mx = fmaxf(mx, sv);
+        sh[n][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
       }
-      const float m_cur = fmaxf(m[i], half_warp_max(mx));
-      alpha[i] = expf(m[i] - m_cur);
+    float alpha[2], m_cur[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int c = 0; c < kC; ++c) s[i][c] = expf(s[i][c] - m_cur);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) sum += s[i][c];
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), half_warp_sum(sum));
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) Ps[(tx + 16 * c) * kLd + r] = s[i][c];
-    }
-
-    __syncthreads();            // every thread's reads of the K tile
-    load_kv_tile<HD, QT>(p, p.v, kv_row0 + k0, KVs, false);
-    __syncthreads();
-
-    float part[kR][kD];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int dd = 0; dd < kD; ++dd) part[i][dd] = 0.0f;
-    for (int c = 0; c < bk; ++c) {
-      float pr[kR], vv[kD];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) pr[i] = Ps[c * kLd + ty * kR + i];
-#pragma unroll
-      for (int dd = 0; dd < kD; ++dd) vv[dd] = KVs[c * HD + tx + 16 * dd];
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int dd = 0; dd < kD; ++dd)
-          part[i][dd] = fmaf(pr[i], vv[dd], part[i][dd]);
+    for (int i = 0; i < 2; ++i) {
+      m_cur[i] = fmaxf(m[i], dpa::quad_max(mx[i]));
+      alpha[i] = expf(m[i] - m_cur[i]);
+      m[i] = m_cur[i];
     }
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+    for (int n = 0; n < kN8; ++n)
 #pragma unroll
-      for (int dd = 0; dd < kD; ++dd)
-        acc[i][dd] = __fadd_rn(__fmul_rn(acc[i][dd], alpha[i]), part[i][dd]);
+      for (int e = 0; e < 4; ++e) {
+        sh[n][e] = expf(sh[n][e] - m_cur[e >> 1]);
+        sum[e >> 1] += sh[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), dpa::quad_sum(sum[i]));
+
+    // PV, one half of hd at a time: p split into three bf16 pieces (A,
+    // from this thread's accumulators: keys 16 c + 2 t (+1) and 16 c + 8 +
+    // 2 t (+1)) times V (B, ldmatrix.trans); hi . hi apart from the rest
+#pragma unroll
+    for (int dh = 0; dh < 2; ++dh) {
+      float ph[kDHalf][4], pl[kDHalf][4];
+#pragma unroll
+      for (int n = 0; n < kDHalf; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ph[n][e] = pl[n][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kTN / 16; ++c) {
+        uint32_t a[3][4];
+        split3_bf16x2(sh[2 * c][0], sh[2 * c][1], a[0][0], a[1][0], a[2][0]);
+        split3_bf16x2(sh[2 * c][2], sh[2 * c][3], a[0][1], a[1][1], a[2][1]);
+        split3_bf16x2(sh[2 * c + 1][0], sh[2 * c + 1][1], a[0][2], a[1][2],
+                      a[2][2]);
+        split3_bf16x2(sh[2 * c + 1][2], sh[2 * c + 1][3], a[0][3], a[1][3],
+                      a[2][3]);
+#pragma unroll
+        for (int dp = 0; dp < kDHalf / 2; ++dp) {
+          uint32_t bf[KVP][4];
+#pragma unroll
+          for (int pi = 0; pi < KVP; ++pi)
+            dpa::ldmatrix_x4_trans(bf[pi], dpa::smem_u32(
+                Vt + pi * kTN * HD +
+                dpa::swz<HD>(16 * c + (lane & 7) + (((lane >> 3) & 1) << 3),
+                             dh * kDHalf + 2 * dp + (lane >> 4))));
+          dpa::mma_bf16(ph[2 * dp], a[0][0], a[0][1], a[0][2], a[0][3],
+                        bf[0][0], bf[0][1]);
+          dpa::mma_bf16(ph[2 * dp + 1], a[0][0], a[0][1], a[0][2], a[0][3],
+                        bf[0][2], bf[0][3]);
+#pragma unroll
+          for (int i = 0; i < T::kLo; ++i) {
+            const uint32_t(&x)[4] = a[T::lo_a(i)];
+            const uint32_t(&y)[4] = bf[T::lo_b(i)];
+            dpa::mma_bf16(pl[2 * dp], x[0], x[1], x[2], x[3], y[0], y[1]);
+            dpa::mma_bf16(pl[2 * dp + 1], x[0], x[1], x[2], x[3], y[2],
+                          y[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDHalf; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[dh * kDHalf + n][e] =
+              __fadd_rn(__fmul_rn(acc[dh * kDHalf + n][e], alpha[e >> 1]),
+                        __fadd_rn(ph[n][e], pl[n][e]));
+    }
   }
 
+  // out: element e of column block n is row r0 + g + 8 (e >> 1), dim
+  // 8 n + 2 t + (e & 1)
   QT* op = static_cast<QT*>(p.out) + ((size_t)bh * p.Sq + q0) * HD;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = ty * kR + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
     if (r < bq) {
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int dd = 0; dd < kD; ++dd)
-        dpa::store(op + (size_t)r * HD + tx + 16 * dd,
-                   __fdiv_rn(acc[i][dd], den));
+      for (int n = 0; n < 2 * kDHalf; ++n) {
+        const float o0 = __fdiv_rn(acc[n][2 * i], den);
+        const float o1 = __fdiv_rn(acc[n][2 * i + 1], den);
+        if constexpr (KVP == 1)
+          *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * HD + 8 * n +
+                                             2 * t) =
+              __floats2bfloat162_rn(o0, o1);
+        else
+          *reinterpret_cast<float2*>(op + (size_t)r * HD + 8 * n + 2 * t) =
+              make_float2(o0, o1);
+      }
     }
   }
 }
 
-template <int HD, typename QT>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)HD * kLd +
-                                       (size_t)kT * kLd);
-  auto kernel = flash_kernel<HD, QT>;
+template <int HD, int KVP>
+cudaError_t launch_tc(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = TcSmem<HD, KVP>::kBytes;
+  auto kernel = flash_tc_kernel<HD, KVP>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.Sq / p.bq, B * p.H);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename QT>
-cudaError_t launch_hd(int hd, const Params& p, int B, cudaStream_t s) {
-  return hd == 64 ? launch<64, QT>(p, B, s) : launch<128, QT>(p, B, s);
-}
-
 }  // namespace
 
 // q/out: (B, H, Sq, hd) f32 (q_bf16 = 0) or bf16 (q_bf16 = 1), hd 64 or
-// 128; k/v: (B, KV, Sk, hd) in q's dtype.  window <= 0: none.  All
-// contiguous.
+// 128.  bf16: k/v (B, KV, Sk, hd) bf16.  f32: k/v are the pre-pass's
+// pieces of the f32 K and V, (B, KV, 3, Sk, hd) bf16 (flash_kv_split_launch).
+// window <= 0: none.  All contiguous, 16-byte aligned.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int q_bf16,
                                       int hd, int B, int H, int KV, int Sq,
@@ -286,6 +451,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, out, H, KV, Sq, Sk, bq, bk, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(q_bf16 ? launch_hd<__nv_bfloat16>(hd, p, B, s)
-                      : launch_hd<float>(hd, p, B, s));
+  if (q_bf16)
+    return (int)(hd == 64 ? launch_tc<64, 1>(p, B, s)
+                          : launch_tc<128, 1>(p, B, s));
+  return (int)(hd == 64 ? launch_tc<64, 3>(p, B, s)
+                        : launch_tc<128, 3>(p, B, s));
+}
+
+// The f32 instance's pre-pass: x (rows, n) f32 -> out (rows, 3, n) bf16,
+// the hi, mid and lo pieces of each value (n even; both 16-byte aligned).
+extern "C" int flash_kv_split_launch(const void* x, void* out,
+                                     long long rows, int n, void* stream) {
+  if (rows <= 0 || n <= 0 || n % 2) return (int)cudaErrorInvalidValue;
+  const long long pairs = rows * n / 2;
+  kv_split_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), rows,
+      n);
+  return (int)cudaGetLastError();
 }

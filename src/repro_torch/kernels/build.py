@@ -46,13 +46,16 @@ _SIGNATURES = {
     "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
     # q, q_bf16, kc, ks, vc, vs, table, positions, out,
-    # B, H, KV, hd, page, max_pages, kv_fmt, scale, stream
+    # B, H, KV, hd, page, max_pages, kv_fmt, scale, split, stream
     "paged_decode_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+                            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                            _P),
     # q, k, v, out, q_bf16, hd, B, H, KV, Sq, Sk, bq, bk, causal, window,
     # scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, ctypes.c_float, _P),
+    # x, out, rows, n, stream
+    "flash_kv_split_launch": (_P, _P, ctypes.c_longlong, _I, _P),
     # q, q_bf16, k, v, ks, vs, out, p_codes, hd, kv_fmt,
     # B, H, KV, Sq, Sk, bq, bk, causal, window, scale, stream
     "dpa_flash_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,

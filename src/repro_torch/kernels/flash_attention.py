@@ -5,7 +5,11 @@ around the CUDA kernels (`csrc/flash_attention.cu`, `csrc/dpa_flash.cu`).
 `repro/kernels/flash_attention.py` `flash_attention`: f32 online-softmax
 attention over (B, H, Sq, D) queries and (B, Hkv, Sk, D) keys and values
 (GQA: q head h reads kv head h // (H / Hkv)), causal and sliding-window
-masks, output in q's dtype.
+masks, output in q's dtype.  On the card both products run on bf16
+tensor cores, each f32 operand (scaled q, p, and f32 K and V) split into
+three bf16 pieces: bf16 inputs' products are exact; f32 inputs first go
+through a pre-pass that splits K and V (`prepass_launches`), and keep
+the six piece products of weight 2^-16 or more.
 
 `dpa_flash_attention` replaces `dpa_flash_attention` of the same file:
 both attention products accumulate in f32 over quantized operands.  q
@@ -173,7 +177,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     q's dtype; bq and bk (cut to the lengths) must divide Sq and Sk.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  `flash_attention.launches` counts launches."""
+    kernel or raises.  `flash_attention.launches` counts launches,
+    `.prepass_launches` the f32 inputs' K/V splits (two a call)."""
     _check(q, k, v, q.shape[3])
     bq, bk = _blocks(q, k, bq, bk)
     if q.device.type == "cpu":
@@ -183,19 +188,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes k/v in q's dtype "
                         f"{q.dtype}, got {k.dtype}, {v.dtype}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs 16-byte aligned "
+                         "operands")
     B, H, Sq, D = q.shape
+    lib = build.load_library()
+    if q.dtype == torch.float32:
+        k, v = _split_pieces(lib, k), _split_pieces(lib, v)
+        flash_attention.prepass_launches += 2
     out = torch.empty_like(q)
-    err = build.load_library().flash_attention_launch(
+    err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), D, B, H, k.shape[1], Sq, k.shape[2],
-        bq, bk, int(causal), int(window or 0),
+        int(q.dtype == torch.bfloat16), D, B, H, k.shape[1], Sq,
+        k.shape[-2], bq, bk, int(causal), int(window or 0),
         float(scale if scale is not None else D ** -0.5), _stream(q))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
+def _split_pieces(lib, x):
+    """f32 (B, Hkv, S, D) K or V -> its (B, Hkv, 3, S, D) bf16 pieces hi,
+    mid, lo (hi + mid + lo = x, exact for |x| >= 2^-110), the f32
+    instance's pre-pass."""
+    B, Hkv, S, D = x.shape
+    out = torch.empty((B, Hkv, 3, S, D), dtype=torch.bfloat16,
+                      device=x.device)
+    build.check(lib.flash_kv_split_launch(x.data_ptr(), out.data_ptr(),
+                                          B * Hkv, S * D, _stream(x)),
+                "flash_attention pre-pass")
+    return out
+
+
 flash_attention.launches = 0
+flash_attention.prepass_launches = 0
 
 
 def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,

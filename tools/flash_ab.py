@@ -1,18 +1,24 @@
-"""The flash kernels of two checkouts, side by side on one card.
+"""The attention kernels of two checkouts, side by side on one card.
 
     python3 tools/flash_ab.py OTHER [--this DIR]
 
 OTHER and DIR (default: this checkout) are repository roots, for
 example the parent commit unpacked with `git archive`.  Each side runs
 in its own process (both packages are `repro_torch`), in turns OTHER,
-THIS, THIS, OTHER; each builds its own kernels, writes the f32 flash
-kernel's outputs on seeded inputs (one layer of qwen3-4b's prefill, S
-4096, in f32 and bf16; hd 64; S 1000 with blocks of 125) and times, as
-CUDA-graph replays of 10 calls, the f32 kernel at S 4096 in f32 and the
-DPA kernel at one layer of qwen3-4b scoring (raw fp4 K/V, bf16).  Then
-it says whether the two sides' f32 outputs are the same bits and prints
-the card's name and power limit and one JSON line.  Needs a CUDA card
-and nvcc; the outputs go to `build/flash_ab/`.
+THIS, THIS, OTHER; each builds its own kernels, writes the outputs of
+the f32 flash kernel (one layer of qwen3-4b's prefill, S 4096, in f32
+and bf16; hd 64; S 1000 with blocks of 125) and of the paged decode
+kernel (one decode layer at each engine's shape: qwen3-4b hd 128 and
+granite-moe-1b hd 64, B 4, lengths 256/201/101/18, packed-fp4 KV) on
+seeded inputs, and times, as CUDA-graph replays of 10 calls, the f32
+flash kernel at S 4096 in f32 and in bf16 (path C's instance), the DPA
+kernel at one layer of qwen3-4b scoring (raw fp4 K/V, bf16) and paged
+decode at both shapes.  Then it reports the largest difference between
+the two sides' outputs against the card checks' pins (`FLASH_F32_RTOL`
+relative to the largest output in f32, one bf16 ulp over it in bf16;
+`PAGED_DECODE_CARD_TOL` absolute) and prints the card's name and power
+limit and one JSON line.  Needs a CUDA card and nvcc; the outputs go to
+`build/flash_ab/`.
 """
 from __future__ import annotations
 
@@ -26,6 +32,11 @@ OUT = ROOT / "build" / "flash_ab"
 CALLS = 10
 F32_CASES = ((32, 8, 4096, 128, "float32"), (32, 8, 4096, 128, "bfloat16"),
              (16, 8, 1024, 64, "float32"), (32, 8, 1000, 128, "float32"))
+# paged decode at the engines' shapes: (name, H, KV, hd)
+PAGED_CASES = (("qwen3-4b", 32, 8, 128), ("granite-moe-1b", 16, 8, 64))
+PAGED_LENGTHS = (256, 201, 101, 18)
+FLASH_F32_RTOL = 2e-6             # chip_smoke.py's pins
+PAGED_DECODE_CARD_TOL = 2e-2
 
 
 def graph_ms(fn) -> float:
@@ -55,6 +66,7 @@ def worker(tree: Path, tag: str) -> None:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode as PD
     build.load_library()
     gen = torch.Generator(device="cuda").manual_seed(7)
 
@@ -68,12 +80,42 @@ def worker(tree: Path, tag: str) -> None:
         b = 125 if S == 1000 else 128
         out = FA.flash_attention(q, k, v, bq=b, bk=b)
         torch.save(out.cpu(), OUT / f"{tag}_f32_{H}_{S}_{hd}_{dt}.pt")
-        if (S, dt) == (4096, "float32"):
-            res["f32_flash_ms"] = graph_ms(lambda: FA.flash_attention(q, k, v))
+        if S == 4096:
+            name = "f32_flash_ms" if dt == "float32" else "f32_flash_bf16_ms"
+            res[name] = graph_ms(lambda: FA.flash_attention(q, k, v))
     q, k, v = qkv(32, 8, 4096, 128, torch.bfloat16)
     res["dpa_flash_ms"] = graph_ms(lambda: FA.dpa_flash_attention(
         q, k, v, fmt="fp8_e4m3", fmt_kv="fp4_e2m1"))
+    for name, H, KV, hd in PAGED_CASES:
+        args = paged_inputs(gen, H, KV, hd)
+        kw = dict(fmt="fp8_e4m3", fmt_kv="fp4_e2m1", kv_packed=True)
+        out = PD.paged_decode_attention(*args, **kw)
+        torch.save(out.cpu(), OUT / f"{tag}_paged_{name}.pt")
+        res[f"paged_{name}_ms"] = graph_ms(
+            lambda: PD.paged_decode_attention(*args, **kw))
     print(json.dumps(res), flush=True)
+
+
+def paged_inputs(gen, H, KV, hd):
+    """One decode step's operands: a packed-fp4 paged cache holding
+    PAGED_LENGTHS rows per request (pages of 16), bf16 queries at the
+    last row."""
+    import torch
+    from repro_torch.core import kvcache as KVC
+    B, S = len(PAGED_LENGTHS), 256
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    kw = dict(fmt="fp4_e2m1", packed=True)
+    cache = KVC.paged_from_contiguous(
+        KVC.update_kv_cache(KVC.init_kv_cache(B, S, KV, hd, device="cuda",
+                                              **kw), k, v, 0, **kw),
+        list(PAGED_LENGTHS), page_size=16)
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.tensor([n - 1 for n in PAGED_LENGTHS], dtype=torch.int32,
+                       device="cuda")
+    return (q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
+            cache["v_scale"], cache["block_table"], pos)
 
 
 def main() -> None:
@@ -97,18 +139,35 @@ def main() -> None:
         runs[tag].append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(f"{tag}: {runs[tag][-1]}", flush=True)
     import torch
-    same = {}
+    diff = {}
     for H, KV, S, hd, dt in F32_CASES:
         name = f"f32_{H}_{S}_{hd}_{dt}"
-        same[name] = torch.equal(torch.load(OUT / f"other_{name}.pt"),
-                                 torch.load(OUT / f"this_{name}.pt"))
+        a, b = (torch.load(OUT / f"{t}_{name}.pt").float()
+                for t in ("other", "this"))
+        err = (a - b).abs()
+        big = float(a.abs().max())
+        if dt == "float32":
+            ok = float(err.max()) <= FLASH_F32_RTOL * big
+        else:       # one bf16 ulp of the other side's output over the pin
+            _, e = torch.frexp(a)
+            ok = bool((err <= torch.ldexp(torch.ones_like(a), e - 8)
+                       + FLASH_F32_RTOL * big).all())
+        diff[name] = {"max_abs": float(err.max()),
+                      "max_rel": float(err.max()) / big,
+                      "differ": int((err > 0).sum()), "within_pin": ok}
+    for name, *_ in PAGED_CASES:
+        a, b = (torch.load(OUT / f"{t}_paged_{name}.pt").float()
+                for t in ("other", "this"))
+        err = float((a - b).abs().max())
+        diff[f"paged_{name}"] = {"max_abs": err,
+                                 "within_pin": err <= PAGED_DECODE_CARD_TOL}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    print(f"f32 flash outputs, same bits on both sides: {same}")
+    print(f"the two sides' outputs: {diff}")
     print(card)
     print(json.dumps({"card": card, "other": str(other), "this": str(this),
-                      "ms": runs, "f32_same_bits": same}))
+                      "ms": runs, "diff": diff}))
 
 
 if __name__ == "__main__":
