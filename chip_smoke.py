@@ -66,8 +66,13 @@ Phases (every failure raises; the exit code is then non-zero):
      and in cache mode (packed and unpacked fp4, fp8 codes), counting the
      probability codes that differ; timed with the pre-pass and without,
      beside bf16 `scaled_dot_product_attention` as a speed reference;
-   - `quantize_rows` and `quantize_pack_rows` at M 4096, K 2560 and 9728,
-     every format, held to identical codes and scales.
+   - `quantize_rows` and `quantize_pack_rows`, every instance (E4M3,
+     E5M2, E2M1, packed E2M1, fp16, bf16, f32) on f32 and bf16 x, at M
+     4096 x K 2560 and 9728, path D's pre-pass rows (32,768 x 128), hd 64
+     rows, K 334 and 335 (the scalar route), rows past what a block holds
+     (the reread routes) and an offset view, held to identical codes and
+     scales, each case's launch plan printed; timed at 4096 x 9728 and
+     32,768 x 128.
    Each kernel, its plain version and (for the prequant pair)
    `torch._scaled_mm` / `torch._scaled_grouped_mm` on the e4m3-widened
    codes are timed two ways: `ms` / `plain_ms` / `library_ms`, the median
@@ -111,7 +116,8 @@ Phases (every failure raises; the exit code is then non-zero):
       matmul's tiled route (M = 4096: as many tiled and pre-pass
       launches as fused ones; every other path makes no tiled launch);
    f. the `quantize_pack` op (`kernels.ops.quantize_rows`) on a prompt's
-      MLP activations: both row quantizers.
+      MLP activations: both row quantizers (packed E2M1; E4M3, E5M2 and
+      f32 codes).
    The expected counts are computed from the config and the run; d and e
    are each compared with the same call with use_flash off, and every
    layer's attention output on them with the kernel's plain version on
@@ -1572,50 +1578,109 @@ def check_dpa_flash(gen):
     return out
 
 
+# every instance of the row quantizers: the formats of quantize_rows and
+# the packed E2M1 of quantize_pack_rows
+QUANT_FMTS = ("fp8_e4m3", "fp8_e5m2", "fp4_e2m1", "packed", "fp16", "bf16",
+              "fp32")
+# (M, K): qwen3-4b's d_model and d_ff rows of a 4096-token prompt, path
+# D's K/V pre-pass (hd 128) and granite's head rows (hd 64), a ragged K
+# and an odd one (scalar route; the packed form needs an even K), and two
+# rows past what a block holds (the reread routes: vector, then scalar)
+QUANT_SHAPES = ((4096, 2560), (4096, 9728), (32768, 128), (32768, 64),
+                (130, 334), (130, 335), (64, 65544), (64, 16386))
+# timed: (M, K, formats), bf16 x
+QUANT_TIMED = ((4096, 9728, ("fp8_e4m3", "packed")),
+               (32768, 128, ("packed", "fp8_e4m3")))
+
+
 def check_quantizers(gen):
-    """Both row quantizers against their plain versions at M = 4096 (a
-    4096-token prompt's rows), K = 2560 (d_model) and 9728 (d_ff), bf16 x,
-    every format: codes and scales must be identical.  Timed at K = 9728,
-    E4M3 codes (quantize_rows) and packed E2M1 (quantize_pack_rows)."""
+    """Both row quantizers against their plain versions, every instance
+    (`QUANT_FMTS`) on f32 and bf16 x at `QUANT_SHAPES` with an all-zero
+    row and a row of E2M1 ties, and on an offset (not 16-byte aligned)
+    view: codes and scales must be identical bytes; each case's launch
+    plan is printed.  Timed
+    (`QUANT_TIMED`): qwen3-4b's MLP activations (4096 x 9728) to E4M3
+    (quantize_rows) and packed E2M1 (quantize_pack_rows), and path D's
+    pre-pass shape (32,768 x 128) in both, each beside its byte bound."""
     import torch
     from repro_torch.kernels import quantize as QZ
 
     def same(a, b):
-        if a.dtype != b.dtype or a.shape != b.shape:
-            return False
-        if a.dtype in (torch.float8_e4m3fn, torch.float16, torch.bfloat16):
-            a, b = a.view(torch.uint8), b.view(torch.uint8)
-        return torch.equal(a, b)
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
-    out = {}
-    for K in (2560, 9728):
-        x = (torch.randn((4096, K), generator=gen, device="cuda") * 3).to(
-            torch.bfloat16)
-        x[7] = 0                                   # an all-zero row
-        for fmt in ("fp8_e4m3", "fp4_e2m1", "fp16", "bf16", "packed"):
-            if fmt == "packed":
-                fn, ref, kw = (QZ.quantize_pack_rows,
-                               QZ.quantize_pack_rows_ref, {})
-            else:
-                fn, ref, kw = QZ.quantize_rows, QZ.quantize_rows_ref, \
-                    {"fmt": fmt}
+    def calls(fmt):
+        if fmt == "packed":
+            return QZ.quantize_pack_rows, QZ.quantize_pack_rows_ref, {}
+        return QZ.quantize_rows, QZ.quantize_rows_ref, {"fmt": fmt}
+
+    def check(x, what):
+        M, K = x.shape
+        plan = QZ.quantize_plan(M, K, x.dtype, "fp8_e4m3",
+                                aligned=x.data_ptr() % 16 == 0)
+        done = []
+        for fmt in QUANT_FMTS:
+            if fmt == "packed" and K % 2:
+                continue
+            fn, ref, kw = calls(fmt)
             (gq, gs), (wq, ws) = fn(x, **kw), ref(x, **kw)
             torch.cuda.synchronize()
-            if not (same(gq, wq) and torch.equal(gs, ws)):
-                raise AssertionError(f"{fn.__name__} {fmt} K={K}: codes or "
+            if not (same(gq, wq) and same(gs, ws)):
+                raise AssertionError(f"{fn.__name__} {fmt} {what}: codes or "
                                      "scales differ from the plain version")
-            print(f"{fn.__name__} {fmt} M=4096 K={K} bf16: codes and scales "
-                  "identical (max_abs_err 0)")
-            if K == 9728 and fmt in ("fp8_e4m3", "packed"):
-                t = timings(lambda: fn(x, **kw), lambda: ref(x, **kw))
-                nbytes = x.numel() * 2 + gq.numel() * gq.element_size() \
-                    + gs.numel() * 4
-                t["bound_ms"], t["bound_by"] = bound(nbytes, 0.0)
-                t["max_abs_err"] = 0.0
-                print(f"{fn.__name__} {fmt} M=4096 K={K}: {fmt_times(t)} "
-                      f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
-                      "library none")
-                out[fn.__name__] = t
+            done.append(fmt)
+        print(f"quantize {what}: route {plan.route} (lanes {plan.lanes}, "
+              f"rows {plan.rows}, nv {plan.nv}, tiles {plan.tiles}); "
+              f"{', '.join(done)}: codes and scales identical "
+              "(max_abs_err 0)")
+        return plan.route
+
+    def planted(x):
+        """Row 7 all zeros; row 8 every E2M1 threshold and its neighbours
+        in x's dtype, both signs, beside its amax 6 (scale 1.0 to E2M1)."""
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        th = torch.tensor([0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0],
+                          dtype=x.dtype, device="cuda")
+        near = [th, (th.view(bits) + 1).view(x.dtype),
+                (th.view(bits) - 1).view(x.dtype)]
+        ties = torch.cat(near + [-t for t in near] + [
+            torch.full((1,), 6.0, dtype=x.dtype, device="cuda")])
+        x[7:9] = 0
+        x[8, :ties.numel()] = ties
+        return x
+
+    routes = {}
+    for xdt in (torch.float32, torch.bfloat16):
+        tag = "f32" if xdt == torch.float32 else "bf16"
+        for M, K in QUANT_SHAPES:
+            x = planted((torch.randn((M, K), generator=gen, device="cuda")
+                         * 3).to(xdt))
+            routes[f"{M}x{K} {tag}"] = check(x, f"M={M} K={K} {tag}")
+        flat = (torch.randn((1024 * 2560 + 1,), generator=gen,
+                            device="cuda") * 3).to(xdt)
+        routes[f"offset 1024x2560 {tag}"] = check(
+            planted(flat[1:].view(1024, 2560)),
+            f"M=1024 K=2560 {tag}, offset view")
+    del x, flat
+
+    out = {"routes": routes, "formats": list(QUANT_FMTS)}
+    for M, K, fmts in QUANT_TIMED:
+        x = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        for fmt in fmts:
+            fn, ref, kw = calls(fmt)
+            gq, gs = fn(x, **kw)
+            t = timings(lambda: fn(x, **kw), lambda: ref(x, **kw))
+            nbytes = x.numel() * 2 + gq.numel() * gq.element_size() \
+                + gs.numel() * 4
+            t["bound_ms"], t["bound_by"] = bound(nbytes, 0.0)
+            t["max_abs_err"] = 0.0
+            t["plan"] = QZ.quantize_plan(M, K, x.dtype, "fp4_e2m1").route
+            print(f"{fn.__name__} {fmt} M={M} K={K} bf16: {fmt_times(t)} "
+                  f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
+                  "library none")
+            key = fn.__name__ if K == 9728 else f"{fn.__name__}.prepass"
+            out[key] = t
     return out
 
 
@@ -2168,30 +2233,30 @@ def run_scoring(cfg, params, S=4096):
 
 def run_quantize_op(gen, M=4096, K=9728):
     """The `quantize_pack` op (`kernels.ops.quantize_rows`) on one
-    prompt's MLP activations (bf16 (4096, 9728)): packed E2M1 and E4M3
-    codes, each held to the plain route exactly."""
+    prompt's MLP activations (bf16 (4096, 9728)): packed E2M1, E4M3, E5M2
+    and f32 codes, each held to the plain route exactly."""
     import torch
     from repro_torch.core import exec_plan
     from repro_torch.kernels import ops
     x = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(
         torch.bfloat16)
     plain = exec_plan.route("quantize_pack", "torch_quantize")
+    cases = (("fp4_e2m1", True), ("fp8_e4m3", False), ("fp8_e5m2", False),
+             ("fp32", False))
     zero_counts()
-    got = [ops.quantize_rows(x, "fp4_e2m1", pack=True),
-           ops.quantize_rows(x, "fp8_e4m3")]
+    got = [ops.quantize_rows(x, fmt, pack=pack) for fmt, pack in cases]
     torch.cuda.synchronize()
     counts = read_counts()
     check_counts("quantize_pack op", counts,
-                 {"quantize_pack_rows": 1, "quantize_rows": 1})
-    for (q, s), (fmt, pack) in zip(got, (("fp4_e2m1", True),
-                                         ("fp8_e4m3", False))):
+                 {"quantize_pack_rows": 1, "quantize_rows": 3})
+    for (q, s), (fmt, pack) in zip(got, cases):
         wq, ws = plain.run(x, fmt=fmt, pack=pack)
         if not (torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
                 and torch.equal(s, ws)):
             raise AssertionError(f"quantize_pack {fmt} pack={pack}: differs "
                                  "from the plain route")
-    print(f"quantize_pack op: ({M}, {K}) bf16 -> packed E2M1 and E4M3 "
-          "codes, both identical to the plain route")
+    print(f"quantize_pack op: ({M}, {K}) bf16 -> packed E2M1, E4M3, E5M2 "
+          "and f32 codes, all identical to the plain route")
     return counts
 
 
@@ -2515,17 +2580,33 @@ def main() -> None:
          "replaces": "src/repro/kernels/quantize.py:70",
          "launches": n_qp["quantize_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_rows"]),
+         "device_from": qz_t["quantize_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
          "library": "none: no PyTorch call computes per-row absmax scales "
                     "and the saturating cast in one pass",
+         "plan": qz_t["quantize_rows"]["plan"],
+         "formats": [f for f in qz_t["formats"] if f != "packed"],
+         "routes": qz_t["routes"],
+         "prepass_shape": {**times(qz_t["quantize_rows.prepass"]),
+                           "plan": qz_t["quantize_rows.prepass"]["plan"],
+                           "at": "M=32768 K=128 bf16 -> E4M3 codes (path "
+                                 "D's pre-pass shape under fp8 K/V)"},
          "at": "M=4096 K=9728 bf16 -> E4M3 codes"},
         {"name": "quantize_pack_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:50",
          "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
+         "device_from": qz_t["quantize_pack_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
          "library": "none: PyTorch has no E2M1 encode or nibble pack",
+         "plan": qz_t["quantize_pack_rows"]["plan"],
+         "formats": ["packed fp4_e2m1"],
+         "prepass_shape": {
+             **times(qz_t["quantize_pack_rows.prepass"]),
+             "plan": qz_t["quantize_pack_rows.prepass"]["plan"],
+             "at": "M=32768 K=128 bf16 -> packed E2M1 codes (path D's K/V "
+                   "pre-pass: one launch, K or V of one layer)"},
          "at": "M=4096 K=9728 bf16 -> packed E2M1 codes (launches: the "
                "quantize_pack op's and path D's K/V pre-pass)"},
     ]

@@ -61,8 +61,9 @@ _SIGNATURES = {
     "dpa_flash_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P),
-    # x, x_bf16, codes, scales, M, K, fmt, stream
-    "quantize_rows_launch": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # x, x_bf16, codes, scales, M, K, fmt, vec, lanes, rows, nv, stream
+    "quantize_rows_launch": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
 }
 
 _LIB = None

@@ -408,8 +408,8 @@ exec_plan.register(
 # -----------------------------------------------------------------------------
 
 def _qp_cuda(x, *, fmt, pack, **_):
-    # bm, the reference's row tile, is swallowed: the kernel runs one warp
-    # per row over any row count
+    # bm, the reference's row tile, is swallowed: the kernel's launch plan
+    # (`quantize_plan`) groups threads by row over any row count
     if pack:
         if fmt != "fp4_e2m1":
             raise ValueError("pack=True is the fp4 pipeline")

@@ -1,7 +1,8 @@
 """Row quantizers: the port's plain versions vs the JAX Pallas kernels
 `quantize_rows` / `quantize_pack_rows` (interpret mode under `jax.jit`),
-at tolerance 0 on codes and scales, in the four formats the reference
-tests: E4M3, E2M1 (one code per byte, and packed), fp16 and bf16.
+at tolerance 0 on codes and scales, in every format of the format
+table: E4M3, E5M2, E2M1 (one code per byte, and packed), fp16, bf16 and
+f32.
 
 Inputs hold exact rounding ties of each format (built from the row's
 own scale and kept only where x / scale lands on the tie exactly), an
@@ -21,14 +22,18 @@ from repro_torch.core import exec_plan  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import quantize as TQ  # noqa: E402
 
-FMTS = ["fp8_e4m3", "fp4_e2m1", "fp16", "bf16"]
+FMTS = ["fp8_e4m3", "fp4_e2m1", "fp16", "bf16", "fp8_e5m2", "fp32"]
+# FloatFormat.quant_target: E5M2 too is capped at 2^14, not its 57,344
 TARGET = {"fp8_e4m3": 448.0, "fp4_e2m1": 6.0, "fp16": 16384.0,
-          "bf16": 16384.0}
+          "bf16": 16384.0, "fp8_e5m2": 16384.0, "fp32": 16384.0}
 # values halfway between two neighbours of each grid (round to even)
 TIES = {"fp8_e4m3": [1.0625, 1.1875, 17.0, 240.0, 0.0068359375],
         "fp4_e2m1": [0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0],
         "fp16": [1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, 1000.25],
-        "bf16": [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, 100.25]}
+        "bf16": [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, 100.25],
+        # the last one halfway between E5M2's subnormals 2^-16 and 2^-15
+        "fp8_e5m2": [1.125, 1.375, 18.0, 22.0, 1.5 * 2.0 ** -16],
+        "fp32": []}
 
 
 def _scale(amax, target):
@@ -58,19 +63,21 @@ def _inputs(fmt, M, K, seed):
 
 
 def _np(a):
+    """The codes' bits (f32 codes too, so -0.0 differs from 0.0)."""
     a = np.asarray(a)
-    return a.view(np.uint8) if a.dtype.itemsize == 1 else \
-        a.view(np.uint16) if a.dtype.itemsize == 2 else a
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
 
 
 def _torch_np(t):
-    if t.dtype == torch.float8_e4m3fn:
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         t = t.view(torch.uint8)
     elif t.dtype in (torch.float16, torch.bfloat16):
         t = t.view(torch.int16)
+    elif t.dtype == torch.float32:
+        t = t.view(torch.int32)
     return t.numpy().view(np.uint8 if t.dtype == torch.uint8 else
                           np.uint16 if t.dtype == torch.int16 else
-                          np.float32)
+                          np.uint32)
 
 
 @pytest.mark.parametrize("fmt", FMTS)
@@ -133,11 +140,13 @@ def test_quantize_pack_routes():
 
 
 def test_off_the_cpu_the_wrappers_launch_or_raise():
+    """Off the CPU every format of the table goes to the kernel (here it
+    meets the device check: a meta tensor has no kernel); a name the
+    table does not know is refused."""
     x = torch.empty((8, 32), device="meta")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 2 under quantize_rows"):
-        TQ.quantize_rows(x, fmt="fp8_e5m2")
-    for call in (lambda: TQ.quantize_rows(x, fmt="fp8_e4m3"),
-                 lambda: TQ.quantize_pack_rows(x)):
+    with pytest.raises(NotImplementedError, match="every format"):
+        TQ.quantize_rows(x, fmt="fp6_e3m2")
+    for call in [lambda f=f: TQ.quantize_rows(x, fmt=f) for f in FMTS] + [
+            lambda: TQ.quantize_pack_rows(x)]:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

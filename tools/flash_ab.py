@@ -12,12 +12,15 @@ kernel (one decode layer at each engine's shape: qwen3-4b hd 128 and
 granite-moe-1b hd 64, B 4, lengths 256/201/101/18, packed-fp4 KV) on
 seeded inputs, and times, as CUDA-graph replays of 10 calls, the f32
 flash kernel at S 4096 in f32 and in bf16 (path C's instance), the DPA
-kernel at one layer of qwen3-4b scoring (raw fp4 K/V, bf16) and paged
-decode at both shapes.  Then it reports the largest difference between
-the two sides' outputs against the card checks' pins (`FLASH_F32_RTOL`
-relative to the largest output in f32, one bf16 ulp over it in bf16;
-`PAGED_DECODE_CARD_TOL` absolute) and prints the card's name and power
-limit and one JSON line.  Needs a CUDA card and nvcc; the outputs go to
+kernel at one layer of qwen3-4b scoring (raw fp4 K/V, bf16), paged
+decode at both shapes, and the row quantizers (E4M3 and packed E2M1
+codes of bf16 rows) at qwen3-4b's MLP activations (4096 x 9728) and at
+path D's K/V pre-pass rows (32,768 x 128).  Then it reports the largest
+difference between the two sides' outputs against the card checks' pins
+(`FLASH_F32_RTOL` relative to the largest output in f32, one bf16 ulp
+over it in bf16; `PAGED_DECODE_CARD_TOL` absolute; the quantizers' codes
+and scales the same bytes) and prints the card's name and power limit
+and one JSON line.  Needs a CUDA card and nvcc; the outputs go to
 `build/flash_ab/`.
 """
 from __future__ import annotations
@@ -35,6 +38,9 @@ F32_CASES = ((32, 8, 4096, 128, "float32"), (32, 8, 4096, 128, "bfloat16"),
 # paged decode at the engines' shapes: (name, H, KV, hd)
 PAGED_CASES = (("qwen3-4b", 32, 8, 128), ("granite-moe-1b", 16, 8, 64))
 PAGED_LENGTHS = (256, 201, 101, 18)
+# the row quantizers' timed shapes (bf16 rows) and instances
+QUANT_SHAPES = ((4096, 9728), (32768, 128))
+QUANT_FMTS = ("fp8_e4m3", "packed")
 FLASH_F32_RTOL = 2e-6             # chip_smoke.py's pins
 PAGED_DECODE_CARD_TOL = 2e-2
 
@@ -67,6 +73,7 @@ def worker(tree: Path, tag: str) -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import quantize as QZ
     build.load_library()
     gen = torch.Generator(device="cuda").manual_seed(7)
 
@@ -93,6 +100,17 @@ def worker(tree: Path, tag: str) -> None:
         torch.save(out.cpu(), OUT / f"{tag}_paged_{name}.pt")
         res[f"paged_{name}_ms"] = graph_ms(
             lambda: PD.paged_decode_attention(*args, **kw))
+    for M, K in QUANT_SHAPES:
+        x = (torch.randn((M, K), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        for fmt in QUANT_FMTS:
+            def quant(fmt=fmt):
+                return QZ.quantize_pack_rows(x) if fmt == "packed" else \
+                    QZ.quantize_rows(x, fmt=fmt)
+            q, s = quant()
+            torch.save((q.view(torch.uint8).cpu(), s.cpu()),
+                       OUT / f"{tag}_quant_{M}_{K}_{fmt}.pt")
+            res[f"quant_{M}x{K}_{fmt}_ms"] = graph_ms(quant)
     print(json.dumps(res), flush=True)
 
 
@@ -161,6 +179,12 @@ def main() -> None:
         err = float((a - b).abs().max())
         diff[f"paged_{name}"] = {"max_abs": err,
                                  "within_pin": err <= PAGED_DECODE_CARD_TOL}
+    for M, K in QUANT_SHAPES:
+        for fmt in QUANT_FMTS:
+            a, b = (torch.load(OUT / f"{t}_quant_{M}_{K}_{fmt}.pt")
+                    for t in ("other", "this"))
+            diff[f"quant_{M}x{K}_{fmt}"] = {
+                "within_pin": all(torch.equal(u, v) for u, v in zip(a, b))}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
