@@ -85,8 +85,18 @@ Phases (every failure raises; the exit code is then non-zero):
    fp8 peak — for the f32 flash kernel three (bf16 inputs) or six (f32
    inputs) bf16 products at the bf16 peak — whichever is larger).
 3. Serving at full width, seeded random weights, policy w4a8_kv4_attn8
-   unless said otherwise; the kernel launch counters are zeroed just
-   before each path and read just after:
+   unless said otherwise; the kernel launch counters
+   (`repro_torch.kernels.counters`) are zeroed just before each path and
+   read just after.  The serving paths run eagerly (`graphs=False`, the
+   reference) and with their steps as CUDA graphs
+   (`launch.graphs.StepGraph`; a replay adds its capture's counts), the
+   engines four times in turns (`SERVE_ORDER`), `generate` once each
+   way, and every request's tokens must be equal in every run; after the
+   first graphed run one profiler window over a single replay of each
+   graph must show each
+   watched kernel (`dpa_fused_kernel`, `paged_decode`,
+   `dpa_prequant_kernel`) as often as the capture counted; capture time
+   and the graphs' pool bytes are printed:
    a. qwen3-4b (36 layers) serves 8 synthetic requests through the
       continuous-batching engine: every projection through the fused
       kernel's split-K route, every decode step's attention through the
@@ -103,7 +113,8 @@ Phases (every failure raises; the exit code is then non-zero):
    c. granite-moe-1b under fp4_dpa_packed through `generate` (2 prompts
       of 32 tokens, 16 new): attention projections through the dense
       prequant kernel, experts through the grouped prequant kernel,
-      attention in f32 over a raw bf16 cache;
+      attention in f32 over a raw bf16 cache (the graphed run's step 0
+      is its capture's one warm-up call);
    d. qwen3-4b's prefill of one 4096-token prompt (`make_prefill_step`)
       under its own policy fp8_dpa with use_flash, on the engine's
       weights: every layer's attention through the f32 flash kernel's
@@ -124,9 +135,10 @@ Phases (every failure raises; the exit code is then non-zero):
    the same inputs (on e with both sides' probability codes, to phase
    2's flip-aware bound).
 4. Where the time goes: torch.profiler over one steady decode step and
-   one prefill chunk of each engine, over one model call of path c (with
-   the prequant kernels' share of device time) and over one call of
-   paths d and e (device busy share, top kernels).
+   one prefill chunk of each engine and one serve step of path c, each
+   eager and graphed (wall, device busy share, launches; the prequant
+   kernels' share on path c), and over one call of paths d and e
+   (device busy share, top kernels); summary lines per step and mode.
 
 Prints the engine reports, the prefill and scoring results and the
 profiles as JSON, the phase times, the kernels' JSON line, the card's
@@ -1732,63 +1744,81 @@ def teacher_forced(model, params, req, s_ctx, chunk):
     return res
 
 
-KERNEL_NAMES = ("dpa_matmul_fused", "paged_decode_attention",
-                "dpa_matmul_prequant", "dpa_grouped_matmul_fused",
-                "dpa_grouped_matmul_prequant", "dpa_flash_attention",
-                "flash_attention", "quantize_rows", "quantize_pack_rows",
-                "dpa_act_quant")
-# per-route counts: the fused wrappers' launches on each of their routes,
-# the DPA flash wrapper's launches on raw K/V (each after a pre-pass), and
-# the f32 flash wrapper's K/V splits (its f32 instance; no path runs it)
-ROUTE_COUNTS = ("dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
-                "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled",
-                "dpa_flash_attention.prepass", "flash_attention.prepass")
-
-
-def _wrappers():
-    from repro_torch.kernels import dpa_grouped_matmul as GM
-    from repro_torch.kernels import dpa_matmul as DM
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_decode as PD
-    from repro_torch.kernels import quantize as QZ
-    return {"dpa_matmul_fused": DM.dpa_matmul_fused,
-            "paged_decode_attention": PD.paged_decode_attention,
-            "dpa_matmul_prequant": DM.dpa_matmul_prequant,
-            "dpa_grouped_matmul_fused": GM.dpa_grouped_matmul_fused,
-            "dpa_grouped_matmul_prequant": GM.dpa_grouped_matmul_prequant,
-            "dpa_flash_attention": FA.dpa_flash_attention,
-            "flash_attention": FA.flash_attention,
-            "quantize_rows": QZ.quantize_rows,
-            "quantize_pack_rows": QZ.quantize_pack_rows,
-            "dpa_act_quant": DM.dpa_act_quant}
-
-
 def zero_counts():
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    for name in ROUTE_COUNTS:
-        fn, route = name.split(".")
-        setattr(wrappers[fn], f"{route}_launches", 0)
+    from repro_torch.kernels import counters
+    counters.zero()
 
 
 def read_counts() -> dict:
-    wrappers = _wrappers()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    for name in ROUTE_COUNTS:
-        fn, route = name.split(".")
-        counts[name] = getattr(wrappers[fn], f"{route}_launches")
-    return counts
+    """Every kernel wrapper's launch counter and its route counters
+    (`repro_torch.kernels.counters`; a graph replay adds its capture's
+    delta)."""
+    from repro_torch.kernels import counters
+    return counters.snapshot()
 
 
 def check_counts(what, got, want):
     """Every kernel's launches over one path equal the count its config
     and run imply (0 for the kernels the path does not run)."""
-    want = {k: want.get(k, 0) for k in KERNEL_NAMES + ROUTE_COUNTS}
+    want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise AssertionError(f"{what} launches {got}, want {want}")
     print(f"launches on the {what} path: " + ", ".join(
         f"{k} {v}" for k, v in got.items() if v))
+
+
+# the watched kernels' names in a profile, and the counters whose
+# launches each name stands for
+REPLAY_KERNELS = {
+    "dpa_fused_kernel": ("dpa_matmul_fused", "dpa_grouped_matmul_fused"),
+    "paged_decode": ("paged_decode_attention",),
+    "dpa_prequant_kernel": ("dpa_matmul_prequant",
+                            "dpa_grouped_matmul_prequant")}
+
+
+# small kernels launched before a retried window's replay (see
+# check_replay)
+REPLAY_PADS = (0, 3, 17, 61, 5, 29, 113, 251)
+
+
+def check_replay(label, graph):
+    """One profiler window over a single replay of a captured step: each
+    watched kernel runs as often as the capture's counter delta says, so
+    the counts on the graphed paths rest on the trace, not on the
+    arithmetic alone.  The profiler now and then loses a kernel record,
+    the same one in each identical window of a run (on an H100 the
+    granite prefill chunk's replay read 166-167 of 168 fused launches in
+    one to four windows in a row; eager windows, whose counts the
+    wrappers make exact, lost up to 3 of 252).  So a window that does not match is tried
+    again after a few small kernels (`REPLAY_PADS`), which move the
+    records in the profiler's buffers; one window must equal the delta,
+    else the check fails.  -> the first window's profile (its times are
+    the replay's alone), with the pads of the matching one."""
+    import torch
+    want = {w: sum(graph.delta[c] for c in cs)
+            for w, cs in REPLAY_KERNELS.items()}
+    pad = torch.zeros((), device="cuda")
+    seen, first = [], None
+    for k in REPLAY_PADS:
+        def fn(k=k):
+            for _ in range(k):
+                pad.add_(1)
+            return graph.run()
+        prof = profile_window(
+            f"{label} (one replay" + (f", after {k} small kernels)" if k
+                                      else ")"),
+            fn, watch=tuple(REPLAY_KERNELS), require=True,
+            timed=0 if k else 5)
+        first = first or prof
+        got = {w: v["launches"] for w, v in prof["watch"].items()}
+        if got == want:
+            print(f"  {label}: one replay's kernels {got} = the capture's "
+                  "delta")
+            return dict(first, matched_after_pads=k)
+        seen.append(got)
+    raise AssertionError(f"{label}: the profiler saw {seen} kernels in "
+                         f"{len(REPLAY_PADS)} replays, the capture counted "
+                         f"{want}")
 
 
 def per_call_projections(cfg):
@@ -1812,21 +1842,22 @@ def build(cfg):
 
 def finite_steps(model):
     """Wrap model.decode_step to AND every call's logits' finiteness into
-    one device flag; -> (flag holder, restore)."""
+    one device flag, in place, so a captured step ANDs in at every
+    replay; -> restore (which returns the flag)."""
     import torch
-    state = {"finite": torch.ones((), dtype=torch.bool, device="cuda")}
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
     step_fn = model.decode_step
 
     def checked_step(p, batch, caches):
         logits, caches = step_fn(p, batch, caches)
-        state["finite"] = state["finite"] & torch.isfinite(logits).all()
+        finite.logical_and_(torch.isfinite(logits).all())
         return logits, caches
 
     model.decode_step = checked_step
 
     def restore():
         model.decode_step = step_fn
-        return bool(state["finite"])
+        return bool(finite)
     return restore
 
 
@@ -1853,7 +1884,37 @@ def moe_repeatable(params, cfg, runs: int = 3):
           f"{runs} runs bit-identical")
 
 
+def _report_line(rep) -> str:
+    return (f"{rep['n_requests']} requests, {rep['gen_tokens']} tokens in "
+            f"{rep['wall_s']:.2f} s = {rep['tokens_per_s']:.2f} tok/s; "
+            f"{rep['prefill_calls']} prefill calls, {rep['decode_steps']} "
+            f"decode steps, {rep['steps']} ticks; TTFT p50 "
+            f"{rep['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
+            f"{rep['p50_latency_s'] * 1e3:.0f} ms p99 "
+            f"{rep['p99_latency_s'] * 1e3:.0f} ms")
+
+
+def _capture_line(name, st) -> str:
+    return (f"  capture of the {name}: warm-up {st['warmup_s']:.2f} s, "
+            f"capture {st['capture_s']:.2f} s; the pool took "
+            f"{st['pool_bytes'] / 1e6:.1f} MB, the graph keeps "
+            f"{st['kept_bytes'] / 1e6:.2f} MB; max allocated "
+            f"{st['max_allocated_before'] / 1e9:.3f} -> "
+            f"{st['max_allocated_after'] / 1e9:.3f} GB")
+
+
+SERVE_ORDER = ("eager", "graphed", "graphed", "eager")
+
+
 def run_engine(cfg, ecfg):
+    """The engine over 8 requests eagerly (`graphs=False`, the reference)
+    and with its steps as CUDA graphs, in turns (`SERVE_ORDER`): every
+    request's tokens equal in every run, the launch counts the config
+    implies on each run, and one profiler window over a single replay of
+    each graph of the first graphed run holding its kernels to the
+    capture's counts.  The first run of each mode is the one reported
+    (the graphed one's counts are the path's), beside every run's
+    tokens/s."""
     import numpy as np
     import torch
     from repro_torch.launch.engine import Engine, synthetic_workload
@@ -1861,35 +1922,70 @@ def run_engine(cfg, ecfg):
 
     model, params = build(cfg)
     restore = finite_steps(model)
-    reqs = synthetic_workload(8, vocab=cfg.vocab_size, seed=0, rate=0,
-                              prompt_range=(64, 192), gen_range=(16, 32))
-    engine = Engine(model, params, ecfg, device="cuda")
-    zero_counts()
-    rep = engine.run(reqs)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    finite = restore()
-
-    for r in reqs:
-        if r.n_generated != r.max_new:
-            raise AssertionError(f"request {r.rid}: {r.n_generated} of "
-                                 f"{r.max_new} tokens")
-    if engine.alloc.in_use != 0 or np.any(engine._table != 0):
-        raise AssertionError("pages not evicted / table not back to scratch")
-    if not finite:
-        raise AssertionError("non-finite logits")
-    calls = rep["prefill_calls"] + rep["decode_steps"]
     dense, experts = per_call_projections(cfg)
-    check_counts(f"{cfg.name} engine", counts, {
-        "dpa_matmul_fused": dense * cfg.n_layers * calls,
-        "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
-        "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
-        "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
-        "paged_decode_attention": cfg.n_layers * rep["decode_steps"]})
-    print(f"  = {dense * cfg.n_layers} dense"
-          + (f" + {experts * cfg.n_layers} grouped" if experts else "")
-          + f" per model call x {calls} calls, {cfg.n_layers} paged per "
-          f"decode step x {rep['decode_steps']} steps")
+    reps, served = {"eager": [], "graphed": []}, []
+    for mode in SERVE_ORDER:
+        reqs = synthetic_workload(8, vocab=cfg.vocab_size, seed=0, rate=0,
+                                  prompt_range=(64, 192), gen_range=(16, 32))
+        t0 = time.monotonic()
+        engine = Engine(model, params, ecfg, device="cuda",
+                        graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        setup_s = time.monotonic() - t0
+        zero_counts()
+        rep = engine.run(reqs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for r in reqs:
+            if r.n_generated != r.max_new:
+                raise AssertionError(f"request {r.rid}: {r.n_generated} of "
+                                     f"{r.max_new} tokens")
+        if engine.alloc.in_use != 0 or np.any(engine._table != 0):
+            raise AssertionError("pages not evicted / table not back to "
+                                 "scratch")
+        calls = rep["prefill_calls"] + rep["decode_steps"]
+        check_counts(f"{cfg.name} engine ({mode})", counts, {
+            "dpa_matmul_fused": dense * cfg.n_layers * calls,
+            "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
+            "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
+            "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
+            "paged_decode_attention": cfg.n_layers * rep["decode_steps"]})
+        print(f"  = {dense * cfg.n_layers} dense"
+              + (f" + {experts * cfg.n_layers} grouped" if experts else "")
+              + f" per model call x {calls} calls, {cfg.n_layers} paged per "
+              f"decode step x {rep['decode_steps']} steps")
+        rep["setup_s"] = setup_s
+        print(f"engine ({mode}): {cfg.name} {_report_line(rep)}; set-up "
+              f"{setup_s:.2f} s (not in the wall)")
+        for name, st in rep.get("capture", {}).items():
+            print(_capture_line(name, st))
+        reps[mode].append(rep)
+        served.append(reqs)
+        if mode == "graphed" and len(reps[mode]) == 1:
+            rep["replay_check"] = {
+                "decode step": check_replay(f"{cfg.name} decode step",
+                                            engine._decode),
+                "prefill chunk": check_replay(f"{cfg.name} prefill chunk",
+                                              engine._prefill)}
+            rep["counts"] = counts
+        del engine
+    if not restore():
+        raise AssertionError("non-finite logits")
+    for i, run in enumerate(served[1:], 1):
+        differ = [a.rid for a, b in zip(served[0], run)
+                  if a.out_tokens != b.out_tokens]
+        if differ:
+            raise AssertionError(f"{cfg.name}: run {i} ({SERVE_ORDER[i]}) "
+                                 "gave other tokens than the eager run 0 "
+                                 f"for requests {differ}")
+    rep, reqs = reps["graphed"][0], served[SERVE_ORDER.index("graphed")]
+    print(f"{cfg.name}: every request's tokens equal in all "
+          f"{len(SERVE_ORDER)} runs ({' '.join(SERVE_ORDER)}; "
+          f"{rep['gen_tokens']} tokens each)")
+    counts = rep.pop("counts")
+    rep["eager"] = reps["eager"][0]
+    rep["tokens_per_s_runs"] = {m: [r["tokens_per_s"] for r in rs]
+                                for m, rs in reps.items()}
     if cfg.is_moe:
         moe_repeatable(params, cfg)
         want = {"moe_experts": cfg.n_experts, "moe_top_k": cfg.top_k,
@@ -1899,13 +1995,6 @@ def run_engine(cfg, ecfg):
         bad = {k: rep.get(k) for k, v in want.items() if rep.get(k) != v}
         if bad or not rep.get("moe_grouped_bytes_per_step_layer"):
             raise AssertionError(f"moe report fields {bad}")
-    print(f"engine: {cfg.name} {rep['n_requests']} requests, "
-          f"{rep['gen_tokens']} tokens in {rep['wall_s']:.2f} s = "
-          f"{rep['tokens_per_s']:.2f} tok/s; {rep['prefill_calls']} prefill "
-          f"calls, {rep['decode_steps']} decode steps, {rep['steps']} ticks; "
-          f"TTFT p50 {rep['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
-          f"{rep['p50_latency_s'] * 1e3:.0f} ms p99 "
-          f"{rep['p99_latency_s'] * 1e3:.0f} ms")
     print(f"kv-cache: peak live {rep['live_bytes'] / 1e6:.2f} MB "
           f"({rep['peak_live_tokens']} tokens) in {rep['paged_bytes'] / 1e6:.2f}"
           f" MB of pages vs static {rep['static_bytes'] / 1e6:.2f} MB / f32 "
@@ -1948,10 +2037,15 @@ def run_engine(cfg, ecfg):
 
 def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
     """Static greedy serving (`generate`) under cfg's policy, over params
-    built for the same model (the weights prepared again for the policy):
-    the launch counters over the run, finite logits, the output's shape
-    and range."""
+    built for the same model (the weights prepared again for the policy),
+    eagerly (`graphs=False`, the reference) and with the serve step as a
+    CUDA graph: the same tokens, the launch counters over each run (the
+    graphed run's one warm-up call is its step 0), finite logits, the
+    output's shape and range; then one serve step profiled eager and
+    graphed, and one replay held to its capture's counts."""
     import torch
+    from repro_torch.distributed.step import make_serve_step
+    from repro_torch.launch.graphs import Step, StepGraph
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
 
@@ -1961,40 +2055,75 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
     prompt = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len),
                            generator=torch.Generator().manual_seed(2))
     s_ctx = prompt_len + n_new
-    zero_counts()
-    t0 = time.monotonic()
-    out = generate(model, params, prompt, n_new, s_ctx, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = read_counts()
-    if not restore():
-        raise AssertionError("non-finite logits")
-    if tuple(out.shape) != (n_prompts, s_ctx) or not bool(
-            ((out >= 0) & (out < cfg.vocab_size)).all()) or not torch.equal(
-            out[:, :prompt_len].cpu(), prompt.to(torch.int32)):
-        raise AssertionError(f"generate returned {tuple(out.shape)} "
-                             f"{out.dtype}")
     calls = s_ctx - 1
     dense, experts = per_call_projections(cfg)
-    check_counts(f"{cfg.name} generate ({cfg.policy})", counts, {
-        "dpa_matmul_prequant": dense * cfg.n_layers * calls,
-        "dpa_grouped_matmul_prequant": experts * cfg.n_layers * calls})
-    print(f"  = {dense * cfg.n_layers} dense + {experts * cfg.n_layers} "
-          f"grouped per model call x {calls} calls")
-    new_tokens = out[:, prompt_len:].tolist()
-    print(f"generate: {cfg.name} {n_prompts} prompts x {prompt_len} tokens "
-          f"+ {n_new} new in {wall:.2f} s ({calls} model calls, "
-          f"{wall / calls * 1e3:.1f} ms each); new tokens {new_tokens}")
-    # phase 4: one model call as generate makes its last one
+    outs, res = {}, {}
+    for mode in ("eager", "graphed"):
+        zero_counts()
+        t0 = time.monotonic()
+        out = generate(model, params, prompt, n_new, s_ctx, device="cuda",
+                       graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        if tuple(out.shape) != (n_prompts, s_ctx) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()) or \
+                not torch.equal(out[:, :prompt_len].cpu(),
+                                prompt.to(torch.int32)):
+            raise AssertionError(f"generate returned {tuple(out.shape)} "
+                                 f"{out.dtype}")
+        check_counts(f"{cfg.name} generate ({cfg.policy}, {mode})", counts, {
+            "dpa_matmul_prequant": dense * cfg.n_layers * calls,
+            "dpa_grouped_matmul_prequant": experts * cfg.n_layers * calls})
+        print(f"  = {dense * cfg.n_layers} dense + {experts * cfg.n_layers} "
+              f"grouped per model call x {calls} calls")
+        # graphed: per replayed call, without the capture and step 0 (its
+        # warm-up call, eager)
+        st = generate.capture_stats
+        timed = calls - 1 if st else calls
+        step_wall = wall - (st["warmup_s"] + st["capture_s"] if st else 0.0)
+        res[mode] = {"wall_s": wall, "model_calls": calls,
+                     "ms_per_call": step_wall / timed * 1e3, "capture": st}
+        print(f"generate ({mode}): {cfg.name} {n_prompts} prompts x "
+              f"{prompt_len} tokens + {n_new} new in {wall:.2f} s ({calls} "
+              f"model calls, {res[mode]['ms_per_call']:.1f} ms each"
+              + (" of the replayed ones" if st else "") + ")")
+        if st:
+            print(_capture_line("serve step", st))
+        outs[mode] = out.cpu()
+        if mode == "graphed":
+            res[mode]["counts"] = counts
+    if not restore():
+        raise AssertionError("non-finite logits")
+    if not torch.equal(outs["eager"], outs["graphed"]):
+        raise AssertionError(f"graphed generate tokens "
+                             f"{outs['graphed'].tolist()} differ from the "
+                             f"eager run's {outs['eager'].tolist()}")
+    print(f"generate: graphed tokens equal the eager run's; new tokens "
+          f"{outs['graphed'][:, prompt_len:].tolist()}")
+
+    # phase 4: one serve step as generate makes its last one, eager and
+    # as a replay of its graph
     caches = model.init_caches(n_prompts, s_ctx)
-    tok = prompt[:, :1].to("cuda")
-    prof = profile_window(
-        f"{cfg.name} generate model call (B={n_prompts}, {cfg.policy})",
-        lambda: model.decode_step(params, {"tokens": tok,
-                                           "index": s_ctx - 2}, caches),
-        watch=("dpa_prequant_kernel",))
-    return counts, {"wall_s": wall, "model_calls": calls,
-                    "ms_per_call": wall / calls * 1e3, "profile": prof}
+    serve_step = make_serve_step(model)
+
+    def step(tokens, index):
+        return serve_step(params, {"tokens": tokens, "index": index},
+                          caches)[0]
+
+    bufs = {"tokens": prompt[:, :1].to("cuda"),
+            "index": torch.full((), s_ctx - 2, dtype=torch.int32,
+                                device="cuda")}
+    label = f"{cfg.name} serve step (B={n_prompts}, {cfg.policy})"
+    prof = {"eager": profile_window(f"{label}, eager",
+                                    Step(step, bufs).run,
+                                    watch=("dpa_prequant_kernel",), timed=3)}
+    graph = StepGraph(step, bufs, name="serve step")
+    print(_capture_line("serve step (profiled)", graph.stats))
+    prof["graphed"] = check_replay(f"{label}, graphed", graph)
+    res["graphed"]["profile"] = prof
+    counts = res["graphed"].pop("counts")
+    return counts, {**res["graphed"], "eager": res["eager"]}
 
 
 def _prompt(cfg, S, seed):
@@ -2266,60 +2395,95 @@ def run_quantize_op(gen, M=4096, K=9728):
 # -----------------------------------------------------------------------------
 
 def profile_engine(model, params, ecfg):
+    """One steady decode step (4 live requests; the scheduler's host work,
+    the step and its token read-back) and one 32-token prefill chunk,
+    each profiled on an eager engine and on a graphed one."""
     import torch
     from repro_torch.launch.engine import DECODE, Engine, synthetic_workload
 
-    engine = Engine(model, params, ecfg, device="cuda")
-    reqs = synthetic_workload(ecfg.max_batch, vocab=model.cfg.vocab_size,
-                              seed=1, prompt_range=(64, 64),
-                              gen_range=(32, 32))
-    for r in reqs:
-        engine.submit(r)
-    while any(r.state != DECODE for r in reqs):
+    out = {}
+    for mode in ("eager", "graphed"):
+        engine = Engine(model, params, ecfg, device="cuda",
+                        graphs=mode == "graphed")
+        reqs = synthetic_workload(ecfg.max_batch, vocab=model.cfg.vocab_size,
+                                  seed=1, prompt_range=(64, 64),
+                                  gen_range=(32, 32))
+        for r in reqs:
+            engine.submit(r)
+        while any(r.state != DECODE for r in reqs):
+            engine.step()
         engine.step()
-    engine.step()
-    chunk = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.int64,
-                        device="cuda")
-    windows = {
-        "decode step (B=4)": lambda: engine._decode_batch(0.0),
-        "prefill chunk (32 tokens)": lambda: model.decode_step(
-            params, {"tokens": chunk, "index": 0}, engine._staging),
-    }
-    return {name: profile_window(f"{model.cfg.name} {name}", fn,
-                                 watch=("dpa_fused_kernel",
-                                        "paged_decode"))
-            for name, fn in windows.items()}
+        chunk = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.int64,
+                            device="cuda")
+        windows = {
+            "decode step (B=4)": lambda: engine._decode_batch(0.0),
+            "prefill chunk (32 tokens)": lambda: engine._prefill(
+                tokens=chunk, index=0),
+        }
+        out[mode] = {name: profile_window(f"{model.cfg.name} {name}, {mode}",
+                                          fn, watch=("dpa_fused_kernel",
+                                                     "paged_decode"),
+                                          timed=3)
+                     for name, fn in windows.items()}
+        del engine
+    return out
 
 
-def profile_window(label, fn, watch=()):
+def profile_window(label, fn, watch=(), require=False, timed=0):
     """torch.profiler over one call of fn after a warm-up call: wall time,
     device busy time and share, launches, the top kernels by device
     time, and for each name in `watch` the device time and share of the
-    kernels whose names contain it."""
+    kernels whose names contain it.  A session that records no device
+    activity (short ones sometimes do not) is tried again, up to four
+    times; with `require` a fourth empty one fails.  With `timed`, also
+    the median host wall of that many calls outside the profiler (its
+    tracing stretches the gaps between a graph's kernels), each ended by
+    a synchronize, and the busy share against it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(4):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     by_name = {}
     for e in kernels:
         dt = (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + dt
     busy = sum(by_name.values())
     if not kernels:
+        if require:
+            raise AssertionError(f"profile {label}: four sessions saw no "
+                                 "device events")
         print(f"profile {label}: wall {wall_ms:.1f} ms; the profiler saw no "
               "device events (busy share not measured)")
-        return {"wall_ms": wall_ms, "busy_ms": None}
+        return {"wall_ms": wall_ms, "busy_ms": None,
+                "unprofiled_wall_ms": None}
+    bare_ms = None
+    if timed:
+        walls = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        bare_ms = sorted(walls)[len(walls) // 2]
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.2f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel "
-          "launches")
+          "launches" + ("" if bare_ms is None else
+                        f"; unprofiled wall {bare_ms:.2f} ms (busy "
+                        f"{busy / bare_ms:.1%})"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for kname, ms in top:
         print(f"    {ms:8.3f} ms  {kname[:100]}")
@@ -2331,7 +2495,43 @@ def profile_window(label, fn, watch=()):
         print(f"    {w}: {ms:.3f} ms in {n} launches, {ms / busy:.1%} of "
               "device busy time")
     return {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(kernels),
+            "unprofiled_wall_ms": bare_ms,
             "top": [[k[:100], v] for k, v in top], "watch": watched}
+
+
+def serving_summary(engines, gen):
+    """One line per serving step and mode: wall, device busy and share,
+    launches; engine tokens/s, TTFT and latency; path B's ms per call."""
+    def prof_str(p):
+        if p.get("busy_ms") is None:
+            return f"wall {p['wall_ms']:.2f} ms, busy not measured"
+        bare = p["unprofiled_wall_ms"]
+        return (f"wall {bare:.2f} ms unprofiled, {p['wall_ms']:.2f} "
+                f"profiled; device busy {p['busy_ms']:.2f} ms "
+                f"({p['busy_ms'] / bare:.1%} of the unprofiled wall, "
+                f"{p['busy_ms'] / p['wall_ms']:.1%} of the profiled); "
+                f"{p['launches']} launches")
+    for name, (rep, prof) in engines.items():
+        for mode in ("eager", "graphed"):
+            r = rep if mode == "graphed" else rep["eager"]
+            runs = ", ".join(f"{v:.2f}"
+                             for v in rep["tokens_per_s_runs"][mode])
+            print(f"summary {name} engine {mode}: {r['tokens_per_s']:.2f} "
+                  f"tok/s (runs: {runs}), TTFT p50 "
+                  f"{r['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
+                  f"{r['p50_latency_s'] * 1e3:.0f} ms p99 "
+                  f"{r['p99_latency_s'] * 1e3:.0f} ms")
+            for window, p in prof[mode].items():
+                print(f"summary {name} {window} {mode}: {prof_str(p)}")
+        for step, p in rep["replay_check"].items():
+            print(f"summary {name} {step}, one replay alone: "
+                  f"{prof_str(p)}")
+    for mode in ("eager", "graphed"):
+        r = gen if mode == "graphed" else gen["eager"]
+        print(f"summary granite-moe-1b-a400m generate {mode}: "
+              f"{r['ms_per_call']:.2f} ms per model call")
+        print(f"summary granite-moe-1b-a400m serve step {mode}: "
+              f"{prof_str(gen['profile'][mode])}")
 
 
 def main() -> None:
@@ -2396,7 +2596,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_kernels = time.monotonic() - t_start
 
-    # phase 3a / 4: qwen3-4b through the engine
+    # phase 3a / 4: qwen3-4b through the engine, eager and graphed
     model, params, rep_q, n_q = run_engine(qwen, ecfg)
     prof_q = profile_engine(model, params, ecfg)
     del model
@@ -2412,11 +2612,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_qwen = time.monotonic() - t_start
 
-    # phase 3b / 4: granite-moe-1b through the engine (path A)
+    # phase 3b / 4: granite-moe-1b through the engine (path A), eager and
+    # graphed
     model, params, rep_g, n_g = run_engine(granite, ecfg)
     prof_g = profile_engine(model, params, ecfg)
-    # phase 3c: granite-moe-1b through generate under fp4_dpa_packed
-    # (path B), on the same weights prepared for that policy
+    # phase 3c / 4: granite-moe-1b through generate under fp4_dpa_packed
+    # (path B), on the same weights prepared for that policy, eager and
+    # graphed
     n_b, gen_b = run_generate(granite.replace(policy="fp4_dpa_packed"),
                               params)
     del model, params
@@ -2619,6 +2821,8 @@ def main() -> None:
          "qwen3-4b scoring w4a8_kv4_attn8 use_flash S=4096": score_d}))
     print("profile: " + json.dumps(
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
+    serving_summary({"qwen3-4b": (rep_q, prof_q),
+                     "granite-moe-1b-a400m": (rep_g, prof_g)}, gen_b)
     print("prequant plans: " + json.dumps(pq_plans))
     print("fused plan sweep: " + json.dumps(
         {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))

@@ -79,22 +79,43 @@ def init_kv_cache(batch: int, s_ctx: int, n_kv: int, hd: int, *, fmt,
             "v_scale": zeros(1, torch.float32)}
 
 
-def _update_offset(offset, s_ctx: int, s_new: int) -> int:
+def _update_offset(offset, s_ctx: int, s_new: int):
     """The reference's dynamic_update_slice start: clamped so the update
-    fits inside the cache."""
+    fits inside the cache.  A 0-dim integer tensor (a captured step's
+    offset, read at every replay) stays a tensor."""
+    if torch.is_tensor(offset):
+        return offset.clamp(0, s_ctx - s_new)
     return min(max(int(offset), 0), s_ctx - s_new)
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def write_rows(dst, new, offset):
+    """dst[:, start:start + S_new] = new along axis 1 (in place), start =
+    `_update_offset(offset)`.  A tensor start writes with `index_copy_` at
+    start + arange(S_new), on the rows' bit patterns (the same bytes as
+    the slice write, whatever the narrow dtype)."""
+    start = _update_offset(offset, dst.shape[1], new.shape[1])
+    if not torch.is_tensor(start):
+        dst[:, start:start + new.shape[1]] = new
+        return dst
+    idx = start.to(torch.int64) + torch.arange(new.shape[1],
+                                               device=dst.device)
+    bits = _BITS[dst.element_size()]
+    dst.view(bits).index_copy_(1, idx, new.to(dst.dtype).view(bits))
+    return dst
 
 
 def update_kv_cache(cache, k_new, v_new, offset, *, fmt,
                     packed: bool = False):
-    """Quantize k/v (B, S_new, KV, hd) and write them at `offset` along
-    the sequence axis (in place)."""
+    """Quantize k/v (B, S_new, KV, hd) and write them at `offset` (an int
+    or a 0-dim integer tensor) along the sequence axis (in place)."""
     kc, ks = quantize_kv(k_new, fmt=fmt, packed=packed)
     vc, vs = quantize_kv(v_new, fmt=fmt, packed=packed)
-    off = _update_offset(offset, cache["k_codes"].shape[1], k_new.shape[1])
     for key, new in (("k_codes", kc), ("k_scale", ks),
                      ("v_codes", vc), ("v_scale", vs)):
-        cache[key][:, off:off + new.shape[1]] = new
+        write_rows(cache[key], new, offset)
     return cache
 
 

@@ -1,5 +1,5 @@
-"""Step builders: the loss and the prefill step (port of the forward parts
-of `repro.distributed.step`).
+"""Step builders: the loss, the prefill step and the serve step (port of
+the forward parts of `repro.distributed.step`).
 
 Forward only: the gradients, the optimizer and the train steps are
 ROADMAP Queue 1, "Training".  The cross-entropy is evaluated in sequence
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.quantize import recip
 from repro_torch.models import layers as L
+from repro_torch.serving.sampler import greedy_tokens
 
 
 def _logsumexp(logits):
@@ -81,3 +82,14 @@ def make_prefill_step(model):
     def prefill_step(params, tokens):
         return model.prefill(params, tokens)
     return prefill_step
+
+
+def make_serve_step(model):
+    """-> serve_step(params, batch, caches) -> (next tokens (B,) int32,
+    caches): one `Model.decode_step` and the greedy choice at its last
+    position, the step `generate` runs (captured as one CUDA graph on
+    the card, as the reference jits it)."""
+    def serve_step(params, batch, caches):
+        logits, caches = model.decode_step(params, batch, caches)
+        return greedy_tokens(logits[:, -1]), caches
+    return serve_step

@@ -27,6 +27,15 @@ The scheduler is token-budgeted: each step spends one token per running
 decode request first, the remainder on prefill chunks of the oldest
 admitted request.
 
+Both steps are functions over static device buffers (`launch.graphs`):
+the decode step with its greedy token choice inside, as the reference's
+`_make_decode_step`, and the prefill chunk.  On the card each is
+captured once, at construction, as a CUDA graph (the reference jits
+both) and replayed with its inputs copied into the buffers; the decode
+step brings its B tokens back through one pinned buffer, its one host
+sync.  `graphs=False`, and the CPU always, run the same functions
+eagerly.  The scheduler stays on the host, as the reference's.
+
 Greedy outputs equal `launch.serve.generate` token for token per request
 on the CPU, where every plain path is row-invariant
 (`core.device.rowwise_dot`) — for a MoE model with `prefill_chunk=1`,
@@ -51,6 +60,7 @@ from repro_torch.core import kvcache as KV
 from repro_torch.core.device import resolve_device
 from repro_torch.core.packing import operand_nbytes
 from repro_torch.core.policy import get_policy
+from repro_torch.launch.graphs import Step, StepGraph
 from repro_torch.serving.sampler import SamplerConfig, greedy_tokens
 
 WAITING, PREFILL, DECODE, FINISHED = "waiting", "prefill", "decode", "done"
@@ -125,10 +135,12 @@ def synthetic_workload(n_requests: int, *, vocab: int, seed: int = 0,
 
 class Engine:
     """Continuous-batching engine bound to one model + params, on
-    `device` (default "cuda", which must be where the model lives)."""
+    `device` (default "cuda", which must be where the model lives); its
+    steps run as CUDA graphs there unless `graphs=False`."""
 
     def __init__(self, model, params, ecfg: EngineConfig, *,
-                 sampler: Optional[SamplerConfig] = None, device=None):
+                 sampler: Optional[SamplerConfig] = None, device=None,
+                 graphs: bool = True):
         dev = resolve_device(device)
         if dev.type != model.device.type:
             raise ValueError(f"model lives on {model.device}, not {dev}")
@@ -193,12 +205,57 @@ class Engine:
         self.n_steps = 0
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
+        self.graphed = graphs and self.device.type == "cuda"
+        self._tok_host = torch.empty((ecfg.max_batch,), dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda")
+        self._decode, self._prefill = self._make_steps()
+
+    def _make_steps(self):
+        """-> (decode step, prefill chunk) over static device buffers.
+
+        On the card with graphs both are captured here, into one memory
+        pool, while every slot is idle and every block-table row is
+        scratch: their warm-up calls write only the scratch page (the
+        decode step, positions 0) and staging rows [0, prefill_chunk)
+        (the prefill chunk, index 0), which the first real chunk
+        overwrites.  A graph's outputs hold until the next replay of
+        either graph (one pool): each step reads its own at once."""
+        e, dev, model, params = self.ecfg, self.device, self.model, \
+            self.params
+
+        def decode(tokens, positions, block_table):
+            # block_table is the table every layer's pool holds
+            logits, _ = model.decode_step(
+                params, {"tokens": tokens, "index": positions}, self.caches)
+            return greedy_tokens(logits[:, -1])
+
+        def prefill(tokens, index):
+            logits, _ = model.decode_step(
+                params, {"tokens": tokens, "index": index}, self._staging)
+            return logits
+
+        steps = (("decode step", decode, dict(
+                    tokens=torch.zeros((e.max_batch, 1), dtype=torch.int64,
+                                       device=dev),
+                    positions=torch.zeros((e.max_batch,), dtype=torch.int32,
+                                          device=dev),
+                    block_table=self._block_table)),
+                 ("prefill chunk", prefill, dict(
+                    tokens=torch.zeros((1, e.prefill_chunk),
+                                       dtype=torch.int64, device=dev),
+                    index=torch.zeros((), dtype=torch.int32, device=dev))))
+        if not self.graphed:
+            return tuple(Step(fn, bufs, name=name)
+                         for name, fn, bufs in steps)
+        pool = torch.cuda.graph_pool_handle()
+        return tuple(StepGraph(fn, bufs, name=name, pool=pool)
+                     for name, fn, bufs in steps)
 
     # -- cache plumbing ----------------------------------------------------
 
     def _sync_tables(self):
         """Push the host block table into the shared device table."""
-        self._block_table.copy_(torch.from_numpy(self._table))
+        self._decode.load(block_table=self._table)
 
     def _scatter_staging_to_pages(self, req: Request):
         """Copy the staged prompt rows into the request's pages, every
@@ -260,9 +317,7 @@ class Engine:
         n = min(e.prefill_chunk, req.n_prompt - c0)
         chunk = np.zeros((1, e.prefill_chunk), np.int64)
         chunk[0, :n] = req.prompt[c0:c0 + n]
-        logits, self._staging = self.model.decode_step(
-            self.params, {"tokens": torch.from_numpy(chunk).to(self.device),
-                          "index": c0}, self._staging)
+        logits = self._prefill(tokens=chunk, index=c0)
         self.n_prefill_calls += 1
         req.prefill_done += n
         if req.prefill_done == req.n_prompt:
@@ -287,13 +342,13 @@ class Engine:
         for r in live:
             tokens[r.slot, 0] = r.out_tokens[-1]
             positions[r.slot] = r.pos
-        logits, self.caches = self.model.decode_step(
-            self.params,
-            {"tokens": torch.from_numpy(tokens).to(self.device),
-             "index": torch.from_numpy(positions).to(self.device)},
-            self.caches)
+        nxt = self._decode(tokens=tokens, positions=positions)
         self.n_decode_steps += 1
-        nxt = greedy_tokens(logits[:, -1]).cpu().numpy()
+        # the step's one host sync: its B tokens, through a pinned buffer
+        self._tok_host.copy_(nxt, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        nxt = self._tok_host.numpy()
         for r in live:
             tok = int(nxt[r.slot])
             r.pos += 1
@@ -389,8 +444,12 @@ class Engine:
             "decode_backend": self.plan["backend"],
             "decode_bytes_per_step_layer": self.plan["bytes_moved"],
             "device": str(self.device),
+            "graphs": self.graphed,
             **self.kv_bytes_report(),
         }
+        if self.graphed:
+            rep["capture"] = {step.name: step.stats
+                              for step in (self._decode, self._prefill)}
         if self.cfg.is_moe:
             rep.update(self.moe_report())
         return rep

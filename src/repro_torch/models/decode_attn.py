@@ -27,9 +27,10 @@ NEG_INF = -1e30
 def build_sdpa_mask(sq: int, skv: int, offset, causal: bool, window,
                     valid=None, device="cpu"):
     """(Sq, Skv) bool mask: offset is the index of q position 0 within the
-    kv timeline; window a local attention width; valid an extra (Skv,)
-    key-slot mask."""
-    qpos = int(offset) + torch.arange(sq, device=device)[:, None]
+    kv timeline (an int, or a 0-dim integer tensor on `device`, which a
+    captured step reads at every replay); window a local attention width;
+    valid an extra (Skv,) key-slot mask."""
+    qpos = _scalar(offset) + torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(skv, device=device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
@@ -39,6 +40,11 @@ def build_sdpa_mask(sq: int, skv: int, offset, causal: bool, window,
     if valid is not None:
         mask = mask & valid[None, :]
     return mask
+
+
+def _scalar(offset):
+    """A scalar offset as a Python int, or as the 0-dim tensor it is."""
+    return offset if torch.is_tensor(offset) else int(offset)
 
 
 def _heads_first(t):
@@ -95,9 +101,9 @@ def dpa_attention(q, k, v, mask, *, fmt: str, fmt_kv=None, scale,
 def dpa_decode_attn(q, cache, offset, *, fmt: str, fmt_kv: str,
                     kv_packed: bool, scale):
     """One decode step against a contiguous quantized cache; causal
-    masking via `offset`."""
+    masking via `offset` (an int or a 0-dim integer tensor)."""
     k, v = dequantize_cache(cache, fmt=fmt_kv, packed=kv_packed)
-    valid = torch.arange(k.shape[1], device=q.device) <= int(offset)
+    valid = torch.arange(k.shape[1], device=q.device) <= _scalar(offset)
     return dpa_attention(q, k, v, valid[None, None, None, :], fmt=fmt,
                          scale=scale, kv_on_grid=True)
 

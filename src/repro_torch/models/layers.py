@@ -93,11 +93,13 @@ def _sdpa(q, k, v, *, causal, window, offset, valid=None, use_flash=False,
 
 def _positions(offset, B, Sq, device):
     """(B, Sq) per-request positions for a (B,) offset vector, else the
-    (Sq,) positions after a scalar offset."""
-    if torch.is_tensor(offset) and offset.ndim == 1:
-        return offset.to(device=device, dtype=torch.int64)[:, None] \
-            + torch.arange(Sq, device=device)[None]
-    return int(offset) + torch.arange(Sq, device=device)
+    (Sq,) positions after a scalar offset (an int or a 0-dim tensor)."""
+    steps = torch.arange(Sq, device=device)
+    if not torch.is_tensor(offset):
+        return int(offset) + steps
+    offset = offset.to(device=device, dtype=torch.int64)
+    return offset[:, None] + steps[None] if offset.ndim == 1 else \
+        offset + steps
 
 
 def apply_attention(params, x, cfg, *, offset=0, cache=None):
@@ -162,12 +164,16 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None):
                                    packed=policy.kv_packed)
         kv_on_grid = True
     elif cache is not None:
-        off = KV._update_offset(offset, cache["k"].shape[1], Sq)
-        cache["k"][:, off:off + Sq] = k.to(cache["k"].dtype)
-        cache["v"][:, off:off + Sq] = v.to(cache["v"].dtype)
+        KV.write_rows(cache["k"], k.to(cache["k"].dtype), offset)
+        KV.write_rows(cache["v"], v.to(cache["v"].dtype), offset)
         k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
-    y = _sdpa(q, k, v, causal=True, window=None,
-              offset=int(offset) if cache is not None or Sq > 1 else 0,
+    # a tensor offset passes through (the plain routes mask with it; the
+    # CUDA flash routes only ever see a cacheless prefill at offset 0)
+    if cache is None and Sq == 1:
+        offset = 0
+    elif not torch.is_tensor(offset):
+        offset = int(offset)
+    y = _sdpa(q, k, v, causal=True, window=None, offset=offset,
               use_flash=cfg.use_flash, policy=policy, kv_on_grid=kv_on_grid)
     y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd), policy)
     return y, cache

@@ -5,8 +5,10 @@ Batch conventions, as in the reference:
   forward: {"tokens": (B, S)} -> backbone_features (hidden states, aux)
            or train_logits (logits (B, S, V) f32, aux), no caches
   prefill: tokens (B, S) -> (logits of the last position, caches)
-  decode:  {"tokens": (B, S), "index": int or (B,) int32 tensor} with the
-           caches -> (logits (B, S, V) f32, caches)
+  decode:  {"tokens": (B, S), "index": int, 0-dim or (B,) int32 tensor}
+           with the caches -> (logits (B, S, V) f32, caches); a tensor
+           index is read on the device, so a captured step (a CUDA graph,
+           `launch.graphs`) takes a new position at every replay
 """
 from __future__ import annotations
 

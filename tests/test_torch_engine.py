@@ -2,6 +2,10 @@
 outputs equal the port's static `generate` token for token, under both
 serving policies, with pages evicted back to the free list.
 
+Both engine steps run through their static buffers (`launch.graphs.Step`;
+on the CPU always eagerly), and `generate` through `make_serve_step`,
+whose output is pinned to the stepped-decode loop it replaced.
+
 The pin is exact.  Paging is pure relayout, prefill runs the same
 quantized-cache path as the static path, and every plain product sums
 each row in one fixed order whatever the batch (`rowwise_dot`), so row i
@@ -80,6 +84,48 @@ def test_engine_finishes_and_evicts(policy):
     assert report["static_bytes"] < report["static_f32_bytes"]
     assert report["decode_route"] == "cuda_block_table"
     assert report["decode_steps"] > 0 and report["prefill_calls"] > 0
+    assert report["graphs"] is False and "capture" not in report
+
+
+def test_engine_eager_argument_serves_the_same_tokens():
+    model, params = _model("w4a8_kv4_attn8")
+    engine = Engine(model, params, ECFG, device="cpu", graphs=False)
+    reqs = _requests(model.cfg.vocab_size)
+    engine.run(reqs)
+    _, served, _ = _served("w4a8_kv4_attn8")
+    for a, b in zip(reqs, served):
+        assert a.out_tokens == b.out_tokens
+
+
+def _stepped_loop(model, params, prompt, n_gen, s_ctx):
+    """`generate` before `make_serve_step`: `decode_step` at a Python int
+    index, then a plain argmax."""
+    prompt = torch.as_tensor(prompt, dtype=torch.int64)
+    S0 = prompt.shape[1]
+    caches = model.init_caches(prompt.shape[0], s_ctx)
+    tok = prompt[:, :1]
+    toks = [tok]
+    for t in range(S0 + n_gen - 1):
+        logits, caches = model.decode_step(params, {"tokens": tok,
+                                                    "index": t}, caches)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        tok = prompt[:, t + 1:t + 2] if t + 1 < S0 else nxt[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("name,policy", [
+    ("qwen3-4b", "kv4_attn8_packed"), ("qwen3-4b", "w4a8_kv4_attn8"),
+    ("granite-moe-1b-a400m", "fp4_dpa_packed")])
+def test_generate_serve_step_matches_stepped_loop(name, policy):
+    cfg = reduce_config(get_config(name)).replace(policy=policy)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                               size=(2, 9))
+    got = generate(model, params, prompt, 6, 16, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (2, 15)
+    assert torch.equal(got, _stepped_loop(model, params, prompt, 6, 16))
 
 
 def test_engine_queues_when_pool_is_tight():

@@ -215,3 +215,51 @@ def test_page_allocator_invariants():
     assert a.in_use == 0 and a.utilization() == 0.0
     with pytest.raises(ValueError):
         TKV.PageAllocator(1)
+
+
+# a captured step's offset is a 0-dim device tensor: S_NEW rows written at
+# offsets inside the cache, at its last fitting start, and past either end
+# (the port clamps to [0, S_CTX - S_NEW]).  The reference's
+# dynamic_update_slice clamps past the end too, but counts a negative
+# start from the end (jax's allow_negative_indices) where the port clamps
+# it to 0; no caller passes one, so a negative offset is held to the int
+# path only
+S_CTX, S_NEW = 16, 3
+OFFSETS = [0, 5, S_CTX - S_NEW, S_CTX - 1, -3, 40]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_update(fmt, packed):
+    return jax.jit(functools.partial(RKV.update_kv_cache, fmt=fmt,
+                                     packed=packed))
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("fmt,packed", KV_FORMATS,
+                         ids=map(_fmt_id, KV_FORMATS))
+def test_update_kv_cache_tensor_offset_bit_identical(fmt, packed, offset):
+    B = 2
+    base_k, base_v = _raw(2, B, S_CTX)
+    k, v = _raw(3, B, S_NEW)
+    kw = dict(fmt=fmt, packed=packed)
+
+    def filled():               # every row holds codes before the write
+        return TKV.update_kv_cache(
+            TKV.init_kv_cache(B, S_CTX, N_KV, HD, **kw),
+            torch.from_numpy(base_k), torch.from_numpy(base_v), 0, **kw)
+
+    by_int = TKV.update_kv_cache(filled(), torch.from_numpy(k),
+                                 torch.from_numpy(v), offset, **kw)
+    by_tensor = TKV.update_kv_cache(
+        filled(), torch.from_numpy(k), torch.from_numpy(v),
+        torch.tensor(offset, dtype=torch.int32), **kw)
+    for key in TKV.QUANT_KEYS:
+        np.testing.assert_array_equal(_np(by_tensor[key]), _np(by_int[key]),
+                                      err_msg=key)
+    if offset < 0:
+        return
+    upd = _ref_update(fmt, packed)
+    ref = upd(RKV.init_kv_cache(B, S_CTX, N_KV, HD, **kw),
+              jnp.asarray(base_k), jnp.asarray(base_v), jnp.int32(0))
+    ref = upd(ref, jnp.asarray(k), jnp.asarray(v), jnp.int32(offset))
+    _assert_pools_equal(by_tensor, ref)

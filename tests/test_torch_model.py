@@ -3,7 +3,8 @@
 Weights cross through `repro_torch.models.convert` (torch cannot
 reproduce threefry).  Prefill logits and stepped-decode logits are held
 against `jax.jit` of the reference's `prefill` / `decode_step` (its
-Pallas matmul kernel in interpret mode), per policy:
+Pallas matmul kernel in interpret mode), per policy; the stepped decode
+also with the index as a 0-dim int32 tensor (a captured step's buffer):
 
   fp32              tight: 1e-4 absolute (f32 everywhere; sum orders
                     and XLA's rsqrt/exp ulps only)
@@ -77,19 +78,38 @@ def test_prefill_logits_match_jax(policy):
     _check(policy, got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("policy", list(TOL))
-def test_stepped_decode_logits_match_jax(policy):
-    rmodel, rparams, tmodel, tparams = _pair(policy)
-    toks = _tokens(tmodel.cfg.vocab_size, seed=1)
+@functools.lru_cache(maxsize=None)
+def _ref_stepped(policy):
+    """The reference's jitted decode_step over S tokens: logits per step."""
+    rmodel, rparams, _, _ = _pair(policy)
+    toks = _tokens(rmodel.cfg.vocab_size, seed=1)
     step = jax.jit(rmodel.decode_step)
-    rc, tc = rmodel.init_caches(B, 16), tmodel.init_caches(B, 16)
+    rc, out = rmodel.init_caches(B, 16), []
     for t in range(S):
         want, rc = step(rparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
                                   "index": jnp.int32(t)}, rc)
+        out.append(np.asarray(want))
+    return toks, out
+
+
+# the index as a Python int, and as the 0-dim int32 tensor a captured
+# step reads from its buffer (the int cases keep their ids)
+INDEX_CASES = [(p, "int") for p in TOL] + [(p, "tensor") for p in TOL]
+
+
+@pytest.mark.parametrize("policy,index", INDEX_CASES,
+                         ids=[p if i == "int" else f"{p}-tensor"
+                              for p, i in INDEX_CASES])
+def test_stepped_decode_logits_match_jax(policy, index):
+    _, _, tmodel, tparams = _pair(policy)
+    toks, wants = _ref_stepped(policy)
+    tc = tmodel.init_caches(B, 16)
+    for t, want in enumerate(wants):
+        idx = t if index == "int" else torch.tensor(t, dtype=torch.int32)
         got, tc = tmodel.decode_step(
             tparams, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
-                      "index": t}, tc)
-        _check(policy, got.numpy(), np.asarray(want))
+                      "index": idx}, tc)
+        _check(policy, got.numpy(), want)
 
 
 def test_converter_unstacks_layers():

@@ -15,7 +15,8 @@ and 12 decode steps: 5.5e-7.)  With bf16 x, through the two kernel
 routes, the outputs are held to bf16 rounding: at most 1% may differ,
 each by one bf16 ulp (measured: none differ).
 
-Prefill and stepped-decode logits are held to `tests/test_torch_model.py`'s
+Prefill and stepped-decode logits (the latter with the index as an int
+and as a 0-dim int32 tensor) are held to `tests/test_torch_model.py`'s
 rule: 1e-4 absolute, and greedy tokens agree wherever the reference's
 top-1/top-2 margin exceeds twice that.  The port's engine equals the
 port's `generate` token for token with `prefill_chunk=1` (expert capacity
@@ -177,19 +178,39 @@ def test_prefill_logits_match_jax(policy):
     _check(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_stepped_decode_logits_match_jax(policy):
-    rmodel, rparams, tmodel, tparams = _pair(policy)
-    toks = _tokens(tmodel.cfg.vocab_size, 1)
+@functools.lru_cache(maxsize=None)
+def _ref_stepped(policy):
+    """The reference's jitted decode_step over S tokens: logits per step."""
+    rmodel, rparams, _, _ = _pair(policy)
+    toks = _tokens(rmodel.cfg.vocab_size, 1)
     step = jax.jit(rmodel.decode_step)
-    rc, tc = rmodel.init_caches(B, 16), tmodel.init_caches(B, 16)
+    rc, out = rmodel.init_caches(B, 16), []
     for t in range(S):
         want, rc = step(rparams, {"tokens": jnp.asarray(toks[:, t:t + 1]),
                                   "index": jnp.int32(t)}, rc)
+        out.append(np.asarray(want))
+    return toks, out
+
+
+# the index as a Python int, and as the 0-dim int32 tensor a captured
+# step reads from its buffer (the int cases keep their ids)
+INDEX_CASES = [(p, "int") for p in POLICIES] + \
+    [(p, "tensor") for p in POLICIES]
+
+
+@pytest.mark.parametrize("policy,index", INDEX_CASES,
+                         ids=[p if i == "int" else f"{p}-tensor"
+                              for p, i in INDEX_CASES])
+def test_stepped_decode_logits_match_jax(policy, index):
+    _, _, tmodel, tparams = _pair(policy)
+    toks, wants = _ref_stepped(policy)
+    tc = tmodel.init_caches(B, 16)
+    for t, want in enumerate(wants):
+        idx = t if index == "int" else torch.tensor(t, dtype=torch.int32)
         got, tc = tmodel.decode_step(
             tparams, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
-                      "index": t}, tc)
-        _check(got.numpy(), np.asarray(want))
+                      "index": idx}, tc)
+        _check(got.numpy(), want)
 
 
 def test_converter_carries_expert_stacks_and_router():
