@@ -128,7 +128,26 @@ Phases (every failure raises; the exit code is then non-zero):
       launches as fused ones; every other path makes no tiled launch);
    f. the `quantize_pack` op (`kernels.ops.quantize_rows`) on a prompt's
       MLP activations: both row quantizers (packed E2M1; E4M3, E5M2 and
-      f32 codes).
+      f32 codes);
+   g. qwen3-4b's engine sampling (temperature 0.8, top-k 50, top-p 0.95,
+      seed 7; `SAMPLED`) on a's workload, eagerly and graphed: the draw
+      (threefry streams keyed on (seed, rid, position), top-k/top-p
+      filter, Gumbel argmax) runs inside the captured decode step; every
+      request's tokens equal in both runs; requests 1 and 6 (`ALONE`)
+      served alone get their in-batch tokens; a temperature-0 config with
+      seed 7 and top-k 50 gives a's greedy tokens;
+   h. the prefix cache: a's workload behind a shared 128-token prefix
+      (block table of 24 pages), graphed, cold (cache off) against warm
+      (cache on): every request's tokens equal, the warm run skipping
+      the cached pages' prefill (tokens saved, hit rate, TTFT p50 cold
+      and warm printed);
+   i. the front end: one `repro_torch.launch.serve.main(FRONT_END)` call
+      (`python -m repro_torch.launch.serve --arch qwen3-4b --engine
+      --policy w4a8_kv4_attn8 --requests 8 --prompt-len 192 --gen 32
+      --temperature 0.8 --top-k 50 --top-p 0.95`: its own full-width
+      model and weights), its report lines printed and checked.
+   Paths g-i run the engine's kernels only (fused split-K, paged
+   decode); every engine run's counts are checked as a's.
    The expected counts are computed from the config and the run; d and e
    are each compared with the same call with use_flash off, and every
    layer's attention output on them with the kernel's plain version on
@@ -137,7 +156,8 @@ Phases (every failure raises; the exit code is then non-zero):
 4. Where the time goes: torch.profiler over one steady decode step and
    one prefill chunk of each engine and one serve step of path c, each
    eager and graphed (wall, device busy share, launches; the prequant
-   kernels' share on path c), and over one call of paths d and e
+   kernels' share on path c), over one graphed sampled decode step of
+   path g beside the greedy one, and over one call of paths d and e
    (device busy share, top kernels); summary lines per step and mode.
 
 Prints the engine reports, the prefill and scoring results and the
@@ -1906,6 +1926,71 @@ def _capture_line(name, st) -> str:
 SERVE_ORDER = ("eager", "graphed", "graphed", "eager")
 
 
+def workload(cfg, **kw):
+    """Phase 3's 8 requests: prompts of 64-192 tokens, 16-32 new tokens,
+    all at t=0 (`kw`: `synthetic_workload`'s shared_prefix)."""
+    from repro_torch.launch.engine import synthetic_workload
+    return synthetic_workload(8, vocab=cfg.vocab_size, seed=0, rate=0,
+                              prompt_range=(64, 192), gen_range=(16, 32),
+                              **kw)
+
+
+def engine_counts(cfg, rep) -> dict:
+    """The launches an engine run with report `rep` implies: every
+    projection of every model call on the split-K route, one paged decode
+    a layer a decode step."""
+    dense, experts = per_call_projections(cfg)
+    calls = rep["prefill_calls"] + rep["decode_steps"]
+    return {"dpa_matmul_fused": dense * cfg.n_layers * calls,
+            "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
+            "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
+            "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
+            "paged_decode_attention": cfg.n_layers * rep["decode_steps"]}
+
+
+def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
+               graphs=True):
+    """One engine run over `reqs`, the launch counters zeroed just before
+    `Engine.run` and read just after: every request served in full, its
+    pages back (but for resident cached prefixes), the launch counts the
+    run implies.  -> (report, counts, engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.engine import Engine
+
+    gc.collect()                  # earlier engines' graphs and pools
+    t0 = time.monotonic()
+    engine = Engine(model, params, ecfg, sampler=sampler, device="cuda",
+                    graphs=graphs)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    zero_counts()
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for r in reqs:
+        if r.n_generated != r.max_new:
+            raise AssertionError(f"{what}: request {r.rid}: {r.n_generated} "
+                                 f"of {r.max_new} tokens")
+    resident = engine.prefix.n_pages if engine.prefix is not None else 0
+    if engine.alloc.in_use != resident or np.any(engine._table != 0):
+        raise AssertionError(f"{what}: pages not evicted / table not back "
+                             "to scratch")
+    check_counts(what, counts, engine_counts(cfg, rep))
+    dense, experts = per_call_projections(cfg)
+    print(f"  = {dense * cfg.n_layers} dense"
+          + (f" + {experts * cfg.n_layers} grouped" if experts else "")
+          + f" per model call x {rep['prefill_calls'] + rep['decode_steps']}"
+          f" calls, {cfg.n_layers} paged per decode step x "
+          f"{rep['decode_steps']} steps")
+    rep["setup_s"] = setup_s
+    print(f"engine ({what}): {_report_line(rep)}; set-up {setup_s:.2f} s "
+          "(not in the wall)")
+    for name, st in rep.get("capture", {}).items():
+        print(_capture_line(name, st))
+    return rep, counts, engine
+
+
 def run_engine(cfg, ecfg):
     """The engine over 8 requests eagerly (`graphs=False`, the reference)
     and with its steps as CUDA graphs, in turns (`SERVE_ORDER`): every
@@ -1916,49 +2001,16 @@ def run_engine(cfg, ecfg):
     (the graphed one's counts are the path's), beside every run's
     tokens/s."""
     import numpy as np
-    import torch
-    from repro_torch.launch.engine import Engine, synthetic_workload
     from repro_torch.launch.serve import generate
 
     model, params = build(cfg)
     restore = finite_steps(model)
-    dense, experts = per_call_projections(cfg)
     reps, served = {"eager": [], "graphed": []}, []
     for mode in SERVE_ORDER:
-        reqs = synthetic_workload(8, vocab=cfg.vocab_size, seed=0, rate=0,
-                                  prompt_range=(64, 192), gen_range=(16, 32))
-        t0 = time.monotonic()
-        engine = Engine(model, params, ecfg, device="cuda",
-                        graphs=mode == "graphed")
-        torch.cuda.synchronize()
-        setup_s = time.monotonic() - t0
-        zero_counts()
-        rep = engine.run(reqs)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        for r in reqs:
-            if r.n_generated != r.max_new:
-                raise AssertionError(f"request {r.rid}: {r.n_generated} of "
-                                     f"{r.max_new} tokens")
-        if engine.alloc.in_use != 0 or np.any(engine._table != 0):
-            raise AssertionError("pages not evicted / table not back to "
-                                 "scratch")
-        calls = rep["prefill_calls"] + rep["decode_steps"]
-        check_counts(f"{cfg.name} engine ({mode})", counts, {
-            "dpa_matmul_fused": dense * cfg.n_layers * calls,
-            "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
-            "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
-            "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
-            "paged_decode_attention": cfg.n_layers * rep["decode_steps"]})
-        print(f"  = {dense * cfg.n_layers} dense"
-              + (f" + {experts * cfg.n_layers} grouped" if experts else "")
-              + f" per model call x {calls} calls, {cfg.n_layers} paged per "
-              f"decode step x {rep['decode_steps']} steps")
-        rep["setup_s"] = setup_s
-        print(f"engine ({mode}): {cfg.name} {_report_line(rep)}; set-up "
-              f"{setup_s:.2f} s (not in the wall)")
-        for name, st in rep.get("capture", {}).items():
-            print(_capture_line(name, st))
+        reqs = workload(cfg)
+        rep, counts, engine = serve_once(f"{cfg.name} engine ({mode})", cfg,
+                                         model, params, ecfg, reqs,
+                                         graphs=mode == "graphed")
         reps[mode].append(rep)
         served.append(reqs)
         if mode == "graphed" and len(reps[mode]) == 1:
@@ -2032,7 +2084,7 @@ def run_engine(cfg, ecfg):
         rep["agreement"].append({
             "rid": r.rid, "n_prompt": r.n_prompt, "greedy_agree":
             int(same.sum()), "identical_up_to": first, "teacher_forced": tf})
-    return model, params, rep, counts
+    return model, params, rep, counts, [r.out_tokens for r in reqs]
 
 
 def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
@@ -2124,6 +2176,179 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
     res["graphed"]["profile"] = prof
     counts = res["graphed"].pop("counts")
     return counts, {**res["graphed"], "eager": res["eager"]}
+
+
+# -----------------------------------------------------------------------------
+# phase 3g-i: sampled decoding, the prefix cache, the front end
+# -----------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+ALONE = (1, 6)                    # requests also served alone
+SHARED_PREFIX = 128
+FRONT_END = ["--arch", "qwen3-4b", "--engine", "--policy", "w4a8_kv4_attn8",
+             "--requests", "8", "--prompt-len", "192", "--gen", "32",
+             "--temperature", "0.8", "--top-k", "50", "--top-p", "0.95"]
+FRONT_END_LINES = ("engine: 8 reqs", "latency: p50", "ttft p50",
+                   "kv-cache: peak live", "plan: decode via cuda_block_table",
+                   "sample (req ")
+
+
+def run_sampled(cfg, ecfg, model, params, greedy_tokens, greedy_prof):
+    """Sampled decoding (temperature 0.8, top-k 50, top-p 0.95, seed 7)
+    on phase 3's workload, eagerly and graphed: every request's tokens
+    equal in both runs and other than the greedy ones somewhere; two
+    requests served alone get their in-batch tokens (the decode step has
+    a fixed shape, so only the slot and the other rows differ); a
+    temperature-0 config with a seed and top-k gives the greedy run's
+    tokens; one graphed sampled decode step profiled beside the greedy
+    one.  -> (report of the graphed run, its counts, profile)."""
+    from repro_torch.serving.sampler import SamplerConfig
+
+    scfg = SamplerConfig(**SAMPLED)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        reqs = workload(cfg)
+        rep, counts, engine = serve_once(
+            f"{cfg.name} sampled engine ({mode})", cfg, model, params, ecfg,
+            reqs, sampler=scfg, graphs=mode == "graphed")
+        runs[mode] = (rep, counts, [r.out_tokens for r in reqs])
+        del engine
+    eager, graphed = runs["eager"][2], runs["graphed"][2]
+    differ = [i for i, (a, b) in enumerate(zip(eager, graphed)) if a != b]
+    if differ:
+        raise AssertionError(f"{cfg.name}: graphed sampled tokens differ "
+                             f"from the eager run's for requests {differ}")
+    if graphed == greedy_tokens:
+        raise AssertionError("the sampled run gave the greedy tokens")
+    print(f"{cfg.name} sampled ({SAMPLED}): graphed tokens equal the eager "
+          f"run's for all {len(graphed)} requests; "
+          f"{sum(a != b for a, b in zip(graphed, greedy_tokens))} requests' "
+          "tokens differ from greedy")
+    for i in ALONE:
+        alone = workload(cfg)[i]
+        serve_once(f"{cfg.name} sampled engine, request {i} alone", cfg,
+                   model, params, ecfg, [alone], sampler=scfg)
+        if alone.out_tokens != graphed[i]:
+            raise AssertionError(
+                f"request {i} alone gave {alone.out_tokens}, in the batch "
+                f"{graphed[i]}: an op of the sampled step is not "
+                "row-invariant")
+        print(f"request {i} served alone: its {len(alone.out_tokens)} "
+              "tokens equal its in-batch tokens")
+    reqs = workload(cfg)
+    serve_once(f"{cfg.name} temperature-0 engine (seed 7, top-k 50)", cfg,
+               model, params, ecfg, reqs,
+               sampler=SamplerConfig(seed=7, top_k=50))
+    if [r.out_tokens for r in reqs] != greedy_tokens:
+        raise AssertionError("temperature 0 with a seed and top-k gave "
+                             "other tokens than the greedy run")
+    print("temperature 0 (seed 7, top-k 50): every request's tokens equal "
+          "the greedy run's")
+    prof = profile_engine(model, params, ecfg, sampler=scfg,
+                          modes=("graphed",), prefill=False)["graphed"]
+    s = prof["sampled decode step (B=4)"]
+    g = greedy_prof["graphed"]["decode step (B=4)"]
+    rep = runs["graphed"][0]
+    rep["sampled_step_profile"] = s
+    if s.get("busy_ms") is not None and g.get("busy_ms") is not None:
+        print(f"sampled decode step, graphed: {s['busy_ms']:.3f} device ms "
+              f"(greedy {g['busy_ms']:.3f}, +{s['busy_ms'] - g['busy_ms']:.3f}"
+              f"), unprofiled wall {s['unprofiled_wall_ms']:.2f} ms (greedy "
+              f"{g['unprofiled_wall_ms']:.2f}), {s['launches']} launches "
+              f"(greedy {g['launches']}, +{s['launches'] - g['launches']}); "
+              f"sampled {rep['tokens_per_s']:.2f} tok/s graphed, "
+              f"{runs['eager'][0]['tokens_per_s']:.2f} eager")
+    rep["eager"] = runs["eager"][0]
+    return rep, runs["graphed"][1]
+
+
+def run_prefix(cfg, ecfg, model, params):
+    """The prefix cache on phase 3's workload behind a shared 128-token
+    prefix, graphed: a cold engine against a warm one (prefix cache on);
+    every request's tokens equal, the warm run's prefill skips the cached
+    pages.  -> (warm report with the cold one inside, warm counts)."""
+    import dataclasses
+
+    # 128 + 192 prompt + 32 new tokens: a 24-page block table
+    ecfg = dataclasses.replace(ecfg, max_pages_per_req=24, n_pages=160)
+    cold_reqs = workload(cfg, shared_prefix=SHARED_PREFIX)
+    cold, _, engine = serve_once(f"{cfg.name} engine, shared prefix, cold",
+                                 cfg, model, params, ecfg, cold_reqs)
+    del engine
+    warm_reqs = workload(cfg, shared_prefix=SHARED_PREFIX)
+    warm, counts, engine = serve_once(
+        f"{cfg.name} engine, shared prefix, warm", cfg, model, params,
+        dataclasses.replace(ecfg, prefix_cache=True), warm_reqs)
+    differ = [a.rid for a, b in zip(cold_reqs, warm_reqs)
+              if a.out_tokens != b.out_tokens]
+    if differ:
+        raise AssertionError(f"warm prefix-cache tokens differ from cold "
+                             f"ones for requests {differ}")
+    if warm["prefill_tokens_saved"] <= 0 or \
+            warm["prefill_calls"] >= cold["prefill_calls"]:
+        raise AssertionError(f"no prefill saved: warm {warm}")
+    print(f"prefix cache ({SHARED_PREFIX}-token shared prefix): warm tokens "
+          f"equal cold for all {len(warm_reqs)} requests; "
+          f"{warm['prefix_hits']}/{warm['prefix_queries']} hits "
+          f"({warm['prefix_hit_rate']:.0%}), {warm['prefill_tokens_saved']}"
+          f" prefill tokens saved, {warm['prefill_calls']} prefill calls "
+          f"(cold {cold['prefill_calls']}); TTFT p50 cold "
+          f"{cold['p50_ttft_s'] * 1e3:.0f} ms, warm "
+          f"{warm['p50_ttft_s'] * 1e3:.0f} ms")
+    engine.prefix.drop_all()
+    if engine.alloc.in_use != 0:
+        raise AssertionError("cached prefix pages leaked")
+    warm["cold"] = cold
+    return warm, counts
+
+
+def run_front_end(cfg):
+    """`python -m repro_torch.launch.serve` with the FRONT_END arguments,
+    as one `main` call on the card (its own model and weights), counters
+    zeroed just before and read just after (the run's launches and the
+    captures' two warm-up calls); its report lines printed and checked.
+    -> (report, counts)."""
+    import io
+    import torch
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rep = serve.main(FRONT_END)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    text = out.getvalue()
+    print("front end: python -m repro_torch.launch.serve "
+          + " ".join(FRONT_END))
+    print(text, end="")
+    missing = [k for k in FRONT_END_LINES if k not in text]
+    if missing or rep["n_requests"] != 8 or rep["temperature"] != 0.8:
+        raise AssertionError(f"front end printed no {missing}: {text}")
+    # the counters also ran through the engine's construction, whose two
+    # captures each made one eager warm-up call (a decode step, a prefill
+    # chunk)
+    want = engine_counts(cfg, rep)
+    dense, _ = per_call_projections(cfg)
+    for k in ("dpa_matmul_fused", "dpa_matmul_fused.splitk"):
+        want[k] += 2 * dense * cfg.n_layers
+    want["paged_decode_attention"] += cfg.n_layers
+    check_counts("qwen3-4b front end", counts, want)
+    print(f"front end: {wall:.1f} s for the call (model build, weights, "
+          f"captures and the run; the run's wall {rep['wall_s']:.2f} s)")
+    rep["call_s"] = wall
+    return rep, counts
+
+
+def add_counts(*runs) -> dict:
+    """The launch counts of several runs, summed per counter."""
+    out = {}
+    for counts in runs:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def _prompt(cfg, S, seed):
@@ -2394,16 +2619,18 @@ def run_quantize_op(gen, M=4096, K=9728):
 # prefill chunk of the full-width engine)
 # -----------------------------------------------------------------------------
 
-def profile_engine(model, params, ecfg):
+def profile_engine(model, params, ecfg, sampler=None,
+                   modes=("eager", "graphed"), prefill=True):
     """One steady decode step (4 live requests; the scheduler's host work,
     the step and its token read-back) and one 32-token prefill chunk,
-    each profiled on an eager engine and on a graphed one."""
+    each profiled on an eager engine and on a graphed one (`modes`; the
+    prefill chunk unless `prefill` is off), drawing under `sampler`."""
     import torch
     from repro_torch.launch.engine import DECODE, Engine, synthetic_workload
 
     out = {}
-    for mode in ("eager", "graphed"):
-        engine = Engine(model, params, ecfg, device="cuda",
+    for mode in modes:
+        engine = Engine(model, params, ecfg, sampler=sampler, device="cuda",
                         graphs=mode == "graphed")
         reqs = synthetic_workload(ecfg.max_batch, vocab=model.cfg.vocab_size,
                                   seed=1, prompt_range=(64, 64),
@@ -2413,13 +2640,15 @@ def profile_engine(model, params, ecfg):
         while any(r.state != DECODE for r in reqs):
             engine.step()
         engine.step()
-        chunk = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.int64,
-                            device="cuda")
-        windows = {
-            "decode step (B=4)": lambda: engine._decode_batch(0.0),
-            "prefill chunk (32 tokens)": lambda: engine._prefill(
-                tokens=chunk, index=0),
-        }
+        tag = "sampled " if sampler is not None and not sampler.greedy \
+            else ""
+        windows = {f"{tag}decode step (B=4)":
+                   lambda: engine._decode_batch(0.0)}
+        if prefill:
+            chunk = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.int64,
+                                device="cuda")
+            windows["prefill chunk (32 tokens)"] = lambda: engine._prefill(
+                tokens=chunk, index=0)
         out[mode] = {name: profile_window(f"{model.cfg.name} {name}, {mode}",
                                           fn, watch=("dpa_fused_kernel",
                                                      "paged_decode"),
@@ -2534,6 +2763,38 @@ def serving_summary(engines, gen):
               f"{prof_str(gen['profile'][mode])}")
 
 
+def sampled_summary(greedy, greedy_prof, sampled, prefix, front):
+    """One line each: the graphed sampled decode step beside the greedy
+    one, the sampled engine's tokens/s, the prefix cache's cold and warm
+    TTFT, and the front end's report."""
+    def step(p):
+        if p.get("busy_ms") is None:
+            return "busy not measured"
+        return (f"{p['busy_ms']:.3f} device ms in "
+                f"{p['unprofiled_wall_ms']:.2f} ms unprofiled, "
+                f"{p['launches']} launches")
+    print(f"summary qwen3-4b decode step graphed: sampled "
+          f"{step(sampled['sampled_step_profile'])}; greedy "
+          f"{step(greedy_prof['graphed']['decode step (B=4)'])}")
+    print(f"summary qwen3-4b sampled engine: graphed "
+          f"{sampled['tokens_per_s']:.2f} tok/s (greedy "
+          f"{greedy['tokens_per_s']:.2f}), eager "
+          f"{sampled['eager']['tokens_per_s']:.2f} tok/s; TTFT p50 "
+          f"{sampled['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
+          f"{sampled['p50_latency_s'] * 1e3:.0f} ms p99 "
+          f"{sampled['p99_latency_s'] * 1e3:.0f} ms")
+    cold = prefix["cold"]
+    print(f"summary qwen3-4b prefix cache: {prefix['prefill_tokens_saved']}"
+          f" prefill tokens saved, hit rate {prefix['prefix_hit_rate']:.2f};"
+          f" TTFT p50 cold {cold['p50_ttft_s'] * 1e3:.0f} ms, warm "
+          f"{prefix['p50_ttft_s'] * 1e3:.0f} ms; tokens/s cold "
+          f"{cold['tokens_per_s']:.2f}, warm {prefix['tokens_per_s']:.2f}")
+    print(f"summary qwen3-4b front end: {front['tokens_per_s']:.2f} tok/s, "
+          f"TTFT p50 {front['p50_ttft_s'] * 1e3:.0f} ms, latency p50 "
+          f"{front['p50_latency_s'] * 1e3:.0f} ms p99 "
+          f"{front['p99_latency_s'] * 1e3:.0f} ms")
+
+
 def main() -> None:
     try:
         import torch
@@ -2597,10 +2858,15 @@ def main() -> None:
     t_kernels = time.monotonic() - t_start
 
     # phase 3a / 4: qwen3-4b through the engine, eager and graphed
-    model, params, rep_q, n_q = run_engine(qwen, ecfg)
+    model, params, rep_q, n_q, greedy_q = run_engine(qwen, ecfg)
     prof_q = profile_engine(model, params, ecfg)
-    del model
     t_engine_q = time.monotonic() - t_start
+    # phase 3g / 4: sampled decoding; phase 3h: the prefix cache
+    rep_s, n_s = run_sampled(qwen, ecfg, model, params, greedy_q, prof_q)
+    rep_p, n_p = run_prefix(qwen, ecfg, model, params)
+    del model
+    gc.collect()
+    t_sampled = time.monotonic() - t_start
     # phase 3d: qwen3-4b's long-prompt prefill under its own policy
     # (fp8_dpa) with use_flash, on the engine's params
     n_c, pre_c = run_prefill(get_config("qwen3-4b").replace(use_flash=True),
@@ -2611,10 +2877,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_qwen = time.monotonic() - t_start
+    # phase 3i: the front end, one `launch.serve.main` call
+    rep_f, n_f = run_front_end(qwen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_front = time.monotonic() - t_start
 
     # phase 3b / 4: granite-moe-1b through the engine (path A), eager and
     # graphed
-    model, params, rep_g, n_g = run_engine(granite, ecfg)
+    model, params, rep_g, n_g, _ = run_engine(granite, ecfg)
     prof_g = profile_engine(model, params, ecfg)
     # phase 3c / 4: granite-moe-1b through generate under fp4_dpa_packed
     # (path B), on the same weights prepared for that policy, eager and
@@ -2627,10 +2898,13 @@ def main() -> None:
     n_qp = run_quantize_op(gen)
     t_total = time.monotonic() - t_start
     print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b engine "
-          f"{t_engine_q - t_kernels:.1f} s, qwen3-4b prefill and scoring "
-          f"{t_qwen - t_engine_q:.1f} s, granite-moe-1b "
-          f"{t_granite - t_qwen:.1f} s, quantize_pack op "
+          f"{t_engine_q - t_kernels:.1f} s, qwen3-4b sampled and prefix "
+          f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b prefill and "
+          f"scoring {t_qwen - t_sampled:.1f} s, front end "
+          f"{t_front - t_qwen:.1f} s, granite-moe-1b "
+          f"{t_granite - t_front:.1f} s, quantize_pack op "
           f"{t_total - t_granite:.1f} s")
+    n_serve = add_counts(n_q, n_g, n_s, n_p, n_f)
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
@@ -2642,10 +2916,8 @@ def main() -> None:
         {"name": "dpa_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": (n_q["dpa_matmul_fused"] + n_g["dpa_matmul_fused"]
-                      + n_d["dpa_matmul_fused"]),
-         "splitk_launches": (n_q["dpa_matmul_fused.splitk"]
-                             + n_g["dpa_matmul_fused.splitk"]),
+         "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"],
+         "splitk_launches": n_serve["dpa_matmul_fused.splitk"],
          "max_abs_err": max(mm_err, gmm_err, tl_err), **times(mm_t),
          "device_from": mm_t.get("device_from"),
          "bound_by": "bytes", "library_ms": None,
@@ -2688,8 +2960,7 @@ def main() -> None:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:332",
-         "launches": (n_q["paged_decode_attention"]
-                      + n_g["paged_decode_attention"]),
+         "launches": n_serve["paged_decode_attention"],
          "max_abs_err": max(pd_err, gpd_err), **times(pd_t),
          "bound_by": pd_t["bound_by"], "library_ms": None,
          "split": pd_t["split"], "splits_device_ms": pd_t["splits_device_ms"],
@@ -2813,7 +3084,9 @@ def main() -> None:
                "quantize_pack op's and path D's K/V pre-pass)"},
     ]
     print("engine report: " + json.dumps(
-        {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g}))
+        {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g,
+         "qwen3-4b sampled": rep_s, "qwen3-4b prefix cache": rep_p,
+         "qwen3-4b front end": rep_f}))
     print("generate: " + json.dumps(
         {"granite-moe-1b-a400m fp4_dpa_packed": gen_b}))
     print("prefill and scoring: " + json.dumps(
@@ -2823,6 +3096,7 @@ def main() -> None:
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
     serving_summary({"qwen3-4b": (rep_q, prof_q),
                      "granite-moe-1b-a400m": (rep_g, prof_g)}, gen_b)
+    sampled_summary(rep_q, prof_q, rep_s, rep_p, rep_f)
     print("prequant plans: " + json.dumps(pq_plans))
     print("fused plan sweep: " + json.dumps(
         {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))

@@ -223,6 +223,28 @@ def write_prefill_rows(cache, rows, page_ids, length: int, *,
     return cache
 
 
+def gather_page_rows(cache, page_ids, length: int) -> dict:
+    """The first `length` timeline rows stored in `page_ids` (in order) as
+    contiguous (length, KV, ...) leaves, bit for bit: the inverse of
+    `write_prefill_rows`.  The gather runs on the leaves' bit patterns,
+    so any narrow dtype moves unchanged."""
+    ps = cache["k_codes"].shape[1]
+    n_need = -(-length // ps)
+    if n_need > len(page_ids):
+        raise ValueError(f"{length} rows need {n_need} pages, "
+                         f"got {len(page_ids)}")
+    dev = cache["k_codes"].device
+    ids = torch.tensor([int(p) for p in page_ids[:n_need]],
+                       dtype=torch.int64, device=dev)
+    out = {}
+    for key in QUANT_KEYS:
+        pool = cache[key]
+        bits = pool.view(_BITS[pool.element_size()])
+        rows = bits.index_select(0, ids).reshape((-1,) + pool.shape[2:])
+        out[key] = rows[:length].view(pool.dtype)
+    return out
+
+
 def paged_from_contiguous(ref, lengths, *, page_size: int,
                           n_pages: int = None):
     """Relayout a contiguous quantized cache into a fresh paged one (pure

@@ -11,10 +11,23 @@ Request lifecycle — admit -> prefill -> decode -> finish/evict:
   admit   : a waiting request takes a free decode slot when the
             `PageAllocator` can hand it ceil((prompt + max_new) / page)
             pages (full reservation: no request runs out mid-decode).
+            With the prefix cache on (`EngineConfig.prefix_cache`),
+            admission first matches the prompt against the radix index
+            (`serving.prefix_cache`): fully matched pages are shared
+            read-only into the block table (allocator refcounts keep
+            them alive), a partial-page match is copied into a private
+            page (copy-on-write), only the rest is allocated fresh, and
+            cold cached prefixes are evicted LRU under pool pressure.
   prefill : the prompt runs in fixed-size chunks against a contiguous
             (1, S_max) staging cache, then the staged rows scatter into
             the request's pages (`write_prefill_rows`, pure relayout).
-            The last chunk's logits give the first generated token.
+            The last chunk's logits give the first generated token.  A
+            prefix hit first loads its matched rows from its pages into
+            staging (pure relayout) and prefills only from the
+            divergence point, with one short chunk to realign to the
+            chunk grid; after the scatter its full-prompt pages join the
+            index.  Shared pages hold exactly the codes a cold prefill
+            writes, so warm tokens equal cold tokens bit for bit.
   decode  : every running request steps in one fixed-shape batch; each
             slot writes its token into its own page and attends through
             its block-table row via the ``paged_decode`` route (the CUDA
@@ -28,23 +41,28 @@ decode request first, the remainder on prefill chunks of the oldest
 admitted request.
 
 Both steps are functions over static device buffers (`launch.graphs`):
-the decode step with its greedy token choice inside, as the reference's
-`_make_decode_step`, and the prefill chunk.  On the card each is
-captured once, at construction, as a CUDA graph (the reference jits
-both) and replayed with its inputs copied into the buffers; the decode
-step brings its B tokens back through one pinned buffer, its one host
-sync.  `graphs=False`, and the CPU always, run the same functions
-eagerly.  The scheduler stays on the host, as the reference's.
+the decode step with its token choice inside (`serving.sampler`:
+greedy, or sampled on each request's threefry stream keyed on (seed,
+rid, position), read from the step's rids and positions buffers), as
+the reference's `_make_decode_step`, and the prefill chunk.  On the
+card each is captured once, at construction, as a CUDA graph (the
+reference jits both) and replayed with its inputs copied into the
+buffers; the decode step brings its B tokens back through one pinned
+buffer, its one host sync.  `graphs=False`, and the CPU always, run the
+same functions eagerly.  The scheduler stays on the host, as the
+reference's.
 
-Greedy outputs equal `launch.serve.generate` token for token per request
-on the CPU, where every plain path is row-invariant
+Sampled tokens depend on (seed, rid, position, role) alone, never on a
+slot, the batch or a host generator (whose state a capture would
+freeze).  Greedy outputs equal `launch.serve.generate` token for token
+per request on the CPU, where every plain path is row-invariant
 (`core.device.rowwise_dot`) — for a MoE model with `prefill_chunk=1`,
 since expert capacity is computed per model call.  MoE configs serve
 through the `grouped_matmul` plan, resolved at construction.
-Speculative decoding, the adaptive draft ladder, the prefix cache and
-tensor parallelism are later slices of the port (ROADMAP Queue 1:
-"Speculative decoding and the adaptive draft ladder", "Prefix caching",
-"Tensor-parallel serving and collectives").
+Speculative decoding, the adaptive draft ladder and tensor parallelism
+are later slices of the port (ROADMAP Queue 1: "Speculative decoding and
+the adaptive draft ladder", "Tensor-parallel serving and
+collectives").
 """
 from __future__ import annotations
 
@@ -61,7 +79,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.packing import operand_nbytes
 from repro_torch.core.policy import get_policy
 from repro_torch.launch.graphs import Step, StepGraph
-from repro_torch.serving.sampler import SamplerConfig, greedy_tokens
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
+from repro_torch.serving.sampler import (SamplerConfig, greedy_tokens,
+                                         sample_tokens)
 
 WAITING, PREFILL, DECODE, FINISHED = "waiting", "prefill", "decode", "done"
 
@@ -77,6 +97,7 @@ class EngineConfig:
     token_budget: int = 16       # tokens per scheduler step
     prefill_chunk: int = 8       # prompt tokens per prefill call
     eos_id: int = -1             # stop token (-1: run to max_new)
+    prefix_cache: bool = False   # share prompt prefixes across requests
 
     @property
     def s_max(self) -> int:
@@ -96,6 +117,7 @@ class Request:
     slot: int = -1
     pos: int = 0                 # tokens written to the cache so far
     prefill_done: int = 0
+    prefill_skip: int = 0        # prompt tokens covered by a prefix hit
     t_admit: float = 0.0
     t_first: float = 0.0         # first generated token (TTFT anchor)
     t_finish: float = 0.0
@@ -116,18 +138,38 @@ class Request:
 
 def synthetic_workload(n_requests: int, *, vocab: int, seed: int = 0,
                        rate: float = 0.0, prompt_range=(8, 32),
-                       gen_range=(4, 16)) -> List[Request]:
+                       gen_range=(4, 16), shared_prefix: int = 0,
+                       mixed: float = 0.0) -> List[Request]:
     """Open-loop synthetic traffic: Poisson arrivals at `rate` req/s
     (0: all at t=0), prompt and output lengths uniform over the inclusive
-    ranges — the reference's numpy stream, draw for draw."""
+    ranges — the reference's numpy stream, draw for draw.
+
+    `shared_prefix` > 0 prepends the same drawn tokens to every prompt (a
+    system prompt, the prefix cache's workload).  `mixed` > 0 makes each
+    request, with that probability, a long one (prompt over [2, 4] x the
+    top of `prompt_range`, gen likewise), every draw of that class from a
+    forked stream keyed (seed, 1), so `mixed=0` leaves the base stream as
+    it was."""
     rng = np.random.default_rng(seed)
+    hetero = np.random.default_rng([seed, 1]) if mixed > 0 else None
     arrivals = np.cumsum(rng.exponential(1.0 / rate, n_requests)) \
         if rate > 0 else np.zeros(n_requests)
+    prefix = (rng.integers(0, vocab, size=shared_prefix).astype(np.int32)
+              if shared_prefix > 0 else None)
     reqs = []
     for i in range(n_requests):
-        s0 = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
-        gen = int(rng.integers(gen_range[0], gen_range[1] + 1))
-        prompt = rng.integers(0, vocab, size=s0).astype(np.int32)
+        if hetero is not None and hetero.random() < mixed:
+            s0 = int(hetero.integers(2 * prompt_range[1],
+                                     4 * prompt_range[1] + 1))
+            gen = int(hetero.integers(2 * gen_range[1],
+                                      4 * gen_range[1] + 1))
+            prompt = hetero.integers(0, vocab, size=s0).astype(np.int32)
+        else:
+            s0 = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+            gen = int(rng.integers(gen_range[0], gen_range[1] + 1))
+            prompt = rng.integers(0, vocab, size=s0).astype(np.int32)
+        if prefix is not None:
+            prompt = np.concatenate([prefix, prompt])
         reqs.append(Request(rid=i, prompt=prompt, max_new=gen,
                             arrival=float(arrivals[i])))
     return reqs
@@ -147,11 +189,6 @@ class Engine:
         cfg = model.cfg
         pol = get_policy(cfg.policy)
         self.sampler = sampler or SamplerConfig()
-        if not self.sampler.greedy:
-            raise NotImplementedError(
-                "sampled decoding needs per-request threefry streams "
-                "(ROADMAP Queue 1, \"Sampled decoding and the serving "
-                "front end\"); the port serves greedy")
         self._plan_ctx = dict(batch=ecfg.max_batch, page_size=ecfg.page_size,
                               max_pages=ecfg.max_pages_per_req,
                               kv_heads=cfg.n_kv_heads, hd=cfg.hd,
@@ -182,6 +219,8 @@ class Engine:
         self.model, self.params, self.ecfg = model, params, ecfg
         self.cfg, self.pol, self.device = cfg, pol, model.device
         self.alloc = KV.PageAllocator(ecfg.n_pages)
+        self.prefix = (PrefixCache(ecfg.page_size, self.alloc)
+                       if ecfg.prefix_cache else None)
         self._table = np.full((ecfg.max_batch, ecfg.max_pages_per_req),
                               KV.SCRATCH_PAGE, np.int32)
         # one device block table, shared by every layer's pool (a
@@ -205,6 +244,10 @@ class Engine:
         self.n_steps = 0
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
+        self.prefix_queries = 0
+        self.prefix_hits = 0
+        self.prefill_tokens_saved = 0
+        self.cow_copies = 0
         self.graphed = graphs and self.device.type == "cuda"
         self._tok_host = torch.empty((ecfg.max_batch,), dtype=torch.int32,
                                      pin_memory=self.device.type == "cuda")
@@ -219,15 +262,23 @@ class Engine:
         decode step, positions 0) and staging rows [0, prefill_chunk)
         (the prefill chunk, index 0), which the first real chunk
         overwrites.  A graph's outputs hold until the next replay of
-        either graph (one pool): each step reads its own at once."""
+        either graph (one pool): each step reads its own at once.
+
+        The decode step draws each slot's token at timeline index
+        positions + 1 on its request's stream (rids); a greedy sampler
+        reads neither, so its graph holds the argmax alone, as before
+        sampling joined the port."""
         e, dev, model, params = self.ecfg, self.device, self.model, \
             self.params
+        scfg = self.sampler
 
-        def decode(tokens, positions, block_table):
+        def decode(tokens, positions, block_table, rids):
             # block_table is the table every layer's pool holds
             logits, _ = model.decode_step(
                 params, {"tokens": tokens, "index": positions}, self.caches)
-            return greedy_tokens(logits[:, -1])
+            if scfg.greedy:
+                return greedy_tokens(logits[:, -1])
+            return sample_tokens(logits[:, -1], rids, positions + 1, scfg)
 
         def prefill(tokens, index):
             logits, _ = model.decode_step(
@@ -239,7 +290,9 @@ class Engine:
                                        device=dev),
                     positions=torch.zeros((e.max_batch,), dtype=torch.int32,
                                           device=dev),
-                    block_table=self._block_table)),
+                    block_table=self._block_table,
+                    rids=torch.zeros((e.max_batch,), dtype=torch.int32,
+                                     device=dev))),
                  ("prefill chunk", prefill, dict(
                     tokens=torch.zeros((1, e.prefill_chunk),
                                        dtype=torch.int64, device=dev),
@@ -259,10 +312,34 @@ class Engine:
 
     def _scatter_staging_to_pages(self, req: Request):
         """Copy the staged prompt rows into the request's pages, every
-        layer (pure relayout)."""
+        layer (pure relayout).  A prefix hit scatters from its divergence
+        point on: rows before `prefill_skip` live in shared (or
+        copied-on-write) pages that must not be written."""
         for pool, staged in zip(self.caches, self._staging):
             rows = {k: staged[k][0] for k in KV.QUANT_KEYS}
-            KV.write_prefill_rows(pool, rows, req.pages, req.n_prompt)
+            KV.write_prefill_rows(pool, rows, req.pages, req.n_prompt,
+                                  start=req.prefill_skip)
+
+    def _cow_copy(self, src: int, dst: int, n_rows: int):
+        """Copy the first `n_rows` rows of pool page `src` into the private
+        page `dst`, every layer, in place (pure relayout: the graphs read
+        the pools at fixed addresses).  The shared source is only read."""
+        for pool in self.caches:
+            for k in KV.QUANT_KEYS:
+                pool[k][dst, :n_rows].copy_(pool[k][src, :n_rows])
+        self.cow_copies += 1
+
+    def _load_prefix_to_staging(self, req: Request):
+        """Copy the matched rows [0, prefill_skip) from the request's pages
+        into the staging cache, in place (the inverse relayout of the
+        scatter), so the warm prefill's chunks attend over exactly the
+        codes and scales a cold prefill of the same prompt would have
+        staged."""
+        m = req.prefill_skip
+        for pool, staged in zip(self.caches, self._staging):
+            rows = KV.gather_page_rows(pool, req.pages, m)
+            for k in KV.QUANT_KEYS:
+                staged[k][0, :m].copy_(rows[k])
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -281,16 +358,64 @@ class Engine:
         req.state = WAITING
         self.waiting.append(req)
 
+    def _match_prefix(self, req: Request) -> Optional[PrefixMatch]:
+        """Match and pin: look the prompt up in the prefix index and take a
+        request reference on every matched page (the shared full pages
+        and the copy-on-write source) before any eviction runs (a page
+        only the cache holds sits at refcount 1 and must not be reclaimed
+        between the match and its use), then evict cold cached prefixes
+        LRU to cover the allocation shortfall."""
+        if self.prefix is None:
+            return None
+        e = self.ecfg
+        # at least one prompt token must prefill (its logits give the
+        # first token), and the warm start's fixed chunk window must fit
+        # inside the staging cache
+        limit = min(req.n_prompt - 1, e.s_max - e.prefill_chunk)
+        m = self.prefix.match(req.prompt, limit)
+        self.alloc.incref(m.pages)
+        if m.cow is not None:
+            self.alloc.incref([m.cow[0]])
+        short = (self._pages_needed(req) - len(m.pages)
+                 - self.alloc.n_available)
+        if short > 0:
+            self.prefix.evict(short)
+        return m
+
+    def _unpin_match(self, m: PrefixMatch):
+        """Drop the references `_match_prefix` took (admission did not go
+        through); the pages stay resident under the cache's own."""
+        self.alloc.free(m.pages)
+        if m.cow is not None:
+            self.alloc.free([m.cow[0]])
+
     def _admit(self, now: float):
         for slot in range(self.ecfg.max_batch):
             if self.slots[slot] is not None or not self.waiting:
                 continue
             req = self.waiting[0]
             n_pages = self._pages_needed(req)
-            if not self.alloc.can_alloc(n_pages):
+            match = self._match_prefix(req)     # pins matched pages
+            shared = list(match.pages) if match is not None else []
+            fresh = n_pages - len(shared)
+            if not self.alloc.can_alloc(fresh):
+                if match is not None:
+                    self._unpin_match(match)
                 break                      # FIFO: don't starve the head
             self.waiting.pop(0)
-            req.pages = self.alloc.alloc(n_pages)
+            req.pages = shared + self.alloc.alloc(fresh)
+            if match is not None:
+                # admissions, not retries: a request that waited several
+                # ticks for pages is one query
+                self.prefix_queries += 1
+                req.prefill_skip = req.prefill_done = match.tokens
+                self.prefix_hits += match.tokens > 0
+                self.prefill_tokens_saved += match.tokens
+                if match.cow is not None:
+                    src, rows = match.cow
+                    # copy while the source pin is held, then drop it
+                    self._cow_copy(src, req.pages[len(shared)], rows)
+                    self.alloc.free([src])
             req.slot, req.state, req.t_admit = slot, PREFILL, now
             self.slots[slot] = req
             # the table row stays scratch until prefill lands: a PREFILL
@@ -314,7 +439,16 @@ class Engine:
         """Run one prompt chunk; returns real tokens consumed."""
         e = self.ecfg
         c0 = req.prefill_done
+        if req.prefill_skip > 0 and c0 == req.prefill_skip:
+            # a prefix hit's first chunk: its matched rows into staging
+            self._load_prefix_to_staging(req)
         n = min(e.prefill_chunk, req.n_prompt - c0)
+        if c0 % e.prefill_chunk:
+            # realign a warm start to the chunk grid with one short chunk,
+            # so every later fixed-size window stays inside the staging
+            # cache (rows are quantized before attention: chunk splits do
+            # not change numerics)
+            n = min(n, e.prefill_chunk - c0 % e.prefill_chunk)
         chunk = np.zeros((1, e.prefill_chunk), np.int64)
         chunk[0, :n] = req.prompt[c0:c0 + n]
         logits = self._prefill(tokens=chunk, index=c0)
@@ -324,12 +458,25 @@ class Engine:
             self._scatter_staging_to_pages(req)
             self._table[req.slot, :len(req.pages)] = req.pages
             self._tables_dirty = True
-            first = int(greedy_tokens(logits[:, n - 1])[0])
+            if self.prefix is not None:
+                # only now do the pages hold the prompt's rows
+                self.prefix.insert(req.prompt, req.pages)
+            # the first generated token sits at timeline index n_prompt
+            row = logits[:, n - 1]
+            first = int(greedy_tokens(row)[0] if self.sampler.greedy else
+                        sample_tokens(row, self._host_ids(req.rid),
+                                      self._host_ids(req.n_prompt),
+                                      self.sampler)[0])
             req.out_tokens.append(first)
             req.pos = req.n_prompt
             req.state, req.t_first = DECODE, now
             self._maybe_finish(req, first, now)
         return n
+
+    def _host_ids(self, value: int):
+        """(1,) int32 device tensor of one id, filled on the device."""
+        return torch.full((1,), value, dtype=torch.int32,
+                          device=self.device)
 
     def _decode_batch(self, now: float) -> int:
         """One batched decode step over every DECODE-state slot."""
@@ -339,10 +486,15 @@ class Engine:
             return 0
         tokens = np.zeros((e.max_batch, 1), np.int64)
         positions = np.zeros((e.max_batch,), np.int32)
+        rids = np.zeros((e.max_batch,), np.int32)
         for r in live:
             tokens[r.slot, 0] = r.out_tokens[-1]
             positions[r.slot] = r.pos
-        nxt = self._decode(tokens=tokens, positions=positions)
+            rids[r.slot] = r.rid
+        inputs = dict(tokens=tokens, positions=positions)
+        if not self.sampler.greedy:
+            inputs["rids"] = rids
+        nxt = self._decode(**inputs)
         self.n_decode_steps += 1
         # the step's one host sync: its B tokens, through a pinned buffer
         self._tok_host.copy_(nxt, non_blocking=True)
@@ -367,11 +519,12 @@ class Engine:
             if not pre:
                 break
             # a partially prefilled request keeps the (shared) staging
-            # cache until its prompt is fully staged; ties on t_admit
-            # break by admission order (rid)
+            # cache until its prompt is fully staged (a prefix hit starts
+            # at prefill_skip, so "untouched" is done == skip); ties on
+            # t_admit break by admission order (rid)
             budget -= self._prefill_step(
-                min(pre, key=lambda r: (r.prefill_done == 0, r.t_admit,
-                                        r.rid)), now)
+                min(pre, key=lambda r: (r.prefill_done == r.prefill_skip,
+                                        r.t_admit, r.rid)), now)
         self._admit(now)
         if self._tables_dirty:
             self._sync_tables()
@@ -442,7 +595,10 @@ class Engine:
             "p50_ttft_s": pct(ttft, 50),
             "decode_route": self.plan["route"],
             "decode_backend": self.plan["backend"],
+            # the port has no tuned table: resolution is the priority scan
+            "decode_selection": "prior",
             "decode_bytes_per_step_layer": self.plan["bytes_moved"],
+            "temperature": self.sampler.temperature,
             "device": str(self.device),
             "graphs": self.graphed,
             **self.kv_bytes_report(),
@@ -450,9 +606,29 @@ class Engine:
         if self.graphed:
             rep["capture"] = {step.name: step.stats
                               for step in (self._decode, self._prefill)}
+        if self.prefix is not None:
+            rep.update(self.prefix_report())
         if self.cfg.is_moe:
             rep.update(self.moe_report())
         return rep
+
+    def prefix_report(self) -> dict:
+        """Prefix-cache hits, prefill tokens skipped, copy-on-write copies,
+        and what keeping the resident prefixes costs at format width."""
+        e, cfg, pol = self.ecfg, self.cfg, self.pol
+        resident = KV.paged_kv_cache_nbytes(
+            0, self.prefix.n_pages, e.page_size, cfg.n_kv_heads, cfg.hd,
+            fmt=pol.fmt_kv, packed=pol.kv_packed)
+        return {
+            "prefix_queries": self.prefix_queries,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": (self.prefix_hits / self.prefix_queries
+                                if self.prefix_queries else 0.0),
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+            "prefix_cow_copies": self.cow_copies,
+            "resident_prefix_pages": self.prefix.n_pages,
+            "resident_prefix_bytes": resident["paged"] * cfg.n_layers,
+        }
 
     def moe_report(self) -> dict:
         """Which grouped route the expert contraction runs, and the expert
@@ -474,3 +650,46 @@ class Engine:
             "expert_w_bytes_f32": 4 * n_w,
             "expert_w_reduction_vs_f32": 4 * n_w / w_bytes,
         }
+
+
+def format_report(rep: dict, policy: str) -> str:
+    """The front end's report lines (the reference's `format_report` for
+    the keys the port reports): throughput and latency, cache bytes from
+    actual per-request lengths and page use, the decode plan, and the
+    prefix-cache and MoE lines where the report has them."""
+    mb = 1e6
+    return (
+        f"engine: {rep['n_requests']} reqs, {rep['gen_tokens']} tokens in "
+        f"{rep['wall_s']:.2f}s ({rep['tokens_per_s']:.1f} tok/s, "
+        f"{rep['steps']} steps, policy={policy})\n"
+        f"latency: p50 {rep['p50_latency_s'] * 1e3:.0f} ms, "
+        f"p99 {rep['p99_latency_s'] * 1e3:.0f} ms, "
+        f"ttft p50 {rep['p50_ttft_s'] * 1e3:.0f} ms\n"
+        f"kv-cache: peak live {rep['live_bytes'] / mb:.2f} MB "
+        f"({rep['peak_live_tokens']} tokens) in "
+        f"{rep['paged_bytes'] / mb:.2f} MB of pages vs static "
+        f"{rep['static_bytes'] / mb:.2f} MB (B x S_max, same format) / "
+        f"f32 {rep['static_f32_bytes'] / mb:.2f} MB; "
+        f"page util peak {rep['page_util']:.0%} "
+        f"({rep['pages_peak']}/{rep['pages_total']} pages)\n"
+        f"plan: decode via {rep['decode_route']} "
+        f"[{rep['decode_backend']}, {rep['decode_selection']}], "
+        f"{rep['decode_bytes_per_step_layer'] / 1e3:.1f} KB KV moved "
+        "per step/layer"
+        + (f"\nprefix: {rep['prefix_hits']}/{rep['prefix_queries']} hits "
+           f"({rep['prefix_hit_rate']:.0%}), "
+           f"{rep['prefill_tokens_saved']} prefill tokens saved, "
+           f"{rep['prefix_cow_copies']} CoW copies; "
+           f"{rep['resident_prefix_pages']} resident pages "
+           f"({rep['resident_prefix_bytes'] / mb:.2f} MB at format width)"
+           if "prefix_hit_rate" in rep else "")
+        + (f"\nmoe: {rep['moe_experts']} experts top-{rep['moe_top_k']}, "
+           f"grouped via {rep['moe_grouped_route']} "
+           f"[{rep['moe_grouped_backend']}, "
+           f"{rep['moe_grouped_selection']}]; expert weights "
+           f"{rep['expert_w_bytes'] / mb:.2f} MB at format width vs f32 "
+           f"{rep['expert_w_bytes_f32'] / mb:.2f} MB "
+           f"({rep['expert_w_reduction_vs_f32']:.1f}x), "
+           f"{rep['moe_grouped_bytes_per_step_layer'] / 1e3:.1f} KB "
+           "expert operands per step/layer"
+           if "moe_experts" in rep else ""))

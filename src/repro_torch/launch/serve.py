@@ -1,25 +1,121 @@
-"""Static greedy serving (port of `repro.launch.serve.generate`).
+"""Serving entry point (port of `repro.launch.serve`): static greedy serving
+(`generate`) and the continuous-batching engine's front end.
 
-One rigid (B, s_ctx) batch stepped in lockstep: the prompt is fed
-through the decode path token by token (exercising the exact serving
-cache path), then generation continues greedily.  Each step is
-`distributed.step.make_serve_step`, which the reference jits; on the
-card it is captured once per call as a CUDA graph (`launch.graphs`).
+  python -m repro_torch.launch.serve --arch qwen3-4b --engine \
+      --policy w4a8_kv4_attn8 --requests 8 --prompt-len 192 --gen 32 \
+      --temperature 0.8 --top-k 50 --top-p 0.95
+
+Two modes, as the reference's:
+
+  static (default) : one rigid (B, s_ctx) batch stepped in lockstep: the
+      prompt is fed through the decode path token by token (exercising
+      the exact serving cache path), then generation continues greedily.
+      Each step is `distributed.step.make_serve_step`, which the
+      reference jits; on the card it is captured once per call as a CUDA
+      graph (`launch.graphs`).
+  --engine : the continuous-batching engine (`launch.engine`) over the
+      paged quantized KV cache, serving an open-loop synthetic workload
+      (`synthetic_workload`), greedy or sampled, with the prefix cache on
+      request; it prints the reference's report lines (tokens/s,
+      latency p50/p99, TTFT p50, KV bytes, plan, prefix, moe).
+
+Weights are `model.init(torch.Generator(device).manual_seed(0))` (the
+reference's `PRNGKey(0)`; `--seed` seeds the workload and the sampler).
+Everything runs on `--device` (default "cuda"); `--eager` runs the steps
+without CUDA graphs.  The port's default block table holds 16 pages (the
+reference's 8), so that a 192-token prompt and 32 new tokens fit.
+
+Flags whose modules the port does not have yet exit naming their ROADMAP
+item (Queue 1): `--spec-draft`, `--spec-k` and `--adaptive-draft`
+("Speculative decoding and the adaptive draft ladder"), `--tp` or
+`--n-model` above 1 ("Tensor-parallel serving and collectives"),
+`--tuned-db` ("Tuner").
 """
 from __future__ import annotations
 
+import argparse
+import json
+import time
+
 import torch
 
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.core import exec_plan
 from repro_torch.core.device import resolve_device
+from repro_torch.core.policy import get_policy
 from repro_torch.distributed.step import make_serve_step
 from repro_torch.launch.graphs import Step, StepGraph
+from repro_torch.models import build_model
+
+# the reference's `hlo_analysis.plan_routes` shapes: each op's ctx
+PLAN_ROUTES = {
+    "matmul": {"w_dtype": "float32"},
+    "flash_attn": {"sq": 128, "skv": 128, "use_flash": True},
+    "decode_attn": {"s_ctx": 128},
+    "paged_decode": {"page_size": 16, "max_pages": 8},
+    "verify_attn": {"page_size": 16, "max_pages": 8, "sq": 4},
+}
+
+# refused flags -> the ROADMAP Queue 1 item that brings their module
+_SPEC_ITEM = "ROADMAP Queue 1, \"Speculative decoding and the adaptive " \
+    "draft ladder\""
+_TP_ITEM = "ROADMAP Queue 1, \"Tensor-parallel serving and collectives\""
+_TUNER_ITEM = "ROADMAP Queue 1, \"Tuner\""
+
+
+def plan_routes(policy, shapes=None) -> dict:
+    """-> {op: exec_plan.describe(...) or None} for the ops a serving step
+    exercises under `policy` (None: no route serves it, or the port does
+    not have the op yet)."""
+    pol = get_policy(policy)
+    ctx = {op: dict(c) for op, c in PLAN_ROUTES.items()}
+    for op, over in (shapes or {}).items():
+        ctx.setdefault(op, {}).update(over)
+    out = {}
+    for op, c in ctx.items():
+        try:
+            out[op] = exec_plan.describe(op, pol, **c)
+        except exec_plan.PlanError:
+            out[op] = None
+    return out
+
+
+def report_plan(cfg, s_ctx: int) -> str:
+    """One line naming the routes this policy's static serving step
+    resolves to (paged_decode is the engine's, left out here)."""
+    routes = plan_routes(cfg.policy, shapes={
+        "flash_attn": {"sq": s_ctx, "skv": s_ctx,
+                       "use_flash": cfg.use_flash},
+        "decode_attn": {"s_ctx": s_ctx, "kv_heads": cfg.n_kv_heads,
+                        "hd": cfg.hd}})
+    static_ops = ("matmul", "flash_attn", "decode_attn")
+    parts = [f"{op}->{routes[op]['route']}" for op in sorted(static_ops)
+             if routes.get(op) is not None]
+    return "plan: " + " ".join(parts)
+
+
+def report_kv_cache(cfg, batch: int, s_ctx: int) -> str:
+    """One-line KV-cache footprint for the selected policy (every layer of
+    the port's decoder and MoE families is an attention layer)."""
+    pol = get_policy(cfg.policy)
+    if not pol.kv_quantized:
+        return "kv-cache: raw %s (policy %s)" % (cfg.dtype, cfg.policy)
+    from repro_torch.core.kvcache import kv_cache_nbytes
+    nb = kv_cache_nbytes(batch, s_ctx, cfg.n_kv_heads, cfg.hd,
+                         fmt=pol.fmt_kv, packed=pol.kv_packed)
+    n_attn = cfg.n_layers
+    return (f"kv-cache: {pol.fmt_kv}{' packed' if pol.kv_packed else ''} "
+            f"{nb['total'] * n_attn / 1e6:.2f} MB vs f32 "
+            f"{nb['f32_total'] * n_attn / 1e6:.2f} MB "
+            f"({nb['reduction_vs_f32']:.2f}x fewer bytes/decode-step, "
+            f"{n_attn} attn layers)")
 
 
 @torch.no_grad()
 def generate(model, params, prompt, n_gen: int, s_ctx: int, device=None,
              graphs: bool = True):
     """prompt: (B, S0) int tokens -> (B, S0 + n_gen) int32, on `device`
-    (default "cuda", which must be where the model lives).
+    (default "cuda", which must be where the model lives).  Greedy.
 
     On the card with `graphs` the serve step is one CUDA graph over two
     buffers, the (B, 1) tokens and the 0-dim int32 index, filled device
@@ -64,3 +160,169 @@ def generate(model, params, prompt, n_gen: int, s_ctx: int, device=None,
 
 
 generate.capture_stats = None
+
+
+def _refuse_unported(args) -> None:
+    """Exit on a flag whose module the port does not have yet."""
+    if args.n_model > 1:
+        raise SystemExit(f"--n-model {args.n_model}: model-parallel "
+                         f"serving is not ported yet ({_TP_ITEM})")
+    if args.spec_draft or args.spec_k is not None:
+        raise SystemExit(f"--spec-draft / --spec-k: speculative decoding "
+                         f"is not ported yet ({_SPEC_ITEM})")
+    if args.adaptive_draft:
+        raise SystemExit(f"--adaptive-draft: the adaptive draft ladder is "
+                         f"not ported yet ({_SPEC_ITEM})")
+    if args.tp > 1:
+        raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
+                         f"ported yet ({_TP_ITEM})")
+    if args.tuned_db:
+        raise SystemExit(f"--tuned-db: the tuner and its measured table "
+                         f"are not ported yet ({_TUNER_ITEM})")
+
+
+def run_engine(cfg, model, params, args):
+    """--engine mode: continuous batching over the paged quantized cache,
+    driven by an open-loop synthetic workload; --mixed makes the traffic
+    heterogeneous, --shared-prefix gives every prompt a common prefix,
+    --prefix-cache shares it; --temperature / --top-k / --top-p select
+    sampling (default greedy).  -> the engine's report."""
+    from repro_torch.launch.engine import (Engine, EngineConfig,
+                                           format_report,
+                                           synthetic_workload)
+    from repro_torch.serving.sampler import SamplerConfig
+    ecfg = EngineConfig(page_size=args.page_size, n_pages=args.pages,
+                        max_batch=args.max_batch or args.batch,
+                        max_pages_per_req=args.max_pages_per_req,
+                        token_budget=args.token_budget,
+                        prefill_chunk=args.prefill_chunk,
+                        prefix_cache=args.prefix_cache)
+    # mixed traffic stretches the longest request to 4x the --gen /
+    # --prompt-len ceilings (see synthetic_workload); guard for that
+    p_max = 4 * args.prompt_len if args.mixed > 0 else args.prompt_len
+    g_max = 4 * args.gen if args.mixed > 0 else args.gen
+    if args.shared_prefix + p_max + g_max > ecfg.s_max:
+        raise SystemExit(
+            f"--shared-prefix {args.shared_prefix} + prompt {p_max} + "
+            f"gen {g_max}{' (4x for --mixed)' if args.mixed > 0 else ''} "
+            f"exceeds the engine's S_max = {ecfg.s_max} tokens/request; "
+            "raise --max-pages-per-req or --page-size")
+    sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, seed=args.seed)
+    engine = Engine(model, params, ecfg, sampler=sampler,
+                    device=args.device, graphs=not args.eager)
+    reqs = synthetic_workload(
+        args.requests, vocab=cfg.vocab_size, seed=args.seed,
+        rate=args.rate, prompt_range=(max(1, args.prompt_len // 2),
+                                      args.prompt_len),
+        gen_range=(max(1, args.gen // 2), args.gen),
+        shared_prefix=args.shared_prefix, mixed=args.mixed)
+    rep = engine.run(reqs)
+    print(format_report(rep, cfg.policy))
+    if engine.finished:
+        sample = engine.finished[0]
+        print(f"sample (req {sample.rid}): {sample.tokens()[:24].tolist()}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rep, f, indent=2, allow_nan=False)
+        print(f"report written to {args.json}")
+    return rep
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--policy", default=None)
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="model-parallel width (only 1 is served)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model and the steps run")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps without CUDA graphs")
+    eg = ap.add_argument_group("engine", "continuous-batching mode")
+    eg.add_argument("--engine", action="store_true",
+                    help="serve with the paged-cache engine")
+    eg.add_argument("--page-size", type=int, default=16)
+    eg.add_argument("--pages", type=int, default=128,
+                    help="page-pool capacity (page 0 is scratch)")
+    eg.add_argument("--max-batch", type=int, default=0,
+                    help="decode slots (default: --batch)")
+    eg.add_argument("--max-pages-per-req", type=int, default=16)
+    eg.add_argument("--token-budget", type=int, default=32,
+                    help="tokens per scheduler step")
+    eg.add_argument("--prefill-chunk", type=int, default=16)
+    eg.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width (only 1 is served)")
+    eg.add_argument("--requests", type=int, default=16)
+    eg.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate, req/s (0 = all at t=0)")
+    eg.add_argument("--seed", type=int, default=0,
+                    help="workload + sampler RNG seed")
+    eg.add_argument("--prefix-cache", action="store_true",
+                    help="share identical prompt prefixes across requests "
+                         "(ref-counted pages + copy-on-write)")
+    eg.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared system-prompt tokens "
+                         "to every synthetic request")
+    eg.add_argument("--mixed", type=float, default=0.0,
+                    help="fraction of long-prompt/long-gen requests in "
+                         "the synthetic workload (0 = homogeneous)")
+    eg.add_argument("--json", default="",
+                    help="also dump the engine report to this JSON file")
+    eg.add_argument("--tuned-db", default="",
+                    help="tuned measurement DB (not ported yet)")
+    sg = ap.add_argument_group("sampling + speculation", "engine mode")
+    sg.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    sg.add_argument("--top-k", type=int, default=0,
+                    help="keep the k largest logits (0 = off)")
+    sg.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off)")
+    sg.add_argument("--spec-draft", default="",
+                    help="draft policy for speculative decoding (not "
+                         "ported yet)")
+    sg.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens per speculative round (not ported "
+                         "yet)")
+    sg.add_argument("--adaptive-draft", action="store_true",
+                    help="adaptive draft-precision ladder (not ported yet)")
+    args = ap.parse_args(argv)
+    _refuse_unported(args)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    if args.engine and not args.policy:
+        args.policy = "kv4_attn8_packed"    # engine needs a fmt_kv preset
+    if args.policy:
+        cfg = cfg.replace(policy=args.policy)
+    if cfg.frontend == "stub":
+        raise SystemExit("serve demo targets token-in/token-out archs")
+    dev = resolve_device(args.device)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    if args.engine:
+        return run_engine(cfg, model, params, args)
+    print(report_kv_cache(cfg, args.batch, args.prompt_len + args.gen))
+    print(report_plan(cfg, args.prompt_len + args.gen))
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=torch.Generator().manual_seed(1))
+    t0 = time.monotonic()
+    out = generate(model, params, prompt, args.gen,
+                   args.prompt_len + args.gen, device=dev,
+                   graphs=not args.eager)
+    out = out.cpu()
+    wall = time.monotonic() - t0
+    steps = args.prompt_len + args.gen - 1
+    print(f"generated {tuple(out.shape)} in {wall:.2f}s "
+          f"({steps * args.batch / wall:.1f} tok/s, policy={cfg.policy})")
+    print("sample:", out[0, :24].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()

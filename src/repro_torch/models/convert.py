@@ -1,7 +1,8 @@
 """Convert the reference's params into the port's.
 
-torch cannot reproduce JAX's threefry init, so the tests move weights
-across: `jax.tree.map(np.asarray, params)` on the JAX side, then
+The port's own init draws other weights than JAX's (its normal draws
+pass through transcendentals whose last bits differ), so the tests move
+weights across: `jax.tree.map(np.asarray, params)` on the JAX side, then
 `convert_params` here.  The reference stacks per-layer params on a
 leading scan axis (`stack.groups.p0`, plus an unscanned tail); the port
 keeps a per-layer list.  A MoE block's router and (E, d_in, d_out)

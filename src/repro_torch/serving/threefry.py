@@ -1,0 +1,142 @@
+"""The parts of `jax.random` the sampler uses, in plain torch: the
+Threefry-2x32 counter hash, `PRNGKey`, `fold_in`, `random_bits` in the
+partitionable layout, `uniform`, `gumbel` (mode "low") and
+`categorical`, each batched over a leading axis of keys and computed on
+the device of its inputs.
+
+Threefry-2x32 is 32-bit integer arithmetic, so the port draws from the
+reference's own streams: keys, bits and uniforms equal JAX's bit for bit
+(`tests/test_torch_sampler.py`).  Gumbel noise goes through `log`, whose
+last bit differs between XLA and torch, so it matches to an ulp and a
+categorical draw equals JAX's wherever the winner leads by more.
+
+A 32-bit word is carried in an int64 tensor holding a value in
+[0, 2^32): torch's uint32 has next to no CUDA arithmetic and its int32
+right shift is arithmetic, while int64 holds every sum and shifted word
+exactly before the mask brings it back to 32 bits.
+
+A key is an (..., 2) int64 tensor of two such words.  JAX's layout with
+`jax_enable_x64` off (the reference's setting): `PRNGKey(seed)` is
+[0, seed mod 2^32] for any Python int seed, negative ones included.
+
+The hash takes Python ints as well as tensors, so a key folded from ints
+(the seed, a role) needs no host-to-device copy: a captured step may not
+make one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_F32_ONE_BITS = 0x3F800000
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _word(x):
+    """An int or an integer tensor -> its low 32 bits (an int, or an int64
+    tensor)."""
+    if torch.is_tensor(x):
+        return x.to(torch.int64) & MASK
+    return int(x) & MASK
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry_2x32(k1, k2, x0, x1):
+    """Threefry-2x32, 20 rounds, on words (ints or broadcastable int64
+    tensors) -> (y0, y1), as `jax.random`'s `threefry2x32_p`."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x0, x1
+
+
+def prng_key(seed: int, device=None):
+    """`jax.random.PRNGKey(seed)` under 32-bit JAX -> (2,) int64 key."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def fold_words(k1, k2, data):
+    """`jax.random.fold_in` on key words (ints or tensors): data an int or
+    an integer tensor, its low 32 bits taken as JAX's uint32 cast does
+    -> (y0, y1)."""
+    return threefry_2x32(k1, k2, 0, _word(data))
+
+
+def key_tensor(k1, k2, device=None):
+    """Key words (ints or broadcastable tensors) -> (..., 2) int64 key."""
+    ts = [k for k in (k1, k2) if torch.is_tensor(k)]
+    if not ts:
+        return torch.tensor([k1, k2], dtype=torch.int64, device=device)
+    like = torch.broadcast_tensors(*ts)[0]
+    y = [k.expand_as(like) if torch.is_tensor(k) else torch.full_like(like, k)
+         for k in (k1, k2)]
+    return torch.stack(y, dim=-1)
+
+
+def fold_in(key, data):
+    """`jax.random.fold_in`: key (..., 2), data an int or an integer
+    tensor broadcastable against key[..., 0] -> (..., 2) keys."""
+    return key_tensor(*fold_words(key[..., 0], key[..., 1], data))
+
+
+def random_bits(key, n: int):
+    """`jax.random.bits(key, (n,), uint32)` in the partitionable layout:
+    entry i hashes the counter (i >> 32, i & 0xFFFFFFFF) and is the XOR
+    of the two output words.  key (..., 2) -> (..., n) int64 words."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry_2x32(key[..., 0, None], key[..., 1, None],
+                           i >> 32, i & MASK)
+    return y0 ^ y1
+
+
+def _unit_floats(bits):
+    """Words -> f32 in [0, 1): 23 high bits as the mantissa of [1, 2),
+    minus 1."""
+    f = ((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key, n=None, minval: float = 0.0, maxval: float = 1.0):
+    """`jax.random.uniform(key, shape, float32, minval, maxval)` with shape
+    (n,), or () when n is None: key (..., 2) -> (..., n) or (...) f32.
+    f * (maxval - minval) + minval, floored at minval, with the one
+    rounding of XLA's fused multiply-add: the product is exact in f64
+    (24-bit factors), and when the f32 scale is 1 (the sampler's ranges)
+    it is f itself."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scale = hi - lo
+    f = _unit_floats(random_bits(key, 1 if n is None else n))
+    if scale == 1.0:
+        u = f + float(lo)
+    else:
+        u = (f.to(torch.float64) * float(scale) + float(lo)).to(
+            torch.float32)
+    u = torch.clamp_min(u, float(lo))
+    return u[..., 0] if n is None else u
+
+
+def gumbel(key, n: int):
+    """`jax.random.gumbel(key, (n,), float32)` (mode "low"):
+    -log(-log(uniform(tiny, 1)))."""
+    return -torch.log(-torch.log(uniform(key, n, _F32_TINY, 1.0)))
+
+
+def categorical(key, logits):
+    """`jax.random.categorical(key, logits)` over the last axis, one key
+    per row: argmax of gumbel + logits, ties to the first index as
+    `jnp.argmax`.  key (..., 2), logits (..., V) f32 -> (...) int64."""
+    g = gumbel(key, logits.shape[-1])
+    return torch.argmax(g + logits, dim=-1)

@@ -172,9 +172,12 @@ def test_engine_rejects_bad_configurations():
         engine.submit(Request(rid=9, prompt=np.zeros(ECFG.s_max, np.int32),
                               max_new=1))
     from repro_torch.serving.sampler import SamplerConfig
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="top_p"):
         Engine(model, params, ECFG, device="cpu",
-               sampler=SamplerConfig(temperature=0.7))
+               sampler=SamplerConfig(temperature=0.7, top_p=0.0))
+    with pytest.raises(ValueError, match="top_k"):
+        Engine(model, params, ECFG, device="cpu",
+               sampler=SamplerConfig(temperature=0.7, top_k=-1))
 
 
 def test_greedy_tokens_masks_nan():

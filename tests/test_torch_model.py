@@ -1,7 +1,7 @@
 """Reduced qwen3-4b: the port's decoder vs the JAX reference.
 
-Weights cross through `repro_torch.models.convert` (torch cannot
-reproduce threefry).  Prefill logits and stepped-decode logits are held
+Weights cross through `repro_torch.models.convert` (the port's init
+draws other weights).  Prefill logits and stepped-decode logits are held
 against `jax.jit` of the reference's `prefill` / `decode_step` (its
 Pallas matmul kernel in interpret mode), per policy; the stepped decode
 also with the index as a 0-dim int32 tensor (a captured step's buffer):

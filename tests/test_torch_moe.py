@@ -18,10 +18,8 @@ each by one bf16 ulp (measured: none differ).
 Prefill and stepped-decode logits (the latter with the index as an int
 and as a 0-dim int32 tensor) are held to `tests/test_torch_model.py`'s
 rule: 1e-4 absolute, and greedy tokens agree wherever the reference's
-top-1/top-2 margin exceeds twice that.  The port's engine equals the
-port's `generate` token for token with `prefill_chunk=1` (expert capacity
-is computed per model call, so only single-token prefill routes a prompt
-as `generate` does), as `tests/test_grouped_dpa.py` pins the reference.
+top-1/top-2 margin exceeds twice that.  The port's MoE engine is pinned
+in `tests/test_torch_moe_engine.py`.
 """
 import functools
 import importlib
@@ -35,9 +33,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core.linear import prepare_grouped_linear  # noqa: E402
-from repro_torch.launch.engine import (Engine, EngineConfig,  # noqa: E402
-                                       Request)
-from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import build_model, layers as TL  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
 
@@ -229,53 +224,3 @@ def test_converter_carries_expert_stacks_and_router():
         assert mlp["wg"]["wq"].dtype == torch.uint8
         assert tuple(mlp["wd"]["sw"].shape) == (E, 1, 128)
         assert set(mlp["router"]) == {"w"}
-
-
-ECFG = EngineConfig(page_size=8, n_pages=32, max_batch=3,
-                    max_pages_per_req=4, token_budget=8, prefill_chunk=1)
-LENS = [(6, 4), (9, 3), (5, 4)]
-
-
-@functools.lru_cache(maxsize=None)
-def _served():
-    _, tcfg = _cfgs("w4a8_kv4_attn8")
-    model = build_model(tcfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(7)
-    reqs = [Request(rid=i, prompt=rng.integers(0, tcfg.vocab_size, size=s0)
-                    .astype(np.int32), max_new=g)
-            for i, (s0, g) in enumerate(LENS)]
-    engine = Engine(model, params, ECFG, device="cpu")
-    return model, params, engine, reqs, engine.run(reqs)
-
-
-def test_engine_matches_generate_per_request():
-    model, params, _, reqs, _ = _served()
-    for req in reqs:
-        out = generate(model, params, req.prompt[None], req.max_new,
-                       ECFG.s_max, device="cpu").numpy()[0]
-        assert np.array_equal(req.tokens(), out), req.rid
-
-
-def test_engine_report_states_grouped_plan():
-    _, _, engine, reqs, rep = _served()
-    assert rep["n_requests"] == len(LENS) and engine.alloc.in_use == 0
-    assert rep["moe_experts"] == 8 and rep["moe_top_k"] == 2
-    assert rep["moe_grouped_route"] == "cuda_grouped_fused"
-    assert rep["moe_grouped_backend"] == "cuda"
-    assert rep["moe_grouped_selection"] == "prior"
-    # packed fp4 expert weights: exactly 8x under the f32 masters
-    assert rep["expert_w_reduction_vs_f32"] == pytest.approx(8.0)
-    assert rep["expert_w_bytes_f32"] == 2 * 3 * 8 * 64 * 128 * 4
-    assert rep["moe_grouped_bytes_per_step_layer"] > 0
-    assert rep["decode_route"] == "cuda_block_table"
-
-
-def test_dense_decoder_reports_no_moe_fields():
-    cfg = reduce_config(get_config("qwen3-4b")).replace(
-        policy="kv4_attn8_packed")
-    model = build_model(cfg, device="cpu")
-    engine = Engine(model, model.init(torch.Generator().manual_seed(0)),
-                    ECFG, device="cpu")
-    assert engine.moe_plan is None
-    assert not any(k.startswith("moe_") for k in engine.report(1.0))
