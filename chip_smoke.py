@@ -37,7 +37,15 @@ Phases (every failure raises; the exit code is then non-zero):
      16, positions 32767 and 9000, timed), for qwen3-4b (hd 128, H 32, KV
      8) and granite-moe-1b (hd 64, H 16, KV 8); at the engine's shape
      every cluster split 1-8 is checked and timed beside the launch
-     plan's (`paged_plan`);
+     plan's (`paged_plan`); its fp4 (E2M1) and fp16 attention formats
+     over packed-fp4 and E4M3 KV, and fp8 over E4M3 KV, at both models'
+     engine shapes and (fp4, fp16) the long context, timed; every case
+     holds each output to the smaller of its format's bound
+     (`PAGED_DECODE_CARD_TOLS`) and the case's own (`_paged_case_tol`,
+     from its own sums of p codes: ~1e-3 at the long context); and
+     the speculative verify fold (B 4 x 5 query rows in one launch at the
+     decode plan's split) in each attention format, `torch.equal` to 5
+     single-position launches;
    - `dpa_grouped_matmul_fused` at granite's expert shapes (E 32, K x N
      1024 x 512 and 512 x 1024) for M = 8 (decode, 4 rows padded) and
      M = 11 (a 32-token prefill chunk's capacity), both weight formats,
@@ -146,8 +154,23 @@ Phases (every failure raises; the exit code is then non-zero):
       --policy w4a8_kv4_attn8 --requests 8 --prompt-len 192 --gen 32
       --temperature 0.8 --top-k 50 --top-p 0.95`: its own full-width
       model and weights), its report lines printed and checked.
-   Paths g-i run the engine's kernels only (fused split-K, paged
-   decode); every engine run's counts are checked as a's.
+   j. speculative decoding on a's engine and workload (k = 4, graphed):
+      first the row-invariance probe (one 5-token verify pass against 5
+      stepped decode steps from one cache state, every recorded op's
+      rows `torch.equal`, the per-row split as the engine runs it: none
+      may differ, and a call that differs on equal inputs is named); a
+      self-draft (every draft accepted, a's greedy tokens); on a's first
+      4 requests a static w4a4_kv4_attn4 draft, the default adaptive
+      ladder under the default controller and under one that switches
+      rung every round (a's greedy tokens; each rung that drafted
+      launched its attention format, all three in the switching run), a
+      sampled adaptive run twice (both drain, equal
+      tokens); one replay of each draft and verify step profiled; and one
+      `launch.serve.main(FRONT_END_ADAPTIVE)` call (`--adaptive-draft`,
+      its own model).
+   Paths g-j run the engine's kernels only (fused split-K, paged
+   decode and its verify fold); every engine run's counts are checked
+   as a's, paged decode's by attention format too.
    The expected counts are computed from the config and the run; d and e
    are each compared with the same call with use_flash off, and every
    layer's attention output on them with the kernel's plain version on
@@ -791,14 +814,99 @@ def _paged_case(cfg, pol, gen, lengths, page, positions=None):
     return q, cache, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def _paged_bytes(cfg, lengths, q, table):
+def _paged_bytes(cfg, lengths, q, table, wc=None):
     """Bytes one paged decode call must move: each live K and V row's
-    packed codes and scale once, q read and the output written, the block
-    table and positions."""
+    codes (`wc` bytes a row, packed fp4 by default) and scale once, q read
+    and the output written, the block table and positions."""
     live_rows = sum(lengths) * cfg.n_kv_heads
-    return (2 * live_rows * (cfg.hd // 2 + 4)
+    wc = cfg.hd // 2 if wc is None else wc
+    return (2 * live_rows * (wc + 4)
             + 2 * q.numel() * q.element_size() + table.numel() * 4
             + len(lengths) * 4)
+
+
+# paged decode vs its plain version, each output's own bound
+# (`_paged_case_tol`).  PAGED_P_RTOL: how far apart, relatively, the two
+# sides' probabilities can lie.  A logit is an f32 sum of hd products in
+# another order, within hd 2^-24 of the sum of their magnitudes (about
+# 6e-5 for hd 128 and randn rows), the max moves with it, and the exp adds
+# a few f32 ulps: 2^-12 (2.4e-4) holds them with room.
+PAGED_P_RTOL = 2.0 ** -12
+# the f32 sums of an output (numerator and denominator, n live terms in
+# two orders): each within this many sqrt(n) 2^-24 of its terms'
+# magnitudes, the random-walk size of a long f32 sum's rounding
+PAGED_SUM_SIGMAS = 4.0
+
+
+def _attn_grid(y, fmt):
+    """clip(y, -T, T) onto the attention format's grid, f32 values."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import decode_fp4, encode_fp4, torch_dtype
+    t = get_format(fmt).quant_target
+    y = torch.clamp(y, -t, t)
+    if fmt == "fp4_e2m1":
+        return decode_fp4(encode_fp4(y))
+    return y.to(torch_dtype(fmt)).to(torch.float32)
+
+
+def _paged_case_tol(args, kw, want):
+    """Each output's bound against the plain version `want`, from this
+    case's own probabilities (q (B, 1, H, hd)).  The plain arithmetic is
+    rebuilt here (it must give `want` bit for bit) and each output may be
+    off by: one bf16 ulp of itself; its f32 sums' order, 2
+    PAGED_SUM_SIGMAS sqrt(n) 2^-24 of sum_t pg_t |v_t| / den (den the
+    row's sum of p codes pg); and the p codes that can flip.  A code can
+    flip only where p / psq lies within PAGED_P_RTOL of a rounding
+    boundary of the format's grid: there the grid at p / psq (1 -/+
+    PAGED_P_RTOL) gives codes lo < hi, and such flips move an output by at
+    most sum_t (hi - lo) |v_t - out| / (den - sum_t (hi - lo)).  ->
+    (bound shaped like want, {"candidates": codes that can flip,
+    "flip_max": the largest flip term})."""
+    import torch
+    from repro_torch.core.device import batched_rowwise_dot
+    from repro_torch.core.kvcache import dequantize_kv, gather_paged_kv
+    from repro_torch.core.quantize import quant_rows_grid
+    q, kc, ks, vc, vs, table, pos = args
+    fmt = kw["fmt"]
+    B, sq, H, hd = q.shape
+    assert sq == 1, "one query token a request"
+    view = gather_paged_kv({"k_codes": kc, "k_scale": ks, "v_codes": vc,
+                            "v_scale": vs, "block_table": table})
+    k, v = (dequantize_kv(view[f"{n}_codes"], view[f"{n}_scale"],
+                          fmt=kw["fmt_kv"], packed=kw["kv_packed"])
+            .repeat_interleave(H // kc.shape[2], dim=2).permute(0, 2, 1, 3)
+            for n in "kv")                                  # (B, H, S, hd)
+    qg, qs = quant_rows_grid(q, fmt)
+    lg = batched_rowwise_dot(qg.permute(0, 2, 1, 3), k)     # (B, H, 1, S)
+    lg = lg * qs.permute(0, 2, 1, 3) * float(hd ** -0.5)
+    live = torch.arange(k.shape[2], device=q.device)[None] <= \
+        pos.to(torch.int64)[:, None]
+    lg = torch.where(live[:, None, None, :], lg, -1e30)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    pg, psq = quant_rows_grid(p, fmt)
+    den = pg.sum(dim=-1, keepdim=True)                      # (B, H, 1, 1)
+    num = batched_rowwise_dot(pg, v.transpose(-1, -2))      # (B, H, 1, hd)
+    out = num * psq / torch.clamp_min(den * psq, 1e-30)
+    if not torch.equal(out.permute(0, 2, 1, 3).to(want.dtype), want):
+        raise AssertionError("paged case bound: the rebuilt plain version "
+                             "differs from paged_decode_attention_ref")
+    n = live.sum(dim=-1).to(torch.float32)[:, None, None, None]
+    mag = batched_rowwise_dot(pg, v.abs().transpose(-1, -2)) / den
+    order = 2 * PAGED_SUM_SIGMAS * n.sqrt() * 2.0 ** -24 * mag
+    y = p / psq
+    gap = (_attn_grid(y * (1 + PAGED_P_RTOL), fmt)
+           - _attn_grid(y * (1 - PAGED_P_RTOL), fmt))       # (B, H, 1, S)
+    flip = torch.zeros_like(out)
+    b, h, z, t = gap.nonzero(as_tuple=True)
+    if b.numel():
+        w = gap[b, h, z, t] / (den - gap.sum(-1, keepdim=True))[b, h, z, 0]
+        flip.index_put_((b, h, z), w[:, None]
+                        * (v[b, h, t] - out[b, h, z]).abs(), accumulate=True)
+    ulp = torch.where(want == 0, 0.0, _bf16_ulp(want.float()))
+    tol = ulp + (order + flip).permute(0, 2, 1, 3)
+    return tol, {"candidates": int(b.numel()),
+                 "flip_max": float(flip.max())}
 
 
 def check_paged(cfg, pol, gen, ecfg):
@@ -806,10 +914,12 @@ def check_paged(cfg, pol, gen, ecfg):
 
     The two sum in different orders, so logits differ in the last f32
     bits, exp then differs by ulps, and a probability code can flip to its
-    E4M3 neighbour where p / psq sits at a rounding midpoint.  The pin
-    (`PAGED_DECODE_CARD_TOL`, 2e-2 absolute) admits such a flip where its
-    weight is small against the denominator, and catches a wrong row,
-    page, rank or mask, which moves outputs by O(1).  Cases: the engine's
+    E4M3 neighbour where p / psq sits at a rounding midpoint.  Each output
+    is held to the smaller of the format's pin (`PAGED_DECODE_CARD_TOL`,
+    2e-2 absolute) and its case's own bound (`_paged_case_tol`: a bf16
+    ulp, the sums' order, and what the codes near a boundary can move it
+    by, against the row's own denominator), which catches a wrong row,
+    page, rank or mask, or p rounded wrongly.  Cases: the engine's
     decode geometry (timed), block-table edges, and one long context (B 2,
     positions 32767 and 9000, 2,048 pages of 16; timed), each at the
     launch plan's split; at the engine's shape every split 1-8 is also
@@ -827,11 +937,14 @@ def check_paged(cfg, pol, gen, ecfg):
                              cache["k_codes"].shape[1],
                              cache["block_table"].shape[1])
 
-    def held(name, got, want):
+    def held(name, got, want, tol):
         err = (got.float() - want.float()).abs()
-        if not bool(torch.isfinite(got).all()) or float(err.max()) > TOL:
-            raise AssertionError(f"paged_decode_attention {name}: max err "
-                                 f"{float(err.max())} > {TOL}")
+        if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+            i = int((err - tol).argmax())
+            raise AssertionError(
+                f"paged_decode_attention {name}: err {float(err.flatten()[i])}"
+                f" > its bound {float(tol.flatten()[i])} (max err "
+                f"{float(err.max())})")
         return err
 
     def compare(name, q, cache, pos):
@@ -840,20 +953,24 @@ def check_paged(cfg, pol, gen, ecfg):
         got = PD.paged_decode_attention(*args, **kw)
         want = PD.paged_decode_attention_ref(*args, **kw)
         torch.cuda.synchronize()
-        err = held(name, got, want)
+        tol, info = _paged_case_tol(args, kw, want)
+        tol = torch.clamp_max(tol, TOL)
+        err = held(name, got, want, tol)
         plan = plan_of(q, cache)
         print(f"paged_decode_attention hd={cfg.hd} {name} (split "
               f"{plan.split}, {plan.blocks} blocks): max_abs_err "
-              f"{float(err.max()):.3g}, {int((err > 0).sum())} of "
-              f"{err.numel()} outputs differ")
-        return float(err.max()), args
+              f"{float(err.max()):.3g} (case bound up to "
+              f"{float(tol.max()):.3g}, {info['candidates']} codes near a "
+              f"boundary), {int((err > 0).sum())} of {err.numel()} outputs "
+              "differ")
+        return float(err.max()), args, tol
 
     worst = 0.0
     # the engine's decode geometry: B = max_batch, full block tables
     lengths = [256, 201, 101, 18]
     q, cache, pos = _paged_case(cfg, pol, gen, lengths, ecfg.page_size)
-    e, main_args = compare("B=4 page=16 lengths [256,201,101,18]", q, cache,
-                           pos)
+    e, main_args, main_tol = compare("B=4 page=16 lengths [256,201,101,18]",
+                                     q, cache, pos)
     worst = max(worst, e)
     main_plan = plan_of(q, cache)
     # edge cases: partial tail pages at page 8, mid-page positions, and an
@@ -892,13 +1009,14 @@ def check_paged(cfg, pol, gen, ecfg):
             B.check(lib.paged_decode_launch(
                 qm.data_ptr(), 1, kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
                 vs.data_ptr(), table.data_ptr(), posm.data_ptr(),
-                out.data_ptr(), qm.shape[0], cfg.n_heads, cfg.n_kv_heads,
-                cfg.hd, kc.shape[1], table.shape[1], 0, cfg.hd ** -0.5,
-                split, torch.cuda.current_stream().cuda_stream),
+                out.data_ptr(), qm.shape[0], 1, cfg.n_heads,
+                cfg.n_kv_heads, cfg.hd, kc.shape[1], table.shape[1], 0, 0,
+                cfg.hd ** -0.5, split,
+                torch.cuda.current_stream().cuda_stream),
                 f"paged_decode split {split}")
         call()
         torch.cuda.synchronize()
-        err = held(f"split {split}", out, want)
+        err = held(f"split {split}", out, want, main_tol)
         splits[split] = device_ms(call)
         print(f"  split {split}: max_abs_err {float(err.max()):.3g}, device "
               f"{splits[split]} ms")
@@ -913,8 +1031,8 @@ def check_paged(cfg, pol, gen, ecfg):
     long_lengths = [32768, 9001]
     q, cache, pos = _paged_case(cfg, pol, gen, long_lengths, 16,
                                 [32767, 9000])
-    e, long_args = compare("B=2 page=16 2048 pages positions [32767,9000]",
-                           q, cache, pos)
+    e, long_args, long_tol = compare(
+        "B=2 page=16 2048 pages positions [32767,9000]", q, cache, pos)
     worst = max(worst, e)
     lt = timings(lambda: PD.paged_decode_attention(*long_args, **kw),
                  lambda: PD.paged_decode_attention_ref(*long_args, **kw))
@@ -924,8 +1042,172 @@ def check_paged(cfg, pol, gen, ecfg):
           f"{fmt_times(lt)} bound_ms {lt['bound_ms']:.6f} "
           f"({lt['bound_by']})")
     t["long"] = {k: lt[k] for k in TIME_KEYS + ("bound_ms", "split")}
-    del q, cache, pos, long_args
+    t["long"].update(max_abs_err=e, case_tol_max=float(long_tol.max()))
+    t["case_tol_max"] = float(main_tol.max())
+    del q, cache, pos, long_args, long_tol
     return worst, t
+
+
+# the kernel's attention formats beyond the serving policy's E4M3, and the
+# KV formats it serves: (fmt_kv, kv_packed)
+PAGED_NEW_ATTN = ("fp4_e2m1", "fp16")
+PAGED_KV = (("fp4_e2m1", True), ("fp8_e4m3", False))
+# the peak each attention format's operations are bound at: fp16 at the
+# fp16 tensor-core rate; E4M3, and E2M1 (no narrower tensor core on an
+# H100), at the fp8 rate
+ATTN_PEAK = {"fp8_e4m3": FP8_OPS_PER_S, "fp4_e2m1": FP8_OPS_PER_S,
+             "fp16": FP16_OPS_PER_S}
+# the draft length of the verify fold's check and of phase 3j.  At the
+# engine's max_batch 4 the verify pass is 4 (k + 1) = 20 rows, below the
+# fused kernel's TILED_MIN_M = 128: there the split-K route's row bits do
+# not depend on M, so verify rows carry the decode steps' bits (the
+# Engine refuses 128 rows or more on the card, `check_verify_rows`)
+VERIFY_K = 4
+
+
+def check_paged_formats(cfg, gen, ecfg):
+    """The kernel's fp4 (E2M1) and fp16 attention formats over packed-fp4
+    and E4M3 KV, and E4M3 attention over E4M3 KV, against the plain
+    version at the engine's shape (B 4, lengths 256/201/101/18) and, for
+    the new formats, at the long context (B 2, 2,048 pages of 16), each
+    output held to the smaller of its format's bound
+    (`PAGED_DECODE_CARD_TOLS`, derived in kernels/registry.py for the
+    least denominator) and its case's own (`_paged_case_tol`, from the
+    case's codes; at the long context far below the format's, since an
+    output there averages thousands of keys).  Timed: every case's kernel
+    device ms; the
+    engine shape over packed fp4 (the serving cache) both ways with its
+    plain version's, beside each bound.  -> {fmt: {...}}."""
+    import torch
+    from repro_torch.core.policy import TransPrecisionPolicy
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels.registry import PAGED_DECODE_CARD_TOLS as TOLS
+    out = {}
+    cases = [(f, kv) for f in PAGED_NEW_ATTN for kv in PAGED_KV]
+    cases.append(("fp8_e4m3", ("fp8_e4m3", False)))
+    lengths, long_lengths = [256, 201, 101, 18], [32768, 9001]
+    for fmt, (fmt_kv, packed) in cases:
+        pol = TransPrecisionPolicy(fmt_attn=fmt, fmt_kv=fmt_kv,
+                                   kv_packed=packed)
+        kw = dict(fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
+        tol = TOLS[fmt]
+        res = out.setdefault(fmt, {"tol": tol, "kv": {}})
+        for name, lens, page, pos in (
+                ("engine", lengths, ecfg.page_size, None),
+                ("long", long_lengths, 16, [32767, 9000])):
+            if name == "long" and fmt == "fp8_e4m3":
+                continue
+            q, cache, p = _paged_case(cfg, pol, gen, lens, page, pos)
+            args = (q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
+                    cache["v_scale"], cache["block_table"], p)
+            got = PD.paged_decode_attention(*args, **kw)
+            want = PD.paged_decode_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            case_tol, info = _paged_case_tol(args, kw, want)
+            case_tol = torch.clamp_max(case_tol, tol)
+            errs = (got.float() - want.float()).abs()
+            err = float(errs.max())
+            if not bool(torch.isfinite(got).all()) or bool(
+                    (errs > case_tol).any()):
+                i = int((errs - case_tol).argmax())
+                raise AssertionError(
+                    f"paged_decode_attention {fmt} attention over "
+                    f"{fmt_kv}{' packed' if packed else ''} KV, {name}: "
+                    f"err {float(errs.flatten()[i])} > its bound "
+                    f"{float(case_tol.flatten()[i])} (max err {err})")
+            wc = cache["k_codes"].shape[3]
+            ops = 2 * 2 * sum(lens) * cfg.n_heads * cfg.hd
+            b_ms, b_by = bound(_paged_bytes(cfg, lens, q, args[5], wc), ops,
+                               ATTN_PEAK[fmt])
+            kern = lambda: PD.paged_decode_attention(*args, **kw)  # noqa
+            if name == "engine" and packed:
+                t = timings(kern, lambda: PD.paged_decode_attention_ref(
+                    *args, **kw))
+            else:
+                t = {"device_ms": device_ms(kern)}
+            t.update(max_abs_err=err, case_tol_max=float(case_tol.max()),
+                     candidates=info["candidates"], bound_ms=b_ms,
+                     bound_by=b_by)
+            key = f"{fmt_kv}{'_packed' if packed else ''}"
+            res["kv"].setdefault(key, {})[name] = t
+            print(f"paged_decode_attention hd={cfg.hd} {fmt} attention, "
+                  f"{key} KV, {name}: max_abs_err {err:.3g} (case bound up "
+                  f"to {t['case_tol_max']:.3g}, {info['candidates']} codes "
+                  f"near a boundary; format bound {tol:.4g}), kernel device "
+                  f"ms {t['device_ms']}, bound_ms "
+                  f"{b_ms:.6f} ({b_by})"
+                  + (f"; {fmt_times(t)}" if "ms" in t else ""))
+            del q, cache, p, args, got, want, case_tol, errs
+    return out
+
+
+def check_verify_fold(cfg, gen, ecfg, k=VERIFY_K):
+    """The speculative verify fold: one launch over B (k+1) query rows
+    (row (b, i) at position positions[b] + i, the decode plan's split at
+    B) against k+1 single-position launches, `torch.equal` row for row,
+    for each attention format over the engine's packed-fp4 cache at the
+    engine's shape; the fold's device ms beside the k+1 launches' and its
+    bound.  -> {fmt: {...}}."""
+    import torch
+    from repro_torch.core.policy import TransPrecisionPolicy
+    from repro_torch.kernels import paged_decode as PD
+    out = {}
+    lengths = [256, 201, 101, 18]
+    B, KV, G = len(lengths), cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    for fmt in ("fp8_e4m3",) + PAGED_NEW_ATTN:
+        pol = TransPrecisionPolicy(fmt_attn=fmt, fmt_kv="fp4_e2m1",
+                                   kv_packed=True)
+        kw = dict(fmt=fmt, fmt_kv="fp4_e2m1", kv_packed=True)
+        pos0 = [n - 1 - k for n in lengths]
+        _, cache, pos = _paged_case(cfg, pol, gen, lengths, ecfg.page_size,
+                                    pos0)
+        q = torch.randn((B, k + 1, cfg.n_heads, cfg.hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        rest = (cache["k_codes"], cache["k_scale"], cache["v_codes"],
+                cache["v_scale"], cache["block_table"])
+        singles = [q[:, i:i + 1].contiguous() for i in range(k + 1)]
+        shifted = [pos + i for i in range(k + 1)]
+
+        def fold():
+            return PD.paged_decode_attention(q, *rest, pos, **kw)
+
+        def stepped():
+            return [PD.paged_decode_attention(singles[i], *rest, shifted[i],
+                                              **kw) for i in range(k + 1)]
+
+        got, want = fold(), stepped()
+        torch.cuda.synchronize()
+        for i in range(k + 1):
+            if not torch.equal(got[:, i:i + 1], want[i]):
+                raise AssertionError(
+                    f"verify fold {fmt}: row {i} differs from the "
+                    "single-position launch")
+        plan = PD.fold_plan(B, k + 1, KV, G, cfg.hd, cfg.hd // 2,
+                            ecfg.page_size, cache["block_table"].shape[1])
+        split = PD.paged_plan(B, KV, G, cfg.hd, cfg.hd // 2,
+                              ecfg.page_size,
+                              cache["block_table"].shape[1]).split
+        if plan.split != split:
+            raise AssertionError(f"fold split {plan.split} != decode {split}")
+        live = [n - k + i for n in lengths for i in range(k + 1)]
+        ops = 2 * 2 * sum(live) * cfg.n_heads * cfg.hd
+        # each live row read once for all k+1 tokens
+        nbytes = _paged_bytes(cfg, lengths, q, cache["block_table"])
+        b_ms, b_by = bound(nbytes, ops, ATTN_PEAK[fmt])
+        t = timings(fold, lambda: PD.paged_decode_attention_ref(
+            q, *rest, pos, **kw))
+        t.update(bound_ms=b_ms, bound_by=b_by, split=plan.split,
+                 blocks=plan.blocks, rows=B * (k + 1),
+                 stepped_device_ms=device_ms(stepped))
+        out[fmt] = t
+        print(f"verify fold hd={cfg.hd} {fmt} attention, B={B} k={k}: "
+              f"{B * (k + 1)} rows in one launch (split {plan.split}, "
+              f"{plan.blocks} blocks) equal to {k + 1} single-position "
+              f"launches bit for bit; fold {fmt_times(t)}; the {k + 1} "
+              f"launches device {t['stepped_device_ms']} ms; bound_ms "
+              f"{b_ms:.6f} ({b_by})")
+        del q, cache, pos, got, want
+    return out
 
 
 def _expert_shapes(cfg):
@@ -1935,25 +2217,55 @@ def workload(cfg, **kw):
                               **kw)
 
 
-def engine_counts(cfg, rep) -> dict:
+def _fused_linears(pol) -> bool:
+    """Whether a policy's linears run the fused kernel (else plain
+    fake-quant or f32 products, no kernel)."""
+    from repro_torch.core import exec_plan
+    return exec_plan.resolve("matmul", pol,
+                             w_dtype="float32").name == "cuda_fused"
+
+
+def engine_counts(cfg, rep, rungs=()) -> dict:
     """The launches an engine run with report `rep` implies: every
-    projection of every model call on the split-K route, one paged decode
-    a layer a decode step."""
+    projection of every serving-policy model call (prefill chunks, decode
+    steps, verify steps) and of every draft step whose policy runs the
+    fused kernel on the split-K route; one paged decode a layer a decode,
+    draft or verify step, counted by its attention format, the verify
+    steps' also as folds.  `rungs`: (draft policy, draft steps run)."""
+    from repro_torch.core.policy import get_policy
     dense, experts = per_call_projections(cfg)
-    calls = rep["prefill_calls"] + rep["decode_steps"]
-    return {"dpa_matmul_fused": dense * cfg.n_layers * calls,
-            "dpa_matmul_fused.splitk": dense * cfg.n_layers * calls,
-            "dpa_grouped_matmul_fused": experts * cfg.n_layers * calls,
-            "dpa_grouped_matmul_fused.splitk": experts * cfg.n_layers * calls,
-            "paged_decode_attention": cfg.n_layers * rep["decode_steps"]}
+    L = cfg.n_layers
+    serve = rep["decode_steps"] + rep.get("verify_steps", 0)
+    calls = rep["prefill_calls"] + serve + sum(
+        n for pol, n in rungs if _fused_linears(pol))
+    want = {"dpa_matmul_fused": dense * L * calls,
+            "dpa_matmul_fused.splitk": dense * L * calls,
+            "dpa_grouped_matmul_fused": experts * L * calls,
+            "dpa_grouped_matmul_fused.splitk": experts * L * calls,
+            "paged_decode_attention": L * (serve + sum(n for _, n in rungs)),
+            "paged_decode_attention.verify": L * rep.get("verify_steps", 0)}
+    by_fmt = {get_policy(cfg.policy).fmt_attn: serve}
+    for pol, n in rungs:
+        by_fmt[pol.fmt_attn] = by_fmt.get(pol.fmt_attn, 0) + n
+    for fmt, n in by_fmt.items():
+        want[f"paged_decode_attention.{fmt}"] = L * n
+    return want
+
+
+def spec_rungs(engine):
+    """(policy, draft steps run) of each of an engine's draft rungs."""
+    return [(r.pol, engine.rung_rounds[i] * r.k)
+            for i, r in enumerate(engine.rungs)]
 
 
 def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
-               graphs=True):
+               graphs=True, spec=None, adaptive=None, ctrl_step=None):
     """One engine run over `reqs`, the launch counters zeroed just before
     `Engine.run` and read just after: every request served in full, its
-    pages back (but for resident cached prefixes), the launch counts the
-    run implies.  -> (report, counts, engine)."""
+    pages back (but for resident cached prefixes) and its reservation
+    released, the launch counts the run implies.  `spec` / `adaptive`
+    serve speculatively (`ctrl_step` replaces the controller).  ->
+    (report, counts, engine)."""
     import numpy as np
     import torch
     from repro_torch.launch.engine import Engine
@@ -1961,7 +2273,9 @@ def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
     gc.collect()                  # earlier engines' graphs and pools
     t0 = time.monotonic()
     engine = Engine(model, params, ecfg, sampler=sampler, device="cuda",
-                    graphs=graphs)
+                    graphs=graphs, spec=spec, adaptive=adaptive)
+    if ctrl_step is not None:
+        engine._ctrl_step = ctrl_step
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
     zero_counts()
@@ -1973,16 +2287,27 @@ def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
             raise AssertionError(f"{what}: request {r.rid}: {r.n_generated} "
                                  f"of {r.max_new} tokens")
     resident = engine.prefix.n_pages if engine.prefix is not None else 0
-    if engine.alloc.in_use != resident or np.any(engine._table != 0):
+    if engine.alloc.in_use != resident or np.any(engine._table != 0) or \
+            engine.alloc.reserved:
         raise AssertionError(f"{what}: pages not evicted / table not back "
-                             "to scratch")
-    check_counts(what, counts, engine_counts(cfg, rep))
+                             "to scratch / reservations left")
+    check_counts(what, counts, engine_counts(cfg, rep, spec_rungs(engine)))
     dense, experts = per_call_projections(cfg)
-    print(f"  = {dense * cfg.n_layers} dense"
-          + (f" + {experts * cfg.n_layers} grouped" if experts else "")
-          + f" per model call x {rep['prefill_calls'] + rep['decode_steps']}"
-          f" calls, {cfg.n_layers} paged per decode step x "
-          f"{rep['decode_steps']} steps")
+    if engine.rungs:
+        print(f"  = {dense * cfg.n_layers} dense per kernel-policy model "
+              f"call ({rep['prefill_calls']} prefill chunks, "
+              f"{rep['verify_steps']} verify steps, the draft steps of "
+              "the rungs on the kernel), "
+              f"{cfg.n_layers} paged per draft or verify step: draft steps "
+              + ", ".join(f"{p.fmt_attn} {n}" for p, n in
+                          spec_rungs(engine)))
+    else:
+        print(f"  = {dense * cfg.n_layers} dense"
+              + (f" + {experts * cfg.n_layers} grouped" if experts else "")
+              + f" per model call x "
+              f"{rep['prefill_calls'] + rep['decode_steps']} calls, "
+              f"{cfg.n_layers} paged per decode step x "
+              f"{rep['decode_steps']} steps")
     rep["setup_s"] = setup_s
     print(f"engine ({what}): {_report_line(rep)}; set-up {setup_s:.2f} s "
           "(not in the wall)")
@@ -2335,9 +2660,315 @@ def run_front_end(cfg):
     for k in ("dpa_matmul_fused", "dpa_matmul_fused.splitk"):
         want[k] += 2 * dense * cfg.n_layers
     want["paged_decode_attention"] += cfg.n_layers
+    want["paged_decode_attention.fp8_e4m3"] += cfg.n_layers
     check_counts("qwen3-4b front end", counts, want)
     print(f"front end: {wall:.1f} s for the call (model build, weights, "
           f"captures and the run; the run's wall {rep['wall_s']:.2f} s)")
+    rep["call_s"] = wall
+    return rep, counts
+
+
+# -----------------------------------------------------------------------------
+# phase 3j: speculative decoding and the adaptive draft ladder
+# -----------------------------------------------------------------------------
+
+# the ops the row-invariance probe records, by their names in
+# repro_torch.models.layers
+PROBE_OPS = ("apply_norm", "apply_linear", "rope", "apply_attention",
+             "apply_mlp", "apply_unembed")
+# requests of a's workload the runs with slow draft steps serve (the
+# fake-quant rungs re-quantize every f32 master weight each step): the
+# first four, one batch, whose greedy tokens do not depend on the rest
+SPEC_FEW = 4
+FRONT_END_ADAPTIVE = ["--arch", "qwen3-4b", "--engine", "--policy",
+                      "w4a8_kv4_attn8", "--adaptive-draft", "--requests", "4",
+                      "--prompt-len", "96", "--gen", "16"]
+
+
+@contextlib.contextmanager
+def recorded_ops():
+    """Record every call of `PROBE_OPS` (but a call made inside a call of
+    the same op: the verify pass's per-row pieces) as (name, input,
+    output) in the order the calls return; the input is the call's first
+    tensor argument."""
+    import torch
+    from repro_torch.models import layers as L
+    seen, saved = [], {n: getattr(L, n) for n in PROBE_OPS}
+    active = dict.fromkeys(PROBE_OPS, 0)
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            active[name] += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                active[name] -= 1
+            if active[name] == 0:
+                x = next(a for a in args if torch.is_tensor(a))
+                seen.append((name, x, out[0] if isinstance(out, tuple)
+                             else out))
+            return out
+        return rec
+
+    for n, fn in saved.items():
+        setattr(L, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(L, n, fn)
+
+
+def probe_verify_rows(model, params, ecfg, k=VERIFY_K):
+    """The row-invariance probe: from one cache state (4 requests after
+    prefill, an eager engine), k+1 stepped decode steps (each token the
+    previous step's argmax) against one (k+1)-token verify pass over the
+    same tokens, as the engine runs it (`models.layers` splits the
+    row-sensitive reductions), every recorded op's output compared row
+    for row with `torch.equal`: every op must be equal, and a call that
+    differs on equal inputs is named.  -> {op: {"differ", "calls"},
+    "ops_that_break_it": [...]}."""
+    import torch
+    from repro_torch.core import kvcache as KV
+    from repro_torch.launch.engine import DECODE, Engine, synthetic_workload
+
+    engine = Engine(model, params, ecfg, device="cuda", graphs=False)
+    reqs = synthetic_workload(ecfg.max_batch, vocab=model.cfg.vocab_size,
+                              seed=1, prompt_range=(64, 64),
+                              gen_range=(32, 32))
+    for r in reqs:
+        engine.submit(r)
+    while any(r.state != DECODE for r in reqs):
+        engine.step()
+    live, tokens, positions, _ = engine._live_batch()
+    snap = [{key: c[key].clone() for key in KV.QUANT_KEYS}
+            for c in engine.caches]
+    pos = torch.from_numpy(positions).to("cuda")
+
+    def restore():
+        for c, saved in zip(engine.caches, snap):
+            for key in KV.QUANT_KEYS:
+                c[key].copy_(saved[key])
+
+    tok = torch.from_numpy(tokens).to("cuda")
+    toks, steps = [tok], []
+    for i in range(k + 1):
+        with recorded_ops() as seen:
+            logits, _ = model.decode_step(
+                params, {"tokens": toks[-1], "index": pos + i},
+                engine.caches)
+        steps.append(seen)
+        toks.append(logits[:, -1].argmax(-1)[:, None])
+    restore()
+    with recorded_ops() as ver:
+        model.decode_step(params, {"tokens": torch.cat(toks[:k + 1], dim=1),
+                                   "index": pos}, engine.caches)
+    restore()
+    if [c[0] for c in ver] != [c[0] for c in steps[0]]:
+        raise AssertionError("probe: the verify pass and a decode step "
+                             "call other ops")
+
+    def same(j, part):
+        return all(torch.equal(ver[j][part][:, i:i + 1], steps[i][j][part])
+                   for i in range(k + 1))
+
+    differ, first = {}, []
+    for j, (name, _, _) in enumerate(ver):
+        bad = not same(j, 2)
+        differ.setdefault(name, [0, 0])
+        differ[name][0] += bad
+        differ[name][1] += 1
+        if bad and same(j, 1) and len(first) < 8:
+            # the op itself broke row invariance: equal inputs
+            first.append(f"{name} over (..., {ver[j][1].shape[-1]}) rows "
+                         f"(call {j})")
+    out = {n: {"differ": d, "calls": c} for n, (d, c) in differ.items()}
+    out["ops_that_break_it"] = first
+    print(f"row-invariance probe: a {k + 1}-token verify pass against "
+          f"{k + 1} decode steps, calls whose rows differ: "
+          + ", ".join(f"{n} {d}/{c}" for n, (d, c) in differ.items())
+          + "; calls that differ on equal inputs: "
+          + (", ".join(first) or "none"))
+    if any(d for d, _ in differ.values()):
+        raise AssertionError(f"verify rows differ from decode steps: {out}")
+    del engine
+    return out
+
+
+def _every_round_cycler(cfg, state, accepted, drafted):
+    """A controller that hops to the next rung every round (whatever the
+    acceptance), so every rung drafts."""
+    import dataclasses
+    nxt = (state.rung + 1) % len(cfg.ladder)
+    return dataclasses.replace(state, rung=nxt,
+                               switches=state.switches + 1), nxt
+
+
+def profile_spec_steps(engine, label, seen):
+    """One replay of each draft step (from position 0 on the scratch page:
+    the run has ended, every table row is scratch) and of each verify
+    step, profiled once a step name over phase 3j (`seen` holds the
+    profiles already taken): device ms, unprofiled wall, launches; with
+    this engine's graphs' pool bytes.  -> {step name: profile}."""
+    e = engine.ecfg
+    zeros = dict(positions=[0] * e.max_batch, i=0)
+    fns = {}
+    for r in engine.rungs:
+        def draft(r=r):
+            r.draft.load(**zeros)
+            return r.draft.run()
+        fns[r.draft.name] = draft
+    for step in engine._verify.values():
+        fns[step.name] = step.run
+    out = {}
+    for name, fn in fns.items():
+        if name not in seen:
+            seen[name] = profile_window(f"{label} {name}", fn,
+                                        watch=("paged_decode",
+                                               "dpa_fused_kernel"), timed=3)
+        out[name] = dict(seen[name])
+    for step in engine._steps:
+        if step.name in out:
+            out[step.name]["pool_bytes"] = step.stats["pool_bytes"]
+    return out
+
+
+def _spec_line(name, rep, plain, prof) -> str:
+    def ms(p):
+        b = p.get("busy_ms")
+        return "not measured" if b is None else (
+            f"{b:.3f} device ms in {p['unprofiled_wall_ms']:.2f} ms")
+    steps = "; ".join(f"{k}: {ms(p)}, pool {p.get('pool_bytes', 0) / 1e6:.1f}"
+                      " MB" for k, p in prof.items())
+    return (f"spec {name}: acceptance {rep['acceptance_rate']:.4f}, "
+            f"{rep['eff_tokens_per_round']:.3f} tokens a round over "
+            f"{rep['spec_rounds']} rounds, {rep['tokens_per_s']:.2f} tok/s "
+            f"(plain graphed {plain['tokens_per_s']:.2f}, "
+            f"{rep['tokens_per_s'] / plain['tokens_per_s']:.2f}x); {steps}")
+
+
+def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
+    """Phase 3j: qwen3-4b at full width under its serving policy, graphed,
+    speculative: the row-invariance probe; a self-draft at k = 4 (every
+    draft accepted, phase 3a's greedy tokens for all 8 requests); on the
+    first `SPEC_FEW` requests a static w4a4_kv4_attn4 draft (their greedy
+    tokens), the default adaptive ladder under the default controller and
+    under one that switches every round (the greedy tokens; every rung's
+    attention format launched), and a sampled adaptive run twice (both
+    drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
+    against the plain graphed engine, one replay of each draft and verify
+    step profiled (once a step) and the pools' bytes.  -> (reports,
+    counts summed)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.runtime import controller as CTRL
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    out = {"probe": probe_verify_rows(model, params, ecfg)}
+    ladder = CTRL.ControllerConfig(CTRL.default_ladder(cfg.policy),
+                                   k=VERIFY_K)
+    runs = (("self-draft", dict(spec=SpecConfig(cfg.policy, VERIFY_K))),
+            ("static w4a4_kv4_attn4",
+             dict(spec=SpecConfig("w4a4_kv4_attn4", VERIFY_K))),
+            ("adaptive", dict(adaptive=ladder)),
+            ("adaptive, every-round switch",
+             dict(adaptive=ladder, ctrl_step=_every_round_cycler)))
+    counts, profiles = [], {}
+    for name, kw in runs:
+        reqs = workload(cfg)[:None if name == "self-draft" else SPEC_FEW]
+        rep, n, engine = serve_once(f"{cfg.name} spec engine, {name}", cfg,
+                                    model, params, ecfg, reqs, **kw)
+        counts.append(n)
+        differ = [r.rid for r in reqs
+                  if r.out_tokens != greedy_tokens[r.rid]]
+        if differ:
+            raise AssertionError(f"spec {name}: requests {differ} differ "
+                                 "from the plain greedy tokens")
+        if name == "self-draft" and rep["acceptance_rate"] != 1.0:
+            raise AssertionError(f"self-draft acceptance "
+                                 f"{rep['acceptance_rate']} != 1")
+        fmts = {f: n[f"paged_decode_attention.{f}"]
+                for f in ("fp4_e2m1", "fp8_e4m3", "fp16")}
+        # every rung that drafted a round launched its attention format
+        # (the switch-every-round run drafts on all three)
+        used = {get_policy(r["policy"]).fmt_attn
+                for r in rep.get("adaptive_rungs", ()) if r["rounds"]}
+        if name.startswith("adaptive, every"):
+            used = set(fmts)
+        if not all(fmts[f] for f in used):
+            raise AssertionError(f"spec {name}: a rung's attention format "
+                                 f"never launched: rungs drafted in "
+                                 f"{sorted(used)}, launches {fmts}")
+        rep["paged_launches_by_format"] = fmts
+        rep["step_profiles"] = profile_spec_steps(engine, f"spec {name}",
+                                                  profiles)
+        print(f"spec {name}: every request's tokens equal the plain greedy "
+              f"engine's; paged decode launches by attention format {fmts}"
+              + (f"; {rep['adaptive_switches']} rung switches, wall share "
+                 + ", ".join(f"{r['policy']} {r['wall_share']:.3f}"
+                             for r in rep["adaptive_rungs"])
+                 if "adaptive_rungs" in rep else ""))
+        print(_spec_line(name, rep, plain_rep, rep["step_profiles"]))
+        out[name] = rep
+        del engine
+    sampled = []
+    for i in range(2):
+        name = f"sampled adaptive {i + 1}"
+        reqs = workload(cfg)[:SPEC_FEW]
+        rep, n, engine = serve_once(
+            f"{cfg.name} spec engine, {name}", cfg, model, params, ecfg,
+            reqs, sampler=SamplerConfig(**SAMPLED), adaptive=ladder)
+        counts.append(n)
+        sampled.append([r.out_tokens for r in reqs])
+        rep["step_profiles"] = profile_spec_steps(engine, f"spec {name}",
+                                                  profiles)
+        print(_spec_line(name, rep, plain_rep, rep["step_profiles"]))
+        out[name] = rep
+        del engine
+    if sampled[0] != sampled[1]:
+        raise AssertionError("sampled adaptive runs gave other tokens")
+    print(f"spec sampled adaptive ({SAMPLED}): two runs drain and give "
+          f"the same tokens for all {SPEC_FEW} requests; acceptance "
+          f"{out['sampled adaptive 1']['acceptance_rate']:.4f}")
+    return out, add_counts(*counts)
+
+
+def run_front_end_adaptive(cfg):
+    """`python -m repro_torch.launch.serve` with FRONT_END_ADAPTIVE (the
+    adaptive ladder, greedy), as one `main` call on the card, counters
+    zeroed just before and read just after (the run's launches and the
+    captures' warm-up calls: one a draft rung, the verify step, the
+    prefill chunk).  -> (report, counts)."""
+    import io
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch import serve
+    from repro_torch.runtime.controller import default_ladder
+
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rep = serve.main(FRONT_END_ADAPTIVE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    text = out.getvalue()
+    print("front end: python -m repro_torch.launch.serve "
+          + " ".join(FRONT_END_ADAPTIVE))
+    print(text, end="")
+    if "adaptive: 3-rung ladder" not in text or rep["n_requests"] != 4:
+        raise AssertionError(f"adaptive front end printed: {text}")
+    ladder = [get_policy(p) for p in default_ladder(cfg.policy)]
+    rounds = [r["rounds"] * r["k"] for r in rep["adaptive_rungs"]]
+    # the warm-ups: each draft step once, the verify step once (k = 4),
+    # the prefill chunk once
+    warm = dict(rep, prefill_calls=rep["prefill_calls"] + 1,
+                verify_steps=rep["verify_steps"] + 1)
+    want = engine_counts(cfg, warm, [(p, n + 1) for p, n in
+                                     zip(ladder, rounds)])
+    check_counts("qwen3-4b adaptive front end", counts, want)
+    print(f"adaptive front end: {wall:.1f} s for the call")
     rep["call_s"] = wall
     return rep, counts
 
@@ -2847,6 +3478,10 @@ def main() -> None:
     splitk_plans = sweep_splitk_plans(gen)
     pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
+    pdf_t = check_paged_formats(qwen, gen, ecfg)
+    gpdf_t = check_paged_formats(granite, gen, ecfg)
+    fold_t = check_verify_fold(qwen, gen, ecfg)
+    gfold_t = check_verify_fold(granite, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
     pq_t = check_prequant(granite, gen)
     pq_plans = sweep_prequant_plans(gen)
@@ -2864,9 +3499,12 @@ def main() -> None:
     # phase 3g / 4: sampled decoding; phase 3h: the prefix cache
     rep_s, n_s = run_sampled(qwen, ecfg, model, params, greedy_q, prof_q)
     rep_p, n_p = run_prefix(qwen, ecfg, model, params)
+    t_sampled = time.monotonic() - t_start
+    # phase 3j: speculative decoding and the adaptive draft ladder
+    rep_j, n_j = run_spec(qwen, ecfg, model, params, greedy_q, rep_q)
     del model
     gc.collect()
-    t_sampled = time.monotonic() - t_start
+    t_spec = time.monotonic() - t_start
     # phase 3d: qwen3-4b's long-prompt prefill under its own policy
     # (fp8_dpa) with use_flash, on the engine's params
     n_c, pre_c = run_prefill(get_config("qwen3-4b").replace(use_flash=True),
@@ -2877,8 +3515,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_qwen = time.monotonic() - t_start
-    # phase 3i: the front end, one `launch.serve.main` call
+    # phase 3i: the front end, one `launch.serve.main` call; phase 3j's
+    # adaptive front end, another
     rep_f, n_f = run_front_end(qwen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep_fa, n_fa = run_front_end_adaptive(qwen)
     gc.collect()
     torch.cuda.empty_cache()
     t_front = time.monotonic() - t_start
@@ -2899,12 +3541,13 @@ def main() -> None:
     t_total = time.monotonic() - t_start
     print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b engine "
           f"{t_engine_q - t_kernels:.1f} s, qwen3-4b sampled and prefix "
-          f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b prefill and "
-          f"scoring {t_qwen - t_sampled:.1f} s, front end "
+          f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b speculative "
+          f"{t_spec - t_sampled:.1f} s, qwen3-4b prefill and "
+          f"scoring {t_qwen - t_spec:.1f} s, front ends "
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
           f"{t_granite - t_front:.1f} s, quantize_pack op "
           f"{t_total - t_granite:.1f} s")
-    n_serve = add_counts(n_q, n_g, n_s, n_p, n_f)
+    n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
@@ -2965,8 +3608,19 @@ def main() -> None:
          "bound_by": pd_t["bound_by"], "library_ms": None,
          "split": pd_t["split"], "splits_device_ms": pd_t["splits_device_ms"],
          "long": pd_t["long"],
+         "launches_by_format": {
+             f: n_serve[f"paged_decode_attention.{f}"]
+             for f in ("fp8_e4m3",) + PAGED_NEW_ATTN},
+         "formats": {"hd128": pdf_t, "hd64": gpdf_t},
+         "verify_fold": {"launches": n_serve["paged_decode_attention.verify"],
+                         "hd128": fold_t, "hd64": gfold_t,
+                         "at": f"B=4, k={VERIFY_K}: {4 * (VERIFY_K + 1)} "
+                               "rows in one launch at the decode split; "
+                               "plain: the verify fold's plain version"},
          "at": "one layer, B=4 H=32 KV=8 hd=128 page=16 lengths "
-               "[256,201,101,18]; long: B=2, 2048 pages of 16, positions "
+               "[256,201,101,18], fp8 attention over packed fp4 (formats: "
+               "fp4 and fp16 attention over packed fp4 and E4M3 KV, fp8 "
+               "over E4M3); long: B=2, 2048 pages of 16, positions "
                "[32767,9000]",
          "hd64": {"max_abs_err": gpd_err, **times(gpd_t),
                   "split": gpd_t["split"],
@@ -3086,7 +3740,8 @@ def main() -> None:
     print("engine report: " + json.dumps(
         {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g,
          "qwen3-4b sampled": rep_s, "qwen3-4b prefix cache": rep_p,
-         "qwen3-4b front end": rep_f}))
+         "qwen3-4b front end": rep_f, "qwen3-4b speculative": rep_j,
+         "qwen3-4b adaptive front end": rep_fa}))
     print("generate: " + json.dumps(
         {"granite-moe-1b-a400m fp4_dpa_packed": gen_b}))
     print("prefill and scoring: " + json.dumps(
@@ -3097,6 +3752,10 @@ def main() -> None:
     serving_summary({"qwen3-4b": (rep_q, prof_q),
                      "granite-moe-1b-a400m": (rep_g, prof_g)}, gen_b)
     sampled_summary(rep_q, prof_q, rep_s, rep_p, rep_f)
+    for name, r in rep_j.items():
+        if "step_profiles" in r:
+            print("summary qwen3-4b " + _spec_line(name, r, rep_q,
+                                                   r["step_profiles"]))
     print("prequant plans: " + json.dumps(pq_plans))
     print("fused plan sweep: " + json.dumps(
         {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 from .policy import get_policy
 
@@ -32,7 +32,8 @@ class PlanEntry:
 
     predicate(policy, ctx) -> {bit: bool}; the route is eligible iff all
     bits hold.  `run` has a per-op uniform signature.  `reference` names
-    the route this entry is held against at `tol` max-abs error."""
+    the route this entry is held against at `tol` max-abs error: a number,
+    or tol(policy, ctx) where the bound depends on the policy's formats."""
     op: str
     name: str
     backend: str                       # "cuda" | "torch"
@@ -40,7 +41,7 @@ class PlanEntry:
     predicate: Callable
     priority: int = 0
     reference: Optional[str] = None
-    tol: float = 0.0
+    tol: Union[float, Callable] = 0.0
     bytes_moved: Optional[Callable] = None
     note: str = ""
 
@@ -52,7 +53,8 @@ class PlanEntry:
         return {"op": self.op, "route": self.name, "backend": self.backend,
                 "predicates": self.predicate(policy, ctx),
                 "bytes_moved": bm, "reference": self.reference,
-                "tol": self.tol}
+                "tol": self.tol(policy, ctx) if callable(self.tol)
+                else self.tol}
 
 
 _TABLE: dict[str, list[PlanEntry]] = {}
@@ -61,7 +63,8 @@ _BACKENDS_LOADED = False
 
 def register(op: str, name: str, *, backend: str, run: Callable,
              predicate: Callable = None, priority: int = 0,
-             reference: Optional[str] = None, tol: float = 0.0,
+             reference: Optional[str] = None,
+             tol: Union[float, Callable] = 0.0,
              bytes_moved: Optional[Callable] = None,
              note: str = "") -> PlanEntry:
     """Add one route to the table; duplicate (op, name) is an error."""

@@ -46,10 +46,11 @@ _SIGNATURES = {
     "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
     # q, q_bf16, kc, ks, vc, vs, table, positions, out,
-    # B, H, KV, hd, page, max_pages, kv_fmt, scale, split, stream
+    # B, sq, H, KV, hd, page, max_pages, kv_fmt, attn_fmt, scale, split,
+    # stream
     "paged_decode_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-                            _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _P),
     # q, k, v, out, q_bf16, hd, B, H, KV, Sq, Sk, bq, bk, causal, window,
     # scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

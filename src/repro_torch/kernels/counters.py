@@ -3,8 +3,10 @@
 Each wrapper adds one to its `.launches` where it launches its kernel,
 and the wrappers with routes or a pre-pass one to `.<route>_launches`
 too (`dpa_matmul_fused.splitk_launches`, `.tiled_launches`, the flash
-wrappers' `.prepass_launches`).  A snapshot names them "wrapper" and
-"wrapper.route".
+wrappers' `.prepass_launches`; paged decode by attention format,
+`.fp8_e4m3_launches`, `.fp4_e2m1_launches`, `.fp16_launches`, and its
+speculative verify folds, `.verify_launches`).  A snapshot names them
+"wrapper" and "wrapper.route".
 
 A replayed CUDA graph runs no Python, so no wrapper counts its launches
 there: `launch.graphs.StepGraph` takes the snapshots' difference over its

@@ -1,6 +1,6 @@
 """The port's routing table: every `core.exec_plan` route of the port's
 slices (port of `repro.kernels.registry`, without the reference's
-training, TP and speculative-decoding ops).
+training and TP ops).
 
 Each op's lowest-priority route is a plain PyTorch route whose predicate
 checks only semantic viability.  The kernel routes' predicates follow the
@@ -18,12 +18,17 @@ Uniform run signatures per op:
   decode_attn     run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
   paged_decode    run(q, cache, positions, *, policy, scale)
                       -> (B, 1, H, hd)
-  unembed         run(x, table, policy) -> (B, S, V) f32
+  verify_attn     run(q, cache, positions, *, policy, scale)
+                      -> (B, S_q, H, hd)
+  unembed         run(x, table, policy, *, per_row=False)
+                      -> (B, S, V) f32
   quantize_pack   run(x, *, fmt, pack, bm=None) -> (codes, (M, 1) f32
                       scales); bm, the reference's row tile, is ignored
 """
 from __future__ import annotations
 
+
+import torch
 
 from repro_torch.core import exec_plan
 from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
@@ -43,6 +48,29 @@ NATIVE_NARROW = ("float8_e4m3fn", "float8_e5m2")
 # kernel vs plain version on the card: the max-abs error chip_smoke.py
 # holds the paged-decode kernel to (its check_paged says why)
 PAGED_DECODE_CARD_TOL = 2e-2
+# ... per attention format.  The E4M3 pin splits into one bf16 ulp of an
+# output below 4 (2^-6: the kernel and the plain version round their f32
+# outputs apart) and 2e-2 - 2^-6 for p-code flips (a logit summed in
+# another order crosses a rounding boundary of the grid).  A flip's
+# weight in an output is at most max over adjacent codes lo < hi of
+# (hi - lo) / (T + lo), the step against the least denominator, which
+# holds the top code T of the max key: E4M3 32 / (448 + 256) = 1/22,
+# E2M1 2 / (6 + 4) = 1/5, fp16 8 / (16384 + 8192) = 1/3072.  Each
+# format's flip allowance is E4M3's scaled by that weight, plus the ulp.
+_BF16_ULP_BELOW_4 = 2.0 ** -6
+_FLIP_WEIGHT = {"fp8_e4m3": 1 / 22, "fp4_e2m1": 1 / 5, "fp16": 1 / 3072}
+PAGED_DECODE_CARD_TOLS = {
+    fmt: _BF16_ULP_BELOW_4 + (PAGED_DECODE_CARD_TOL - _BF16_ULP_BELOW_4)
+    * w / _FLIP_WEIGHT["fp8_e4m3"] for fmt, w in _FLIP_WEIGHT.items()}
+# These are worst cases over any inputs.  chip_smoke.py also holds each
+# case to its own, far smaller, bound (`_paged_case_tol`, from the case's
+# own sum of codes).
+
+
+def _pd_tol(policy, ctx):
+    """The paged kernel's routes' bound: their attention format's (None
+    for the formats the kernel refuses)."""
+    return PAGED_DECODE_CARD_TOLS.get(policy.fmt_attn)
 
 # the flash routes' q and key block, cut to divide the sequence: part of
 # the DPA flash numerics (p is quantized per key block)
@@ -369,7 +397,7 @@ def _pd_view_rows(ctx):
 
 exec_plan.register(
     "paged_decode", "cuda_block_table", backend="cuda", run=_pd_kernel,
-    priority=10, reference="torch_gather", tol=PAGED_DECODE_CARD_TOL,
+    priority=10, reference="torch_gather", tol=_pd_tol,
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     bytes_moved=lambda policy, ctx: _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
@@ -386,14 +414,59 @@ exec_plan.register(
 
 
 # -----------------------------------------------------------------------------
+# verify_attn: S_q causal query tokens scored against the paged cache (the
+# speculative-decoding verify pass; see serving.spec_decode)
+# -----------------------------------------------------------------------------
+
+def _va_gather(q, cache, positions, *, policy, scale):
+    return D.dpa_paged_verify_attn(q, cache, positions, fmt=policy.fmt_attn,
+                                   fmt_kv=policy.fmt_kv,
+                                   kv_packed=policy.kv_packed, scale=scale)
+
+
+exec_plan.register(
+    "verify_attn", "cuda_block_table", backend="cuda", run=_pd_kernel,
+    priority=10, reference="torch_gather", tol=_pd_tol,
+    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    # the fold reads each query row's live rows: S_q passes over the view
+    bytes_moved=lambda policy, ctx: ctx.get("sq", 1) * _kv_rows_bytes(
+        policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
+    note="the paged decode kernel over B x S_q rows, one launch: row (b, "
+         "i) reads table row b at position positions[b] + i, with the "
+         "decode step's split, so it carries the decode step's bits")
+
+exec_plan.register(
+    "verify_attn", "torch_gather", backend="torch", run=_va_gather,
+    priority=0,
+    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    # gather re-materializes the view (the 3x of paged_decode's), then the
+    # batch fold repeats it per query row (write + attention read: 2 more
+    # view passes per query row)
+    bytes_moved=lambda policy, ctx: (3 + 2 * ctx.get("sq", 1))
+    * _kv_rows_bytes(policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
+    note="per-request causal mask over the gathered block-table view, the "
+         "(B, S_q) query axis folded into the batch, so row i reduces as "
+         "a decode step at positions[b] + i")
+
+
+# -----------------------------------------------------------------------------
 # unembed: f32 logits over the (tied) vocab table
 # -----------------------------------------------------------------------------
 
-def _ue_tied(x, table, policy):
+def _ue_tied(x, table, policy, *, per_row=False):
     # f32 products of the compute-dtype operands (the table rounded to
     # x's dtype), f32 sums: a bf16 matmul would round the logits to bf16
-    # and turn greedy near-ties into different tokens
-    return rowwise_dot(x, table.to(x.dtype))
+    # and turn greedy near-ties into different tokens.  `per_row` (the
+    # verify pass on the card): x (B, S, d) as S products of (B, 1, d),
+    # the decode step's shape, since cuBLAS picks its kernel by the rows;
+    # the table widens to f32 once for all of them (`rowwise_dot` widens
+    # it on each call otherwise: the same values)
+    t = table.to(x.dtype)
+    if not per_row:
+        return rowwise_dot(x, t)
+    t = t.to(torch.float32)
+    return torch.cat([rowwise_dot(x[:, i:i + 1].contiguous(), t)
+                      for i in range(x.shape[1])], dim=1)
 
 
 exec_plan.register(

@@ -40,6 +40,29 @@ The scheduler is token-budgeted: each step spends one token per running
 decode request first, the remainder on prefill chunks of the oldest
 admitted request.
 
+Speculative decoding (`SpecConfig`): the same weights draft k tokens per
+request under a cheap low-precision policy, then one batched pass under
+the serving policy verifies all k through the ``verify_attn`` route (the
+paged decode kernel over B (k+1) rows on the card) and accepts by
+rejection sampling (`serving.spec_decode`), so greedy outputs equal the
+plain engine's token for token.  Spec mode commits pages lazily out of an
+up-front `PageAllocator` reservation (no request runs out mid-decode) and
+rolls back pages holding only rejected-draft rows after every round.  The
+token budget prices a round at its work: k draft + k+1 verify tokens per
+live request.
+
+Adaptive drafting (`runtime.controller.ControllerConfig`): one draft step
+per ladder rung, each sharing the params and the page pool
+(`validate_policy_pair`), each rung's ``paged_decode`` plan resolved and
+its formats checked against the kernel at construction; a pure
+per-request feedback controller demotes drafts toward fp4 while the
+acceptance EMA stays high and promotes toward fp8/fp16 when it sags.
+Each tick batches live requests by current rung and runs one round per
+rung group; requests on other rungs ride the fixed-shape batch as ghosts
+(their stray writes land at rows >= pos, which their own next round
+rewrites before reading, or on the scratch page).  Reservations price the
+ladder-wide max draft k, so a rung switch cannot outgrow them.
+
 Both steps are functions over static device buffers (`launch.graphs`):
 the decode step with its token choice inside (`serving.sampler`:
 greedy, or sampled on each request's threefry stream keyed on (seed,
@@ -50,7 +73,12 @@ reference jits both) and replayed with its inputs copied into the
 buffers; the decode step brings its B tokens back through one pinned
 buffer, its one host sync.  `graphs=False`, and the CPU always, run the
 same functions eagerly.  The scheduler stays on the host, as the
-reference's.
+reference's.  In spec mode the steps are each rung's draft step (one
+decode step under the rung's policy that appends its token to a device
+drafts buffer and advances its own position counter, replayed k times a
+round) and one verify step per distinct k (the k+1-token pass with the
+accept rule inside), read back once a round: one (emitted, n_accepted)
+row a slot.
 
 Sampled tokens depend on (seed, rid, position, role) alone, never on a
 slot, the batch or a host generator (whose state a capture would
@@ -58,11 +86,13 @@ freeze).  Greedy outputs equal `launch.serve.generate` token for token
 per request on the CPU, where every plain path is row-invariant
 (`core.device.rowwise_dot`) — for a MoE model with `prefill_chunk=1`,
 since expert capacity is computed per model call.  MoE configs serve
-through the `grouped_matmul` plan, resolved at construction.
-Speculative decoding, the adaptive draft ladder and tensor parallelism
-are later slices of the port (ROADMAP Queue 1: "Speculative decoding and
-the adaptive draft ladder", "Tensor-parallel serving and
-collectives").
+through the `grouped_matmul` plan, resolved at construction.  Greedy
+speculative and adaptive outputs equal the plain engine's token for token
+(on the card too: the verify pass runs its row-count-sensitive
+reductions per query row, `models.layers`, and its linears on the fused
+kernel's split-K route below `TILED_MIN_M` rows, `check_verify_rows`).
+Tensor parallelism is a later slice of the port (ROADMAP Queue 1:
+"Tensor-parallel serving and collectives").
 """
 from __future__ import annotations
 
@@ -77,11 +107,18 @@ from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
 from repro_torch.core.device import resolve_device
 from repro_torch.core.packing import operand_nbytes
+from repro_torch.core.linear import needs_prep
 from repro_torch.core.policy import get_policy
+from repro_torch.kernels.dpa_matmul import TILED_MIN_M
+from repro_torch.kernels.paged_decode import kernel_formats
 from repro_torch.launch.graphs import Step, StepGraph
+from repro_torch.runtime import controller as CTRL
+from repro_torch.runtime.controller import ControllerConfig
+from repro_torch.serving import spec_decode as SPD
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
 from repro_torch.serving.sampler import (SamplerConfig, greedy_tokens,
                                          sample_tokens)
+from repro_torch.serving.spec_decode import SpecConfig
 
 WAITING, PREFILL, DECODE, FINISHED = "waiting", "prefill", "decode", "done"
 
@@ -114,6 +151,9 @@ class Request:
     state: str = WAITING
     out_tokens: list = dataclasses.field(default_factory=list)
     pages: list = dataclasses.field(default_factory=list)
+    reserved_left: int = 0       # reserved-but-uncommitted pages (spec mode)
+    rung: int = 0                # current draft-ladder rung (adaptive mode)
+    ctrl: object = None          # ControllerState (adaptive mode)
     slot: int = -1
     pos: int = 0                 # tokens written to the cache so far
     prefill_done: int = 0
@@ -175,19 +215,75 @@ def synthetic_workload(n_requests: int, *, vocab: int, seed: int = 0,
     return reqs
 
 
+MOE_SPEC_ITEM = "ROADMAP Queue 1, \"Speculation on the MoE engine\""
+VERIFY_ROWS_ITEM = ("ROADMAP Queue 1, \"Speculative verify beyond the "
+                    "split-K route\"")
+
+
+def check_verify_rows(pol, rows: int) -> None:
+    """On the card a verify pass carries the decode steps' bits only where
+    the serving policy's linears run the fused kernel's split-K route:
+    its row bits do not depend on M below `TILED_MIN_M` rows, where the
+    tiled route and cuBLAS pick their order by M.  `rows` is the verify
+    pass's M, max_batch (k + 1).  Raises `NotImplementedError` naming the
+    ROADMAP item for what lies outside.  Needs no card."""
+    route = exec_plan.resolve("matmul", pol, w_dtype="float32").name
+    if route != "cuda_fused" or rows >= TILED_MIN_M:
+        raise NotImplementedError(
+            f"speculative decoding on the card with linears on the "
+            f"{route} route at {rows} verify rows: the verify pass keeps "
+            f"the decode steps' bits only on cuda_fused below "
+            f"{TILED_MIN_M} rows (max_batch * (k + 1)); open in "
+            f"{VERIFY_ROWS_ITEM}")
+
+
+@dataclasses.dataclass
+class _Rung:
+    """One draft policy: the static spec draft or one adaptive-ladder
+    rung.  Its model shares the serving params and page pool; only the
+    compute routing and the draft step differ."""
+    name: str
+    k: int
+    pol: object                  # validated TransPrecisionPolicy
+    model: object                # the serving model rebuilt under the rung
+    plan: dict                   # paged_decode route description
+    verify_plan: dict            # verify_attn route at sq = k + 1
+    draft: object = None         # Step / StepGraph (`_make_steps`)
+
+
 class Engine:
     """Continuous-batching engine bound to one model + params, on
     `device` (default "cuda", which must be where the model lives); its
-    steps run as CUDA graphs there unless `graphs=False`."""
+    steps run as CUDA graphs there unless `graphs=False`.
+
+    `sampler` selects the token-draw rule (default greedy argmax); `spec`
+    turns on self-speculative decoding (draft under `spec.draft_policy`,
+    verify under the model's own policy); `adaptive` replaces the static
+    draft policy with a `ControllerConfig` precision ladder walked per
+    request by the acceptance-feedback controller.  A draft policy whose
+    linears need load-time weights the params lack gets them here
+    (`Model.prepare_params`, in place)."""
 
     def __init__(self, model, params, ecfg: EngineConfig, *,
-                 sampler: Optional[SamplerConfig] = None, device=None,
+                 sampler: Optional[SamplerConfig] = None,
+                 spec: Optional[SpecConfig] = None,
+                 adaptive: Optional[ControllerConfig] = None, device=None,
                  graphs: bool = True):
+        if spec is not None and adaptive is not None:
+            raise ValueError("pass spec= (one static draft policy) or "
+                             "adaptive= (a controller-walked ladder), "
+                             "not both")
         dev = resolve_device(device)
         if dev.type != model.device.type:
             raise ValueError(f"model lives on {model.device}, not {dev}")
         cfg = model.cfg
         pol = get_policy(cfg.policy)
+        if (spec is not None or adaptive is not None) and cfg.is_moe:
+            raise NotImplementedError(
+                f"speculative decoding of a MoE model ({cfg.name}): expert "
+                "capacity is computed per model call, so a verify pass "
+                "does not carry the decode steps' bits; open in "
+                f"{MOE_SPEC_ITEM}")
         self.sampler = sampler or SamplerConfig()
         self._plan_ctx = dict(batch=ecfg.max_batch, page_size=ecfg.page_size,
                               max_pages=ecfg.max_pages_per_req,
@@ -218,6 +314,23 @@ class Engine:
                              f"prefill_chunk ({ecfg.prefill_chunk})")
         self.model, self.params, self.ecfg = model, params, ecfg
         self.cfg, self.pol, self.device = cfg, pol, model.device
+        if self.device.type == "cuda":
+            # the kernel launches or raises: name what it refuses now
+            kernel_formats(pol.fmt_attn, pol.fmt_kv, pol.kv_packed)
+        self.spec, self.adaptive = spec, adaptive
+        if self._spec_k and self.device.type == "cuda":
+            check_verify_rows(pol, ecfg.max_batch * (self._spec_k + 1))
+        # one draft view per rung (a static spec draft is a one-rung list
+        # walked by no controller), all sharing params and page pool
+        self.rungs: List[_Rung] = []
+        if spec is not None:
+            self.rungs.append(self._rung(spec.draft_policy, spec.k))
+        if adaptive is not None:
+            self.rungs += [self._rung(name, k) for name, k in
+                           zip(adaptive.ladder, adaptive.rung_ks)]
+            # overridable seam: tests install adversarial controllers
+            # (e.g. switch-every-round) through this attribute
+            self._ctrl_step = CTRL.step
         self.alloc = KV.PageAllocator(ecfg.n_pages)
         self.prefix = (PrefixCache(ecfg.page_size, self.alloc)
                        if ecfg.prefix_cache else None)
@@ -248,21 +361,67 @@ class Engine:
         self.prefix_hits = 0
         self.prefill_tokens_saved = 0
         self.cow_copies = 0
+        self.spec_rounds = 0
+        self.spec_request_rounds = 0
+        self.drafted = 0
+        self.drafts_accepted = 0
+        self.spec_emitted = 0
+        n = len(self.rungs)
+        self.rung_rounds, self.rung_drafted = [0] * n, [0] * n
+        self.rung_accepted, self.rung_emitted = [0] * n, [0] * n
+        self.rung_wall = [0.0] * n
+        self.ctrl_switches = self.ctrl_demotes = self.ctrl_promotes = 0
         self.graphed = graphs and self.device.type == "cuda"
+        pin = self.device.type == "cuda"
         self._tok_host = torch.empty((ecfg.max_batch,), dtype=torch.int32,
-                                     pin_memory=self.device.type == "cuda")
-        self._decode, self._prefill = self._make_steps()
+                                     pin_memory=pin)
+        self._round_host = {
+            k: torch.empty((ecfg.max_batch, k + 2), dtype=torch.int32,
+                           pin_memory=pin)
+            for k in sorted({r.k for r in self.rungs})}
+        self._make_steps()
+
+    def _rung(self, name: str, k: int) -> _Rung:
+        """Validate one draft policy against the serving one and build its
+        view: the shared-cache precondition, its decode and verify plans,
+        on the card the kernel's formats, and its load-time weights."""
+        from repro_torch.models import build_model
+        rpol = SPD.validate_policy_pair(name, self.pol)
+        if self.device.type == "cuda":
+            kernel_formats(rpol.fmt_attn, rpol.fmt_kv, rpol.kv_packed)
+        rmodel = build_model(self.cfg.replace(policy=name),
+                             device=self.device)
+        if needs_prep(rpol) and not needs_prep(self.pol):
+            rmodel.prepare_params(self.params)
+        return _Rung(
+            name=name, k=k, pol=rpol, model=rmodel,
+            plan=exec_plan.describe("paged_decode", rpol, **self._plan_ctx),
+            verify_plan=exec_plan.describe("verify_attn", self.pol,
+                                           sq=k + 1, **self._plan_ctx))
+
+    @property
+    def _spec_k(self) -> int:
+        """Draft-window rows priced into reservations and the submit
+        guard: the ladder-wide max k in adaptive mode, so a rung switch
+        mid-request never grows a request past what admission reserved."""
+        if self.adaptive is not None:
+            return self.adaptive.max_k
+        return self.spec.k if self.spec is not None else 0
 
     def _make_steps(self):
-        """-> (decode step, prefill chunk) over static device buffers.
+        """The steps over static device buffers: the decode step (plain
+        mode) or each rung's draft step and a verify step per distinct k
+        (spec mode), and the prefill chunk.
 
-        On the card with graphs both are captured here, into one memory
+        On the card with graphs all are captured here, into one memory
         pool, while every slot is idle and every block-table row is
         scratch: their warm-up calls write only the scratch page (the
-        decode step, positions 0) and staging rows [0, prefill_chunk)
-        (the prefill chunk, index 0), which the first real chunk
-        overwrites.  A graph's outputs hold until the next replay of
-        either graph (one pool): each step reads its own at once.
+        decode, draft and verify steps, positions 0) and staging rows [0,
+        prefill_chunk) (the prefill chunk, index 0), which the first real
+        chunk overwrites.  The steps replay one at a time, and what one
+        hands the next (the drafts, their probabilities) lives in static
+        buffers outside the pool; a graph's outputs hold until the next
+        replay of any graph, so each step reads its own at once.
 
         The decode step draws each slot's token at timeline index
         positions + 1 on its request's stream (rids); a greedy sampler
@@ -285,30 +444,102 @@ class Engine:
                 params, {"tokens": tokens, "index": index}, self._staging)
             return logits
 
-        steps = (("decode step", decode, dict(
-                    tokens=torch.zeros((e.max_batch, 1), dtype=torch.int64,
-                                       device=dev),
-                    positions=torch.zeros((e.max_batch,), dtype=torch.int32,
-                                          device=dev),
-                    block_table=self._block_table,
-                    rids=torch.zeros((e.max_batch,), dtype=torch.int32,
-                                     device=dev))),
-                 ("prefill chunk", prefill, dict(
-                    tokens=torch.zeros((1, e.prefill_chunk),
-                                       dtype=torch.int64, device=dev),
-                    index=torch.zeros((), dtype=torch.int32, device=dev))))
-        if not self.graphed:
-            return tuple(Step(fn, bufs, name=name)
-                         for name, fn, bufs in steps)
-        pool = torch.cuda.graph_pool_handle()
-        return tuple(StepGraph(fn, bufs, name=name, pool=pool)
-                     for name, fn, bufs in steps)
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        B = e.max_batch
+        common = dict(positions=zeros(B), block_table=self._block_table,
+                      rids=zeros(B))
+        steps = []
+        if not self.rungs:
+            steps.append(("decode step", decode,
+                          dict(common, tokens=zeros(B, 1,
+                                                    dtype=torch.int64))))
+        else:
+            # what the draft steps hand the verify step: the drafts and,
+            # sampled, their probabilities (B, max k, V)
+            common["drafts"] = zeros(B, self._spec_k, dtype=torch.int64)
+            if not scfg.greedy:
+                common["draft_probs"] = zeros(
+                    B, self._spec_k, self.cfg.vocab_size,
+                    dtype=torch.float32)
+            draft_bufs = dict(common, cur=zeros(B, 1, dtype=torch.int64),
+                              i=zeros())
+            for r in self.rungs:
+                steps.append((f"draft step ({r.name})",
+                              self._draft_fn(r.model), draft_bufs))
+            verify_bufs = dict(common, tok0=zeros(B, 1, dtype=torch.int64))
+            for k in self._round_host:
+                steps.append((f"verify step (k={k})", self._verify_fn(k),
+                              verify_bufs))
+        steps.append(("prefill chunk", prefill, dict(
+            tokens=zeros(1, e.prefill_chunk, dtype=torch.int64),
+            index=zeros())))
+        if self.graphed:
+            pool = torch.cuda.graph_pool_handle()
+            built = [StepGraph(fn, bufs, name=name, pool=pool)
+                     for name, fn, bufs in steps]
+        else:
+            built = [Step(fn, bufs, name=name) for name, fn, bufs in steps]
+        self._steps = built
+        self._prefill = built[-1]
+        self._decode = None if self.rungs else built[0]
+        for r, step in zip(self.rungs, built):
+            r.draft = step
+        self._verify = dict(zip(self._round_host,
+                                built[len(self.rungs):-1]))
+
+    def _draft_fn(self, dmodel):
+        """A rung's draft step over the shared buffers: one decode step of
+        `dmodel` at positions + i on the tokens `cur`, whose token (drawn
+        on `ROLE_DRAFT`) lands in drafts[:, i] (its probabilities in
+        draft_probs[:, i]) and becomes the next `cur`, and i advances: k
+        replays draft k tokens with nothing loaded between them."""
+        dstep = SPD.make_draft_step(dmodel, self.sampler)
+        params, caches = self.params, self.caches
+
+        def draft(cur, positions, i, block_table, rids, drafts,
+                  draft_probs=None):
+            tok, probs, _ = dstep(params, {"tokens": cur,
+                                           "index": positions + i},
+                                  caches, rids)
+            col = i.to(torch.int64).view(1)
+            tok = tok.to(torch.int64)[:, None]
+            drafts.index_copy_(1, col, tok)
+            if draft_probs is not None:
+                draft_probs.index_copy_(1, col, probs[:, None])
+            cur.copy_(tok)
+            i.add_(1)
+            return tok
+
+        return draft
+
+    def _verify_fn(self, k: int):
+        """The verify step at draft length k: one k+1-token pass of the
+        serving model at positions over [tok0, drafts[:, :k]] and the
+        accept rule -> (B, k+2) int32: the emitted tokens, then
+        n_accepted."""
+        accept = SPD.make_accept_fn(self.sampler, k)
+        model, params, caches = self.model, self.params, self.caches
+
+        def verify(tok0, positions, block_table, rids, drafts,
+                   draft_probs=None):
+            d = drafts[:, :k]
+            logits, _ = model.decode_step(
+                params, {"tokens": torch.cat([tok0, d], dim=1),
+                         "index": positions}, caches)
+            emitted, acc = accept(
+                d, None if draft_probs is None else draft_probs[:, :k],
+                logits, rids, positions)
+            return torch.cat([emitted, acc[:, None]], dim=1)
+
+        return verify
 
     # -- cache plumbing ----------------------------------------------------
 
     def _sync_tables(self):
         """Push the host block table into the shared device table."""
-        self._decode.load(block_table=self._table)
+        self._steps[0].load(block_table=self._table)
 
     def _scatter_staging_to_pages(self, req: Request):
         """Copy the staged prompt rows into the request's pages, every
@@ -344,15 +575,19 @@ class Engine:
     # -- lifecycle ---------------------------------------------------------
 
     def _pages_needed(self, req: Request) -> int:
-        return -(-(req.n_prompt + req.max_new) // self.ecfg.page_size)
+        """Pages a request may touch over its lifetime; spec mode adds the
+        draft window (a round writes rows up to pos + k)."""
+        rows = req.n_prompt + req.max_new + self._spec_k
+        return -(-rows // self.ecfg.page_size)
 
     def submit(self, req: Request):
         e = self.ecfg
-        total = req.n_prompt + req.max_new
+        total = req.n_prompt + req.max_new + self._spec_k
         if total > e.s_max:
-            raise ValueError(f"request {req.rid}: {total} tokens exceed "
-                             f"S_max = {e.s_max} (raise max_pages_per_req "
-                             "or page_size)")
+            raise ValueError(f"request {req.rid}: {total} tokens "
+                             f"(incl. the {self._spec_k}-token draft "
+                             f"window) exceed S_max = {e.s_max} "
+                             "(raise max_pages_per_req or page_size)")
         if self._pages_needed(req) > self.alloc.capacity - 1:
             raise ValueError(f"request {req.rid} can never fit the pool")
         req.state = WAITING
@@ -403,7 +638,17 @@ class Engine:
                     self._unpin_match(match)
                 break                      # FIFO: don't starve the head
             self.waiting.pop(0)
-            req.pages = shared + self.alloc.alloc(fresh)
+            if self.spec is not None:
+                # lazy commit: reserve the lifetime worst case, take only
+                # the prompt's pages now; rounds commit and roll back the
+                # rest
+                n0 = -(-req.n_prompt // self.ecfg.page_size)
+                self.alloc.reserve(fresh)
+                req.pages = shared + self.alloc.alloc(n0 - len(shared),
+                                                      reserved=True)
+                req.reserved_left = fresh - (n0 - len(shared))
+            else:
+                req.pages = shared + self.alloc.alloc(fresh)
             if match is not None:
                 # admissions, not retries: a request that waited several
                 # ticks for pages is one query
@@ -416,6 +661,9 @@ class Engine:
                     # copy while the source pin is held, then drop it
                     self._cow_copy(src, req.pages[len(shared)], rows)
                     self.alloc.free([src])
+            if self.adaptive is not None:
+                req.rung = self.adaptive.start_rung
+                req.ctrl = CTRL.init_state(self.adaptive)
             req.slot, req.state, req.t_admit = slot, PREFILL, now
             self.slots[slot] = req
             # the table row stays scratch until prefill lands: a PREFILL
@@ -424,6 +672,9 @@ class Engine:
     def _finish(self, req: Request, now: float):
         self.alloc.free(req.pages)
         req.pages = []
+        if req.reserved_left:
+            self.alloc.unreserve(req.reserved_left)
+            req.reserved_left = 0
         self._table[req.slot] = KV.SCRATCH_PAGE
         self.slots[req.slot] = None
         req.slot = -1
@@ -434,6 +685,40 @@ class Engine:
     def _maybe_finish(self, req: Request, tok: int, now: float):
         if req.n_generated >= req.max_new or tok == self.ecfg.eos_id:
             self._finish(req, now)
+
+    def _commit_pages(self, req: Request, n_rows: int) -> bool:
+        """Commit pages out of the request's reservation until its block
+        table covers `n_rows` timeline rows; True when the host table
+        changed."""
+        need = -(-n_rows // self.ecfg.page_size) - len(req.pages)
+        if need <= 0:
+            return False
+        if need > req.reserved_left:
+            raise RuntimeError(
+                f"request {req.rid}: {n_rows} rows need {need} more pages "
+                f"but only {req.reserved_left} are reserved (reservation "
+                "accounting bug)")
+        for pid in self.alloc.alloc(need, reserved=True):
+            self._table[req.slot, len(req.pages)] = pid
+            req.pages.append(pid)
+        req.reserved_left -= need
+        return True
+
+    def _rollback(self, req: Request, n_rows: int):
+        """Return committed pages past the accepted timeline (`n_rows`
+        valid rows) to the request's reservation and point the table's
+        tail at scratch.  Pages the accepted timeline still touches stay
+        (their stale rows are masked by position and rewritten by the
+        next round)."""
+        keep = -(-n_rows // self.ecfg.page_size)
+        drop = req.pages[keep:]
+        if not drop:
+            return
+        self.alloc.free(drop, to_reserved=True)
+        req.reserved_left += len(drop)
+        req.pages = req.pages[:keep]
+        self._table[req.slot, keep:] = KV.SCRATCH_PAGE
+        self._tables_dirty = True
 
     def _prefill_step(self, req: Request, now: float) -> int:
         """Run one prompt chunk; returns real tokens consumed."""
@@ -478,12 +763,11 @@ class Engine:
         return torch.full((1,), value, dtype=torch.int32,
                           device=self.device)
 
-    def _decode_batch(self, now: float) -> int:
-        """One batched decode step over every DECODE-state slot."""
+    def _live_batch(self):
+        """(live requests, tokens (B, 1), positions (B,), rids (B,)) for
+        one fixed-shape step; idle slots ride along at scratch."""
         e = self.ecfg
         live = [r for r in self.slots if r is not None and r.state == DECODE]
-        if not live:
-            return 0
         tokens = np.zeros((e.max_batch, 1), np.int64)
         positions = np.zeros((e.max_batch,), np.int32)
         rids = np.zeros((e.max_batch,), np.int32)
@@ -491,16 +775,26 @@ class Engine:
             tokens[r.slot, 0] = r.out_tokens[-1]
             positions[r.slot] = r.pos
             rids[r.slot] = r.rid
+        return live, tokens, positions, rids
+
+    def _read_back(self, host, out):
+        """A step's output through a pinned buffer: the one host sync."""
+        host.copy_(out, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy()
+
+    def _decode_batch(self, now: float) -> int:
+        """One batched decode step over every DECODE-state slot."""
+        live, tokens, positions, rids = self._live_batch()
+        if not live:
+            return 0
         inputs = dict(tokens=tokens, positions=positions)
         if not self.sampler.greedy:
             inputs["rids"] = rids
         nxt = self._decode(**inputs)
         self.n_decode_steps += 1
-        # the step's one host sync: its B tokens, through a pinned buffer
-        self._tok_host.copy_(nxt, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        nxt = self._tok_host.numpy()
+        nxt = self._read_back(self._tok_host, nxt)
         for r in live:
             tok = int(nxt[r.slot])
             r.pos += 1
@@ -508,11 +802,99 @@ class Engine:
             self._maybe_finish(r, tok, now)
         return len(live)
 
+    def _spec_round(self, now: float, live: List[Request], rung_i: int) -> int:
+        """One speculative round over the `live` participants with rung
+        `rung_i`'s draft step: k draft steps, one k+1-token verify pass
+        with the accept rule, then the rollback of pages holding only
+        rejected rows (and, adaptive, the controller's update).  Returns
+        the token-budget cost, 2k+1 model tokens a participant.
+
+        `live` may be a subset of the DECODE slots (adaptive mode batches
+        by rung); the fixed-shape batch carries every DECODE slot at its
+        real (last token, position), and only participants' outputs are
+        read (the module doc's ghosts)."""
+        e, rung = self.ecfg, self.rungs[rung_i]
+        k, draft, verify = rung.k, rung.draft, self._verify[rung.k]
+        _, tokens, positions, rids = self._live_batch()
+        # commit the participants' draft window (rows pos .. pos + k) and
+        # push the grown tables before anything reads them
+        dirty = [self._commit_pages(r, r.pos + k + 1) for r in live]
+        if any(dirty) or self._tables_dirty:
+            self._sync_tables()
+            self._tables_dirty = False
+        inputs = dict(cur=tokens, positions=positions, i=0)
+        if not self.sampler.greedy:
+            inputs["rids"] = rids
+        draft.load(**inputs)
+        verify.load(tok0=tokens)
+        for _ in range(k):
+            draft.run()
+        out = self._read_back(self._round_host[k], verify.run())
+        self.spec_rounds += 1
+        self.spec_request_rounds += len(live)
+        self.rung_rounds[rung_i] += 1
+        for r in live:
+            a = int(out[r.slot, k + 1])
+            self.drafted += k
+            self.drafts_accepted += a
+            emit = [int(t) for t in
+                    out[r.slot, :min(a + 1, r.max_new - r.n_generated)]]
+            for j, tok in enumerate(emit):
+                if tok == e.eos_id:
+                    emit = emit[:j + 1]
+                    break
+            r.out_tokens.extend(emit)
+            r.pos += len(emit)
+            self.spec_emitted += len(emit)
+            self.rung_drafted[rung_i] += k
+            self.rung_accepted[rung_i] += a
+            self.rung_emitted[rung_i] += len(emit)
+            if r.n_generated >= r.max_new or emit[-1] == e.eos_id:
+                self._finish(r, now)
+                continue
+            self._rollback(r, r.pos)
+            if self.adaptive is not None:
+                # pure feedback update, no wall clock, no RNG; the seam
+                # is overridable, so tests can drive adversarial
+                # trajectories
+                r.ctrl, nxt = self._ctrl_step(self.adaptive, r.ctrl, a, k)
+                if nxt != r.rung:
+                    self.ctrl_switches += 1
+                    if nxt < r.rung:
+                        self.ctrl_demotes += 1
+                    else:
+                        self.ctrl_promotes += 1
+                    r.rung = nxt
+        return len(live) * (2 * k + 1)
+
+    def _spec_decode_all(self, now: float) -> int:
+        """A speculative tick: one round over every DECODE slot (static
+        draft), or, adaptive, one round per non-empty rung group, the
+        groups taken up front (a request that switches rungs during its
+        own round is not served twice in one tick)."""
+        live = [r for r in self.slots if r is not None and r.state == DECODE]
+        if not live:
+            return 0
+        if self.adaptive is None:
+            return self._spec_round(now, live, 0)
+        groups = [[r for r in live if r.rung == i]
+                  for i in range(len(self.rungs))]
+        cost = 0
+        for i, group in enumerate(groups):
+            if group:
+                t0 = time.monotonic()
+                cost += self._spec_round(now, group, i)
+                self.rung_wall[i] += time.monotonic() - t0
+        return cost
+
     def step(self, now: float = 0.0):
-        """One scheduler tick: admit, decode the running batch, spend the
-        leftover token budget on prefill chunks."""
+        """One scheduler tick: admit, decode the running batch (one
+        speculative round in spec mode), spend the leftover token budget
+        on prefill chunks."""
         self._admit(now)
-        budget = self.ecfg.token_budget - self._decode_batch(now)
+        budget = self.ecfg.token_budget - (
+            self._spec_decode_all(now) if self.rungs
+            else self._decode_batch(now))
         while budget > 0:
             pre = [r for r in self.slots
                    if r is not None and r.state == PREFILL]
@@ -604,12 +986,62 @@ class Engine:
             **self.kv_bytes_report(),
         }
         if self.graphed:
-            rep["capture"] = {step.name: step.stats
-                              for step in (self._decode, self._prefill)}
+            rep["capture"] = {step.name: step.stats for step in self._steps}
+        if self.rungs:
+            rep.update(self.spec_report())
         if self.prefix is not None:
             rep.update(self.prefix_report())
         if self.cfg.is_moe:
             rep.update(self.moe_report())
+        return rep
+
+    def spec_report(self) -> dict:
+        """Who drafted and who verified, acceptance, tokens a round, the
+        draft and verify steps run; adaptive, per rung and the
+        controller's switches.  `acceptance_rate` is the drafted-token-
+        weighted aggregate over rungs."""
+        rep = {
+            "spec_rounds": self.spec_rounds,
+            "acceptance_rate": (self.drafts_accepted / self.drafted
+                                if self.drafted else 0.0),
+            # tokens one request advances a round it takes part in, in
+            # [1, k+1]
+            "eff_tokens_per_round": (self.spec_emitted
+                                     / self.spec_request_rounds
+                                     if self.spec_request_rounds else 0.0),
+            "draft_steps": sum(n * r.k for n, r in
+                               zip(self.rung_rounds, self.rungs)),
+            "verify_steps": self.spec_rounds,
+            "verify_route": self.rungs[0].verify_plan["route"],
+            "verify_backend": self.rungs[0].verify_plan["backend"],
+        }
+        if self.spec is not None:
+            r = self.rungs[0]
+            rep.update({"spec_draft_policy": self.spec.draft_policy,
+                        "spec_k": self.spec.k,
+                        "draft_route": r.plan["route"],
+                        "draft_backend": r.plan["backend"]})
+            return rep
+        tw = sum(self.rung_wall)
+        rep.update({
+            "adaptive_ladder": [r.name for r in self.rungs],
+            "adaptive_switches": self.ctrl_switches,
+            "adaptive_demotes": self.ctrl_demotes,
+            "adaptive_promotes": self.ctrl_promotes,
+            "adaptive_rungs": [{
+                "policy": r.name,
+                "k": r.k,
+                "rounds": self.rung_rounds[i],
+                "drafted": self.rung_drafted[i],
+                "accepted": self.rung_accepted[i],
+                "acceptance_rate": (self.rung_accepted[i]
+                                    / self.rung_drafted[i]
+                                    if self.rung_drafted[i] else 0.0),
+                "emitted": self.rung_emitted[i],
+                "wall_share": self.rung_wall[i] / tw if tw > 0 else 0.0,
+                "draft_route": r.plan["route"],
+                "draft_backend": r.plan["backend"],
+            } for i, r in enumerate(self.rungs)]})
         return rep
 
     def prefix_report(self) -> dict:
@@ -656,7 +1088,8 @@ def format_report(rep: dict, policy: str) -> str:
     """The front end's report lines (the reference's `format_report` for
     the keys the port reports): throughput and latency, cache bytes from
     actual per-request lengths and page use, the decode plan, and the
-    prefix-cache and MoE lines where the report has them."""
+    spec, adaptive, prefix-cache and MoE lines where the report has
+    them."""
     mb = 1e6
     return (
         f"engine: {rep['n_requests']} reqs, {rep['gen_tokens']} tokens in "
@@ -676,6 +1109,29 @@ def format_report(rep: dict, policy: str) -> str:
         f"[{rep['decode_backend']}, {rep['decode_selection']}], "
         f"{rep['decode_bytes_per_step_layer'] / 1e3:.1f} KB KV moved "
         "per step/layer"
+        + (f"\nspec: draft k={rep['spec_k']} under "
+           f"{rep['spec_draft_policy']} via {rep['draft_route']} "
+           f"[{rep['draft_backend']}], verify via {rep['verify_route']} "
+           f"[{rep['verify_backend']}]; acceptance "
+           f"{rep['acceptance_rate']:.0%}, "
+           f"{rep['eff_tokens_per_round']:.2f} tokens/round over "
+           f"{rep['spec_rounds']} rounds"
+           if "spec_k" in rep else "")
+        + ((f"\nadaptive: {len(rep['adaptive_rungs'])}-rung ladder, "
+            f"{rep['adaptive_switches']} switches "
+            f"({rep['adaptive_demotes']} demote, "
+            f"{rep['adaptive_promotes']} promote); acceptance "
+            f"{rep['acceptance_rate']:.0%}, "
+            f"{rep['eff_tokens_per_round']:.2f} tokens/round over "
+            f"{rep['spec_rounds']} rounds\n"
+            + "\n".join(
+                f"  rung {i}: {r['policy']} (k={r['k']}) acceptance "
+                f"{r['acceptance_rate']:.0%}, {r['rounds']} rounds, "
+                f"{r['drafted']} drafted, {r['emitted']} emitted, "
+                f"{r['wall_share']:.0%} of spec wall via "
+                f"{r['draft_route']} [{r['draft_backend']}]"
+                for i, r in enumerate(rep["adaptive_rungs"])))
+           if "adaptive_rungs" in rep else "")
         + (f"\nprefix: {rep['prefix_hits']}/{rep['prefix_queries']} hits "
            f"({rep['prefix_hit_rate']:.0%}), "
            f"{rep['prefill_tokens_saved']} prefill tokens saved, "

@@ -16,8 +16,11 @@ Two modes, as the reference's:
   --engine : the continuous-batching engine (`launch.engine`) over the
       paged quantized KV cache, serving an open-loop synthetic workload
       (`synthetic_workload`), greedy or sampled, with the prefix cache on
-      request; it prints the reference's report lines (tokens/s,
-      latency p50/p99, TTFT p50, KV bytes, plan, prefix, moe).
+      request, speculative with `--spec-draft` (draft under that policy,
+      verify under --policy, `--spec-k` tokens a round) or adaptive with
+      `--adaptive-draft` (the default precision ladder of --policy); it
+      prints the reference's report lines (tokens/s, latency p50/p99,
+      TTFT p50, KV bytes, plan, spec, adaptive, prefix, moe).
 
 Weights are `model.init(torch.Generator(device).manual_seed(0))` (the
 reference's `PRNGKey(0)`; `--seed` seeds the workload and the sampler).
@@ -26,10 +29,9 @@ without CUDA graphs.  The port's default block table holds 16 pages (the
 reference's 8), so that a 192-token prompt and 32 new tokens fit.
 
 Flags whose modules the port does not have yet exit naming their ROADMAP
-item (Queue 1): `--spec-draft`, `--spec-k` and `--adaptive-draft`
-("Speculative decoding and the adaptive draft ladder"), `--tp` or
-`--n-model` above 1 ("Tensor-parallel serving and collectives"),
-`--tuned-db` ("Tuner").
+item (Queue 1): `--tp` or `--n-model` above 1 ("Tensor-parallel serving
+and collectives"), `--tuned-db` ("Tuner", which also owns the
+reference's tuner-derived `--spec-k`).
 """
 from __future__ import annotations
 
@@ -57,8 +59,6 @@ PLAN_ROUTES = {
 }
 
 # refused flags -> the ROADMAP Queue 1 item that brings their module
-_SPEC_ITEM = "ROADMAP Queue 1, \"Speculative decoding and the adaptive " \
-    "draft ladder\""
 _TP_ITEM = "ROADMAP Queue 1, \"Tensor-parallel serving and collectives\""
 _TUNER_ITEM = "ROADMAP Queue 1, \"Tuner\""
 
@@ -167,12 +167,6 @@ def _refuse_unported(args) -> None:
     if args.n_model > 1:
         raise SystemExit(f"--n-model {args.n_model}: model-parallel "
                          f"serving is not ported yet ({_TP_ITEM})")
-    if args.spec_draft or args.spec_k is not None:
-        raise SystemExit(f"--spec-draft / --spec-k: speculative decoding "
-                         f"is not ported yet ({_SPEC_ITEM})")
-    if args.adaptive_draft:
-        raise SystemExit(f"--adaptive-draft: the adaptive draft ladder is "
-                         f"not ported yet ({_SPEC_ITEM})")
     if args.tp > 1:
         raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
                          f"ported yet ({_TP_ITEM})")
@@ -183,34 +177,53 @@ def _refuse_unported(args) -> None:
 
 def run_engine(cfg, model, params, args):
     """--engine mode: continuous batching over the paged quantized cache,
-    driven by an open-loop synthetic workload; --mixed makes the traffic
-    heterogeneous, --shared-prefix gives every prompt a common prefix,
-    --prefix-cache shares it; --temperature / --top-k / --top-p select
-    sampling (default greedy).  -> the engine's report."""
+    driven by an open-loop synthetic workload.  --spec-draft turns on
+    self-speculative decoding (draft under the named low-precision
+    policy, verify under --policy); --adaptive-draft replaces the static
+    draft policy with the acceptance-feedback precision ladder; --mixed
+    makes the traffic heterogeneous, --shared-prefix gives every prompt a
+    common prefix, --prefix-cache shares it; --temperature / --top-k /
+    --top-p select sampling (default greedy).  -> the engine's report."""
     from repro_torch.launch.engine import (Engine, EngineConfig,
                                            format_report,
                                            synthetic_workload)
+    from repro_torch.runtime.controller import (ControllerConfig,
+                                                default_ladder)
     from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.spec_decode import SpecConfig
     ecfg = EngineConfig(page_size=args.page_size, n_pages=args.pages,
                         max_batch=args.max_batch or args.batch,
                         max_pages_per_req=args.max_pages_per_req,
                         token_budget=args.token_budget,
                         prefill_chunk=args.prefill_chunk,
                         prefix_cache=args.prefix_cache)
+    adaptive = None
+    if args.adaptive_draft:
+        if args.spec_draft:
+            raise SystemExit("--adaptive-draft replaces --spec-draft "
+                             "(the ladder covers the static draft "
+                             "policy); pass one or the other")
+        adaptive = ControllerConfig(default_ladder(cfg.policy),
+                                    k=args.spec_k)
+    spec = SpecConfig(args.spec_draft, args.spec_k) if args.spec_draft \
+        else None
+    spec_k = adaptive.max_k if adaptive else (args.spec_k if spec else 0)
     # mixed traffic stretches the longest request to 4x the --gen /
     # --prompt-len ceilings (see synthetic_workload); guard for that
     p_max = 4 * args.prompt_len if args.mixed > 0 else args.prompt_len
     g_max = 4 * args.gen if args.mixed > 0 else args.gen
-    if args.shared_prefix + p_max + g_max > ecfg.s_max:
+    if args.shared_prefix + p_max + g_max + spec_k > ecfg.s_max:
         raise SystemExit(
             f"--shared-prefix {args.shared_prefix} + prompt {p_max} + "
             f"gen {g_max}{' (4x for --mixed)' if args.mixed > 0 else ''} "
-            f"exceeds the engine's S_max = {ecfg.s_max} tokens/request; "
-            "raise --max-pages-per-req or --page-size")
+            f"(+ the {spec_k}-token draft window) exceeds the engine's "
+            f"S_max = {ecfg.s_max} tokens/request; raise "
+            "--max-pages-per-req or --page-size")
     sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
                             top_p=args.top_p, seed=args.seed)
-    engine = Engine(model, params, ecfg, sampler=sampler,
-                    device=args.device, graphs=not args.eager)
+    engine = Engine(model, params, ecfg, sampler=sampler, spec=spec,
+                    adaptive=adaptive, device=args.device,
+                    graphs=not args.eager)
     reqs = synthetic_workload(
         args.requests, vocab=cfg.vocab_size, seed=args.seed,
         rate=args.rate, prompt_range=(max(1, args.prompt_len // 2),
@@ -283,13 +296,16 @@ def main(argv=None):
     sg.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = off)")
     sg.add_argument("--spec-draft", default="",
-                    help="draft policy for speculative decoding (not "
-                         "ported yet)")
-    sg.add_argument("--spec-k", type=int, default=None,
-                    help="draft tokens per speculative round (not ported "
-                         "yet)")
+                    help="draft policy preset for self-speculative "
+                         "decoding (e.g. w4a4_kv4_attn4; empty = off)")
+    sg.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens per speculative round")
     sg.add_argument("--adaptive-draft", action="store_true",
-                    help="adaptive draft-precision ladder (not ported yet)")
+                    help="adaptive trans-precision drafting: walk the "
+                         "default draft-precision ladder for --policy "
+                         "with the acceptance-feedback controller "
+                         "(repro_torch.runtime.controller) instead of one "
+                         "static --spec-draft policy")
     args = ap.parse_args(argv)
     _refuse_unported(args)
 

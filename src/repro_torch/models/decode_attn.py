@@ -4,9 +4,10 @@ QK^T and PV accumulate in f32 over operands absmax-quantized onto a
 Table-I format grid, and the softmax max/denominator stay f32.
 `dpa_paged_decode_attn` is the serving engine's variant: K/V codes are
 read through the block table of the paged cache, with a per-request
-causal mask.  These are the plain routes of the `flash_attn`,
-`decode_attn` and `paged_decode` ops, and the plain version the CUDA
-paged-decode kernel is held against.
+causal mask, and `dpa_paged_verify_attn` its speculative-verify form
+(S_q query tokens a request).  These are the plain routes of the
+`flash_attn`, `decode_attn`, `paged_decode` and `verify_attn` ops, and
+the plain versions the CUDA paged-decode kernel is held against.
 
 Products are summed with `batched_rowwise_dot`, so query row i of a
 prefill chunk reduces exactly like the same row in a single-token decode
@@ -122,3 +123,33 @@ def dpa_paged_decode_attn(q, cache, positions, *, fmt: str, fmt_kv: str,
     valid = kpos[None, :] <= positions.to(torch.int64)[:, None]
     return dpa_attention(q, k, v, valid[:, None, None, :], fmt=fmt,
                          scale=scale, kv_on_grid=True)
+
+
+def dpa_paged_verify_attn(q, cache, positions, *, fmt: str, fmt_kv: str,
+                          kv_packed: bool, scale):
+    """Speculative-verify attention: S_q causal query tokens per request
+    against the paged quantized cache.
+
+    q: (B, S_q, H, hd), a request's last accepted token and its draft
+    tokens, rope'd at their positions; the pools already hold the query
+    rows (`paged_write_tokens`); positions: (B,) int32, the timeline
+    index of query row 0.  Query row i of request b attends key slots <=
+    positions[b] + i, and reproduces what a single-token decode step at
+    that position computes: the (B, S_q) query axis folds into the batch
+    axis, so every reduction sees the decode step's shapes."""
+    B, sq, H, hd = q.shape
+    view = gather_paged_kv(cache)
+    k = dequantize_kv(view["k_codes"], view["k_scale"], fmt=fmt_kv,
+                      packed=kv_packed)
+    v = dequantize_kv(view["v_codes"], view["v_scale"], fmt=fmt_kv,
+                      packed=kv_packed)
+    pos = (positions.to(torch.int64)[:, None]
+           + torch.arange(sq, device=q.device)[None]).reshape(B * sq)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    valid = kpos[None, :] <= pos[:, None]                 # (B*S_q, S_view)
+    out = dpa_attention(q.reshape(B * sq, 1, H, hd),
+                        k.repeat_interleave(sq, dim=0),
+                        v.repeat_interleave(sq, dim=0),
+                        valid[:, None, None, :], fmt=fmt, scale=scale,
+                        kv_on_grid=True)
+    return out.reshape(B, sq, H, hd)

@@ -5,6 +5,18 @@ Every projection goes through `core.linear.apply_linear` (the DPA
 contract) and every attention/unembed through an `exec_plan` route, so
 this module carries no policy-mode branching.  Layers are functions over
 a params dict; decode paths carry explicit caches, updated in place.
+
+The speculative verify pass (S_q query tokens a request over the paged
+cache) must give each query row the decode step's bits.  On the CPU
+every plain path treats rows alike.  On the card two reductions pick
+their order by the number of rows, as chip_smoke.py's probe of a verify
+pass against stepped decode steps finds them on an H100: RMSNorm's sum
+of squares (ATen's reduce kernel lays its threads out by the number of
+outputs; the block norms, qk-norm and the final norm) and the tied
+unembed (cuBLAS picks its GEMM by M).  With `per_row` each runs there as
+S_q calls at the decode step's shape.  The fused matmul (below
+`TILED_MIN_M` rows), rope and the attention kernel give every row the
+decode step's bits as they stand.
 """
 from __future__ import annotations
 
@@ -24,15 +36,29 @@ from repro_torch.core.quantize import recip
 # -----------------------------------------------------------------------------
 
 
+def _rows_apart(x, per_row: bool) -> bool:
+    """The verify pass on the card (x (B, S_q, ...), S_q > 1): run one
+    query row at a time (module doc)."""
+    return per_row and x.device.type == "cuda" and x.shape[1] > 1
+
+
 def init_norm(d: int, device="cpu"):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
-def apply_norm(params, x, *, eps: float = 1e-5):
+def apply_norm(params, x, *, eps: float = 1e-5, per_row: bool = False):
     """RMSNorm in f32; the mean is a sum times f32(1/d), as the jitted
-    reference computes it."""
+    reference computes it.  `per_row`: the verify pass (module doc): the
+    sum runs on each query row's contiguous (B, 1, ...) squares, the
+    decode step's shape; the elementwise rest treats rows alike."""
     xf = x.to(torch.float32)
-    ms = (xf * xf).sum(dim=-1, keepdim=True) * recip(xf.shape[-1])
+    sq = xf * xf
+    if _rows_apart(x, per_row):
+        ss = torch.cat([sq[:, i:i + 1].contiguous().sum(dim=-1, keepdim=True)
+                        for i in range(x.shape[1])], dim=1)
+    else:
+        ss = sq.sum(dim=-1, keepdim=True)
+    ms = ss * recip(xf.shape[-1])
     y = xf * torch.rsqrt(ms + eps) * params["scale"]
     return y.to(x.dtype)
 
@@ -102,10 +128,12 @@ def _positions(offset, B, Sq, device):
         offset + steps
 
 
-def apply_attention(params, x, cfg, *, offset=0, cache=None):
+def apply_attention(params, x, cfg, *, offset=0, cache=None,
+                    per_row: bool = False):
     """Returns (y, cache).  Cache layouts: the paged quantized pool (with
     "block_table"; `offset` a (B,) position vector), the contiguous
-    quantized cache ("k_codes"), the raw full cache ("k"), or none."""
+    quantized cache ("k_codes"), the raw full cache ("k"), or none.
+    `per_row`: the verify pass (module doc)."""
     policy = get_policy(cfg.policy)
     B, Sq, _ = x.shape
     hd = cfg.hd
@@ -115,8 +143,10 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None):
     v = apply_linear(params["wv"], x, policy).reshape(B, Sq, cfg.n_kv_heads,
                                                       hd)
     if "q_norm" in params:
-        q = apply_norm(params["q_norm"], q, eps=cfg.norm_eps)
-        k = apply_norm(params["k_norm"], k, eps=cfg.norm_eps)
+        q = apply_norm(params["q_norm"], q, eps=cfg.norm_eps,
+                       per_row=per_row)
+        k = apply_norm(params["k_norm"], k, eps=cfg.norm_eps,
+                       per_row=per_row)
     if cfg.rope_theta > 0:
         pos = _positions(offset, B, Sq, x.device)
         q = rope(q, pos, cfg.rope_theta)
@@ -127,20 +157,18 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None):
     if cache is not None and "block_table" in cache:
         # the continuous-batching engine's paged pool: new tokens quantize
         # into each request's pages, attention reads codes through the
-        # block table (decode steps only; prefill runs against the
-        # contiguous staging cache)
-        if Sq != 1:
-            raise NotImplementedError(
-                "multi-token paged attention is the speculative verify "
-                "pass (ROADMAP Queue 1, \"Speculative decoding and the "
-                "adaptive draft ladder\")")
+        # block table.  Sq == 1 is the decode step; Sq > 1 the speculative
+        # verify window (the last accepted token and the drafts), scored
+        # with per-request causal masks through the verify_attn route
+        # (prefill runs against the contiguous staging cache)
         KV.paged_write_tokens(cache, k, v, offset, fmt=policy.fmt_kv,
                               packed=policy.kv_packed)
-        entry = exec_plan.resolve(
-            "paged_decode", policy, batch=B,
-            page_size=cache["k_codes"].shape[1],
-            max_pages=cache["block_table"].shape[1],
-            kv_heads=cfg.n_kv_heads, hd=hd, n_pages=cache["k_codes"].shape[0])
+        ctx = dict(batch=B, page_size=cache["k_codes"].shape[1],
+                   max_pages=cache["block_table"].shape[1],
+                   kv_heads=cfg.n_kv_heads, hd=hd,
+                   n_pages=cache["k_codes"].shape[0])
+        entry = (exec_plan.resolve("paged_decode", policy, **ctx) if Sq == 1
+                 else exec_plan.resolve("verify_attn", policy, sq=Sq, **ctx))
         y = entry.run(q, cache, offset, policy=policy, scale=scale)
         y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd),
                          policy)
@@ -310,8 +338,10 @@ def apply_embedding(params, ids, dtype):
     return params["table"][ids].to(dtype)
 
 
-def apply_unembed(x, table):
-    """x: (B,S,d) -> f32 logits (B,S,V) over the compute-dtype table."""
+def apply_unembed(x, table, *, per_row: bool = False):
+    """x: (B,S,d) -> f32 logits (B,S,V) over the compute-dtype table.
+    `per_row`: the verify pass (module doc)."""
     entry = exec_plan.resolve("unembed", None,
                               size=x.shape[-2] * table.shape[0])
-    return entry.run(x, table, get_policy("fp32"))
+    return entry.run(x, table, get_policy("fp32"),
+                     per_row=_rows_apart(x, per_row))

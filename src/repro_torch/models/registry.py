@@ -84,14 +84,15 @@ class Model:
                                  self.device)
                 for _ in range(self.cfg.n_layers)]
 
-    def _forward(self, params, tokens, offset, caches):
+    def _forward(self, params, tokens, offset, caches, per_row=False):
         """-> (final hidden states, caches, aux); serving drops the aux
         loss, as the reference's prefill and decode_step do."""
         x = L.apply_embedding(params["embed"], tokens, self.dtype)
         x, caches, aux = apply_stack(params["layers"], x, self.cfg,
-                                     offset=offset, caches=caches)
-        return L.apply_norm(params["norm_f"], x, eps=self.cfg.norm_eps), \
-            caches, aux
+                                     offset=offset, caches=caches,
+                                     per_row=per_row)
+        return L.apply_norm(params["norm_f"], x, eps=self.cfg.norm_eps,
+                            per_row=per_row), caches, aux
 
     @torch.no_grad()
     def backbone_features(self, params, batch):
@@ -116,10 +117,15 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, batch, caches):
         """One step over batch["tokens"] (B, S) at batch["index"]; the
-        caches update in place and are returned."""
+        caches update in place and are returned.  S > 1 over the paged
+        pool is the speculative verify pass, whose every query row carries
+        the bits of a decode step at its position (`layers` module doc)."""
+        verify = (batch["tokens"].shape[1] > 1 and bool(caches)
+                  and "block_table" in caches[0])
         x, caches, _ = self._forward(params, batch["tokens"],
-                                     batch["index"], caches)
-        return L.apply_unembed(x, params["embed"]["table"]), caches
+                                     batch["index"], caches, per_row=verify)
+        return L.apply_unembed(x, params["embed"]["table"],
+                               per_row=verify), caches
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -39,14 +39,15 @@ def init_block_cache(cfg: ModelConfig, batch: int, s_ctx: int, dtype,
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
-def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None):
+def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None,
+                per_row: bool = False):
     """-> (x, cache, aux): aux is the MoE load-balancing loss, 0 for a
-    dense block."""
-    h = L.apply_norm(params["norm1"], x, eps=cfg.norm_eps)
+    dense block.  `per_row`: the verify pass (`layers` module doc)."""
+    h = L.apply_norm(params["norm1"], x, eps=cfg.norm_eps, per_row=per_row)
     y, cache = L.apply_attention(params["attn"], h, cfg, offset=offset,
-                                 cache=cache)
+                                 cache=cache, per_row=per_row)
     x = x + y.to(x.dtype)
-    h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps)
+    h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps, per_row=per_row)
     if cfg.is_moe:
         y, aux = L.apply_moe(params["mlp"], h, cfg)
     else:
@@ -55,12 +56,14 @@ def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None):
     return x, cache, aux
 
 
-def apply_stack(layers, x, cfg: ModelConfig, *, offset=0, caches=None):
+def apply_stack(layers, x, cfg: ModelConfig, *, offset=0, caches=None,
+                per_row: bool = False):
     """-> (x, caches, aux summed over the layers in f32); caches None runs
     without state."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(layers):
         c = None if caches is None else caches[i]
-        x, c, a = apply_block(lp, x, cfg, offset=offset, cache=c)
+        x, c, a = apply_block(lp, x, cfg, offset=offset, cache=c,
+                              per_row=per_row)
         aux = aux + a
     return x, caches, aux

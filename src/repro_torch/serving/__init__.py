@@ -1,1 +1,5 @@
-"""Token sampling of the port."""
+"""Token sampling and speculative decoding of the port."""
+from .sampler import SamplerConfig
+from .spec_decode import SpecConfig
+
+__all__ = ["SamplerConfig", "SpecConfig"]

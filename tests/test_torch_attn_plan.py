@@ -17,9 +17,14 @@ six piece products).  Here, with no card:
   packed fp4 and fp8 KV, hd 64 and 128, page 8 and 16, mid-page
   positions and an idle slot on the scratch page;
 - (b) psq = f32(1/448) for every request with a live row (positions >=
-  0), the premise of the split;
+  0), the premise of the split, and likewise f32(1/6) and 2^-14 for the
+  E2M1 and fp16 attention formats, with the split model of (a) in those
+  formats at their own bounds (`PAGED_DECODE_CARD_TOLS`);
 - (c) the split plan `paged_plan` at the engines' shapes, at B 1 / 32,768
-  tokens, and its refusals;
+  tokens, and its refusals; the verify fold's plan (`fold_plan`: the
+  decode step's split at the same B, where planning the fold's B (k+1)
+  rows as a batch would pick another); the kernel launch refusing, before
+  it loads the library, the formats still open;
 - (d) the three-piece bf16 split reproduces every f32 value exactly from
   2^-110 to 3e38 (below, within 2^-133), and every p in [0, 1] above
   2^-110, with exact piece x bf16 products;
@@ -31,6 +36,8 @@ six piece products).  Here, with no card:
   causal and window, S 256 and 200 (bk 100).
 """
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,6 +48,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import kvcache as RKV  # noqa: E402
 from repro.kernels import flash_attention as RFA  # noqa: E402
+from repro_torch.core import exec_plan  # noqa: E402
 from repro_torch.core import kvcache as TKV  # noqa: E402
 from repro_torch.core.device import batched_rowwise_dot  # noqa: E402
 from repro_torch.core.kvcache import dequantize_kv  # noqa: E402
@@ -48,7 +56,16 @@ from repro_torch.core.quantize import (absmax_block_scale,  # noqa: E402
                                        quant_rows_grid)
 from repro_torch.kernels import flash_attention as TFA  # noqa: E402
 from repro_torch.kernels import paged_decode as TPD  # noqa: E402
-from repro_torch.kernels.registry import PAGED_DECODE_CARD_TOL  # noqa: E402
+from repro_torch.core.formats import get_format  # noqa: E402
+from repro_torch.core.quantize import torch_dtype  # noqa: E402
+from repro_torch.kernels.registry import (PAGED_DECODE_CARD_TOL,  # noqa: E402
+                                          PAGED_DECODE_CARD_TOLS)
+
+# the card check's per-case bound (`chip_smoke._paged_case_tol`)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+CS = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(CS)
 
 FLASH_F32_RTOL = 2e-6          # chip_smoke.py's pin of the f32 flash route
 PSQ = np.float32(1.0) * np.float32(1.0 / 448.0)
@@ -59,22 +76,35 @@ NEG_INF = -1e30
 # (a)-(c) paged decode
 # -----------------------------------------------------------------------------
 
-def _paged_model(q, cache, positions, *, fmt_kv, packed, split):
+def _on_grid(y, fmt):
+    """clip(y, -T, T) onto fmt's grid, as f32 values."""
+    t = get_format(fmt).quant_target
+    y = torch.clamp(y, -t, t)
+    if fmt == "fp4_e2m1":
+        return TKV.decode_fp4(TKV.encode_fp4(y))
+    return y.to(torch_dtype(fmt)).float()
+
+
+def _paged_model(q, cache, positions, *, fmt_kv, packed, split,
+                 fmt="fp8_e4m3", drop_rank=None):
     """The kernel's split order in plain PyTorch (f32): per rank the
     logits of rows [r per, (r + 1) per) and their max (-1e30 where the
-    rank is empty), the global max, pg under psq = e4m3_scale(1), per-rank
-    sums of pg and pg * v, folded in rank order."""
+    rank is empty), the global max, pg under the constant psq =
+    block_scale(1) of the attention format, per-rank sums of pg and pg *
+    v, folded in rank order.  `drop_rank`: a faulty fold that leaves out
+    that rank's sums."""
     B, _, H, hd = q.shape
     P, page, KV, _ = cache["k_codes"].shape
     G = H // KV
     table = cache["block_table"]
     view = table.shape[1] * page
-    psq = absmax_block_scale(torch.ones((1, 1)), 448.0)[0, 0]
+    psq = absmax_block_scale(torch.ones((1, 1)),
+                             get_format(fmt).quant_target)[0, 0]
     kf = dequantize_kv(cache["k_codes"], cache["k_scale"], fmt=fmt_kv,
                        packed=packed).reshape(P * page, KV, hd)
     vf = dequantize_kv(cache["v_codes"], cache["v_scale"], fmt=fmt_kv,
                        packed=packed).reshape(P * page, KV, hd)
-    qg, qs = quant_rows_grid(q[:, 0], "fp8_e4m3")
+    qg, qs = quant_rows_grid(q[:, 0], fmt)
     out = torch.empty((B, H, hd))
     for b in range(B):
         n_live = min(int(positions[b]) + 1, view)
@@ -92,10 +122,11 @@ def _paged_model(q, cache, positions, *, fmt_kv, packed, split):
                              torch.full((G,), NEG_INF) for lg in logits]
                             ).amax(0)
             num = den = None
-            for (t0, t1), lg in zip(ranks, logits):
+            for r, ((t0, t1), lg) in enumerate(zip(ranks, logits)):
+                if r == drop_rank:
+                    continue
                 p = torch.exp(lg - m[:, None])
-                pg = torch.clamp(p / psq, -448, 448).to(
-                    torch.float8_e4m3fn).float()
+                pg = _on_grid(p / psq, fmt)
                 n_r = batched_rowwise_dot(pg, vb[t0:t1].T.contiguous())
                 d_r = pg.sum(-1)
                 num = n_r if num is None else num + n_r
@@ -178,6 +209,121 @@ def test_psq_is_the_constant_for_every_live_request():
             assert bool((psq == torch.tensor(PSQ)).all()), (pos, spread)
 
 
+NEW_FORMATS = ["fp4_e2m1", "fp16"]
+PSQ_OF = {"fp4_e2m1": np.float32(1.0) * np.float32(1.0 / 6.0),
+          "fp16": np.float32(2.0 ** -14)}
+
+
+@pytest.mark.parametrize("fmt", NEW_FORMATS)
+@pytest.mark.parametrize("fmt_kv,packed", KV_FORMATS)
+def test_paged_split_model_new_attention_formats(fmt, fmt_kv, packed):
+    """The split order in E2M1 and fp16 attention against the plain
+    version and the Pallas kernel (interpret), at each format's bound."""
+    KV, H, hd, page = 2, 8, 128, 16
+    lengths, positions = [53, 20, 1, 9], [52, 13, 0, 0]
+    ref, got = _paged_caches(fmt_kv, packed, lengths, page, hd, KV, seed=7)
+    got["block_table"][3] = 0
+    ref = dict(ref, block_table=jnp.asarray(got["block_table"].numpy()))
+    q = np.random.default_rng(8).standard_normal(
+        (len(lengths), 1, H, hd)).astype(np.float32)
+    pos = np.asarray(positions, np.int32)
+    kw = dict(fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
+    tq, tpos = torch.from_numpy(q), torch.from_numpy(pos)
+    plain = TPD.paged_decode_attention_ref(
+        tq, got["k_codes"], got["k_scale"], got["v_codes"], got["v_scale"],
+        got["block_table"], tpos, **kw).numpy()
+    pallas = np.asarray(RFA.paged_decode_attention(
+        jnp.asarray(q), ref["k_codes"], ref["k_scale"], ref["v_codes"],
+        ref["v_scale"], ref["block_table"], jnp.asarray(pos), **kw))
+    for split in (1, 3, 7, 8):
+        model = _paged_model(tq, got, tpos, fmt_kv=fmt_kv, packed=packed,
+                             split=split, fmt=fmt).numpy()
+        assert np.isfinite(model).all()
+        for name, want in (("plain", plain), ("pallas", pallas)):
+            err = float(np.max(np.abs(model - want)))
+            assert err <= PAGED_DECODE_CARD_TOLS[fmt], (split, name, err)
+
+
+@pytest.mark.parametrize("fmt", NEW_FORMATS)
+def test_psq_is_the_constant_in_every_attention_format(fmt):
+    """As for E4M3: the largest live p is exactly 1, so p's absmax scale
+    is max(f32(1/T), 2^-126), f32(1/6) for E2M1 and 2^-14 for fp16, at
+    every position and spread."""
+    t = get_format(fmt).quant_target
+    assert absmax_block_scale(torch.ones((1, 1)), t).item() == PSQ_OF[fmt]
+    rng = np.random.default_rng(1)
+    S = 48
+    for pos in range(0, S, 5):
+        for spread in (1.0, 80.0, 1e4):
+            lg = torch.from_numpy((rng.standard_normal((3, S)) * spread)
+                                  .astype(np.float32))
+            lg = torch.where(torch.arange(S) <= pos, lg, NEG_INF)
+            p = torch.exp(lg - lg.amax(-1, keepdim=True))
+            _, psq = quant_rows_grid(p, fmt)
+            assert bool((psq == torch.tensor(PSQ_OF[fmt])).all()), (pos,
+                                                                    spread)
+
+
+def test_card_tolerances_per_format():
+    """Each attention format's bound (kernels/registry.py): one bf16 ulp
+    of an output below 4 plus E4M3's flip allowance scaled by the format's
+    largest flip weight; E4M3's is the pin as it was."""
+    assert PAGED_DECODE_CARD_TOLS["fp8_e4m3"] == PAGED_DECODE_CARD_TOL
+    ulp, flip = 2.0 ** -6, PAGED_DECODE_CARD_TOL - 2.0 ** -6
+    assert PAGED_DECODE_CARD_TOLS["fp4_e2m1"] == pytest.approx(
+        ulp + flip * 22 / 5)
+    assert PAGED_DECODE_CARD_TOLS["fp16"] == pytest.approx(
+        ulp + flip * 22 / 3072)
+    # the paged kernel's routes state their format's bound
+    for fmt, policy in (("fp8_e4m3", "w4a8_kv4_attn8"),
+                        ("fp4_e2m1", "w4a4_kv4_attn4"),
+                        ("fp16", "w16a16_kv4_attn16")):
+        for op, ctx in (("paged_decode", {}), ("verify_attn", {"sq": 5})):
+            d = exec_plan.describe(op, policy, **ctx)
+            assert d["route"] == "cuda_block_table", (op, d["route"])
+            assert d["tol"] == PAGED_DECODE_CARD_TOLS[fmt], (op, policy)
+    # the weights: the widest step against the least denominator
+    for fmt, grid, w in (("fp8_e4m3", (256.0, 288.0), 1 / 22),
+                         ("fp4_e2m1", (4.0, 6.0), 1 / 5),
+                         ("fp16", (8192.0, 8200.0), 1 / 3072)):
+        top = get_format(fmt).quant_target
+        assert (grid[1] - grid[0]) / (top + grid[0]) == pytest.approx(w)
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3"] + NEW_FORMATS)
+@pytest.mark.parametrize("fmt_kv,packed", KV_FORMATS)
+def test_case_bound_holds_the_split_model_and_catches_a_dropped_rank(
+        fmt, fmt_kv, packed):
+    """The card check's per-output bound (`chip_smoke._paged_case_tol`),
+    worked out from the case's own codes: it rebuilds the plain version
+    bit for bit, the kernel's split order lies within it at every split,
+    it is a fraction of the format's worst-case bound where outputs
+    average many keys, and a fold that leaves out one rank's keys breaks
+    it."""
+    KV, H, hd, page = 2, 8, 64, 16
+    lengths, positions = [1000, 333, 53, 1], [999, 332, 52, 0]
+    _, got = _paged_caches(fmt_kv, packed, lengths, page, hd, KV, seed=11)
+    q = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (len(lengths), 1, H, hd)).astype(np.float32)).to(torch.bfloat16)
+    pos = torch.tensor(positions, dtype=torch.int32)
+    kw = dict(fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
+    args = (q, got["k_codes"], got["k_scale"], got["v_codes"],
+            got["v_scale"], got["block_table"], pos)
+    want = TPD.paged_decode_attention_ref(*args, **kw)
+    tol, info = CS._paged_case_tol(args, kw, want)
+    assert tol.shape == want.shape and bool((tol >= 0).all())
+    # the 1000-key request's outputs average hundreds of keys
+    assert float(tol[0].max()) < PAGED_DECODE_CARD_TOLS[fmt] / 4, info
+    mkw = dict(fmt_kv=fmt_kv, packed=packed, fmt=fmt)
+    for split in (1, 3, 8):
+        model = _paged_model(q, got, pos, split=split, **mkw)
+        err = (model.float() - want.float()).abs()
+        assert bool((err <= tol).all()), (split, float(err.max()))
+    bad = _paged_model(q, got, pos, split=8, drop_rank=2, **mkw)
+    err = (bad.float() - want.float()).abs()
+    assert bool((err[0] > tol[0]).any())
+
+
 ENGINE_SHAPES = [  # (B, KV, G, hd, wc, page, max_pages): qwen3-4b, granite
     (4, 8, 4, 128, 64, 16, 16), (4, 8, 2, 64, 32, 16, 16)]
 
@@ -211,6 +357,51 @@ def test_paged_smem_layout():
     # numerators and denominators
     want = 64 + 592 + 17408 + 7 * 4 * 128 * 4 + 112
     assert TPD.paged_smem_bytes(4, 128, 64, 16, 16, 7) == want
+
+
+@pytest.mark.parametrize("shape", ENGINE_SHAPES)
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_fold_plan_keeps_the_decode_split(shape, k):
+    """The verify fold's launch over B (k+1) rows plans from the request
+    batch B: the decode step's split (7 at the engines' shapes), over a
+    grid of B (k+1) KV split blocks; a plan of the B (k+1) rows as their
+    own batch would split otherwise, and sum the ranks in another
+    order."""
+    B, rest = shape[0], shape[1:]
+    fold, decode = TPD.fold_plan(B, k + 1, *rest), TPD.paged_plan(*shape)
+    assert fold.split == decode.split == 7
+    assert (fold.cap, fold.smem) == (decode.cap, decode.smem)
+    assert fold.blocks == decode.blocks * (k + 1)
+    assert TPD.paged_plan(B * (k + 1), *rest).split != decode.split
+
+
+@pytest.mark.parametrize("fmt,fmt_kv,packed", [
+    ("fp32", "fp8_e4m3", False),        # kv8_attn_f32
+    ("fp32", "fp16", False),            # kv16_attn_f32
+    ("fp8_e4m3", "fp16", False),        # fp16 KV
+    ("fp4_e2m1", "fp4_e2m1", False),    # unpacked fp4 KV
+    ("bf16", "fp4_e2m1", True)])
+def test_launch_refuses_open_formats_before_loading(fmt, fmt_kv, packed):
+    """What the kernel does not serve yet raises NotImplementedError
+    naming its ROADMAP item, before the library loads (which this machine
+    cannot build: loading would raise RuntimeError)."""
+    B, H, KV, hd, page, P = 2, 8, 2, 128, 16, 4
+    wc = hd // 2 if packed else hd
+    code = torch.uint8 if fmt_kv == "fp4_e2m1" else torch_dtype(fmt_kv)
+    q = torch.zeros((B, 1, H, hd), dtype=torch.bfloat16)
+    codes = torch.zeros((P, page, KV, wc), dtype=code)
+    scales = torch.ones((P, page, KV, 1))
+    table = torch.zeros((B, 2), dtype=torch.int32)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="formats open"):
+        TPD.launch_paged(q, codes, scales, codes, scales, table, pos,
+                         fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
+    with pytest.raises(NotImplementedError, match="formats open"):
+        TPD.kernel_formats(fmt, fmt_kv, packed)
+    for served in (("fp8_e4m3", "fp4_e2m1", True), ("fp4_e2m1", "fp8_e4m3",
+                                                     False),
+                   ("fp16", "fp4_e2m1", True)):
+        TPD.kernel_formats(*served)
 
 
 @pytest.mark.parametrize("args,what", [

@@ -76,8 +76,8 @@ def test_describe_and_table_integrity():
     assert set(d["candidates"]) == {"cuda_block_table", "torch_gather"}
     assert set(exec_plan.ops()) == {"matmul", "grouped_matmul",
                                     "flash_attn", "decode_attn",
-                                    "paged_decode", "unembed",
-                                    "quantize_pack"}
+                                    "paged_decode", "verify_attn",
+                                    "unembed", "quantize_pack"}
     for op in exec_plan.ops():
         for e in exec_plan.candidates(op):
             ref = exec_plan.reference_entry(e)

@@ -126,4 +126,9 @@ def test_idle_slot_on_scratch_page_and_no_launch_on_cpu():
     with pytest.raises(ValueError):
         _port(q, got, pos.to(torch.int64), pol)
     with pytest.raises(ValueError):
-        _port(q.expand(3, 2, H, HD), got, pos, pol)
+        _port(q[:, :0], got, pos, pol)    # no query token
+    # two query tokens a request: the verify fold's plain version, row i
+    # at positions + i, with no launch either
+    two = _port(q.expand(3, 2, H, HD).contiguous(), got, pos, pol)
+    assert TPD.paged_decode_attention.launches == before
+    assert torch.equal(two[:, :1], out)

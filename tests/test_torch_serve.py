@@ -21,8 +21,9 @@ every scheduler tick and the copy-on-write source left untouched, as
 `tests/test_prefix_cache.py` pins the reference.
 
 Front end: `launch.serve.main` with `--device cpu` prints the report
-lines in both modes, and every flag whose module is not ported exits
-naming its ROADMAP item.
+lines in both modes, the speculation flags (`--spec-draft`, `--spec-k`,
+`--adaptive-draft`) serve and print their report lines, and every flag
+whose module is not ported exits naming its ROADMAP item.
 """
 import contextlib
 import functools
@@ -429,21 +430,50 @@ def test_front_end_static_mode_and_moe_line():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--engine", "--spec-draft", "w4a4_kv4_attn4"),
-     "Speculative decoding and the adaptive draft ladder"),
-    (("--engine", "--spec-k", "3"),
-     "Speculative decoding and the adaptive draft ladder"),
-    (("--engine", "--adaptive-draft"),
-     "Speculative decoding and the adaptive draft ladder"),
-    (("--engine", "--tp", "2"), "Tensor-parallel serving and collectives"),
-    (("--n-model", "2",), "Tensor-parallel serving and collectives"),
-    (("--engine", "--tuned-db", "tuned.json"), "Tuner"),
-    (("--spec-draft", "w4a4_kv4_attn4"),
-     "Speculative decoding and the adaptive draft ladder")])
+    pytest.param(("--engine", "--tp", "2"),
+                 "Tensor-parallel serving and collectives",
+                 id="flags3-Tensor-parallel serving and collectives"),
+    pytest.param(("--n-model", "2",),
+                 "Tensor-parallel serving and collectives",
+                 id="flags4-Tensor-parallel serving and collectives"),
+    pytest.param(("--engine", "--tuned-db", "tuned.json"), "Tuner",
+                 id="flags5-Tuner")])
 def test_front_end_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit) as exc:
         _main(*flags)
     assert f"ROADMAP Queue 1, \"{item}\"" in str(exc.value)
+
+
+ENGINE_SMALL = ("--engine", "--requests", "3", "--prompt-len", "10", "--gen",
+                "5", "--page-size", "8", "--prefill-chunk", "8",
+                "--max-batch", "2")
+
+
+@pytest.mark.parametrize("flags,line", [
+    (("--spec-draft", "w4a4_kv4_attn4"), "spec: draft k=4 under "
+                                         "w4a4_kv4_attn4"),
+    (("--spec-draft", "kv4_attn8_packed", "--spec-k", "3"),
+     "spec: draft k=3 under kv4_attn8_packed"),
+    (("--adaptive-draft",), "adaptive: 3-rung ladder"),
+    (("--adaptive-draft", "--spec-k", "2", "--temperature", "0.8",
+      "--top-k", "50"), "rung 2: w16a16_kv4_attn16 (k=2)")])
+def test_front_end_speculation_flags_run(flags, line):
+    rep, text = _main(*ENGINE_SMALL, *flags)
+    assert line in text, text
+    assert rep["n_requests"] == 3 and rep["spec_rounds"] > 0
+    if "--spec-k" not in flags or "kv4_attn8_packed" not in flags:
+        return
+    assert rep["acceptance_rate"] == 1.0          # a self-draft
+
+
+def test_front_end_speculation_guards():
+    with pytest.raises(SystemExit, match="replaces --spec-draft"):
+        _main(*ENGINE_SMALL, "--adaptive-draft", "--spec-draft",
+              "w4a4_kv4_attn4")
+    # prompt 10 + gen 5 fit S_max 16 alone, not with a 4-token window
+    with pytest.raises(SystemExit, match="draft window"):
+        _main(*ENGINE_SMALL, "--max-pages-per-req", "2",
+              "--spec-draft", "w4a4_kv4_attn4")
 
 
 def test_front_end_guards_s_max():

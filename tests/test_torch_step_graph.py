@@ -257,7 +257,9 @@ def test_counters_list_every_kernel_wrapper():
     assert {k for k in snap if "." in k} == {
         "dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
         "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled",
-        "dpa_flash_attention.prepass", "flash_attention.prepass"}
+        "dpa_flash_attention.prepass", "flash_attention.prepass",
+        "paged_decode_attention.fp8_e4m3", "paged_decode_attention.fp4_e2m1",
+        "paged_decode_attention.fp16", "paged_decode_attention.verify"}
 
 
 def test_failed_capture_names_the_port_line():
