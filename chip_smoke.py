@@ -61,6 +61,19 @@ Phases (every failure raises; the exit code is then non-zero):
      is also timed cold (rotating over 24 layers' weight codes, as path
      c walks them, for the kernel and the library call alike), and every
      (column tile, split) the kernel takes is timed at path c's shapes;
+   - the TransDot datapath (`core.dpa`, `core.fpnew_ref`, `core.oracle`)
+     on CUDA tensors: every batch of `tests/golden/dpa_vectors.npz`
+     replayed bit for bit, seeded random batches in 8 modes (specials, a
+     narrow window, sequential FMA) equal to the CPU's codes, the card's
+     lanes/s in Table I's modes and the paper's numerics table (DPA vs
+     sequential FMA, card = CPU); the prequant kernels, dense and grouped
+     (E 2 and 32), equal to `oracle.dpa_exact` bit for bit in the fp16
+     x2, E4M3 x4 and E2M1 x8 modes (windowed codes, K padded to 128) and
+     E2M1 at K 2560; each new operand format (fp16, bf16, E4M3, E5M2,
+     unpacked E2M1, and four mixes) at granite's shapes, M 8 and 11,
+     within rtol 2e-5 / atol 2e-4 of the plain version (E2M1 x E2M1 bit
+     for bit), one decode layer per format timed warm beside its bound
+     and `torch.matmul` / `torch._scaled_mm`;
    - `flash_attention` at one layer of qwen3-4b's prefill (S 4096, H 32,
      KV 8, hd 128) on f32 and bf16 inputs, at hd 64 and at S 1000 (key
      blocks of 125), against the global-softmax plain version; both
@@ -842,7 +855,8 @@ def _attn_grid(y, fmt):
     """clip(y, -T, T) onto the attention format's grid, f32 values."""
     import torch
     from repro_torch.core.formats import get_format
-    from repro_torch.core.quantize import decode_fp4, encode_fp4, torch_dtype
+    from repro_torch.core.formats import torch_dtype
+    from repro_torch.core.quantize import decode_fp4, encode_fp4
     t = get_format(fmt).quant_target
     y = torch.clamp(y, -t, t)
     if fmt == "fp4_e2m1":
@@ -1339,46 +1353,59 @@ def _per_layer(timed, shapes, M):
     return out
 
 
-def _e4m3_operands(xq, wq):
-    """Packed E2M1 codes widened onto e4m3 (exact: every E2M1 value is an
-    e4m3 value), rows padded to 16 for the library's alignment, the
-    weights column-major: the library's inputs for the same product."""
+def _fp8_operands(xq, wq, kw):
+    """The codes widened onto fp8 (exact: every E2M1 value is an e4m3
+    value; E4M3 and E5M2 codes stay themselves), rows padded to 16 for the
+    library's alignment, the weights column-major: the library's inputs
+    for the same product."""
     import torch
     from repro_torch.kernels.dpa_matmul import widen
-    x8 = widen(xq, "fp4_e2m1", packed=True, dim=-1)
+
+    def fp8(fmt):
+        return torch.float8_e5m2 if fmt == "fp8_e5m2" else \
+            torch.float8_e4m3fn
+    x8 = widen(xq, kw["fmt_x"], packed=kw["pack_x"], dim=-1)
     x8 = torch.nn.functional.pad(x8, (0, 0, 0, -x8.shape[-2] % 16))
-    w8 = widen(wq, "fp4_e2m1", packed=True, dim=-2)
+    w8 = widen(wq, kw["fmt_w"], packed=kw["pack_w"], dim=-2)
     w8 = w8.transpose(-1, -2).contiguous().transpose(-1, -2)
-    return (x8.to(torch.float8_e4m3fn).contiguous(),
-            w8.to(torch.float8_e4m3fn))
+    return (x8.to(fp8(kw["fmt_x"])).contiguous(), w8.to(fp8(kw["fmt_w"])))
 
 
-def _library_call(xq, wq, sx, sw):
+def _library_call(xq, wq, sx, sw, kw=None):
     """One PyTorch call computing the prequant product on the same codes
-    and scales (`torch._scaled_mm`, or `torch._scaled_grouped_mm` for an
-    expert stack; bf16 out, the only output rowwise scaling takes), as a
-    function of no arguments, or (None, why) where there is none."""
+    and scales, as a function of no arguments, with its name and the
+    function that takes its output to the kernel's (None where the call
+    is the kernel's function), or (None, why, None) where there is none:
+    `torch._scaled_mm` (`torch._scaled_grouped_mm` for an expert stack;
+    bf16 out, the only output rowwise scaling takes) on fp8 codes, and for
+    fp16 and bf16 codes `torch.matmul` (out in the codes' dtype; the
+    scales are not part of the call)."""
     import torch
+    kw = kw or FP4_PACKED
     grouped = xq.ndim == 3
+    if kw["fmt_x"] in ("fp16", "bf16"):
+        return ((lambda: torch.matmul(xq, wq)), "matmul",
+                lambda out: (out.float() * sx) * sw)
     fn_name = "_scaled_grouped_mm" if grouped else "_scaled_mm"
     if not hasattr(torch, fn_name):
-        return None, f"none: torch {torch.__version__} has no {fn_name}"
-    x8, w8 = _e4m3_operands(xq, wq)
+        return None, f"none: torch {torch.__version__} has no {fn_name}", None
+    x8, w8 = _fp8_operands(xq, wq, kw)
     sa = torch.nn.functional.pad(sx.reshape(*sx.shape[:-2], -1),
                                  (0, x8.shape[-2] - xq.shape[-2]))
     if grouped:
         sb = sw.reshape(sw.shape[0], -1).contiguous()
         return (lambda: torch._scaled_grouped_mm(
-            x8, w8, sa.contiguous(), sb, out_dtype=torch.bfloat16)), fn_name
+            x8, w8, sa.contiguous(), sb, out_dtype=torch.bfloat16)), \
+            fn_name, None
     return (lambda: torch._scaled_mm(
         x8, w8, scale_a=sa.reshape(-1, 1).contiguous(),
-        scale_b=sw.contiguous(), out_dtype=torch.bfloat16)), fn_name
+        scale_b=sw.contiguous(), out_dtype=torch.bfloat16)), fn_name, None
 
 
-def library_prequant(xq, wq, sx, sw, want):
+def library_prequant(xq, wq, sx, sw, want, kw=None):
     """The library call of `_library_call`: -> (ms, device ms, max_abs_err
     vs the plain version, note), timed as `timings` times a kernel."""
-    call, fn_name = _library_call(xq, wq, sx, sw)
+    call, fn_name, post = _library_call(xq, wq, sx, sw, kw)
     if call is None:
         return None, None, None, fn_name
     try:
@@ -1386,10 +1413,13 @@ def library_prequant(xq, wq, sx, sw, want):
     except (RuntimeError, TypeError, ValueError) as e:   # a yardstick only
         return (None, None, None,
                 f"none: torch.{fn_name} refused ({str(e)[:120]})")
+    note = f"torch.{fn_name}, {str(out.dtype).split('.')[-1]} out"
+    if post is not None:
+        out = post(out)
+        note += ", scales outside the call"
     err = float((out[..., :want.shape[-2], :].float() - want).abs().max())
     return (median_ms(call), device_ms(call), err,
-            f"torch.{fn_name}, bf16 out (outputs up to "
-            f"{float(want.abs().max()):.4g})")
+            f"{note} (outputs up to {float(want.abs().max()):.4g})")
 
 
 # the prequant kernels' operands: packed E2M1 on both sides
@@ -1498,8 +1528,11 @@ def check_prequant(cfg, gen):
               f"bound {per_layer['bound_ms']:.5f} ms, library "
               f"{per_layer['library_ms']} ms (device "
               f"{per_layer['library_device_ms']})")
-        per_layer["cold"] = cold_prequant_layer(kern, shapes, lead, codes,
-                                                scales)
+        per_layer["cold"] = cold_prequant_layer(
+            kern, shapes, lambda rows, K, N: (
+                (codes(*lead, K // 2, N), scales(*lead, 1, N))
+                if rows is None else
+                (codes(*lead, rows, K // 2), scales(*lead, rows, 1))))
         out[what] = per_layer
 
     # the largest |acc| the plan admits: 144 K / 4 at K = 2^16 - 128
@@ -1529,6 +1562,7 @@ def sweep_prequant_plans(gen, M=8):
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     lib = B.load_library()
+    fmt = DM.PREQUANT_FMT["fp4_e2m1", True]
     res = {}
     for E, K, N in ((1, 1024, 1024), (1, 1024, 512), (32, 1024, 512),
                     (32, 512, 1024)):
@@ -1549,9 +1583,9 @@ def sweep_prequant_plans(gen, M=8):
 
                 def call(bn=bn, split=split):
                     B.check(lib.dpa_prequant_launch(
-                        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-                        sw.data_ptr(), out.data_ptr(), E, M, K, N, bn, split,
-                        torch.cuda.current_stream().cuda_stream),
+                        xq.data_ptr(), fmt, sx.data_ptr(), wq.data_ptr(),
+                        fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, bn,
+                        split, torch.cuda.current_stream().cuda_stream),
                         "dpa_prequant_launch")
                 out.fill_(float("nan"))
                 call()
@@ -1573,21 +1607,29 @@ def sweep_prequant_plans(gen, M=8):
     return res
 
 
-def cold_prequant_layer(kern, shapes, lead, codes, scales, M=8,
+def cold_prequant_layer(kern, shapes, operand, kw=FP4_PACKED, M=8,
                         layers=COLD_LAYERS):
     """One decode layer of a prequant wrapper and of its library call,
     rotating over `layers` layers' distinct weight codes, as path B walks
-    them (`cold_layer`)."""
+    them (`cold_layer`).  `operand(rows, K, N)` makes the activations'
+    (rows = M) or the weights' (rows = None) codes and scales."""
     kcalls, lcalls = [], []
-    xs = {name: (codes(*lead, M, K // 2), scales(*lead, M, 1))
-          for name, (K, N) in shapes.items()}
+    xs = {name: operand(M, K, N) for name, (K, N) in shapes.items()}
     for _ in range(layers):
         for name, (K, N) in shapes.items():
             x, sx = xs[name]
-            args = (x, codes(*lead, K // 2, N), sx, scales(*lead, 1, N))
-            kcalls.append(lambda a=args: kern(*a, **FP4_PACKED))
-            lcalls.append(_library_call(*args)[0])
-    return cold_layer(kern.__name__, M, layers, kcalls, lcalls)
+            wq, sw = operand(None, K, N)
+            args = (x, wq, sx, sw)
+            kcalls.append(lambda a=args: kern(*a, **kw))
+            lcalls.append(_library_call(*args, kw)[0])
+    return cold_layer(f"{kern.__name__} {_kw_name(kw)}", M, layers, kcalls,
+                      lcalls)
+
+
+def _kw_name(kw) -> str:
+    """'fp8_e4m3 x fp4_e2m1 packed' for a prequant call's formats."""
+    return " x ".join(f"{kw['fmt_' + s]}{' packed' if kw['pack_' + s] else ''}"
+                      for s in "xw")
 
 
 def cold_layer(name, M, layers, kcalls, lcalls=()):
@@ -1622,6 +1664,388 @@ def cold_layer(name, M, layers, kcalls, lcalls=()):
 
 def _per(v, n):
     return None if v is None else v / n
+
+
+# -----------------------------------------------------------------------------
+# phase 2: the TransDot datapath — the golden model, the oracle, and the
+# prequant kernels in every operand format
+# -----------------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "golden" / "dpa_vectors.npz"
+GOLDEN_MODES = (("fp16", "fp32", 2), ("fp8_e4m3", "fp32", 4),
+                ("fp4_e2m1", "fp32", 8), ("fp32", "fp32", 1),
+                ("fp16", "fp16", 2), ("fp8_e4m3", "fp16", 4))
+RANDOM_MODES = GOLDEN_MODES + (("fp8_e5m2", "fp32", 4), ("bf16", "fp32", 2))
+NARROW_WINDOW = 24          # window_bits of the narrow-window batches
+RANDOM_LANES = 4096         # lanes of each random batch, card and CPU
+# benchmarks/paper_tables.py table1_modes: (mode, fmt_ab, fmt_acc, N)
+TABLE1_MODES = (("fp32_fma_scalar", "fp32", "fp32", 1),
+                ("fp16_fma_scalar", "fp16", "fp16", 1),
+                ("fp16_fma_simd", "fp16", "fp16", 1),
+                ("fp16_dpa_fp32", "fp16", "fp32", 2),
+                ("fp8_fma_scalar", "fp8_e4m3", "fp8_e4m3", 1),
+                ("fp8_fma_simd", "fp8_e4m3", "fp8_e4m3", 1),
+                ("fp8_dpa_fp32", "fp8_e4m3", "fp32", 4),
+                ("fp4_dpa_fp32", "fp4_e2m1", "fp32", 8))
+TABLE1_LANES = (4096, 1 << 20)   # the reference's call, and a card-sized one
+# benchmarks/paper_tables.py numerics_dpa_vs_sequential
+NUMERICS_MODES = (("fp16", 2, "fp16"), ("fp8_e4m3", 4, "fp16"),
+                  ("fp8_e4m3", 4, "fp32"), ("fp4_e2m1", 8, "fp32"))
+NUMERICS_TRIALS = 2000
+
+
+def _mode_codes(rng, fa, fc, n, lanes):
+    """Codes over the whole code space (specials included) in half the
+    lanes, finite codes of unit-normal data in the other half."""
+    import numpy as np
+    from repro_torch.core import formats as F
+    fa, fc = F.get_format(fa), F.get_format(fc)
+    a = rng.integers(0, 1 << fa.bits, (lanes, n), dtype=np.uint64)
+    b = rng.integers(0, 1 << fa.bits, (lanes, n), dtype=np.uint64)
+    c = rng.integers(0, 1 << fc.bits, lanes, dtype=np.uint64)
+    h = lanes // 2
+    a[h:] = F.float_to_codes(rng.normal(size=(lanes - h, n)), fa)
+    b[h:] = F.float_to_codes(rng.normal(size=(lanes - h, n)), fa)
+    c[h:] = F.float_to_codes(rng.normal(size=lanes - h) * 4, fc)
+    return tuple(_i64(x) for x in (a, b, c))
+
+
+def _i64(a):
+    """numpy codes -> an int64 CPU tensor."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def check_datapath():
+    """The golden model (`core.dpa.dpa_codes`) and the FPnew baseline
+    (`core.fpnew_ref.sequential_fma_codes`) on CUDA tensors: every batch
+    of `tests/golden/dpa_vectors.npz` (read with numpy) replayed bit for
+    bit; seeded random batches in each golden mode and with E5M2 and bf16
+    operands (specials included), at the default window and at
+    `NARROW_WINDOW`, equal to the CPU's codes; the card's lanes/s in each
+    of Table I's modes; and the paper's numerics table (DPA's and
+    sequential FMA's mean |error| against the exact sum), computed on the
+    card and equal to the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dpa, formats as F, fpnew_ref
+    res = {"golden_lanes": 0, "random_lanes": 0}
+    with np.load(GOLDEN) as v:
+        arrays = {k: v[k] for k in v.files}
+    for fa, fc, n in GOLDEN_MODES:
+        for kind in ("finite", "specials"):
+            tag = f"{fa}_x{n}_{fc}_{kind}"
+            a, b, c = (_i64(arrays[f"{tag}__{k}"]).cuda() for k in "abc")
+            got = dpa.dpa_codes(a, b, c, fa, fc).cpu()
+            bad = int((got != _i64(arrays[f"{tag}__out"])).sum())
+            if bad:
+                raise AssertionError(f"golden {tag}: {bad} of {got.numel()} "
+                                     "lanes differ on the card")
+            res["golden_lanes"] += got.numel()
+    print(f"datapath: the golden file's {2 * len(GOLDEN_MODES)} batches "
+          f"({res['golden_lanes']} lanes) replayed on the card bit for bit")
+
+    rng = np.random.default_rng(23)
+    for fa, fc, n in RANDOM_MODES:
+        a, b, c = _mode_codes(rng, fa, fc, n, RANDOM_LANES)
+        runs = [(f"dpa W={w or 'default'}",
+                 lambda t, w=w: dpa.dpa_codes(*t, fa, fc, window_bits=w))
+                for w in (None, NARROW_WINDOW)]
+        runs.append(("sequential_fma",
+                     lambda t: fpnew_ref.sequential_fma_codes(*t, fa, fc)))
+        for what, fn in runs:
+            cpu = fn((a, b, c))
+            card = fn((a.cuda(), b.cuda(), c.cuda())).cpu()
+            if not torch.equal(cpu, card):
+                raise AssertionError(
+                    f"{what} {fa}x{n}->{fc}: {int((cpu != card).sum())} of "
+                    f"{cpu.numel()} lanes differ between the card and the "
+                    "CPU")
+            res["random_lanes"] += cpu.numel()
+    print(f"datapath: {len(RANDOM_MODES)} modes' random batches (specials "
+          f"included; dpa at the default window and W={NARROW_WINDOW}, and "
+          f"sequential FMA), {res['random_lanes']} lanes: the card's codes "
+          "equal the CPU's")
+
+    rng = np.random.default_rng(0)
+    table1 = {}
+    for mode, fa, fc, n in TABLE1_MODES:
+        row = {"n_terms": n, "fmt_acc": fc}
+        for lanes in TABLE1_LANES:
+            a = _i64(F.float_to_codes(rng.normal(size=(lanes, n)),
+                                           F.get_format(fa))).cuda()
+            b = _i64(F.float_to_codes(rng.normal(size=(lanes, n)),
+                                           F.get_format(fa))).cuda()
+            c = _i64(F.float_to_codes(rng.normal(size=(lanes,)),
+                                           F.get_format(fc))).cuda()
+            ms = median_ms(lambda: dpa.dpa_codes(a, b, c, fa, fc), n=5)
+            row[f"ms_{lanes}"] = ms
+            row[f"lanes_per_s_{lanes}"] = lanes / ms * 1e3
+        table1[mode] = row
+        print(f"datapath table1/{mode} ({fa} x{n} -> {fc}): "
+              + ", ".join(f"{lanes} lanes {row[f'ms_{lanes}']:.3f} ms "
+                          f"({row[f'lanes_per_s_{lanes}']:.4g} lanes/s)"
+                          for lanes in TABLE1_LANES))
+    res["table1"] = table1
+
+    rng = np.random.default_rng(1)        # paper_tables' seed and order
+    numerics = {}
+    for fmt, n, acc in NUMERICS_MODES:
+        fa, fc = F.get_format(fmt), F.get_format(acc)
+        a = rng.normal(size=(NUMERICS_TRIALS, n))
+        b = rng.normal(size=(NUMERICS_TRIALS, n))
+        ac, bc = F.float_to_codes(a, fa), F.float_to_codes(b, fa)
+        cc = np.zeros(NUMERICS_TRIALS, np.uint32)
+        exact = (F.codes_to_np(ac, fa).astype(np.float64)
+                 * F.codes_to_np(bc, fa).astype(np.float64)).sum(1)
+        t = tuple(_i64(x) for x in (ac, bc, cc))
+        errs = {}
+        for what, fn in (("dpa", dpa.dpa_codes),
+                         ("seq", fpnew_ref.sequential_fma_codes)):
+            card = fn(*(x.cuda() for x in t), fa, fc).cpu()
+            if not torch.equal(card, fn(*t, fa, fc)):
+                raise AssertionError(f"numerics {fmt}x{n}->{acc} {what}: "
+                                     "the card's codes differ from the CPU's")
+            got = F.codes_to_np(card, fc).astype(np.float64)
+            errs[what] = float(np.abs(got - exact).mean())
+        key = f"{fmt}x{n}_to_{acc}"
+        numerics[key] = {"dpa_err": errs["dpa"], "seq_err": errs["seq"],
+                         "improvement": errs["seq"] / max(errs["dpa"],
+                                                          1e-300)}
+        print(f"datapath numerics/{key}: dpa_err={errs['dpa']:.2e};"
+              f"seq_err={errs['seq']:.2e};improvement="
+              f"{numerics[key]['improvement']:.2f}x (card = CPU)")
+    res["numerics"] = numerics
+    return res
+
+
+# tests/test_grouped_dpa.py ORACLE_MODES: (fmt, K, raw exponent window)
+ORACLE_MODES = (("fp16", 4, (15, 15)), ("fp8_e4m3", 8, (6, 9)),
+                ("fp4_e2m1", 8, None))
+ORACLE_EXPERTS = (1, 2, 32)     # dense, and grouped at granite's 32
+
+
+def _windowed_codes(rng, fmt, shape, ewin):
+    """tests/test_grouped_dpa.py _windowed_codes: random sign and mantissa,
+    the raw exponent field confined to `ewin` (None: E2M1's full grid)."""
+    import numpy as np
+    from repro_torch.core import formats as F
+    f = F.get_format(fmt)
+    lo, hi = ewin if ewin is not None else (0, f.exp_mask)
+    e = rng.integers(lo, hi + 1, size=shape)
+    man = rng.integers(0, f.man_mask + 1, size=shape)
+    sign = rng.integers(0, 2, size=shape) << (f.bits - 1)
+    return (sign | (e << f.man_bits) | man).astype(np.int64)
+
+
+def _oracle_sums(fmt, xc, wc):
+    """`oracle.dpa_exact` of every output of codes xc (E, M, K) times wc
+    (E, K, N), c = +0, into f32: (E, M, N) uint32 codes."""
+    import numpy as np
+    from repro_torch.core import formats as F, oracle
+    E, M, K = xc.shape
+    N = wc.shape[-1]
+    a = np.broadcast_to(xc[:, :, None, :], (E, M, N, K)).reshape(-1, K)
+    b = np.broadcast_to(wc.transpose(0, 2, 1)[:, None], (E, M, N, K)
+                        ).reshape(-1, K)
+    return oracle.dpa_exact(a, b, np.zeros(E * M * N, np.uint32),
+                            F.get_format(fmt), F.FP32).reshape(E, M, N)
+
+
+def _prequant_vs_oracle(fmt, xc, wc, pack, want):
+    """The prequant wrapper (dense at E = 1) on codes xc (E, M, K) and wc
+    (E, K, N), K padded with zero codes to a multiple of 128, unit scales,
+    against the oracle's codes `want`: -> (mismatching outputs, outputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core.packing import pack_fp4_axis
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    E, M, K = xc.shape
+    N = wc.shape[-1]
+    Kp = -(-K // DM.BK) * DM.BK
+    xp = np.zeros((E, M, Kp), np.int64)
+    wp = np.zeros((E, Kp, N), np.int64)
+    xp[..., :K], wp[:, :K] = xc, wc
+    xt = F.codes_to_tensor(torch.from_numpy(xp).cuda(), fmt)
+    wt = F.codes_to_tensor(torch.from_numpy(wp).cuda(), fmt)
+    if pack:
+        xt, wt = pack_fp4_axis(xt, -1), pack_fp4_axis(wt, -2)
+    kw = dict(fmt_x=fmt, fmt_w=fmt, pack_x=pack, pack_w=pack)
+    sx = torch.ones(E, M, 1, device="cuda")
+    sw = torch.ones(E, 1, N, device="cuda")
+    if E == 1:
+        got = DM.dpa_matmul_prequant(xt[0], wt[0], sx[0], sw[0], **kw)[None]
+    else:
+        got = GM.dpa_grouped_matmul_prequant(xt, wt, sx, sw, **kw)
+    got = got.cpu().numpy().view(np.uint32)
+    return int((got != want).sum()), got.size
+
+
+def check_prequant_oracle():
+    """The prequant kernels, dense (E = 1) and grouped (E = 2, 32), against
+    the exact oracle bit for bit in the paper's three DPA modes, on the
+    reference test's windowed codes (tests/test_grouped_dpa.py: the
+    exponents confined so that every exact sum is an f32 value): fp16,
+    raw exponent 15, K = 4; E4M3, raw exponents 6-9, K = 8; E2M1 over the
+    full grid, K = 8 (packed and one code a byte); and E2M1 at qwen3-4b's
+    K = 2560, where every partial sum is exact too."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    M, N = 8, 16
+    res, lanes = {}, 0
+    cases = [(fmt, K, ewin, E) for fmt, K, ewin in ORACLE_MODES
+             for E in ORACLE_EXPERTS] + [("fp4_e2m1", 2560, None, 1)]
+    for fmt, K, ewin, E in cases:
+        xc = _windowed_codes(rng, fmt, (E, M, K), ewin)
+        wc = _windowed_codes(rng, fmt, (E, K, N), ewin)
+        want = _oracle_sums(fmt, xc, wc)
+        for pack in ((False, True) if fmt == "fp4_e2m1" else (False,)):
+            bad, n = _prequant_vs_oracle(fmt, xc, wc, pack, want)
+            key = f"{fmt}{' packed' if pack else ''} K={K} E={E}"
+            if bad:
+                raise AssertionError(f"prequant vs oracle, {key}: {bad} of "
+                                     f"{n} outputs differ from the exact sum")
+            res[key] = n
+            lanes += n
+    print(f"datapath: prequant kernels vs oracle.dpa_exact, {len(res)} cases"
+          f" ({lanes} outputs; fp16 x2, E4M3 x4 and E2M1 x8 modes, dense and "
+          "grouped, and E2M1 at K=2560): every output bit for bit")
+    return res
+
+
+# the prequant kernels' new operand formats, each on both sides (the
+# timed cases), and mixes (checked): (fmt_x, pack_x, fmt_w, pack_w)
+PREQUANT_FORMATS = ("fp16", "bf16", "fp8_e4m3", "fp8_e5m2", "fp4_e2m1")
+PREQUANT_MIXES = (("fp8_e4m3", False, "fp4_e2m1", True),
+                  ("bf16", False, "fp8_e4m3", False),
+                  ("fp16", False, "fp8_e5m2", False),
+                  ("fp4_e2m1", False, "fp4_e2m1", True))
+
+
+# the larger row tiles (32 and 64 rows a block; 100: two tiles, the last
+# partial), checked untimed in every format
+PREQUANT_FORMAT_EDGE_ROWS = (32, 64, 100)
+
+
+def _format_operand(v, fmt, pack, dim):
+    """f32 data -> (codes in fmt's container, f32 scales with `dim` kept):
+    the port's absmax quantizer, E2M1 packed along `dim` if asked."""
+    from repro_torch.core import formats as F, quantize as Q
+    from repro_torch.core.packing import pack_fp4_axis
+    grid, scale = Q.quant_rows_grid(v, fmt, dim=dim)
+    if fmt == "fp4_e2m1":
+        codes = Q.encode_fp4(grid)
+        return (pack_fp4_axis(codes, dim) if pack else codes), scale
+    return grid.to(F.torch_dtype(fmt)).contiguous(), scale
+
+
+def check_prequant_formats(cfg, gen):
+    """The prequant kernels in each new operand format (fp16, bf16, E4M3,
+    E5M2, E2M1 one code a byte; both sides) and in four mixes, dense at
+    granite's attention projections and grouped at its experts, M = 8 and
+    11 and the larger row tiles' `PREQUANT_FORMAT_EDGE_ROWS`, on
+    absmax-quantized unit-normal data (positive scales): within rtol 2e-5
+    / atol 2e-4 of the plain version (the reference test's pin), bit for
+    bit where both sides are E2M1 (exact sums).  Each format's decode
+    layer (M = 8) is timed warm (one call repeated: the weights sit in
+    L2) and cold (rotating over `COLD_LAYERS` layers' weights), with its
+    bound and its library call."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    E = cfg.n_experts
+    out = {}
+    cases = [(f, False, f, False) for f in PREQUANT_FORMATS] + \
+        list(PREQUANT_MIXES)
+    for what, shapes, lead in (("dense", _attn_shapes(cfg), ()),
+                               ("grouped", _expert_shapes(cfg), (E,))):
+        kern = GM.dpa_grouped_matmul_prequant if lead else \
+            DM.dpa_matmul_prequant
+        ref = GM.dpa_grouped_matmul_prequant_ref if lead else \
+            DM.dpa_matmul_prequant_ref
+        n_e = E if lead else 1
+        res = {}
+        for fx, px, fw, pw in cases:
+            kw = dict(fmt_x=fx, fmt_w=fw, pack_x=px, pack_w=pw)
+            name = _kw_name(kw)
+            exact = fx == fw == "fp4_e2m1"
+            timed_case = (fx, px) == (fw, pw)
+            worst, timed, lib = 0.0, {}, {}
+            for K, N in sorted(set(shapes.values())):
+                wq, sw = _format_operand(
+                    torch.randn(*lead, K, N, generator=gen, device="cuda"),
+                    fw, pw, -2)
+                for M in (8, 11) + PREQUANT_FORMAT_EDGE_ROWS:
+                    x = torch.randn(*lead, M, K, generator=gen,
+                                    device="cuda")
+                    if lead:
+                        x = _drop(x, [max(1, M // 2)] * (E - 1) + [0])
+                    xq, sx = _format_operand(x, fx, px, -1)
+                    args = (xq, wq, sx, sw)
+                    got = kern(*args, **kw)
+                    want = ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs()
+                    held = torch.equal(got, want) if exact else bool(
+                        (err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
+                    if not held or not bool(torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"{kern.__name__} {name} K={K} N={N} M={M}: max "
+                            f"err {float(err.max())} outside "
+                            + ("0" if exact else f"rtol {MATMUL_RTOL} / atol "
+                               f"{MATMUL_ATOL}"))
+                    worst = max(worst, float(err.max()))
+                    if M != 8 or not timed_case:
+                        continue
+                    t = timings(lambda: kern(*args, **kw),
+                                lambda: ref(*args, **kw))
+                    nbytes = (xq.numel() * xq.element_size() + sx.numel() * 4
+                              + wq.numel() * wq.element_size()
+                              + sw.numel() * 4 + n_e * M * N * 4)
+                    t["bound_ms"], t["bound_by"] = bound(
+                        nbytes, 2.0 * n_e * M * K * N,
+                        FP8_OPS_PER_S if exact else FP16_OPS_PER_S)
+                    timed[(K, N, M)] = t
+                    lib[(K, N, M)] = library_prequant(*args, want, kw)
+            res[name] = {"max_abs_err": worst,
+                         "held": "bit for bit" if exact else
+                         f"rtol {MATMUL_RTOL} / atol {MATMUL_ATOL}"}
+            if timed_case:
+                layer = _per_layer(timed, shapes, 8)
+                layer["bound_by"] = timed[next(iter(timed))]["bound_by"]
+                libs = [lib[(K, N, 8)] for K, N in shapes.values()]
+                for i, key in enumerate(("library_ms", "library_device_ms")):
+                    vals = [v[i] for v in libs]
+                    layer[key] = None if None in vals else sum(vals)
+                layer["library"] = libs[0][3]
+                res[name].update(layer)
+                print(f"{kern.__name__} {name}, one decode layer (M=8, "
+                      f"{len(shapes)} calls), warm: {fmt_times(layer)}, "
+                      f"bound {layer['bound_ms']:.5f} ms "
+                      f"({layer['bound_by']}), library {layer['library']}: "
+                      f"{layer['library_ms']} ms (device "
+                      f"{layer['library_device_ms']}); max_abs_err {worst:.3g}")
+
+                def operand(rows, K, N, fx=fx, fw=fw):
+                    if rows is None:
+                        return _format_operand(torch.randn(
+                            *lead, K, N, generator=gen, device="cuda"),
+                            fw, False, -2)
+                    return _format_operand(torch.randn(
+                        *lead, rows, K, generator=gen, device="cuda"),
+                        fx, False, -1)
+                res[name]["cold"] = cold_prequant_layer(kern, shapes,
+                                                        operand, kw)
+                gc.collect()
+                torch.cuda.empty_cache()
+            rows = ", ".join(map(str, (8, 11) + PREQUANT_FORMAT_EDGE_ROWS))
+            print(f"{kern.__name__} {name}: M {rows} held "
+                  f"({res[name]['held']}), max_abs_err {worst:.3g}")
+        out[what] = res
+    return out
 
 
 def _attn_inputs(gen, H, KV, S, hd, dtype):
@@ -3485,6 +3909,12 @@ def main() -> None:
     gf_err, gf_t = check_grouped_fused(granite, gen)
     pq_t = check_prequant(granite, gen)
     pq_plans = sweep_prequant_plans(gen)
+    t_dp = time.monotonic()
+    dp_t = check_datapath()
+    pqo_t = check_prequant_oracle()
+    pqf_t = check_prequant_formats(granite, gen)
+    t_dp = time.monotonic() - t_dp
+    print(f"datapath phase: {t_dp:.1f} s")
     fa_t = check_flash(gen)
     dfa_t = check_dpa_flash(gen)
     qz_t = check_quantizers(gen)
@@ -3635,8 +4065,12 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": pq_t["dense"]["library_ms"],
          "library_device_ms": pq_t["dense"]["library_device_ms"],
          "cold": pq_t["dense"]["cold"], "plans": pq_t["dense"]["plans"],
+         "formats": pqf_t["dense"],
+         "oracle_outputs": {k: v for k, v in pqo_t.items()
+                            if k.endswith("E=1")},
          "at": "granite-moe-1b, one layer's 4 attention projections at "
-               "M=8 (2 rows padded)"},
+               "M=8 (2 rows padded), packed E2M1 x packed E2M1 (formats: "
+               "the same layer in each new operand format, timed warm)"},
         {"name": "dpa_grouped_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_grouped_matmul.py:154",
@@ -3657,8 +4091,12 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": pq_t["grouped"]["library_ms"],
          "library_device_ms": pq_t["grouped"]["library_device_ms"],
          "cold": pq_t["grouped"]["cold"], "plans": pq_t["grouped"]["plans"],
+         "formats": pqf_t["grouped"],
+         "oracle_outputs": {k: v for k, v in pqo_t.items()
+                            if not k.endswith("E=1")},
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
-               "M=8 (2 rows padded)"},
+               "M=8 (2 rows padded), packed E2M1 x packed E2M1 (formats: "
+               "the same layer in each new operand format, timed warm)"},
         {"name": "dpa_flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_flash.cu",
          "replaces": "src/repro/kernels/flash_attention.py:218",
@@ -3756,6 +4194,8 @@ def main() -> None:
         if "step_profiles" in r:
             print("summary qwen3-4b " + _spec_line(name, r, rep_q,
                                                    r["step_profiles"]))
+    print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
+                                     "prequant_vs_oracle": pqo_t}))
     print("prequant plans: " + json.dumps(pq_plans))
     print("fused plan sweep: " + json.dumps(
         {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))

@@ -26,9 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .formats import get_format
+from .formats import get_format, torch_dtype
 from .packing import operand_nbytes, pack_fp4, unpack_fp4
-from .quantize import decode_fp4, encode_fp4, quant_rows_grid, torch_dtype
+from .quantize import decode_fp4, encode_fp4, quant_rows_grid
 
 QUANT_KEYS = ("k_codes", "k_scale", "v_codes", "v_scale")
 

@@ -15,23 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .formats import get_format
-
-_TORCH_DTYPE = {
-    "fp32": torch.float32,
-    "fp16": torch.float16,
-    "bf16": torch.bfloat16,
-    "fp8_e4m3": torch.float8_e4m3fn,
-    "fp8_e5m2": torch.float8_e5m2,
-    "fp4_e2m1": torch.uint8,
-}
+from .formats import get_format, torch_dtype
 
 _F32_TINY = 2.0 ** -126          # the f32-normal scale floor
-
-
-def torch_dtype(fmt) -> torch.dtype:
-    """Storage dtype for fmt (uint8 codes for fp4)."""
-    return _TORCH_DTYPE[get_format(fmt).name]
 
 
 def recip(target: float) -> float:

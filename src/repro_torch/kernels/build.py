@@ -42,9 +42,9 @@ _SIGNATURES = {
     "dpa_act_quant_launch": (_P, _I, _P, _P, _I, _I, _P),
     # xq, xs, wq, w_fmt, sw, out, E, M, K, N, stream
     "dpa_fused_tiled_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
-    # xq, sx, wq, sw, out, E, M, K, N, bn, split, stream
-    "dpa_prequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
+    # xq, x_fmt, sx, wq, w_fmt, sw, out, E, M, K, N, bn, split, stream
+    "dpa_prequant_launch": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P),
     # q, q_bf16, kc, ks, vc, vs, table, positions, out,
     # B, sq, H, KV, hd, page, max_pages, kv_fmt, attn_fmt, scale, split,
     # stream

@@ -15,8 +15,10 @@ once) and then a tiled product on the fp16 tensor cores.
 
 `dpa_matmul_prequant` (`csrc/dpa_prequant.cu`) replaces
 `dpa_matmul_prequant` of the same file: both operands arrive quantized
-(codes plus per-row / per-column f32 scales), the codes' products sum
-exactly (int8 tensor cores on the card), and the epilogue is
+(codes plus per-row / per-column f32 scales; fp16, bf16, E4M3, E5M2 or
+E2M1, packed or one code a byte, each side its own), the products are
+exact, the sum f32 (on the card: int8 tensor cores for E2M1 x E2M1, whose
+sums are exact too, else fp16 or bf16 ones), and the epilogue is
 `(acc * sx) * sw`.  `prequant_plan` chooses its launch: the output
 columns per block and the split of K across a thread-block cluster.
 """
@@ -28,10 +30,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
-from repro_torch.core.formats import get_format
+from repro_torch.core.formats import get_format, torch_dtype
 from repro_torch.core.packing import unpack_fp4_axis
 from repro_torch.core.quantize import (absmax_block_scale, decode_fp4,
-                                       encode_fp4, torch_dtype)
+                                       encode_fp4)
 from repro_torch.kernels import build
 
 BK = 128                     # the K block: part of the numerics contract
@@ -428,29 +430,42 @@ def prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
                         tiles * (N // bn) * splits[-1])
 
 
+# the kernel's operand formats (csrc/dpa_prequant.cu), by (format, packed)
+PREQUANT_FMT = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1,
+                ("fp8_e5m2", False): 2, ("fp4_e2m1", False): 3,
+                ("fp16", False): 4, ("bf16", False): 5}
+# the pairs no exact 16-bit MMA holds (fp16 x bf16)
+PREQUANT_REFUSED = {("fp16", "bf16"), ("bf16", "fp16")}
+
+
 def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
                     pack_x, pack_w, what):
     """Launch `csrc/dpa_prequant.cu` on CUDA operands (E = 1 dense) with
     the shape's `prequant_plan`, or raise for what the kernel does not
-    serve."""
-    if (fmt_x, fmt_w, pack_x, pack_w) != ("fp4_e2m1", "fp4_e2m1", True,
-                                         True):
+    serve: every format the Pallas kernel takes, on either side, packed
+    E2M1 or one code a byte, in any mix but fp16 x bf16."""
+    for fmt, pack in ((fmt_x, pack_x), (fmt_w, pack_w)):
+        if (fmt, pack) not in PREQUANT_FMT:
+            raise ValueError(f"{what}: no {fmt} operand format "
+                             f"(packed={pack}); packing needs fp4_e2m1")
+    if (fmt_x, fmt_w) in PREQUANT_REFUSED:
         raise NotImplementedError(
-            f"{what} kernel serves packed fp4_e2m1 x packed fp4_e2m1; "
-            f"({fmt_x}, {fmt_w}, pack_x={pack_x}, pack_w={pack_w}) is "
-            "open in ROADMAP Queue 2 under dpa_matmul_prequant (formats "
-            "open)")
+            f"{what} kernel has no exact tensor-core product of {fmt_x} x "
+            f"{fmt_w}; open in ROADMAP Queue 2 under dpa_matmul_prequant "
+            "(fp16 x bf16)")
     plan = prequant_plan(E, M, K, N)
-    if xq.dtype != torch.uint8 or wq.dtype != torch.uint8:
-        raise TypeError(f"packed fp4 operands must be uint8, got {xq.dtype} "
-                        f"and {wq.dtype}")
+    for name, t, fmt in (("xq", xq, fmt_x), ("wq", wq, fmt_w)):
+        if t.dtype != torch_dtype(fmt):
+            raise TypeError(f"{what}: {fmt} {name} must be "
+                            f"{torch_dtype(fmt)}, got {t.dtype}")
     if not all(t.is_contiguous() for t in (xq, wq, sx, sw)):
         raise ValueError(f"{what} kernel needs contiguous operands")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs 16-byte aligned codes")
     lib = build.load_library()
     err = lib.dpa_prequant_launch(
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+        xq.data_ptr(), PREQUANT_FMT[fmt_x, pack_x], sx.data_ptr(),
+        wq.data_ptr(), PREQUANT_FMT[fmt_w, pack_w], sw.data_ptr(),
         out.data_ptr(), E, M, K, N, plan.bn, plan.split,
         torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(err, what)

@@ -22,10 +22,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.formats import FloatFormat, get_format
+from repro_torch.core.formats import FloatFormat, get_format, torch_dtype
 from repro_torch.core.packing import pack_fp4
-from repro_torch.core.quantize import (cast_to, compute_scale, encode_fp4,
-                                       torch_dtype)
+from repro_torch.core.quantize import cast_to, compute_scale, encode_fp4
 from repro_torch.kernels import build
 
 # the kernel's format codes (2 is packed E2M1): every format of the table

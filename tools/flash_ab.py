@@ -1,9 +1,10 @@
-"""The attention kernels of two checkouts, side by side on one card.
+"""The attention, row-quantizer and prequant kernels of two checkouts,
+side by side on one card.
 
-    python3 tools/flash_ab.py OTHER [--this DIR]
+    python3 tools/flash_ab.py OTHER
 
-OTHER and DIR (default: this checkout) are repository roots, for
-example the parent commit unpacked with `git archive`.  Each side runs
+OTHER is a repository root, for example the parent commit unpacked
+with `git archive`; the other side is this checkout.  Each side runs
 in its own process (both packages are `repro_torch`), in turns OTHER,
 THIS, THIS, OTHER; each builds its own kernels, writes the outputs of
 the f32 flash kernel (one layer of qwen3-4b's prefill, S 4096, in f32
@@ -15,13 +16,15 @@ flash kernel at S 4096 in f32 and in bf16 (path C's instance), the DPA
 kernel at one layer of qwen3-4b scoring (raw fp4 K/V, bf16), paged
 decode at both shapes, and the row quantizers (E4M3 and packed E2M1
 codes of bf16 rows) at qwen3-4b's MLP activations (4096 x 9728) and at
-path D's K/V pre-pass rows (32,768 x 128).  Then it reports the largest
-difference between the two sides' outputs against the card checks' pins
+path D's K/V pre-pass rows (32,768 x 128), and the prequant kernel on
+packed E2M1 codes at `PREQUANT_SHAPES` (each output held bit for bit to
+the side's plain version).  Then it reports the largest difference
+between the two sides' outputs against the card checks' pins
 (`FLASH_F32_RTOL` relative to the largest output in f32, one bf16 ulp
 over it in bf16; `PAGED_DECODE_CARD_TOL` absolute; the quantizers' codes
-and scales the same bytes) and prints the card's name and power limit
-and one JSON line.  Needs a CUDA card and nvcc; the outputs go to
-`build/flash_ab/`.
+and scales, and the prequant outputs, the same bytes) and prints the
+card's name and power limit and one JSON line.  Needs a CUDA card and
+nvcc; the outputs go to `build/flash_ab/`.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ PAGED_LENGTHS = (256, 201, 101, 18)
 # the row quantizers' timed shapes (bf16 rows) and instances
 QUANT_SHAPES = ((4096, 9728), (32768, 128))
 QUANT_FMTS = ("fp8_e4m3", "packed")
+# the prequant kernel's (E, K, N, M): granite-moe-1b's attention
+# projections and expert stacks at decode (M 8) and at a prefill chunk's
+# expert capacity (M 11), and one qwen3-4b MLP matrix at M 64
+PREQUANT_SHAPES = ((1, 1024, 1024, 8), (1, 1024, 512, 8), (32, 1024, 512, 8),
+                   (32, 512, 1024, 8), (32, 1024, 512, 11),
+                   (1, 2560, 9728, 64))
+PREQUANT_KW = dict(fmt_x="fp4_e2m1", fmt_w="fp4_e2m1", pack_x=True,
+                   pack_w=True)
 FLASH_F32_RTOL = 2e-6             # chip_smoke.py's pins
 PAGED_DECODE_CARD_TOL = 2e-2
 
@@ -71,6 +82,7 @@ def worker(tree: Path, tag: str) -> None:
     sys.path.insert(0, str(tree / "src"))
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import quantize as QZ
@@ -111,6 +123,21 @@ def worker(tree: Path, tag: str) -> None:
             torch.save((q.view(torch.uint8).cpu(), s.cpu()),
                        OUT / f"{tag}_quant_{M}_{K}_{fmt}.pt")
             res[f"quant_{M}x{K}_{fmt}_ms"] = graph_ms(quant)
+    for E, K, N, M in PREQUANT_SHAPES:
+        def codes(*shape):
+            return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                 dtype=torch.int32).to(torch.uint8)
+        args = (codes(E, M, K // 2), codes(E, K // 2, N),
+                torch.rand((E, M, 1), generator=gen, device="cuda") + 0.05,
+                torch.rand((E, 1, N), generator=gen, device="cuda") + 0.05)
+        out = GM.dpa_grouped_matmul_prequant(*args, **PREQUANT_KW)
+        if not torch.equal(out, GM.dpa_grouped_matmul_prequant_ref(
+                *args, **PREQUANT_KW)):
+            raise AssertionError(f"prequant E{E} K{K} N{N} M{M}: differs "
+                                 "from the plain version")
+        torch.save(out.cpu(), OUT / f"{tag}_prequant_{E}_{K}_{N}_{M}.pt")
+        res[f"prequant_E{E}_K{K}_N{N}_M{M}_ms"] = graph_ms(
+            lambda: GM.dpa_grouped_matmul_prequant(*args, **PREQUANT_KW))
     print(json.dumps(res), flush=True)
 
 
@@ -143,9 +170,7 @@ def main() -> None:
     args = sys.argv[1:]
     if not args or args[0].startswith("-"):
         sys.exit(__doc__)
-    other = Path(args[0]).resolve()
-    this = Path(args[args.index("--this") + 1]).resolve() \
-        if "--this" in args else ROOT
+    other, this = Path(args[0]).resolve(), ROOT
     OUT.mkdir(parents=True, exist_ok=True)
     runs = {"other": [], "this": []}
     for tag, tree in (("other", other), ("this", this), ("this", this),
@@ -185,6 +210,11 @@ def main() -> None:
                     for t in ("other", "this"))
             diff[f"quant_{M}x{K}_{fmt}"] = {
                 "within_pin": all(torch.equal(u, v) for u, v in zip(a, b))}
+    for E, K, N, M in PREQUANT_SHAPES:
+        a, b = (torch.load(OUT / f"{t}_prequant_{E}_{K}_{N}_{M}.pt")
+                for t in ("other", "this"))
+        diff[f"prequant_E{E}_K{K}_N{N}_M{M}"] = {
+            "within_pin": torch.equal(a, b)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()

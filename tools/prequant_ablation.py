@@ -68,7 +68,8 @@ def build_all(out: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.dpa_prequant_launch.argtypes = [P, P, P, P, P] + [I] * 6 + [P]
+        lib.dpa_prequant_launch.argtypes = [P, I, P, P, I, P, P] + [I] * 6 \
+            + [P]
         lib.dpa_prequant_launch.restype = I
         libs[name] = lib
     return libs
@@ -122,7 +123,7 @@ def main() -> None:
             for name, lib in libs.items():
                 def call(lib=lib, bn=bn, split=split):
                     err = lib.dpa_prequant_launch(
-                        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
+                        xq.data_ptr(), 0, sx.data_ptr(), wq.data_ptr(), 0,
                         sw.data_ptr(), out.data_ptr(), E, M, K, N, bn, split,
                         torch.cuda.current_stream().cuda_stream)
                     if err:
