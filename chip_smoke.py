@@ -195,6 +195,30 @@ Phases (every failure raises; the exit code is then non-zero):
    kernels' share on path c), over one graphed sampled decode step of
    path g beside the greedy one, and over one call of paths d and e
    (device busy share, top kernels); summary lines per step and mode.
+5. Training (`repro_torch.launch.train`'s path; the train step takes the
+   torch routes, and every kernel's launch counter must stay 0):
+   a. one train step of reduced qwen3-4b, llama3.2-3b and granite-moe-1b
+      under fp8_dpa and fp32 on the card against the same step on the
+      CPU from one state and batch: loss rtol 1e-4, every gradient leaf
+      and updated param leaf at relative norm 1e-3 (`TRAIN_CPU_LEAF`).
+      The STE's codes, scales and operands of the two devices are
+      compared (`ste_operands`, `ste_flips`) and the differences counted;
+      where an operand differs, the CPU step is recomputed from the
+      card's operands and held at 1e-3, and where a code flipped the
+      CPU's own step is then held at 1e-2 (`TRAIN_FLIP_LEAF`);
+   b. granite-moe-1b at its published widths under its config's fp8_dpa,
+      remat full, attn_chunk 512, logits_chunk 512, bf16 compute and f32
+      masters: 8 steps of batch 2 x 4096 on `SyntheticLM`, lr 1e-3 with 2
+      warmup steps; every loss and grad norm finite and step 8's loss
+      below step 1's; median step wall, trained tokens/s, the device
+      busy share of one profiled step, peak memory, one `batch()`;
+   c. granite at full width cut to 4 layers: two identical backward
+      passes compared leaf by leaf, then 6 supervised steps with
+      synchronous checkpoints every 3 and a failure injected at step 4,
+      whose final params must equal a clean run's bit for bit (save and
+      restore seconds printed);
+   d. `launch.train.main` in the process (reduced granite, 6 steps,
+      async checkpoints every 3), its lines printed.
 
 Prints the engine reports, the prefill and scoring results and the
 profiles as JSON, the phase times, the kernels' JSON line, the card's
@@ -208,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3674,6 +3699,437 @@ def run_quantize_op(gen, M=4096, K=9728):
 # prefill chunk of the full-width engine)
 # -----------------------------------------------------------------------------
 
+# -----------------------------------------------------------------------------
+# phase 5: training
+# -----------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen3-4b", "llama3.2-3b", "granite-moe-1b-a400m")
+TRAIN_POLICIES = ("fp8_dpa", "fp32")
+# card against the CPU after one train step: cuBLAS sums in another order
+# than the CPU's fixed-order products, so the loss is held at rtol
+# TRAIN_CPU_RTOL and every gradient and param leaf at relative norm
+# TRAIN_CPU_LEAF.  Under fp8_dpa such a sum can also cross a rounding
+# boundary of the E4M3 grid, and the STE operand then moves by a whole
+# E4M3 step (1/8 to 1/16 of its value).  `ste_operands` records each
+# quantizing call's codes, scales and operand on both devices; where any
+# operand differs, the CPU step is recomputed from the card's own
+# operands and held to TRAIN_CPU_LEAF, and where a code differs (a
+# flip, not a scale's last bit) the CPU's own step is then held to
+# TRAIN_FLIP_LEAF (the pin the CPU tests hold fp8_dpa train steps to
+# against the reference)
+TRAIN_CPU_RTOL = 1e-4
+TRAIN_CPU_LEAF = 1e-3
+TRAIN_FLIP_LEAF = 1e-2
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+REPLAY_LAYERS, REPLAY_STEPS, REPLAY_EVERY, REPLAY_FAIL_AT = 4, 6, 3, 4
+# kernel families of a train step's profile (cuBLAS GEMMs, dtype casts
+# and copies, the index backward's sorted accumulate, reductions, softmax)
+TRAIN_WATCH = ("gemm", "copy_kernel", "indexing_backward", "reduce_kernel",
+               "softmax", "index_elementwise", "scatter", "sort")
+TRAIN_FRONT_END = ["--arch", "granite-moe-1b-a400m", "--reduced", "--steps",
+                   "6", "--batch", "2", "--seq", "64", "--ckpt-every", "3",
+                   "--log-every", "1", "--device", "cuda"]
+
+
+def _leaf_errs(got, want):
+    """{dotted path: ||got - want|| / ||want||}, want's device."""
+    from repro_torch.core.tree import flatten_with_paths
+    out = {}
+    for (path, a), (_, b) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(want)):
+        a, b = a.detach().to(b.device).float(), b.detach().float()
+        out[".".join(path)] = float((a - b).norm()
+                                    / max(float(b.norm()), 1e-30))
+    return out
+
+
+def _to(tree, device):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+@contextlib.contextmanager
+def ste_operands(record=None, replay=None):
+    """Hooks the STE of the fake-quant routes (`kernels.registry.
+    fake_quant`) for the `with` block.  record: a list that gets, for each
+    quantizing call in call order, (its codes as f32 values, its scales,
+    the operand the product consumed), all on the CPU.  replay: such a
+    list, whose operands stand in for the computed ones in the same order
+    (forward the recorded values, backward the identity, as the STE's);
+    every entry must be used.  Checkpointed regions recompute whole (no
+    early stop), so the CPU and the card make the same calls."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quantize import quantize, quantize_blockwise
+    from repro_torch.kernels import registry as R
+    real, used = R.fake_quant, [0]
+
+    def hooked(x, fmt, *, dim=None, block=None):
+        if get_format(fmt).name == "fp32":
+            return real(x, fmt, dim=dim, block=block)
+        if replay is None:
+            out = real(x, fmt, dim=dim, block=block)
+            xd = x.detach()
+            q, sc = (quantize_blockwise(xd, fmt, dim=dim, block=block)
+                     if block is not None and dim is not None
+                     else quantize(xd, fmt, dim=dim))
+            record.append((q.float().cpu(), sc.cpu(), out.detach().cpu()))
+            return out
+        i = used[0]
+        if i >= len(replay) or replay[i][2].shape != x.shape \
+                or replay[i][2].dtype != x.dtype:
+            raise AssertionError(f"STE replay: call {i} ({tuple(x.shape)} "
+                                 f"{x.dtype}) has no recorded operand of "
+                                 f"its shape ({len(replay)} recorded)")
+        used[0] += 1
+        return replay[i][2].to(x.device) + (x - x.detach())
+
+    R.fake_quant = hooked
+    try:
+        with set_checkpoint_early_stop(False):
+            yield
+    finally:
+        R.fake_quant = real
+    if replay is not None and used[0] != len(replay):
+        raise AssertionError(f"STE replay: {used[0]} calls of "
+                             f"{len(replay)} recorded")
+
+
+def ste_flips(got, want):
+    """Two `ste_operands` records of one step -> {"codes": codes that
+    differ, "code_calls": calls with any, "scales": scales that differ,
+    "scale_calls": calls with any, "operands": operand values that
+    differ, "n_codes": codes in all, "calls": calls}."""
+    if [c.shape for c, _, _ in got] != [c.shape for c, _, _ in want]:
+        raise AssertionError(f"STE records of {len(got)} and {len(want)} "
+                             f"calls do not pair up")
+    out = dict.fromkeys(("codes", "code_calls", "scales", "scale_calls",
+                         "operands", "n_codes"), 0)
+    for a, b in zip(got, want):
+        for key, i in (("codes", 0), ("scales", 1), ("operands", 2)):
+            n = int((a[i] != b[i]).sum())
+            out[key] += n
+            if key != "operands":
+                out[key[:-1] + "_calls"] += n > 0
+        out["n_codes"] += a[0].numel()
+    out["calls"] = len(got)
+    return out
+
+
+def train_step_once(model, state, batch, opt):
+    """One loss-and-gradients pass, then one train step, on copies of
+    state and batch on the model's device -> (loss, grads, new params)."""
+    from repro_torch.distributed.step import (make_loss_fn, make_train_step,
+                                              value_and_grad)
+    st, b = _to(state, model.device), _to(batch, model.device)
+    _, grads = value_and_grad(make_loss_fn(model))(st["params"], b)
+    st, met = make_train_step(model, opt)(st, b)
+    return float(met["loss"]), grads, st["params"]
+
+
+def _step_errs(got, want):
+    """Two train_step_once results -> (loss rel, worst grad leaf and its
+    path, worst param leaf and its path)."""
+    g, p = _leaf_errs(got[1], want[1]), _leaf_errs(got[2], want[2])
+    gw, pw = max(g, key=g.get), max(p, key=p.get)
+    return abs(got[0] / want[0] - 1), g[gw], gw, p[pw], pw
+
+
+def train_card_vs_cpu():
+    """(a) One train step on the card against the same step on the CPU,
+    from one state and one batch, for each reduced config and policy,
+    with the STE operands that differ counted (and, where any do, the CPU
+    step recomputed from the card's)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    out = {}
+    for arch in TRAIN_ARCHS:
+        for pol in TRAIN_POLICIES:
+            cfg = reduce_config(get_config(arch)).replace(
+                policy=pol, attn_chunk=16, logits_chunk=16)
+            models = {d: build_model(cfg, device=d) for d in ("cpu", "cuda")}
+            state = build_state(models["cpu"], 0)
+            batch = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                             batch=2, seq=64),
+                                  device="cpu").batch(0)
+            opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                    total_steps=4)
+            res, rec = {}, {}
+            for dev, m in models.items():
+                rec[dev] = []
+                with ste_operands(record=rec[dev]):
+                    res[dev] = train_step_once(m, state, batch, opt)
+            ste = ste_flips(rec["cuda"], rec["cpu"])
+            loss_err, g, gw, p, pw = _step_errs(res["cuda"], res["cpu"])
+            line = {"loss_rel": loss_err, "grad_leaf": g, "grad_leaf_at": gw,
+                    "param_leaf": p, "param_leaf_at": pw, "ste": ste}
+            print(f"train (a) {arch} {pol}: loss card {res['cuda'][0]:.6f} "
+                  f"cpu {res['cpu'][0]:.6f} (rel {loss_err:.1e}), worst "
+                  f"grad leaf {g:.1e} ({gw}), worst param leaf {p:.1e} "
+                  f"({pw}); STE card vs CPU over {ste['calls']} calls: "
+                  f"codes that differ {ste['codes']} of {ste['n_codes']} "
+                  f"(in {ste['code_calls']} calls), scales that differ "
+                  f"{ste['scales']} (in {ste['scale_calls']} calls), "
+                  f"operand values that differ {ste['operands']}")
+            leaf_pin = TRAIN_CPU_LEAF
+            if ste["operands"]:
+                with ste_operands(replay=rec["cuda"]):
+                    replayed = train_step_once(models["cpu"], state, batch,
+                                               opt)
+                r_loss, rg, rgw, rp, rpw = _step_errs(res["cuda"], replayed)
+                line.update(replay_loss_rel=r_loss, replay_grad_leaf=rg,
+                            replay_grad_leaf_at=rgw, replay_param_leaf=rp,
+                            replay_param_leaf_at=rpw)
+                print(f"train (a) {arch} {pol}: the CPU step from the card's "
+                      f"STE operands: loss rel {r_loss:.1e}, worst grad leaf "
+                      f"{rg:.1e} ({rgw}), worst param leaf {rp:.1e} ({rpw})")
+                if r_loss > TRAIN_CPU_RTOL or rg > TRAIN_CPU_LEAF \
+                        or rp > TRAIN_CPU_LEAF:
+                    raise AssertionError(f"train (a) {arch} {pol}: card vs "
+                                         f"the CPU on the card's STE "
+                                         f"operands {line}")
+                if ste["codes"]:
+                    leaf_pin = TRAIN_FLIP_LEAF
+            if loss_err > TRAIN_CPU_RTOL or g > leaf_pin or p > leaf_pin:
+                raise AssertionError(f"train (a) {arch} {pol}: card vs CPU "
+                                     f"(leaf pin {leaf_pin}) {line}")
+            out[f"{arch} {pol}"] = line
+    return out
+
+
+def _state_bytes(state):
+    from repro_torch.core.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(state))
+
+
+def train_full_width(cfg):
+    """(b) granite-moe-1b-a400m at its published widths: TRAIN_STEPS
+    steps of batch TRAIN_B x TRAIN_S on SyntheticLM, seeded weights."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.distributed.step import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    t0 = time.monotonic()
+    model = build_model(cfg, device="cuda")
+    state = build_state(model, 0)
+    torch.cuda.synchronize()
+    state_bytes = _state_bytes(state)
+    print(f"train (b) model: {cfg.name} {cfg.n_layers} layers d="
+          f"{cfg.d_model} policy={cfg.policy} dtype={cfg.dtype} remat="
+          f"{cfg.remat} attn_chunk={cfg.attn_chunk} logits_chunk="
+          f"{cfg.logits_chunk}; state (params, m, v) {state_bytes / 1e9:.2f} "
+          f"GB, built in {time.monotonic() - t0:.1f} s")
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=TRAIN_B, seq=TRAIN_S, seed=0),
+                         device="cuda")
+    pipe.batch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [pipe.batch(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        print(f"train (b) step {len(losses)}: loss {losses[-1]:.4f} "
+              f"aux {float(m['aux']):.5f} gnorm {gnorms[-1]:.3f} lr "
+              f"{float(m['lr']):.2e} wall {walls[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"train (b): non-finite loss or grad norm "
+                             f"{losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (b): step {TRAIN_STEPS}'s loss "
+                             f"{losses[-1]} is not below step 1's "
+                             f"{losses[0]}")
+    median = sorted(walls)[len(walls) // 2]
+    prof = profile_window("train step granite-moe-1b-a400m",
+                          lambda: step(state, batches[0]),
+                          watch=TRAIN_WATCH, require=True)
+    busy = prof["busy_ms"]
+    out = {"losses": losses, "grad_norms": gnorms, "step_walls_ms": walls,
+           "median_step_ms": median,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (median / 1e3),
+           "busy_ms": busy, "busy_share": busy / median,
+           "profiled_wall_ms": prof["wall_ms"], "top": prof["top"],
+           "launches": prof["launches"], "watch": prof["watch"],
+           "peak_bytes": peak, "state_bytes": state_bytes,
+           "batch_ms": batch_ms}
+    print(f"train (b) granite-moe-1b-a400m B {TRAIN_B} x S {TRAIN_S}: "
+          f"median step {median:.1f} ms, {out['tokens_per_s']:.1f} trained "
+          f"tokens/s, device busy {busy:.1f} ms of the median wall "
+          f"({out['busy_share']:.1%}), peak {peak / 1e9:.2f} GB "
+          f"(state {state_bytes / 1e9:.2f} GB), one batch() "
+          f"{batch_ms:.1f} ms")
+    return out
+
+
+def _equal_trees(a, b):
+    """-> the dotted paths of the leaves that differ."""
+    import torch
+    from repro_torch.core.tree import flatten_with_paths
+    return [".".join(p) for (p, x), (_, y) in zip(flatten_with_paths(a),
+                                                   flatten_with_paths(b))
+            if not torch.equal(x.detach(), y.detach())]
+
+
+def train_replay(cfg):
+    """(c) granite at full width cut to REPLAY_LAYERS layers: a supervised
+    run with synchronous checkpoints and an injected failure against a
+    clean run, bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.distributed.step import (make_loss_fn, make_train_step,
+                                              value_and_grad)
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import fault
+    cfg = cfg.replace(n_layers=REPLAY_LAYERS)
+    model = build_model(cfg, device="cuda")
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=REPLAY_STEPS))
+    pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=TRAIN_B, seq=TRAIN_S, seed=0),
+                         device="cuda")
+    # the backward's own repeatability, leaf by leaf
+    probe = build_state(model, 0)
+    grads = [value_and_grad(make_loss_fn(model))(probe["params"],
+                                                 pipe.batch(0))[1]
+             for _ in range(2)]
+    unrepeatable = _equal_trees(*grads)
+    print(f"train (c) gradients of two identical backward passes: "
+          f"{'equal bit for bit' if not unrepeatable else unrepeatable}")
+    del probe, grads
+    clean = build_state(model, 0)
+    if _equal_trees(clean, build_state(model, 0)):
+        raise AssertionError("train (c): two builds of the state differ")
+    for i in range(REPLAY_STEPS):
+        clean, _ = step(clean, pipe.batch(i))
+    saves, restores = [], []
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed_save(*a, **k):
+        t0 = time.monotonic()
+        out = save(*a, **k)
+        saves.append(time.monotonic() - t0)
+        return out
+
+    def timed_restore(*a, **k):
+        t0 = time.monotonic()
+        out = restore(*a, **k)
+        torch.cuda.synchronize()
+        restores.append(time.monotonic() - t0)
+        return out
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_replay_", dir=ROOT / "build")
+    fault.ckpt.save, fault.ckpt.restore = timed_save, timed_restore
+    try:
+        sup = fault.Supervisor(fault.SupervisorConfig(
+            ckpt_dir=d, ckpt_every=REPLAY_EVERY, async_save=False),
+            state=build_state(model, 0))
+        sup.inject_failure_at = REPLAY_FAIL_AT
+        faulty = sup.run(step, pipe.batch, REPLAY_STEPS)
+    finally:
+        fault.ckpt.save, fault.ckpt.restore = save, restore
+        shutil.rmtree(d)
+    ckpt_bytes = _state_bytes(faulty)
+    differ = _equal_trees(faulty["params"], clean["params"])
+    print(f"train (c) {REPLAY_LAYERS}-layer granite, {REPLAY_STEPS} steps, "
+          f"checkpoint every {REPLAY_EVERY} ({ckpt_bytes / 1e9:.2f} GB), "
+          f"failure at step {REPLAY_FAIL_AT}: events {sup.events}; saves "
+          f"{['%.2f s' % t for t in saves]}, restore "
+          f"{['%.2f s' % t for t in restores]}; final params "
+          f"{'equal the clean run bit for bit' if not differ else differ}")
+    if [e[0] for e in sup.events] != ["failure", "restored"]:
+        raise AssertionError(f"train (c): events {sup.events}")
+    if differ:
+        raise AssertionError(f"train (c): the replayed run's params differ "
+                             f"from the clean run's at {differ}")
+    return {"saves_s": saves, "restores_s": restores,
+            "checkpoint_bytes": ckpt_bytes, "events": sup.events,
+            "backward_repeatable": not unrepeatable}
+
+
+def train_front_end():
+    """(d) `launch.train.main` in the process, reduced, on the card, with
+    async saves."""
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as TT
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_front_", dir=ROOT / "build")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = TT.main(TRAIN_FRONT_END + ["--ckpt-dir", d])
+        saved = sorted(p.name for p in Path(d).iterdir())
+    finally:
+        shutil.rmtree(d)
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print("train (d) front end: " + ln)
+    done = [ln for ln in lines if ln.startswith("done: ")]
+    if state is None or not done or int(state["opt"]["count"]) != 6:
+        raise AssertionError(f"train (d): front end returned {state!r}, "
+                             f"printed {lines}")
+    if saved != ["LATEST", "step_00000002", "step_00000005"]:
+        raise AssertionError(f"train (d): checkpoints {saved}")
+    return {"done": done[0]}
+
+
+def run_training():
+    """Phase 5: (a)-(d), with every kernel's launch counter held at 0 (the
+    train step takes the torch routes)."""
+    import torch
+    from repro_torch.configs import get_config
+    zero_counts()
+    t0 = time.monotonic()
+    out = {"card_vs_cpu": train_card_vs_cpu()}
+    t_a = time.monotonic()
+    granite = get_config("granite-moe-1b-a400m")
+    out["full_width"] = train_full_width(granite)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.monotonic()
+    out["replay"] = train_replay(granite)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.monotonic()
+    out["front_end"] = train_front_end()
+    t_d = time.monotonic()
+    counts = read_counts()
+    check_counts("training", counts, {})
+    print("kernel launch counters after training: " + json.dumps(counts))
+    out["kernel_launches"] = sum(counts.values())
+    out["seconds"] = {"a": t_a - t0, "b": t_b - t_a, "c": t_c - t_b,
+                      "d": t_d - t_c}
+    print(f"training phase: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, "
+          f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s; hand-written "
+          f"kernel launches {out['kernel_launches']}")
+    return out
+
+
 def profile_engine(model, params, ecfg, sampler=None,
                    modes=("eager", "graphed"), prefill=True):
     """One steady decode step (4 live requests; the scheduler's host work,
@@ -3968,6 +4424,11 @@ def main() -> None:
     t_granite = time.monotonic() - t_start
     # phase 3f: the quantize_pack op
     n_qp = run_quantize_op(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_quant = time.monotonic() - t_start
+    # phase 5: training
+    train = run_training()
     t_total = time.monotonic() - t_start
     print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b engine "
           f"{t_engine_q - t_kernels:.1f} s, qwen3-4b sampled and prefix "
@@ -3976,7 +4437,7 @@ def main() -> None:
           f"scoring {t_qwen - t_spec:.1f} s, front ends "
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
           f"{t_granite - t_front:.1f} s, quantize_pack op "
-          f"{t_total - t_granite:.1f} s")
+          f"{t_quant - t_granite:.1f} s, training {t_total - t_quant:.1f} s")
     n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
 
     def times(t):
@@ -4194,6 +4655,7 @@ def main() -> None:
         if "step_profiles" in r:
             print("summary qwen3-4b " + _spec_line(name, r, rep_q,
                                                    r["step_profiles"]))
+    print("train: " + json.dumps(train))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))
     print("prequant plans: " + json.dumps(pq_plans))

@@ -1,24 +1,41 @@
-"""Step builders: the loss, the prefill step and the serve step (port of
-the forward parts of `repro.distributed.step`).
+"""Step builders: the loss and its gradients, the train step, the
+prefill step and the serve step (port of `repro.distributed.step`).
 
-Forward only: the gradients, the optimizer and the train steps are
-ROADMAP Queue 1, "Training".  The cross-entropy is evaluated in sequence
-chunks when the config's `logits_chunk` divides the sequence, so the
-(B, S, V) logits of a 150k vocabulary never exist at once.  A mean is a
-sum times f32(1/n), as the jitted reference computes it.
+The cross-entropy is evaluated in sequence chunks when the config's
+`logits_chunk` divides the sequence, so the (B, S, V) logits of a 150k
+vocabulary never exist at once; while autograd records, each chunk runs
+under a checkpoint, so backward recomputes its logits instead of keeping
+all of them (the reference's `jax.checkpoint` body).  A mean is a sum
+times f32(1/n), as the jitted reference computes it.
+
+`make_train_step` is `jax.value_and_grad` of the loss (torch autograd)
+and the in-place AdamW update (`optim.adamw`).  Training runs the torch
+routes only, as the reference's runs its XLA routes: the CUDA kernels
+are forward-only, so a policy whose linears or attention resolve to a
+kernel route is refused (`check_trainable`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import exec_plan
+from repro_torch.core.policy import get_policy
 from repro_torch.core.quantize import recip
+from repro_torch.core.tree import flatten_with_paths, tree_map_with_path
+from repro_torch.kernels.build import BACKWARD_ITEM
 from repro_torch.models import layers as L
+from repro_torch.optim import adamw
 from repro_torch.serving.sampler import greedy_tokens
+
+COLLECTIVES_ITEM = ("ROADMAP Queue 1, \"Tensor-parallel serving and "
+                    "collectives\"")
 
 
 def _logsumexp(logits):
-    """log(sum(exp(x - max))) + max over the last dim."""
-    m = logits.amax(dim=-1, keepdim=True)
+    """log(sum(exp(x - max))) + max over the last dim; the max carries no
+    gradient, as in `jax.scipy.special.logsumexp`."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
     return (torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
             + m)[..., 0]
 
@@ -44,24 +61,30 @@ def softmax_xent(logits, labels, z_coef: float = 1e-4):
 def chunked_xent(params, model, x, labels, chunk: int,
                  z_coef: float = 1e-4):
     """Per-chunk unembed + cross-entropy over x (B, S, d): never holds
-    more than (B, chunk, V) logits."""
+    more than (B, chunk, V) logits, in backward too."""
     B, S, _ = x.shape
     table = params["embed"]["table"]
+
+    def body(xs, ls):
+        logz, gold = _xent_terms(L.apply_unembed(xs, table), ls)
+        return (logz - gold).sum() + z_coef * (logz * logz).sum()
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logz, gold = _xent_terms(L.apply_unembed(x[:, sl], table),
-                                 labels[:, sl])
-        total = total + ((logz - gold).sum() + z_coef * (logz * logz).sum())
+        part = (checkpoint(body, x[:, sl], labels[:, sl],
+                           use_reentrant=False, preserve_rng_state=False)
+                if torch.is_grad_enabled() and x.requires_grad
+                else body(x[:, sl], labels[:, sl]))
+        total = total + part
     return total * recip(B * S)
 
 
 def make_loss_fn(model):
     """-> loss_fn(params, {"tokens", "labels"}) -> (loss + aux, {"loss",
-    "aux"}), forward only."""
+    "aux"}); differentiable."""
     cfg = model.cfg
 
-    @torch.no_grad()
     def loss_fn(params, batch):
         seq = batch["labels"].shape[1]
         chunk = min(cfg.logits_chunk, seq) if cfg.logits_chunk else 0
@@ -74,6 +97,75 @@ def make_loss_fn(model):
         return loss + aux, {"loss": loss, "aux": aux}
 
     return loss_fn
+
+
+def value_and_grad(loss_fn):
+    """`jax.value_and_grad(loss_fn, has_aux=True)` over a params tree ->
+    fn(params, batch) -> ((total, parts), grads in params' structure).
+    Marks every param leaf as requiring grad."""
+    def fn(params, batch):
+        paths = flatten_with_paths(params)
+        flat = [leaf.requires_grad_(True) for _, leaf in paths]
+        with torch.enable_grad():
+            total, parts = loss_fn(params, batch)
+        grads = dict(zip((p for p, _ in paths),
+                         torch.autograd.grad(total, flat)))
+        return (total.detach(), {k: torch.as_tensor(v).detach()
+                                 for k, v in parts.items()}), \
+            tree_map_with_path(lambda path, _: grads[path], params)
+    return fn
+
+
+def check_trainable(model) -> None:
+    """Refuse a policy whose linears, expert stacks or attention resolve
+    to a CUDA kernel route: the kernels are forward-only."""
+    cfg = model.cfg
+    pol = get_policy(cfg.policy)
+    routes = {"matmul": exec_plan.resolve("matmul", pol,
+                                          w_dtype="float32"),
+              "flash_attn": exec_plan.resolve("flash_attn", pol, sq=2,
+                                              skv=2,
+                                              use_flash=cfg.use_flash)}
+    if cfg.is_moe:
+        routes["grouped_matmul"] = exec_plan.resolve(
+            "grouped_matmul", pol, w_dtype="float32", eq="becd,edf->becf")
+    kernels = {op: e.name for op, e in routes.items() if e.backend == "cuda"}
+    if kernels:
+        raise NotImplementedError(
+            f"policy {cfg.policy!r} (use_flash={cfg.use_flash}) routes "
+            f"{kernels} to CUDA kernels, which have no backward pass "
+            f"({BACKWARD_ITEM}); train under a policy whose routes are "
+            "plain PyTorch, as the reference trains through its XLA "
+            "routes")
+
+
+def make_train_step(model, opt_cfg: adamw.AdamWConfig):
+    """-> train_step(state, batch) -> (state, metrics): the loss and its
+    gradients, then the in-place AdamW update.  state {"params", "opt"};
+    metrics "loss", "aux", "total", "grad_norm", "lr" (0-dim tensors on
+    the state's device)."""
+    check_trainable(model)
+    grad_fn = value_and_grad(make_loss_fn(model))
+
+    def train_step(state, batch):
+        params, opt_state = state["params"], state["opt"]
+        (total, parts), grads = grad_fn(params, batch)
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                             params, model.decay_mask(params))
+        metrics = {"loss": parts["loss"], "aux": parts["aux"],
+                   "total": total, **om}
+        return {"params": params, "opt": opt_state}, metrics
+
+    return train_step
+
+
+def make_compressed_train_step(model, opt_cfg, mesh, fmt_name="fp8_e4m3",
+                               axis="data"):
+    """The data-parallel step with wire-compressed gradient reduction
+    needs collectives the port does not have yet."""
+    raise NotImplementedError(
+        f"make_compressed_train_step reduces gradients across devices: "
+        f"{COLLECTIVES_ITEM}")
 
 
 def make_prefill_step(model):

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("dpa_matmul.cu", "dpa_fused_tiled.cu", "dpa_prequant.cu",
@@ -143,3 +145,19 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+BACKWARD_ITEM = "ROADMAP Queue 2, \"Backward passes\""
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Refuse a call autograd would record: a kernel's output leaves the
+    graph, so a gradient through it would be silently missing.  Raises
+    on any device (the plain versions keep the kernels' contract), before
+    anything is loaded."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is forward-only: an input requires grad, and the "
+            f"kernel has no backward ({BACKWARD_ITEM}); call it under "
+            "torch.no_grad(), or train through the torch routes")

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.device import batched_rowwise_dot
+from repro_torch.kernels import build
 from repro_torch.kernels import dpa_matmul as DM
 
 
@@ -40,6 +41,7 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_fused.launches` counts
     launches."""
+    build.forward_only("dpa_grouped_matmul_fused", x, wq, sw)
     DM.check_fused(x, wq, sw, pack_w,
                    lead=(x.shape[0],) if x.ndim == 3 else (-1,))
     if x.device.type == "cpu":
@@ -89,6 +91,7 @@ def dpa_grouped_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_prequant.launches` counts
     launches."""
+    build.forward_only("dpa_grouped_matmul_prequant", xq, wq, sx, sw)
     E = xq.shape[0] if xq.ndim == 3 else -1
     M, K, N = DM.check_prequant(xq, wq, sx, sw, pack_x, pack_w, lead=(E,))
     kw = dict(fmt_x=fmt_x, fmt_w=fmt_w, pack_x=pack_x, pack_w=pack_w)

@@ -251,6 +251,7 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_fused.launches` counts launches."""
+    build.forward_only("dpa_matmul_fused", x, wq, sw)
     check_fused(x, wq, sw, pack_w)
     if x.device.type == "cpu":
         return dpa_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x, fmt_w=fmt_w,
@@ -296,6 +297,7 @@ def dpa_act_quant(x, bk: int = BK):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_act_quant.launches` counts launches."""
+    build.forward_only("dpa_act_quant", x)
     if x.device.type == "cpu":
         return dpa_act_quant_ref(x, bk)
     if x.device.type != "cuda":
@@ -478,6 +480,7 @@ def dpa_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_prequant.launches` counts launches."""
+    build.forward_only("dpa_matmul_prequant", xq, wq, sx, sw)
     M, K, N = check_prequant(xq, wq, sx, sw, pack_x, pack_w)
     kw = dict(fmt_x=fmt_x, fmt_w=fmt_w, pack_x=pack_x, pack_w=pack_w)
     if xq.device.type == "cpu":

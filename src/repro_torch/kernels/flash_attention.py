@@ -179,6 +179,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `flash_attention.launches` counts launches,
     `.prepass_launches` the f32 inputs' K/V splits (two a call)."""
+    build.forward_only("flash_attention", q, k, v)
     _check(q, k, v, q.shape[3])
     bq, bk = _blocks(q, k, bq, bk)
     if q.device.type == "cpu":
@@ -239,6 +240,7 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     kernel or raises: raw K/V first go through `_prepass` (two row
     quantizer launches).  `dpa_flash_attention.launches` counts launches,
     `.prepass_launches` those on raw K/V."""
+    build.forward_only("dpa_flash_attention", q, k, v, k_scale, v_scale)
     fmt_kv = fmt_kv or fmt
     D = q.shape[3]
     _check(q, k, v, D // 2 if kv_quant and kv_packed else D)

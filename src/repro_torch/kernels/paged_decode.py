@@ -193,6 +193,8 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
     kernel (one launch for all B S_q rows) or raises.  Counters:
     `paged_decode_attention.launches` every launch, `.<fmt>_launches` by
     attention format, `.verify_launches` the verify folds (S_q > 1)."""
+    build.forward_only("paged_decode_attention", q, k_codes, k_scale,
+                       v_codes, v_scale)
     _check(q, k_codes, k_scale, v_codes, v_scale, block_table, positions)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(

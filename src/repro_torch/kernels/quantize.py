@@ -144,6 +144,7 @@ def quantize_rows(x, *, fmt: str):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `quantize_rows.launches` counts launches."""
+    build.forward_only("quantize_rows", x)
     _check(x, False)
     if x.device.type == "cpu":
         return quantize_rows_ref(x, fmt=fmt)
@@ -167,6 +168,7 @@ def quantize_pack_rows(x):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `quantize_pack_rows.launches` counts launches."""
+    build.forward_only("quantize_pack_rows", x)
     _check(x, True)
     if x.device.type == "cpu":
         return quantize_pack_rows_ref(x)

@@ -1,4 +1,5 @@
-"""Convert the reference's params into the port's.
+"""Convert the reference's params, train state and checkpoints into the
+port's.
 
 The port's own init draws other weights than JAX's (its normal draws
 pass through transcendentals whose last bits differ), so the tests move
@@ -7,26 +8,32 @@ weights across: `jax.tree.map(np.asarray, params)` on the JAX side, then
 leading scan axis (`stack.groups.p0`, plus an unscanned tail); the port
 keeps a per-layer list.  A MoE block's router and (E, d_in, d_out)
 expert stacks cross like any other leaf, as f32 masters.
+
+A train state crosses the same way (`convert_state`): the reference's
+{"params", "opt": {"m", "v", "count"}}, whose m and v mirror the params.
+`load_reference_checkpoint` reads a checkpoint the reference's
+`runtime.checkpoint.save` wrote — `step_<N>/meta.json` and `shard_<i>.npz`,
+leaves keyed by their "||"-joined paths — with numpy alone.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
-
-def _tensor(a, device):
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
-
-
-def _tree(node, fn):
-    if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
-    return fn(node)
+from repro_torch.core.tree import tree_map
+from repro_torch.runtime.checkpoint import FLAT_SEP, load_flat
 
 
-def convert_params(np_params: dict, model) -> dict:
-    """Nested dict of numpy arrays (the reference's decoder or MoE params)
-    -> the port's prepared params on the model's device."""
+def _tensor(a, device, dtype=np.float32):
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def convert_tree(np_params: dict, model) -> dict:
+    """A tree in the reference's params structure (params, their
+    gradients, or an optimizer moment), numpy leaves -> the port's
+    structure of f32 tensors on the model's device, unprepared."""
     dev = model.device
     stack = np_params["stack"]
     groups = stack["groups"]
@@ -35,13 +42,61 @@ def convert_params(np_params: dict, model) -> dict:
                          f"{sorted(groups)}")
     g = groups["p0"]
     n_groups = np.asarray(g["norm1"]["scale"]).shape[0]
-    layers = [_tree(g, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+    layers = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), g)
               for i in range(n_groups)]
-    layers += [_tree(t, lambda a: _tensor(a, dev)) for t in stack["tail"]]
+    layers += [tree_map(lambda a: _tensor(a, dev), t)
+               for t in stack.get("tail", [])]
     if len(layers) != model.cfg.n_layers:
         raise ValueError(f"{len(layers)} layers for a "
                          f"{model.cfg.n_layers}-layer config")
-    params = {"layers": layers,
-              "norm_f": _tree(np_params["norm_f"], lambda a: _tensor(a, dev)),
-              "embed": _tree(np_params["embed"], lambda a: _tensor(a, dev))}
-    return model.prepare_params(params)
+    return {"layers": layers,
+            "norm_f": tree_map(lambda a: _tensor(a, dev), np_params["norm_f"]),
+            "embed": tree_map(lambda a: _tensor(a, dev), np_params["embed"])}
+
+
+def convert_params(np_params: dict, model) -> dict:
+    """Nested dict of numpy arrays (the reference's decoder or MoE params)
+    -> the port's prepared params on the model's device."""
+    return model.prepare_params(convert_tree(np_params, model))
+
+
+def convert_state(np_state: dict, model) -> dict:
+    """The reference's train state {"params", "opt": {"m", "v", "count"}},
+    numpy leaves -> the port's, on the model's device (count a 0-dim
+    int32 tensor)."""
+    opt = np_state["opt"]
+    return {"params": convert_tree(np_state["params"], model),
+            "opt": {"m": convert_tree(opt["m"], model),
+                    "v": convert_tree(opt["v"], model),
+                    "count": _tensor(opt["count"], model.device,
+                                     np.int32).reshape(())}}
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a||b||0||c": leaf} -> nested dicts, a node whose keys are all
+    indices becoming a list (the reference's tail of blocks)."""
+    root: dict = {}
+    for key, leaf in flat.items():
+        node = root
+        *head, last = key.split(FLAT_SEP)
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(root)
+
+
+def load_reference_checkpoint(ckpt_dir: str, model,
+                              step: Optional[int] = None):
+    """A checkpoint of the reference's train state (its `checkpoint.save`
+    layout) -> (the port's state on the model's device, its step); the
+    latest one when step is None."""
+    flat, step = load_flat(ckpt_dir, step)
+    return convert_state(_unflatten(flat), model), step

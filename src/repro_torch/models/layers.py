@@ -1,5 +1,5 @@
 """Layer library of the port's decoders, dense and MoE (port of the parts
-of `repro.models.layers` the serving path runs).
+of `repro.models.layers` the serving and training paths run).
 
 Every projection goes through `core.linear.apply_linear` (the DPA
 contract) and every attention/unembed through an `exec_plan` route, so
@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
@@ -103,17 +104,46 @@ def init_attention(generator, cfg, device="cpu"):
 
 
 def _sdpa(q, k, v, *, causal, window, offset, valid=None, use_flash=False,
-          policy=None, kv_on_grid=False):
+          q_chunk=0, policy=None, kv_on_grid=False):
     """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd) -> (B,Sq,H,hd), through the
     `flash_attn` route the plan resolves; `use_flash` (the config's) makes
-    the flash kernels eligible for a prefill with no extra key mask."""
+    the flash kernels eligible for a prefill with no extra key mask.
+
+    q_chunk (the config's `attn_chunk`): on a plain route, as in the
+    reference, query blocks of q_chunk rows run one after another, so the
+    (Sq, Skv) logits never exist whole, when q_chunk divides Sq, is below
+    it and there is no key mask.  While autograd records, each block runs
+    under a checkpoint: its (q_chunk, Skv) logits are recomputed in
+    backward instead of kept.  The config's attn_chunk holds on every
+    plain-route call, serving's plain prefill and the use_flash-off
+    scoring pass included.  On the CPU every query row reduces alone on
+    the plain routes, so the output equals the unchunked one bit for bit;
+    on the card the products are cuBLAS GEMMs, which pick their kernel by
+    shape, so a block's rows may differ from the unchunked ones in the
+    last bits.  The gradients of K and V sum the blocks' parts in another
+    order."""
+    B, Sq, H, hd = q.shape
     policy = get_policy(policy if policy is not None else "fp32")
-    entry = exec_plan.resolve("flash_attn", policy, sq=q.shape[1],
+    entry = exec_plan.resolve("flash_attn", policy, sq=Sq,
                               skv=k.shape[1], use_flash=use_flash,
                               has_valid=valid is not None,
                               kv_on_grid=kv_on_grid)
+    if (entry.backend != "cuda" and q_chunk and Sq > q_chunk
+            and Sq % q_chunk == 0 and valid is None):
+        def chunk(qs, i):
+            return _sdpa(qs, k, v, causal=causal, window=window,
+                         offset=offset + i * q_chunk, policy=policy,
+                         kv_on_grid=kv_on_grid)
+        outs = []
+        for i in range(Sq // q_chunk):
+            qs = q[:, i * q_chunk:(i + 1) * q_chunk]
+            outs.append(checkpoint(chunk, qs, i, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if torch.is_grad_enabled() and q.requires_grad
+                        else chunk(qs, i))
+        return torch.cat(outs, dim=1)
     return entry.run(q, k, v, policy=policy, causal=causal, window=window,
-                     offset=offset, valid=valid, scale=q.shape[-1] ** -0.5,
+                     offset=offset, valid=valid, scale=hd ** -0.5,
                      kv_on_grid=kv_on_grid)
 
 
@@ -202,7 +232,8 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
     elif not torch.is_tensor(offset):
         offset = int(offset)
     y = _sdpa(q, k, v, causal=True, window=None, offset=offset,
-              use_flash=cfg.use_flash, policy=policy, kv_on_grid=kv_on_grid)
+              use_flash=cfg.use_flash, q_chunk=cfg.attn_chunk, policy=policy,
+              kv_on_grid=kv_on_grid)
     y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd), policy)
     return y, cache
 
@@ -296,7 +327,11 @@ def apply_moe(params, x, cfg):
     keep = pos < C
     pos_c = torch.where(keep, pos, 0)
     rows = torch.arange(B, device=dev)[:, None].expand(B, S * K)
-    xt = x.gather(1, (order // K)[..., None].expand(B, S * K, d))
+    # each token repeated K times, then permuted: the gather's backward
+    # writes every slot once, and the K copies' gradients meet in the
+    # expand's sum, not in atomic adds
+    xk = x[:, :, None].expand(B, S, K, d).reshape(B, S * K, d)
+    xt = xk.gather(1, order[..., None].expand(B, S * K, d))
     buf = torch.zeros((B, E, C, d), dtype=x.dtype, device=dev)
     buf.index_put_((rows, sorted_e, pos_c),
                    torch.where(keep[..., None], xt, 0).to(x.dtype),
@@ -334,8 +369,10 @@ def init_embedding(generator, vocab: int, d: int, device="cpu"):
 
 
 def apply_embedding(params, ids, dtype):
-    # gather first, then cast: the same values as casting the table
-    return params["table"][ids].to(dtype)
+    """Gather first, then cast: the same values as casting the table.
+    `embedding`'s backward sums a repeated id's rows without atomics
+    (sorted segments on the card), so its gradient is deterministic."""
+    return torch.nn.functional.embedding(ids, params["table"]).to(dtype)
 
 
 def apply_unembed(x, table, *, per_row: bool = False):

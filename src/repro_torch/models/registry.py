@@ -3,7 +3,8 @@
 
 Batch conventions, as in the reference:
   forward: {"tokens": (B, S)} -> backbone_features (hidden states, aux)
-           or train_logits (logits (B, S, V) f32, aux), no caches
+           or train_logits (logits (B, S, V) f32, aux), no caches;
+           differentiable (training) over the torch routes
   prefill: tokens (B, S) -> (logits of the last position, caches)
   decode:  {"tokens": (B, S), "index": int, 0-dim or (B,) int32 tensor}
            with the caches -> (logits (B, S, V) f32, caches); a tensor
@@ -17,6 +18,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.linear import (needs_prep, prepare_grouped_linear,
                                      prepare_linear)
+from repro_torch.core.tree import tree_map
 
 from . import layers as L
 from .config import ModelConfig
@@ -79,6 +81,15 @@ class Model:
                     prepare_linear(lp["mlp"][name], pol, self.dtype)
         return params
 
+    def decay_mask(self, params) -> dict:
+        """AdamW's weight-decay flags in params' structure: the reference
+        decays leaves of 2 dims and more in its layout, where every
+        layer's leaves carry the scan axis, so each layer's norm scales
+        decay too; the final norm does not."""
+        return {k: tree_map(lambda p, stacked=(k == "layers"):
+                            stacked or p.ndim >= 2, v)
+                for k, v in params.items()}
+
     def init_caches(self, batch_size: int, s_ctx: int) -> list:
         return [init_block_cache(self.cfg, batch_size, s_ctx, self.dtype,
                                  self.device)
@@ -94,16 +105,15 @@ class Model:
         return L.apply_norm(params["norm_f"], x, eps=self.cfg.norm_eps,
                             per_row=per_row), caches, aux
 
-    @torch.no_grad()
     def backbone_features(self, params, batch):
         """The cacheless full-sequence forward: batch {"tokens": (B, S)}
-        -> (final hidden states (B, S, d), aux loss); forward only."""
+        -> (final hidden states (B, S, d), aux loss); differentiable, with
+        the config's remat while autograd records."""
         x, _, aux = self._forward(params, batch["tokens"], 0, None)
         return x, aux
 
-    @torch.no_grad()
     def train_logits(self, params, batch):
-        """-> (f32 logits (B, S, V), aux loss); forward only."""
+        """-> (f32 logits (B, S, V), aux loss); differentiable."""
         x, aux = self.backbone_features(params, batch)
         return L.apply_unembed(x, params["embed"]["table"]), aux
 

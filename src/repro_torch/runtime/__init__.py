@@ -1,1 +1,2 @@
-"""Runtime control of the port's serving engine."""
+"""Runtime of the port: the draft ladder controller, checkpoints and the
+training supervisor."""

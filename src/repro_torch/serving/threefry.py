@@ -1,8 +1,8 @@
-"""The parts of `jax.random` the sampler uses, in plain torch: the
-Threefry-2x32 counter hash, `PRNGKey`, `fold_in`, `random_bits` in the
-partitionable layout, `uniform`, `gumbel` (mode "low") and
-`categorical`, each batched over a leading axis of keys and computed on
-the device of its inputs.
+"""The parts of `jax.random` the sampler and the data pipeline use, in
+plain torch: the Threefry-2x32 counter hash, `PRNGKey`, `fold_in`,
+`split`, `random_bits` in the partitionable layout, `uniform`,
+`bernoulli`, `gumbel` (mode "low") and `categorical`, each batched over a
+leading axis of keys and computed on the device of its inputs.
 
 Threefry-2x32 is 32-bit integer arithmetic, so the port draws from the
 reference's own streams: keys, bits and uniforms equal JAX's bit for bit
@@ -24,6 +24,8 @@ The hash takes Python ints as well as tensors, so a key folded from ints
 make one.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -92,13 +94,26 @@ def fold_in(key, data):
     return key_tensor(*fold_words(key[..., 0], key[..., 1], data))
 
 
-def random_bits(key, n: int):
-    """`jax.random.bits(key, (n,), uint32)` in the partitionable layout:
-    entry i hashes the counter (i >> 32, i & 0xFFFFFFFF) and is the XOR
-    of the two output words.  key (..., 2) -> (..., n) int64 words."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry_2x32(key[..., 0, None], key[..., 1, None],
-                           i >> 32, i & MASK)
+def _hash_counters(key, start: int, n: int):
+    """The partitionable layout's hash of counters [start, start + n):
+    counter i is the word pair (i >> 32, i & 0xFFFFFFFF).  key (..., 2)
+    -> two (..., n) int64 words."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
+    return threefry_2x32(key[..., 0, None], key[..., 1, None],
+                         i >> 32, i & MASK)
+
+
+def split(key, num: int = 2):
+    """`jax.random.split(key, num)`: key i keeps both words of counter
+    i's hash.  key (..., 2) -> (..., num, 2)."""
+    return torch.stack(_hash_counters(key, 0, num), dim=-1)
+
+
+def random_bits(key, n: int, start: int = 0):
+    """`jax.random.bits(key, shape, uint32)`, entries [start, start + n)
+    of the flattened shape: the XOR of each counter's two hash words.
+    key (..., 2) -> (..., n) int64 words."""
+    y0, y1 = _hash_counters(key, start, n)
     return y0 ^ y1
 
 
@@ -109,16 +124,18 @@ def _unit_floats(bits):
     return f - 1.0
 
 
-def uniform(key, n=None, minval: float = 0.0, maxval: float = 1.0):
+def uniform(key, n=None, minval: float = 0.0, maxval: float = 1.0,
+            start: int = 0):
     """`jax.random.uniform(key, shape, float32, minval, maxval)` with shape
-    (n,), or () when n is None: key (..., 2) -> (..., n) or (...) f32.
+    (n,), or () when n is None, or entries [start, start + n) of a larger
+    flattened shape: key (..., 2) -> (..., n) or (...) f32.
     f * (maxval - minval) + minval, floored at minval, with the one
     rounding of XLA's fused multiply-add: the product is exact in f64
     (24-bit factors), and when the f32 scale is 1 (the sampler's ranges)
     it is f itself."""
     lo, hi = np.float32(minval), np.float32(maxval)
     scale = hi - lo
-    f = _unit_floats(random_bits(key, 1 if n is None else n))
+    f = _unit_floats(random_bits(key, 1 if n is None else n, start))
     if scale == 1.0:
         u = f + float(lo)
     else:
@@ -128,15 +145,43 @@ def uniform(key, n=None, minval: float = 0.0, maxval: float = 1.0):
     return u[..., 0] if n is None else u
 
 
-def gumbel(key, n: int):
-    """`jax.random.gumbel(key, (n,), float32)` (mode "low"):
+def bernoulli(key, p: float, shape):
+    """`jax.random.bernoulli(key, p, shape)` for a Python float p (mode
+    "low"): uniform < p.  key (2,) -> bool tensor of `shape`."""
+    n = math.prod(shape)
+    return (uniform(key, n) < p).reshape(shape)
+
+
+def gumbel(key, n: int, start: int = 0):
+    """`jax.random.gumbel(key, (n,), float32)` (mode "low"), or entries
+    [start, start + n) of a larger flattened shape:
     -log(-log(uniform(tiny, 1)))."""
-    return -torch.log(-torch.log(uniform(key, n, _F32_TINY, 1.0)))
+    return -torch.log(-torch.log(uniform(key, n, _F32_TINY, 1.0, start)))
 
 
-def categorical(key, logits):
-    """`jax.random.categorical(key, logits)` over the last axis, one key
-    per row: argmax of gumbel + logits, ties to the first index as
-    `jnp.argmax`.  key (..., 2), logits (..., V) f32 -> (...) int64."""
-    g = gumbel(key, logits.shape[-1])
-    return torch.argmax(g + logits, dim=-1)
+# Gumbel draws a chunk of `categorical(..., shape=...)` holds at once:
+# the hash keeps about a dozen int64 temporaries of this size alive
+DRAW_CHUNK = 1 << 24
+
+
+def categorical(key, logits, shape=None):
+    """`jax.random.categorical(key, logits)`: argmax of gumbel + logits
+    over the last axis, ties to the first index as `jnp.argmax`.
+
+    shape None: one key per row, key (..., 2), logits (..., V) f32 ->
+    (...) int64.  Else one key (2,) and one (V,) logit row drawn `shape`
+    times, as the reference's `categorical(key, logits, shape=shape)`:
+    draw j takes entries [j V, (j + 1) V) of the (*shape, V) Gumbel
+    array.  Draws are made in chunks of rows, so the temporaries stay
+    near `DRAW_CHUNK` entries whatever the shape."""
+    V = logits.shape[-1]
+    if shape is None:
+        return torch.argmax(gumbel(key, V) + logits, dim=-1)
+    n = math.prod(shape)
+    rows = max(1, DRAW_CHUNK // V)
+    out = torch.empty((n,), dtype=torch.int64, device=logits.device)
+    for r0 in range(0, n, rows):
+        r = min(rows, n - r0)
+        g = gumbel(key, r * V, start=r0 * V).reshape(r, V)
+        out[r0:r0 + r] = torch.argmax(g + logits, dim=-1)
+    return out.reshape(shape)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `repro_torch` (nor chip_smoke.py)
-imports JAX or the reference package, and the entry points run on the
-card unless the caller asks for the CPU."""
+imports JAX or the reference package — its serving paths and a
+supervised training run go through without them — and the entry points
+run on the card unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -67,6 +68,27 @@ total, parts = make_loss_fn(model)(model.init(torch.Generator()
                                               .manual_seed(0)),
                                    {"tokens": toks, "labels": toks})
 assert bool(torch.isfinite(total)) and float(parts["aux"]) == 0.0
+# slice 14: training — the pipeline, two supervised train steps with a
+# checkpoint and an injected failure, and the reference's state layout
+import tempfile
+from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.distributed.step import make_train_step
+from repro_torch.launch.train import build_state
+from repro_torch.optim import adamw
+from repro_torch.runtime.fault import Supervisor, SupervisorConfig
+moe = moe.replace(policy="fp8_dpa", remat="full", attn_chunk=8,
+                  logits_chunk=8)
+model = build_model(moe, device="cpu")
+step = make_train_step(model, adamw.AdamWConfig(warmup_steps=1,
+                                                total_steps=3))
+pipe = make_pipeline(DataConfig(vocab_size=moe.vocab_size, batch=2, seq=16),
+                     device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    sup = Supervisor(SupervisorConfig(ckpt_dir=d, ckpt_every=1),
+                     state=build_state(model, 0))
+    sup.inject_failure_at = 2
+    state = sup.run(step, pipe.batch, 3)
+assert int(state["opt"]["count"]) == 3 and sup.events[1] == ("restored", 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
              and sys.modules[m] is not None)
@@ -80,7 +102,7 @@ def test_port_imports_and_serves_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 33
+    assert int(out.stdout.split()[-1]) >= 55
 
 
 def _imported_roots(path):
@@ -117,3 +139,6 @@ def test_entry_points_default_to_the_card():
         Engine(model, None, EngineConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         generate(model, None, torch.zeros((1, 2), dtype=torch.int64), 1, 8)
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--arch", "qwen3-4b", "--reduced", "--steps", "1"])
