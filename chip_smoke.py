@@ -189,6 +189,25 @@ Phases (every failure raises; the exit code is then non-zero):
    layer's attention output on them with the kernel's plain version on
    the same inputs (on e with both sides' probability codes, to phase
    2's flip-aware bound).
+3k. The recurrent families at their published widths, seeded weights,
+   w4a8_kv4_attn8, each model alone on the card (peak memory printed):
+   first the DPA flash kernel's head-dim 256 instance against its plain
+   version at path H's shape (B 1, H 16, KV 1, S 4096, window 2048, bq
+   64; p-code flips within DPA_FLASH_MAX_FLIPS; timed beside the band's
+   operations bound) and in cache mode at S 1000, window 300;
+   G. recurrentgemma-9b (38 layers: rg, rg, attn_local x 12 and a tail
+      of 2 rg; hd 256, MQA) through `generate`, 2 prompts of 32 + 16
+      new, eager and graphed: equal tokens, 266 split-K fused launches a
+      model call, one serve step profiled eager and as a replay;
+   H. its 4096-token prefill with use_flash (12 DPA flash launches at hd
+      256 with window 2048 and 24 pre-pass launches, 266 tiled fused and
+      266 pre-pass launches), each layer's attention within the route's
+      0.075 of `torch_dpa_attn` and within phase 2's bound of the plain
+      version, the window caches = the last 2048 K/V rows; then 16
+      greedy decode steps from its caches, the window sliding;
+   I. xlstm-1.3b (48 layers: 7 mLSTM + 1 sLSTM x 6, no MLP) through
+      `generate` as G (324 split-K launches a call), and once more
+      through `launch.serve.main` (static mode, its own model).
 4. Where the time goes: torch.profiler over one steady decode step and
    one prefill chunk of each engine and one serve step of path c, each
    eager and graphed (wall, device busy share, launches; the prequant
@@ -3457,7 +3476,7 @@ def recorded_attention(calls):
         layers._sdpa = inner
 
 
-def check_path_attention(what, calls, plain, kernel=None):
+def check_path_attention(what, calls, plain, kernel=None, window=None):
     """Each layer's attention output on a path (`recorded_attention`)
     against `plain`, the kernel's plain version, on the same inputs laid
     out heads-first here and not by the route.  Pins what lies between
@@ -3471,7 +3490,7 @@ def check_path_attention(what, calls, plain, kernel=None):
     version records its codes too, and the layer is held to phase 2's
     bound (`_dpa_flash_misses`, at most DPA_FLASH_MAX_FLIPS of its live
     codes flipped), one layer at a time (a code buffer is H x S x S
-    bytes)."""
+    bytes).  A local attention path passes its `window`."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     worst, flips = 0.0, []
@@ -3489,7 +3508,7 @@ def check_path_attention(what, calls, plain, kernel=None):
             if codes is None:
                 codes = [torch.zeros((B, H, S, S), dtype=torch.uint8,
                                      device=q.device) for _ in range(2)]
-                mask = FA._mask(S, kh.shape[2], True, None, q.device)
+                mask = FA._mask(S, kh.shape[2], True, window, q.device)
             for c in codes:
                 c.zero_()
             again = kernel(qh, kh, vh, codes[0])
@@ -3500,7 +3519,7 @@ def check_path_attention(what, calls, plain, kernel=None):
             want = plain(qh, kh, vh, codes[1]).float()
             err = (got.float() - want).abs()
             bad, n = _dpa_flash_misses(err, want, codes, vh, mask)
-            live = H * S * (S + 1) // 2
+            live = H * int(mask.sum())
             flips.append(n)
             if n > DPA_FLASH_MAX_FLIPS * live:
                 raise AssertionError(f"{what}: layer {i}: {n} of {live} p "
@@ -3663,6 +3682,405 @@ def run_scoring(cfg, params, S=4096):
                     "attn_max_abs_err_vs_plain": layer_err,
                     "attn_p_codes_flipped_per_layer": layer_flips,
                     "profile": prof}
+
+
+# -----------------------------------------------------------------------------
+# phase 3k: the recurrent families (paths G, H, I)
+# -----------------------------------------------------------------------------
+
+# a block's linears by kind (its mixer's; the MLP adds 3 when d_ff > 0)
+MIXER_LINEARS = {"attn": 4, "attn_local": 4, "rg": 4, "mlstm": 7,
+                 "slstm": 5}
+RG_PROMPT = 4096                  # path H's prefill
+RG_DECODE = 16                    # greedy steps after it
+
+
+def linears_per_call(model) -> int:
+    """Fused matmul launches one model call makes: every linear of every
+    block."""
+    mlp = 3 if model.cfg.d_ff > 0 else 0
+    return sum(MIXER_LINEARS[k] + mlp for k in model.kinds)
+
+
+def check_dpa_flash_wide(gen, H=16, KV=1, S=RG_PROMPT, hd=256,
+                         window=2048):
+    """The DPA flash kernel's head-dim 256 instance against its plain
+    version at path H's shape (one recurrentgemma-9b local attention
+    layer: B 1, H 16, KV 1, S 4096, window 2048, causal, bf16, raw K/V on
+    the fp4 grid: the pre-pass, then the kernel on packed codes; bq 64,
+    bk 128), both sides writing every probability's E4M3 code: at most
+    DPA_FLASH_MAX_FLIPS of the live codes may differ and every output is
+    held to `_dpa_flash_misses`; then cache mode (fp8 codes and unpacked
+    fp4) at S 1000 (bq 50, bk 125), window 300, which must equal raw mode
+    bit for bit.  Timed at the first case, pre-pass included, beside its
+    bound: the live (q, k) pairs of the band, x 2 products x 2 flop x hd
+    x H, at the fp8 peak."""
+    import torch
+    from repro_torch.core import kvcache as KVC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import _fit_block
+    out, worst, flips = None, 0.0, {}
+    for name, S_, fmt_kv, cache, win in (
+            ("raw fp4 window 2048", S, "fp4_e2m1", False, window),
+            ("cache fp8 window 300", 1000, "fp8_e4m3", True, 300),
+            ("cache fp4 window 300", 1000, "fp4_e2m1", True, 300)):
+        q, k, v = _attn_inputs(gen, H, KV, S_, hd, torch.bfloat16)
+        bq, bk = _fit_block(FA.max_bq(hd), S_), _fit_block(128, S_)
+        kw = dict(fmt="fp8_e4m3", fmt_kv=fmt_kv, bq=bq, bk=bk, window=win)
+        args = (q, k, v)
+        if cache:
+            kc, ks = KVC.quantize_kv(k, fmt=fmt_kv)
+            vc, vs = KVC.quantize_kv(v, fmt=fmt_kv)
+            args = (q, kc, vc, ks, vs)
+            kw["kv_quant"] = True
+        ref_kw = {x: y for x, y in kw.items() if x != "bq"}
+        codes = [torch.zeros((1, H, S_, S_), dtype=torch.uint8,
+                             device="cuda") for _ in range(2)]
+        got = FA.dpa_flash_attention(*args, p_codes=codes[0], **kw)
+        want = FA.dpa_flash_attention_ref(*args, p_codes=codes[1], **ref_kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        mask = FA._mask(S_, S_, True, win, "cuda")
+        live = H * int(mask.sum())
+        bad, n = _dpa_flash_misses(err, want.float(), codes, v, mask)
+        del codes
+        if not bool(torch.isfinite(got).all()) or bad or \
+                n > DPA_FLASH_MAX_FLIPS * live:
+            raise AssertionError(f"dpa_flash_attention hd {hd} {name}: "
+                                 f"{bad} outputs off their bound (max err "
+                                 f"{float(err.max())}), {n} of {live} p "
+                                 "codes flipped")
+        if cache:
+            raw = FA.dpa_flash_attention(q, k, v, fmt="fp8_e4m3",
+                                         fmt_kv=fmt_kv, bq=bq, bk=bk,
+                                         window=win)
+            if not torch.equal(raw, got):
+                raise AssertionError(f"dpa_flash_attention hd {hd} {name}: "
+                                     "cache rows gave other bits than raw "
+                                     "K/V")
+        worst = max(worst, float(err.max()))
+        flips[name] = [n, live]
+        print(f"dpa_flash_attention hd {hd} {name} H={H} KV={KV} S={S_} "
+              f"bq={bq} bk={bk}: max_abs_err {float(err.max()):.3g}; {n} of "
+              f"{live} live p codes flipped"
+              + ("; == raw mode bit for bit" if cache else ""))
+        if out is None:
+            t = timings(lambda: FA.dpa_flash_attention(*args, **kw),
+                        lambda: FA.dpa_flash_attention_ref(*args, **ref_kw))
+            pairs = int(mask.sum())
+            ops = 2.0 * 2.0 * hd * pairs * H
+            nbytes = 2 * hd * S_ * (2 * H + 2 * KV)
+            t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+            t["fp16_bound_ms"] = bound(nbytes, ops, FP16_OPS_PER_S)[0]
+            t["band_pairs_per_head"] = pairs
+            pre = lambda: (FA._prepass(k, fmt_kv),  # noqa: E731
+                           FA._prepass(v, fmt_kv))
+            t["prepass_ms"] = median_ms(pre)
+            t["prepass_device_ms"] = device_ms(pre)
+            print(f"dpa_flash_attention hd {hd} S={S_} window {win}: "
+                  f"{fmt_times(t)} (pre-pass alone {t['prepass_ms']:.4f}, "
+                  f"device {t['prepass_device_ms']}); bound_ms "
+                  f"{t['bound_ms']:.5f} ({t['bound_by']}, fp8 peak; fp16 "
+                  f"{t['fp16_bound_ms']:.5f}); {pairs} band pairs a head")
+            out = t
+    out["max_abs_err"] = worst
+    out["flips"] = flips
+    return out
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def run_recurrent_generate(model, params, *, n_prompts=2, prompt_len=32,
+                           n_new=16):
+    """Paths G and I: `generate` at full width under w4a8_kv4_attn8,
+    eagerly and with the serve step as a CUDA graph: the same tokens,
+    every linear on the fused matmul's split-K route (the launch counters
+    over each run), finite logits; then one serve step profiled eager and
+    graphed (decode step device ms), and one replay held to its capture's
+    counts.  -> (counts of the graphed run, report)."""
+    import torch
+    from repro_torch.distributed.step import make_serve_step
+    from repro_torch.launch.graphs import Step, StepGraph
+    from repro_torch.launch.serve import generate
+    cfg = model.cfg
+    restore = finite_steps(model)
+    prompt = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len),
+                           generator=torch.Generator().manual_seed(8))
+    s_ctx = prompt_len + n_new
+    calls = s_ctx - 1
+    per_call = linears_per_call(model)
+    outs, res = {}, {}
+    for mode in ("eager", "graphed"):
+        zero_counts()
+        t0 = time.monotonic()
+        out = generate(model, params, prompt, n_new, s_ctx, device="cuda",
+                       graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        if tuple(out.shape) != (n_prompts, s_ctx) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()) or \
+                not torch.equal(out[:, :prompt_len].cpu(),
+                                prompt.to(torch.int32)):
+            raise AssertionError(f"generate returned {tuple(out.shape)}")
+        check_counts(f"{cfg.name} generate ({cfg.policy}, {mode})", counts,
+                     {"dpa_matmul_fused": per_call * calls,
+                      "dpa_matmul_fused.splitk": per_call * calls})
+        st = generate.capture_stats
+        timed = calls - 1 if st else calls
+        step_wall = wall - (st["warmup_s"] + st["capture_s"] if st else 0.0)
+        res[mode] = {"wall_s": wall, "model_calls": calls,
+                     "ms_per_call": step_wall / timed * 1e3,
+                     "tokens_per_s": n_prompts * timed / step_wall,
+                     "capture": st}
+        print(f"generate ({mode}): {cfg.name} {n_prompts} prompts x "
+              f"{prompt_len} tokens + {n_new} new in {wall:.2f} s ({calls} "
+              f"model calls of {per_call} fused launches, "
+              f"{res[mode]['ms_per_call']:.1f} ms each"
+              + (" of the replayed ones" if st else "") + f", "
+              f"{res[mode]['tokens_per_s']:.1f} tokens/s)")
+        if st:
+            print(_capture_line("serve step", st))
+        outs[mode] = out.cpu()
+        if mode == "graphed":
+            res[mode]["counts"] = counts
+    if not restore():
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    equal = torch.equal(outs["eager"], outs["graphed"])
+    print(f"generate {cfg.name}: graphed tokens equal the eager run's: "
+          f"{equal}; new tokens {outs['graphed'][:, prompt_len:].tolist()}")
+    if not equal:
+        raise AssertionError(f"{cfg.name}: graphed generate tokens "
+                             f"{outs['graphed'].tolist()} differ from the "
+                             f"eager run's {outs['eager'].tolist()}")
+    caches = model.init_caches(n_prompts, s_ctx)
+    serve_step = make_serve_step(model)
+
+    def step(tokens, index):
+        return serve_step(params, {"tokens": tokens, "index": index},
+                          caches)[0]
+
+    bufs = {"tokens": prompt[:, :1].to("cuda"),
+            "index": torch.full((), s_ctx - 2, dtype=torch.int32,
+                                device="cuda")}
+    label = f"{cfg.name} serve step (B={n_prompts}, {cfg.policy})"
+    prof = {"eager": profile_window(f"{label}, eager", Step(step, bufs).run,
+                                    watch=("dpa_fused_kernel",), timed=3)}
+    graph = StepGraph(step, bufs, name="serve step")
+    prof["graphed"] = check_replay(f"{label}, graphed", graph)
+    del graph
+    res["graphed"]["profile"] = prof
+    res["graphed"]["tokens_equal_eager"] = equal
+    res["graphed"]["fused_launches_per_call"] = per_call
+    counts = res["graphed"].pop("counts")
+    return counts, {**res["graphed"], "eager": res["eager"]}
+
+
+def run_rg_prefill(cfg, params, S=RG_PROMPT, n_decode=RG_DECODE):
+    """Path H: recurrentgemma-9b's S-token prefill with use_flash under
+    w4a8_kv4_attn8 (`Model.prefill`): the 12 local attention layers
+    through the DPA flash kernel at hd 256 with the window of 2048 (24
+    pre-pass row-quantizer launches), every linear on the fused matmul's
+    tiled route (with its pre-pass), the RG-LRU scan over S positions.
+    Timed and counted; the window caches hold the last 2048 rows of each
+    layer's K and V bit for bit; each layer's attention output within the
+    route's tolerance (0.075) of its reference route (`torch_dpa_attn`,
+    global-max p quantization) on the same inputs, and against the
+    kernel's plain version (`check_path_attention`, p-code flips within
+    DPA_FLASH_MAX_FLIPS).  The last logits against the same prefill with
+    use_flash off are reported: 38 layers of fp8 activation codes carry
+    the routes' differences, so, as path C's, they are only required to
+    stay correlated (cosine >= 0.95).
+    Then n_decode greedy steps from its caches (split-K route), the
+    window sliding: each window cache shifts left by one row a step."""
+    import torch
+    from repro_torch.core import exec_plan
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import FLASH_BLOCK
+    from repro_torch.models import build_model
+    from repro_torch.models import decode_attn as D
+    model = build_model(cfg, device="cuda")
+    pol = get_policy(cfg.policy)
+    W, hd = cfg.window, cfg.hd
+    n_local = model.kinds.count("attn_local")
+    per_call = linears_per_call(model)
+    tokens = _prompt(cfg, S, 9)
+    model.prefill(params, tokens)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    logits, caches = model.prefill(params, tokens)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    check_counts(f"{cfg.name} prefill ({cfg.policy}, use_flash)", counts,
+                 {"dpa_flash_attention": n_local,
+                  "dpa_flash_attention.prepass": n_local,
+                  "quantize_pack_rows": 2 * n_local,
+                  "dpa_matmul_fused": per_call,
+                  "dpa_matmul_fused.tiled": per_call,
+                  "dpa_act_quant": per_call})
+    ref, ref_caches = build_model(cfg.replace(use_flash=False),
+                                  device="cuda").prefill(params, tokens)
+    del ref_caches
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    entry = exec_plan.resolve("flash_attn", pol, sq=S, skv=S,
+                              use_flash=True, has_valid=False,
+                              kv_on_grid=False)
+    tol = entry.tol
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        logits.reshape(1, -1), ref.reshape(1, -1)))
+    tok, ref_tok = int(logits[0, -1].argmax()), int(ref[0, -1].argmax())
+    print(f"prefill: last logits vs use_flash off: max |diff| {err:.4g} "
+          f"(scale {scale:.4g}), cosine {cos:.6f}; greedy token {tok} "
+          f"(use_flash off {ref_tok})")
+    calls = []
+    with recorded_attention(calls):
+        model.prefill(params, tokens)
+    local = [i for i, k in enumerate(model.kinds) if k == "attn_local"]
+    for i, (q, k, v, out) in zip(local, calls):
+        for key, rows in (("k", k), ("v", v)):
+            if not torch.equal(caches[i][key], rows[:, -W:]):
+                raise AssertionError(f"layer {i}: the window cache's {key} "
+                                     "is not the prefill's last rows")
+    # the route's own pin: each layer's flash output against its
+    # reference route (global-max p quantization) on the same inputs
+    route_errs = []
+    for q, k, v, out in calls:
+        mask = D.build_sdpa_mask(S, S, 0, True, W, device="cuda")
+        want = D.dpa_attention(q, k, v, mask[None, None],
+                               fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv,
+                               scale=hd ** -0.5)
+        route_errs.append(float((out.float() - want.float()).abs().max()))
+        del want, mask
+    print(f"prefill: {entry.name} vs {entry.reference} on each layer's "
+          f"inputs: max |diff| per layer {[f'{e:.3g}' for e in route_errs]}"
+          f" (route tolerance {tol})")
+    if max(route_errs) > tol or cos < 0.95:
+        raise AssertionError(f"prefill: layers off the route tolerance "
+                             f"{route_errs}, or logits decorrelated from "
+                             f"use_flash off (cosine {cos})")
+    kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, bk=FLASH_BLOCK,
+              window=W)
+    layer_err, layer_flips = check_path_attention(
+        "recurrentgemma prefill", calls,
+        lambda q, k, v, c: FA.dpa_flash_attention_ref(q, k, v, p_codes=c,
+                                                      **kw),
+        kernel=lambda q, k, v, c: FA.dpa_flash_attention(
+            q, k, v, p_codes=c, bq=FA.max_bq(hd), **kw), window=W)
+    del calls
+    prof = profile_window(f"{cfg.name} prefill ({S} tokens, use_flash)",
+                          lambda: model.prefill(params, tokens),
+                          watch=("dpa_flash", "dpa_fused", "quantize_rows"))
+    # greedy decode from the prefill's caches; the window slides
+    first_window = caches[local[0]]["k"].clone()
+    zero_counts()
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    new, t0 = [], time.monotonic()
+    for t in range(n_decode):
+        out, caches = model.decode_step(
+            params, {"tokens": nxt, "index": S + t}, caches)
+        nxt = out[:, -1].argmax(-1)[:, None]
+        new.append(nxt)
+    torch.cuda.synchronize()
+    dec_wall = time.monotonic() - t0
+    dec_counts = read_counts()
+    check_counts(f"{cfg.name} decode after prefill", dec_counts,
+                 {"dpa_matmul_fused": per_call * n_decode,
+                  "dpa_matmul_fused.splitk": per_call * n_decode})
+    slid = caches[local[0]]["k"]
+    if not torch.equal(slid[:, :W - n_decode], first_window[:, n_decode:]):
+        raise AssertionError("the window did not slide by one row a step")
+    new = torch.cat(new, dim=1)
+    if not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError(f"decode tokens {new.tolist()}")
+    print(f"prefill: {cfg.name} {S}-token prompt in {wall:.3f} s; "
+          f"window caches = each layer's last {W} K/V rows; then "
+          f"{n_decode} greedy steps (eager) in {dec_wall:.2f} s "
+          f"({dec_wall / n_decode * 1e3:.1f} ms each), the window sliding: "
+          f"tokens {new.tolist()}")
+    return add_counts(counts, dec_counts), {
+        "wall_s": wall, "max_abs_diff_vs_ref_attn": err, "logit_scale": scale,
+        "cosine_vs_ref_attn": cos, "first_token": tok, "ref_token": ref_tok,
+        "route_tol": tol, "route_max_abs_diff_per_layer": route_errs,
+        "attn_max_abs_err_vs_plain": layer_err,
+        "attn_p_codes_flipped_per_layer": layer_flips,
+        "decode_steps": n_decode, "decode_wall_s": dec_wall,
+        "decode_tokens": new.tolist(), "profile": prof}
+
+
+def run_recurrent(gen):
+    """Phase 3k: recurrentgemma-9b (paths G and H) and xlstm-1.3b (path
+    I) at their published widths, seeded weights, w4a8_kv4_attn8; each
+    model alone on the card, its peak memory printed.  -> (counts, report,
+    hd 256 kernel timings)."""
+    import torch
+    from repro_torch.configs import get_config
+    wide = check_dpa_flash_wide(gen)
+    counts, report = [], {}
+    for name in ("recurrentgemma-9b", "xlstm-1.3b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(name).replace(policy="w4a8_kv4_attn8")
+        model, params = build(cfg)
+        if linears_per_call(model) != {"recurrentgemma-9b": 266,
+                                       "xlstm-1.3b": 324}[name]:
+            raise AssertionError(f"{name}: {linears_per_call(model)} "
+                                 "linears a call")
+        n, rep = run_recurrent_generate(model, params)
+        counts.append(n)
+        report[name] = {"generate": rep}
+        if name == "recurrentgemma-9b":
+            n, rep = run_rg_prefill(cfg.replace(use_flash=True), params)
+            counts.append(n)
+            report[name]["prefill"] = rep
+        report[name]["peak_gb"] = _peak_gb()
+        print(f"{name}: peak device memory {report[name]['peak_gb']:.2f} GB "
+              "(max_memory_allocated)")
+        del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.append(run_recurrent_front_end())
+    return add_counts(*counts), report, wide
+
+
+RECURRENT_FRONT_END = ["--arch", "xlstm-1.3b", "--policy", "w4a8_kv4_attn8",
+                       "--batch", "2", "--prompt-len", "32", "--gen", "16"]
+
+
+def run_recurrent_front_end():
+    """`python -m repro_torch.launch.serve` in its static mode on xlstm-1.3b
+    at full width (its own model, seed 0): the report lines, a (2, 48)
+    output, every linear of the 47 graphed model calls on the split-K
+    route.  -> its counts."""
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.launch import serve
+    zero_counts()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = serve.main(RECURRENT_FRONT_END)
+    text = buf.getvalue()
+    print(text, end="")
+    counts = read_counts()
+    if tuple(out.shape) != (2, 48) or "kv-cache:" not in text or \
+            "generated (2, 48)" not in text:
+        raise AssertionError(f"front end: {tuple(out.shape)}, {text!r}")
+    check_counts("xlstm-1.3b front end (static, graphed)", counts,
+                 {"dpa_matmul_fused": 324 * 47,
+                  "dpa_matmul_fused.splitk": 324 * 47})
+    gc.collect()
+    return counts
+
 
 
 def run_quantize_op(gen, M=4096, K=9728):
@@ -4427,6 +4845,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_quant = time.monotonic() - t_start
+    # phase 3k: the recurrent families at full width (paths G, H, I) and
+    # the DPA flash kernel's hd 256 instance
+    n_rec, rec, wide_t = run_recurrent(gen)
+    t_rec = time.monotonic() - t_start
     # phase 5: training
     train = run_training()
     t_total = time.monotonic() - t_start
@@ -4437,7 +4859,8 @@ def main() -> None:
           f"scoring {t_qwen - t_spec:.1f} s, front ends "
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
           f"{t_granite - t_front:.1f} s, quantize_pack op "
-          f"{t_quant - t_granite:.1f} s, training {t_total - t_quant:.1f} s")
+          f"{t_quant - t_granite:.1f} s, recurrent families "
+          f"{t_rec - t_quant:.1f} s, training {t_total - t_rec:.1f} s")
     n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
 
     def times(t):
@@ -4450,8 +4873,10 @@ def main() -> None:
         {"name": "dpa_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"],
-         "splitk_launches": n_serve["dpa_matmul_fused.splitk"],
+         "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"]
+         + n_rec["dpa_matmul_fused"],
+         "splitk_launches": n_serve["dpa_matmul_fused.splitk"]
+         + n_rec["dpa_matmul_fused.splitk"],
          "max_abs_err": max(mm_err, gmm_err, tl_err), **times(mm_t),
          "device_from": mm_t.get("device_from"),
          "bound_by": "bytes", "library_ms": None,
@@ -4467,7 +4892,8 @@ def main() -> None:
              "name": "dpa_matmul_fused", "route": "cuda",
              "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
              "replaces": "src/repro/kernels/dpa_matmul.py:184",
-             "launches": n_d["dpa_matmul_fused.tiled"],
+             "launches": n_d["dpa_matmul_fused.tiled"]
+             + n_rec["dpa_matmul_fused.tiled"],
              "max_abs_err": tl_err, **times(tl_t),
              "bound_by": "operations", "library_ms": None,
              "fp16_bound_ms": tl_t["fp16_bound_ms"],
@@ -4484,7 +4910,7 @@ def main() -> None:
         {"name": "dpa_act_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": n_d["dpa_act_quant"],
+         "launches": n_d["dpa_act_quant"] + n_rec["dpa_act_quant"],
          "max_abs_err": 0.0, **times(tl_t["prepass"]),
          "bound_by": "bytes", "library_ms": None,
          "library": "none: no PyTorch call quantizes per (row, K block of "
@@ -4561,8 +4987,10 @@ def main() -> None:
         {"name": "dpa_flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_flash.cu",
          "replaces": "src/repro/kernels/flash_attention.py:218",
-         "launches": n_d["dpa_flash_attention"],
-         "prepass_launches": n_d["dpa_flash_attention.prepass"],
+         "launches": n_d["dpa_flash_attention"]
+         + n_rec["dpa_flash_attention"],
+         "prepass_launches": n_d["dpa_flash_attention.prepass"]
+         + n_rec["dpa_flash_attention.prepass"],
          "max_abs_err": dfa_t["max_abs_err"], **times(dfa_t),
          "device_from": dfa_t.get("device_from"),
          "bound_by": dfa_t["bound_by"], "library_ms": None,
@@ -4580,7 +5008,24 @@ def main() -> None:
              score_d["attn_p_codes_flipped_per_layer"],
          "at": "one layer of qwen3-4b scoring: B=1 S=4096 H=32 KV=8 hd=128 "
                "causal, bf16, raw K/V on the fp4 grid, pre-pass included "
-               "(bound at the fp8 peak)"},
+               "(bound at the fp8 peak)",
+         "hd256": {**times(wide_t), "bound_by": wide_t["bound_by"],
+                   "device_from": wide_t.get("device_from"),
+                   "max_abs_err": wide_t["max_abs_err"],
+                   "fp16_bound_ms": wide_t["fp16_bound_ms"],
+                   "band_pairs_per_head": wide_t["band_pairs_per_head"],
+                   "prepass_ms": wide_t["prepass_ms"],
+                   "prepass_device_ms": wide_t["prepass_device_ms"],
+                   "p_codes_flipped": wide_t["flips"],
+                   "launches": n_rec["dpa_flash_attention"],
+                   "path_h_p_codes_flipped_per_layer": rec[
+                       "recurrentgemma-9b"]["prefill"][
+                       "attn_p_codes_flipped_per_layer"],
+                   "at": "path H: one recurrentgemma-9b local attention "
+                         "layer, B=1 S=4096 H=16 KV=1 hd=256 window 2048 "
+                         "causal, bf16, raw K/V on the fp4 grid, bq 64 bk "
+                         "128, pre-pass included (bound: the band's live "
+                         "pairs at the fp8 peak)"}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:100",
@@ -4621,7 +5066,8 @@ def main() -> None:
         {"name": "quantize_pack_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:50",
-         "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"],
+         "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"]
+         + n_rec["quantize_pack_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
          "device_from": qz_t["quantize_pack_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
@@ -4655,6 +5101,14 @@ def main() -> None:
         if "step_profiles" in r:
             print("summary qwen3-4b " + _spec_line(name, r, rep_q,
                                                    r["step_profiles"]))
+    print("recurrent: " + json.dumps(rec))
+    for name, r in rec.items():
+        g = r["generate"]
+        print(f"summary {name} generate: graphed tokens equal eager "
+              f"{g['tokens_equal_eager']}, {g['tokens_per_s']:.1f} tokens/s "
+              f"graphed ({g['eager']['tokens_per_s']:.1f} eager), decode "
+              f"step device {g['profile']['graphed']['busy_ms']} ms, peak "
+              f"{r['peak_gb']:.2f} GB")
     print("train: " + json.dumps(train))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))

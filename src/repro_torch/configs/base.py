@@ -1,7 +1,7 @@
-"""Config registry of the port: the decoder and MoE configurations it
-serves, and `reduce_config`, the CPU smoke variant of the same family
-(port of `repro.configs.base`; the other families join with their
-slices)."""
+"""Config registry of the port: the configurations it serves (decoder,
+MoE and the recurrent families), and `reduce_config`, the CPU smoke
+variant of the same family (port of `repro.configs.base`; whisper and
+pixtral join with their slices)."""
 from __future__ import annotations
 
 import importlib
@@ -9,9 +9,14 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
+    "qwen2-72b": "qwen2_72b",
+    "deepseek-67b": "deepseek_67b",
     "qwen3-4b": "qwen3_4b",
     "llama3.2-3b": "llama32_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-moe-1b-a400m": "granite_moe_1b",
+    "dbrx-132b": "dbrx_132b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

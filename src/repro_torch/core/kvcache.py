@@ -80,12 +80,17 @@ def init_kv_cache(batch: int, s_ctx: int, n_kv: int, hd: int, *, fmt,
 
 
 def _update_offset(offset, s_ctx: int, s_new: int):
-    """The reference's dynamic_update_slice start: clamped so the update
-    fits inside the cache.  A 0-dim integer tensor (a captured step's
-    offset, read at every replay) stays a tensor."""
+    """The reference's dynamic_update_slice start: a negative start counts
+    from the end (start + s_ctx, as jax's does), then the start is clamped
+    so the update fits inside the cache.  A 0-dim integer tensor (a
+    captured step's offset, read at every replay) stays a tensor."""
     if torch.is_tensor(offset):
+        offset = torch.where(offset < 0, offset + s_ctx, offset)
         return offset.clamp(0, s_ctx - s_new)
-    return min(max(int(offset), 0), s_ctx - s_new)
+    offset = int(offset)
+    if offset < 0:
+        offset += s_ctx
+    return min(max(offset, 0), s_ctx - s_new)
 
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}

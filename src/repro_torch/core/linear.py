@@ -21,10 +21,15 @@ from . import exec_plan
 from .policy import get_policy
 
 
-def init_linear(generator, d_in: int, d_out: int, *, device="cpu"):
-    """normal * d_in^-0.5, f32 — the reference init's shapes and scale."""
+def init_linear(generator, d_in: int, d_out: int, *, bias: bool = False,
+                device="cpu"):
+    """normal * d_in^-0.5, f32 — the reference init's shapes and scale;
+    with `bias`, a zero (d_out,) "b"."""
     w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
                     device=device) * d_in ** -0.5
+    if bias:
+        return {"w": w, "b": torch.zeros((d_out,), dtype=torch.float32,
+                                         device=device)}
     return {"w": w}
 
 

@@ -63,7 +63,7 @@ def chunked_xent(params, model, x, labels, chunk: int,
     """Per-chunk unembed + cross-entropy over x (B, S, d): never holds
     more than (B, chunk, V) logits, in backward too."""
     B, S, _ = x.shape
-    table = params["embed"]["table"]
+    table = model.unembed_table(params)
 
     def body(xs, ls):
         logz, gold = _xent_terms(L.apply_unembed(xs, table), ls)

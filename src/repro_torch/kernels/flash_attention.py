@@ -21,7 +21,9 @@ block of `bk`) after the exp under the running max, their scale folded
 into the numerator and the denominator.  `bk` is part of the numerics.
 On the card raw K/V are quantized once by the row-quantizer kernels
 (`kernels.quantize`) into the codes and scales a quantized cache holds,
-and the kernel reads those.
+and the kernel reads those.  Head dims 64 and 128 take q blocks of up to
+128 rows; 256 (recurrentgemma's local attention) up to 64 (`max_bq`),
+the kernel's other layout; the f32 kernel has no hd-256 instance yet.
 """
 from __future__ import annotations
 
@@ -34,8 +36,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.quantize import quantize_pack_rows, quantize_rows
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)     # the kernel's head-dim template instances
-MAX_BLOCK = 128                  # the kernel's tile: bq, bk <= 128
+KERNEL_HEAD_DIMS = (64, 128)     # the f32 kernel's head-dim instances
+DPA_HEAD_DIMS = (64, 128, 256)   # the DPA kernel's
+MAX_BLOCK = 128                  # the kernels' tile: bq, bk <= 128
+DPA_WIDE_BQ = 64                 # the DPA kernel's q rows a block at hd 256
+F32_WIDE_ITEM = ("ROADMAP Queue 2, flash_attention (the f32 flash kernel) "
+                 "at head dim 256")
 
 # the DPA kernel's K/V code layouts: (fmt_kv, packed) -> kv_fmt
 _KV_FMT = {("fp8_e4m3", False): 0, ("fp4_e2m1", False): 1,
@@ -147,22 +153,28 @@ def _check(q, k, v, dk: int):
         raise ValueError("q, k and v must share one device")
 
 
-def _check_launch(q, bq, bk, window, tensors, what):
+def max_bq(head_dim: int) -> int:
+    """The DPA kernel's largest q block at this head dim: 128, or 64 at
+    hd 256, where 128 rows do not fit its shared memory (`bq` is free:
+    rows are independent; `bk` is part of the numerics)."""
+    return DPA_WIDE_BQ if head_dim == 256 else MAX_BLOCK
+
+
+def _check_launch(q, bq, bk, window, tensors, what, head_dims):
     """Raise for what the kernels do not take (CUDA operands only)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, H, _, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} kernel takes f32/bf16 q, got {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what} kernel needs hd in {KERNEL_HEAD_DIMS}, "
-                         f"got {D}")
+    if D not in head_dims:
+        raise ValueError(f"{what} kernel needs hd in {head_dims}, got {D}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if bq > MAX_BLOCK or bk > MAX_BLOCK or B * H > 65535:
-        raise ValueError(f"{what} kernel needs bq, bk <= {MAX_BLOCK} and "
-                         f"B * H <= 65535; got bq={bq}, bk={bk}, B={B}, "
-                         f"H={H}")
+    if bq > max_bq(D) or bk > MAX_BLOCK or B * H > 65535:
+        raise ValueError(f"{what} kernel needs bq <= {max_bq(D)}, bk <= "
+                         f"{MAX_BLOCK} and B * H <= 65535; got bq={bq}, "
+                         f"bk={bk}, B={B}, H={H}")
     if not all(t.is_contiguous() for t in tensors if t is not None):
         raise ValueError(f"{what} kernel needs contiguous operands")
 
@@ -185,7 +197,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    window=window)
-    _check_launch(q, bq, bk, window, (q, k, v), "flash_attention")
+    if q.shape[3] == 256:
+        raise NotImplementedError(
+            f"flash_attention kernel has no head-dim 256 instance: open in "
+            f"{F32_WIDE_ITEM}")
+    _check_launch(q, bq, bk, window, (q, k, v), "flash_attention",
+                  KERNEL_HEAD_DIMS)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes k/v in q's dtype "
                         f"{q.dtype}, got {k.dtype}, {v.dtype}")
@@ -258,7 +275,7 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
             f"kv_packed={kv_packed}) is open in ROADMAP Queue 2 under "
             "dpa_flash_attention (formats open)")
     _check_launch(q, bq, bk, window, (q, k, v, k_scale, v_scale, p_codes),
-                  "dpa_flash_attention")
+                  "dpa_flash_attention", DPA_HEAD_DIMS)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1:3]
     if p_codes is not None and (p_codes.dtype != torch.uint8 or

@@ -282,7 +282,8 @@ def _fa_cuda_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
     out = FA.dpa_flash_attention(
         _heads_first(q), _heads_first(k), _heads_first(v),
         fmt=policy.fmt_attn, fmt_kv=_kv_fmt(policy), causal=causal,
-        window=window, bq=_fit_block(FLASH_BLOCK, q.shape[1]),
+        window=window,
+        bq=_fit_block(min(FLASH_BLOCK, FA.max_bq(q.shape[-1])), q.shape[1]),
         bk=_fit_block(FLASH_BLOCK, k.shape[1]))
     return out.transpose(1, 2)
 

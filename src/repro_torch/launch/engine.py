@@ -277,6 +277,12 @@ class Engine:
         if dev.type != model.device.type:
             raise ValueError(f"model lives on {model.device}, not {dev}")
         cfg = model.cfg
+        if set(model.pattern) != {"attn"}:
+            raise ValueError(
+                f"engine serves uniform-attention decoder stacks; {cfg.name} "
+                f"has pattern {model.pattern} (sliding-window/recurrent "
+                "blocks keep per-slot state the paged cache does not "
+                "model)")
         pol = get_policy(cfg.policy)
         if (spec is not None or adaptive is not None) and cfg.is_moe:
             raise NotImplementedError(

@@ -48,6 +48,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.distributed.step import make_serve_step
 from repro_torch.launch.graphs import Step, StepGraph
 from repro_torch.models import build_model
+from repro_torch.models.transformer import layer_kinds
 
 # the reference's `hlo_analysis.plan_routes` shapes: each op's ctx
 PLAN_ROUTES = {
@@ -95,15 +96,16 @@ def report_plan(cfg, s_ctx: int) -> str:
 
 
 def report_kv_cache(cfg, batch: int, s_ctx: int) -> str:
-    """One-line KV-cache footprint for the selected policy (every layer of
-    the port's decoder and MoE families is an attention layer)."""
+    """One-line KV-cache footprint for the selected policy, over the full
+    attention layers (a local layer's raw window cache and the recurrent
+    states are not counted, as in the reference)."""
     pol = get_policy(cfg.policy)
     if not pol.kv_quantized:
         return "kv-cache: raw %s (policy %s)" % (cfg.dtype, cfg.policy)
     from repro_torch.core.kvcache import kv_cache_nbytes
     nb = kv_cache_nbytes(batch, s_ctx, cfg.n_kv_heads, cfg.hd,
                          fmt=pol.fmt_kv, packed=pol.kv_packed)
-    n_attn = cfg.n_layers
+    n_attn = layer_kinds(cfg).count("attn")
     return (f"kv-cache: {pol.fmt_kv}{' packed' if pol.kv_packed else ''} "
             f"{nb['total'] * n_attn / 1e6:.2f} MB vs f32 "
             f"{nb['f32_total'] * n_attn / 1e6:.2f} MB "

@@ -5,9 +5,13 @@ The port's own init draws other weights than JAX's (its normal draws
 pass through transcendentals whose last bits differ), so the tests move
 weights across: `jax.tree.map(np.asarray, params)` on the JAX side, then
 `convert_params` here.  The reference stacks per-layer params on a
-leading scan axis (`stack.groups.p0`, plus an unscanned tail); the port
-keeps a per-layer list.  A MoE block's router and (E, d_in, d_out)
-expert stacks cross like any other leaf, as f32 masters.
+leading scan axis, one stack per pattern slot (`stack.groups.p0 ..
+p{P-1}`: group g's slot i is layer g P + i), plus an unscanned tail of
+n_layers mod P layers; the port keeps a per-layer list in that order.
+A MoE block's router and (E, d_in, d_out) expert stacks, an RG-LRU
+block's conv and lam, an xLSTM block's "mix", the QKV biases and an
+untied model's "unembed" table cross like any other leaf, as f32
+masters.
 
 A train state crosses the same way (`convert_state`): the reference's
 {"params", "opt": {"m", "v", "count"}}, whose m and v mirror the params.
@@ -35,28 +39,34 @@ def convert_tree(np_params: dict, model) -> dict:
     gradients, or an optimizer moment), numpy leaves -> the port's
     structure of f32 tensors on the model's device, unprepared."""
     dev = model.device
+
+    def tensors(t):
+        return tree_map(lambda a: _tensor(a, dev), t)
+
     stack = np_params["stack"]
     groups = stack["groups"]
-    if set(groups) != {"p0"}:
-        raise ValueError(f"decoder stacks have one pattern slot, got "
+    P = len(model.pattern)
+    if set(groups) != {f"p{i}" for i in range(P)}:
+        raise ValueError(f"a {P}-slot pattern {model.pattern}, got groups "
                          f"{sorted(groups)}")
-    g = groups["p0"]
-    n_groups = np.asarray(g["norm1"]["scale"]).shape[0]
-    layers = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), g)
-              for i in range(n_groups)]
-    layers += [tree_map(lambda a: _tensor(a, dev), t)
-               for t in stack.get("tail", [])]
+    n_groups = np.asarray(groups["p0"]["norm1"]["scale"]).shape[0]
+    layers = [tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
+                       groups[f"p{i}"])
+              for g in range(n_groups) for i in range(P)]
+    layers += [tensors(t) for t in stack.get("tail", [])]
     if len(layers) != model.cfg.n_layers:
         raise ValueError(f"{len(layers)} layers for a "
                          f"{model.cfg.n_layers}-layer config")
-    return {"layers": layers,
-            "norm_f": tree_map(lambda a: _tensor(a, dev), np_params["norm_f"]),
-            "embed": tree_map(lambda a: _tensor(a, dev), np_params["embed"])}
+    out = {"layers": layers, "norm_f": tensors(np_params["norm_f"]),
+           "embed": tensors(np_params["embed"])}
+    if "unembed" in np_params:
+        out["unembed"] = tensors(np_params["unembed"])
+    return out
 
 
 def convert_params(np_params: dict, model) -> dict:
-    """Nested dict of numpy arrays (the reference's decoder or MoE params)
-    -> the port's prepared params on the model's device."""
+    """Nested dict of numpy arrays (the reference's params of a family the
+    port serves) -> the port's prepared params on the model's device."""
     return model.prepare_params(convert_tree(np_params, model))
 
 

@@ -1,10 +1,13 @@
-"""Layer library of the port's decoders, dense and MoE (port of the parts
-of `repro.models.layers` the serving and training paths run).
+"""Layer library of the port: attention (full and sliding-window), the
+SwiGLU MLP, MoE, the RG-LRU block (RecurrentGemma) and the mLSTM and
+sLSTM blocks (xLSTM) (port of `repro.models.layers`).
 
 Every projection goes through `core.linear.apply_linear` (the DPA
 contract) and every attention/unembed through an `exec_plan` route, so
 this module carries no policy-mode branching.  Layers are functions over
-a params dict; decode paths carry explicit caches, updated in place.
+a params dict; decode paths carry explicit caches and recurrent states,
+updated in place (`copy_` into their own storage, so a captured step's
+CUDA graph replays the writes).
 
 The speculative verify pass (S_q query tokens a request over the paged
 cache) must give each query row the decode step's bits.  On the CPU
@@ -91,10 +94,14 @@ def rope(x, positions, theta: float):
 
 def init_attention(generator, cfg, device="cpu"):
     d, hd = cfg.d_model, cfg.hd
+    bias = cfg.qkv_bias
     p = {
-        "wq": init_linear(generator, d, cfg.n_heads * hd, device=device),
-        "wk": init_linear(generator, d, cfg.n_kv_heads * hd, device=device),
-        "wv": init_linear(generator, d, cfg.n_kv_heads * hd, device=device),
+        "wq": init_linear(generator, d, cfg.n_heads * hd, bias=bias,
+                          device=device),
+        "wk": init_linear(generator, d, cfg.n_kv_heads * hd, bias=bias,
+                          device=device),
+        "wv": init_linear(generator, d, cfg.n_kv_heads * hd, bias=bias,
+                          device=device),
         "wo": init_linear(generator, cfg.n_heads * hd, d, device=device),
     }
     if cfg.qk_norm:
@@ -158,12 +165,43 @@ def _positions(offset, B, Sq, device):
         offset + steps
 
 
+def window_valid(offset, W: int, device):
+    """(W,) bool: the filled slots of a sliding-window cache after the
+    decode step at `offset` (an int or a 0-dim tensor): slot s holds
+    position offset - (W - 1 - s), valid iff >= 0."""
+    filled = (torch.clamp(offset + 1, max=W) if torch.is_tensor(offset)
+              else min(int(offset) + 1, W))
+    return torch.arange(W, device=device) >= W - filled
+
+
+def _window_append(dst, new):
+    """Shift the (B, W, ...) window left by one and append new (B, 1,
+    ...), in dst's own storage."""
+    dst.copy_(torch.cat([dst[:, 1:], new.to(dst.dtype)], dim=1))
+
+
+def _window_fill(dst, new):
+    """A prefill's last W rows of new (B, S, ...) into the (B, W, ...)
+    window in time order, left-padded with zeros when S < W (in place)."""
+    W = dst.shape[1]
+    pad = max(0, W - new.shape[1])
+    dst[:, :pad] = 0
+    dst[:, pad:] = new[:, -W:].to(dst.dtype)
+
+
 def apply_attention(params, x, cfg, *, offset=0, cache=None,
-                    per_row: bool = False):
+                    per_row: bool = False, window=None,
+                    cache_mode: str = "full"):
     """Returns (y, cache).  Cache layouts: the paged quantized pool (with
     "block_table"; `offset` a (B,) position vector), the contiguous
     quantized cache ("k_codes"), the raw full cache ("k"), or none.
-    `per_row`: the verify pass (module doc)."""
+    `window`: a local attention width (masks keys at or past it).
+    `cache_mode` "window": the raw (B, W, KV, hd) cache of a local layer,
+    kept in time order: decode shifts it left and appends the new row,
+    attending over the whole cache (not causal, offset 0) with its
+    unfilled leading slots masked (`window_valid`); prefill keeps its
+    last W rows, left-padded with zeros.  `per_row`: the verify pass
+    (module doc)."""
     policy = get_policy(cfg.policy)
     B, Sq, _ = x.shape
     hd = cfg.hd
@@ -221,19 +259,30 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
         k, v = KV.dequantize_cache(cache, fmt=policy.fmt_kv,
                                    packed=policy.kv_packed)
         kv_on_grid = True
-    elif cache is not None:
+    causal, valid = True, None
+    if cache is not None and cache_mode == "window":
+        if Sq == 1:
+            _window_append(cache["k"], k)
+            _window_append(cache["v"], v)
+            valid = window_valid(offset, cache["k"].shape[1], x.device)
+            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+            causal, window, offset = False, None, 0
+        else:
+            _window_fill(cache["k"], k)
+            _window_fill(cache["v"], v)
+    elif cache is not None and not kv_on_grid:
         KV.write_rows(cache["k"], k.to(cache["k"].dtype), offset)
         KV.write_rows(cache["v"], v.to(cache["v"].dtype), offset)
         k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
     # a tensor offset passes through (the plain routes mask with it; the
-    # CUDA flash routes only ever see a cacheless prefill at offset 0)
+    # CUDA flash routes only ever see a prefill at offset 0)
     if cache is None and Sq == 1:
         offset = 0
     elif not torch.is_tensor(offset):
         offset = int(offset)
-    y = _sdpa(q, k, v, causal=True, window=None, offset=offset,
-              use_flash=cfg.use_flash, q_chunk=cfg.attn_chunk, policy=policy,
-              kv_on_grid=kv_on_grid)
+    y = _sdpa(q, k, v, causal=causal, window=window, offset=offset,
+              valid=valid, use_flash=cfg.use_flash, q_chunk=cfg.attn_chunk,
+              policy=policy, kv_on_grid=kv_on_grid)
     y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd), policy)
     return y, cache
 
@@ -357,6 +406,282 @@ def apply_moe(params, x, cfg):
     for j in range(K):
         y = y + contrib[:, :, j]
     return y, aux
+
+
+# -----------------------------------------------------------------------------
+# elementwise functions in the reference's formulas
+# -----------------------------------------------------------------------------
+
+def softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x):
+    """jax.nn.log_sigmoid: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def _set_state(state, new):
+    """Write a recurrent state's new values into its own tensors (in
+    place) and return it; a None state (no cache kept) returns new."""
+    if state is None:
+        return new
+    if isinstance(state, dict):
+        for key in state:
+            state[key].copy_(new[key])
+    else:
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+    return state
+
+
+# -----------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# -----------------------------------------------------------------------------
+
+_RG_C = 8.0
+
+
+def init_rglru(generator, cfg, device="cpu"):
+    d = cfg.d_model
+    dr = cfg.d_rnn or d
+    cw = cfg.conv_width
+    # Lambda such that a = exp(-c softplus(lam) sigmoid(r)) starts near
+    # 0.9 .. 0.999 (softplus^-1 of a linspace)
+    lam = torch.log(torch.expm1(torch.linspace(0.9, 4.0, dr,
+                                               dtype=torch.float64)))
+    return {
+        "wx": init_linear(generator, d, dr, device=device),
+        "wgate": init_linear(generator, d, dr, device=device),
+        "conv": torch.randn((cw, dr), generator=generator,
+                            dtype=torch.float32, device=device)
+        * (cw * dr) ** -0.5,
+        "w_ig": init_linear(generator, d, dr, device=device),
+        "lam": lam.to(device=device, dtype=torch.float32),
+        "wo": init_linear(generator, dr, d, device=device),
+    }
+
+
+def _rglru_coeffs(params, x, policy):
+    """-> (a, bx) with h_t = a_t * h_{t-1} + bx_t, all (B, S, dr) f32."""
+    xb = apply_linear(params["wx"], x, policy)
+    gate = apply_linear(params["wgate"], x, policy).to(torch.float32)
+    igate = apply_linear(params["w_ig"], x, policy).to(torch.float32)
+    log_a = -_RG_C * softplus(params["lam"]) * torch.sigmoid(gate)
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    bx = mult * torch.sigmoid(igate) * xb.to(torch.float32)
+    return a, bx
+
+
+def conv1d(x, w, state=None):
+    """Causal depthwise conv: x (B, S, dr), w (cw, dr), state (B, cw - 1,
+    dr) the previous inputs (zeros when None) -> (out in x's dtype, the
+    new state: the last cw - 1 inputs).  The taps' products are summed in
+    the reference's order, tap 0 first."""
+    cw, S = w.shape[0], x.shape[1]
+    pad = (torch.zeros(x.shape[:1] + (cw - 1,) + x.shape[2:], dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, :S] * w[0]
+    for i in range(1, cw):
+        out = out + xp[:, i:i + S] * w[i]
+    return out.to(x.dtype), xp[:, S:]
+
+
+def _combine(c1, c2):
+    """The RG-LRU scan's operator: (a2, b2) o (a1, b1) = (a1 a2, a2 b1 +
+    b2), c1 the earlier element."""
+    return c1[0] * c2[0], c2[0] * c1[1] + c2[1]
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along axis 1."""
+    shape = (even.shape[0], even.shape[1] + odd.shape[1]) + even.shape[2:]
+    out = torch.empty(shape, dtype=even.dtype, device=even.device)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def associative_scan(a, b):
+    """Inclusive scan of (a, b) (B, S, ...) along axis 1 under `_combine`,
+    in `jax.lax.associative_scan`'s own combine tree (its odd/even
+    recursion): adjacent pairs combine, the half-length scan recurses, the
+    even elements combine with the scanned odd ones, and the two
+    interleave, so every sum comes in the reference's order, in
+    2 log2(S) levels."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = associative_scan(*_combine((a[:, 0:n - 1:2], b[:, 0:n - 1:2]),
+                                        (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    return (_interleave(torch.cat([a[:, :1], ea], dim=1), oa),
+            _interleave(torch.cat([b[:, :1], eb], dim=1), ob))
+
+
+def apply_rglru(params, x, cfg, *, state=None):
+    """x: (B, S, d) -> (y, state).  state {"h": (B, dr) f32, "conv": (B,
+    cw - 1, dr)} is updated in place; None keeps none (training).  A
+    one-token step with a state is h = a h0 + bx; otherwise h0 (when
+    given) folds into the first bx and the sequence runs the scan."""
+    policy = get_policy(cfg.policy)
+    xc, conv_state = conv1d(x, params["conv"],
+                            None if state is None else state["conv"])
+    a, bx = _rglru_coeffs(params, xc, policy)
+    h0 = None if state is None else state["h"]
+    if x.shape[1] == 1 and h0 is not None:        # decode step
+        h = a[:, 0] * h0 + bx[:, 0]
+        hs = h[:, None]
+    else:
+        if h0 is not None:
+            bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]],
+                           dim=1)
+        _, hs = associative_scan(a, bx)
+        h = hs[:, -1]
+    y = apply_linear(params["wo"], hs.to(x.dtype), policy)
+    return y, _set_state(state, {"h": h, "conv": conv_state})
+
+
+# -----------------------------------------------------------------------------
+# xLSTM: chunkwise-parallel mLSTM + sequential sLSTM
+# -----------------------------------------------------------------------------
+
+def init_mlstm(generator, cfg, device="cpu"):
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    return {
+        "wq": init_linear(generator, d, H * hd, device=device),
+        "wk": init_linear(generator, d, H * hd, device=device),
+        "wv": init_linear(generator, d, H * hd, device=device),
+        "wi": init_linear(generator, d, H, device=device),   # input gate
+        "wf": init_linear(generator, d, H, device=device),   # forget gate
+        "wo_gate": init_linear(generator, d, H * hd, device=device),
+        "wo": init_linear(generator, H * hd, d, device=device),
+    }
+
+
+def _mlstm_chunk(carry, qc, kc, vc, lf, li, hd_scale):
+    """One chunk of the stabilized chunkwise mLSTM (the reference's scan
+    body).  qc/kc/vc: (B, Ck, H, hd) f32; lf/li: (B, Ck, H); carry (C0
+    (B, H, hd, hd), n0 (B, H, hd), m0 (B, H)) -> (h (B, Ck, H, hd), carry
+    at the chunk's end)."""
+    C0, n0, m0 = carry
+    Ck = qc.shape[1]
+    cum_f = torch.cumsum(lf, dim=1)                          # (B, Ck, H)
+    # intra-chunk decay D[t, s] = exp(cum_f_t - cum_f_s + li_s), s <= t
+    lD = cum_f[:, :, None] - cum_f[:, None, :] + li[:, None, :, :]
+    tri = torch.tril(torch.ones((Ck, Ck), dtype=torch.bool,
+                                device=qc.device))
+    lD = torch.where(tri[None, :, :, None], lD, -torch.inf)
+    # the inter-chunk contribution decays from m0
+    l_inter = cum_f + m0[:, None, :]
+    m_t = torch.maximum(lD.amax(dim=2), l_inter)             # (B, Ck, H)
+    D = torch.exp(lD - m_t[:, :, None])
+    scores = torch.einsum("bthd,bshd->btsh", qc, kc) * hd_scale
+    w_ts = scores * D
+    h_num = torch.einsum("btsh,bshd->bthd", w_ts, vc)
+    h_den = w_ts.sum(dim=2)
+    fac = torch.exp(l_inter - m_t)
+    q_eff = qc * fac[..., None] * hd_scale
+    h_num = h_num + torch.einsum("bthd,bhde->bthe", q_eff, C0)
+    h_den = h_den + torch.einsum("bthd,bhd->bth", q_eff, n0)
+    floor = torch.exp(torch.clamp(-m_t, -60.0, 60.0))
+    h = h_num / torch.maximum(h_den.abs(), floor)[..., None]
+    # the state at the chunk's end: decay(s -> end) = exp(f_sum - cum_f_s)
+    f_sum = cum_f[:, -1]                                     # (B, H)
+    m_next = torch.maximum(f_sum + m0,
+                           f_sum + (li - cum_f).amax(dim=1))
+    k_dec = torch.exp(f_sum[:, None] - cum_f + li - m_next[:, None])
+    decay = torch.exp(f_sum + m0 - m_next)
+    C1 = C0 * decay[..., None, None] + torch.einsum(
+        "bshd,bshe->bhde", k_dec[..., None] * kc, vc)
+    n1 = n0 * decay[..., None] + torch.einsum("bsh,bshd->bhd", k_dec, kc)
+    return h, (C1, n1, m_next)
+
+
+def apply_mlstm(params, x, cfg, *, state=None):
+    """x: (B, S, d) -> (y, state); state (C, n, m) is updated in place,
+    None keeps none.  The sequence runs in chunks of min(chunk, S), which
+    must divide S."""
+    policy = get_policy(cfg.policy)
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    f32 = torch.float32
+    q = apply_linear(params["wq"], x, policy).reshape(B, S, H, hd)
+    k = apply_linear(params["wk"], x, policy).reshape(B, S, H, hd)
+    v = apply_linear(params["wv"], x, policy).reshape(B, S, H, hd)
+    li = apply_linear(params["wi"], x, policy).to(f32)        # (B, S, H)
+    lf = log_sigmoid(apply_linear(params["wf"], x, policy).to(f32))
+    og = torch.sigmoid(apply_linear(params["wo_gate"], x, policy).to(f32))
+    carry = state if state is not None else (
+        torch.zeros((B, H, hd, hd), dtype=f32, device=x.device),
+        torch.zeros((B, H, hd), dtype=f32, device=x.device),
+        torch.zeros((B, H), dtype=f32, device=x.device))
+    Ck = min(cfg.chunk, S)
+    if S % Ck:
+        raise ValueError(f"mLSTM chunk {Ck} must divide the sequence {S}")
+    hs = []
+    for c in range(S // Ck):
+        sl = slice(c * Ck, (c + 1) * Ck)
+        h, carry = _mlstm_chunk(carry, q[:, sl].to(f32), k[:, sl].to(f32),
+                                v[:, sl].to(f32), lf[:, sl], li[:, sl],
+                                hd ** -0.5)
+        hs.append(h)
+    h = torch.cat(hs, dim=1) * og.reshape(B, S, H, hd)
+    y = apply_linear(params["wo"], h.reshape(B, S, H * hd).to(x.dtype),
+                     policy)
+    return y, _set_state(state, carry)
+
+
+def init_slstm(generator, cfg, device="cpu"):
+    d = cfg.d_model
+    p = {name: init_linear(generator, d, d, device=device)
+         for name in ("wz", "wi", "wf", "wo_gate")}
+    p["r"] = torch.randn((4, d), generator=generator, dtype=torch.float32,
+                         device=device) * d ** -0.5
+    p["wo"] = init_linear(generator, d, d, device=device)
+    return p
+
+
+def apply_slstm(params, x, cfg, *, state=None):
+    """Sequential sLSTM with diagonal recurrent weights (per-channel r).
+    x: (B, S, d) -> (y, state); state (c, n, h, m), each (B, d) f32, is
+    updated in place (None keeps none; m starts at -10)."""
+    policy = get_policy(cfg.policy)
+    B, S, d = x.shape
+    f32 = torch.float32
+    zx = apply_linear(params["wz"], x, policy).to(f32)
+    ix = apply_linear(params["wi"], x, policy).to(f32)
+    fx = apply_linear(params["wf"], x, policy).to(f32)
+    ox = apply_linear(params["wo_gate"], x, policy).to(f32)
+    r = params["r"]
+    if state is None:
+        z0 = torch.zeros((B, d), dtype=f32, device=x.device)
+        c, n, h, m = z0, z0, z0, z0 - 10.0
+    else:
+        c, n, h, m = state
+    hs = []
+    for t in range(S):
+        z = torch.tanh(zx[:, t] + r[0] * h)
+        li = ix[:, t] + r[1] * h
+        lf = log_sigmoid(fx[:, t] + r[2] * h)
+        m1 = torch.maximum(lf + m, li)
+        i_s = torch.exp(li - m1)
+        f_s = torch.exp(lf + m - m1)
+        c = f_s * c + i_s * z
+        n = f_s * n + i_s
+        h = torch.sigmoid(ox[:, t] + r[3] * h) * c / torch.clamp_min(n, 1e-6)
+        m = m1
+        hs.append(h)
+    y = apply_linear(params["wo"], torch.stack(hs, dim=1).to(x.dtype),
+                     policy)
+    return y, _set_state(state, (c, n, h, m))
 
 
 # -----------------------------------------------------------------------------

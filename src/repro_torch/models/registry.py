@@ -1,5 +1,6 @@
-"""`build_model` and `Model`: the port's dense decoder and MoE families
-(port of the decoder path of `repro.models.registry`).
+"""`build_model` and `Model`: the port's dense decoder, MoE, RG-LRU and
+xLSTM families (port of `repro.models.registry`; the encoder-decoder and
+VLM families are not ported yet).
 
 Batch conventions, as in the reference:
   forward: {"tokens": (B, S)} -> backbone_features (hidden states, aux)
@@ -22,59 +23,74 @@ from repro_torch.core.tree import tree_map
 
 from . import layers as L
 from .config import ModelConfig
-from .transformer import apply_stack, init_block, init_block_cache
+from .transformer import (apply_stack, family_pattern, init_block,
+                          init_block_cache, layer_kinds, n_grouped)
 
 _DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
            "bfloat16": torch.bfloat16, "fp16": torch.float16}
 
-ATTN_LINEARS = ("wq", "wk", "wv", "wo")
+MIXERS = ("attn", "rg", "mix")          # a block's sequence mixer
 MLP_LINEARS = ("wg", "wu", "wd")        # dense MLP, or the MoE expert stacks
+OTHER_FAMILIES_ITEM = "ROADMAP Queue 1, \"Other families\""
 
 
 class Model:
-    """A dense or MoE decoder bound to a config and a device.
+    """A model of a patterned stack bound to a config and a device.
 
-    Params are a dict {"layers": [block dicts], "norm_f", "embed"}; a
-    linear is {"w": f32 master} plus, for the kernel policies, the
-    load-time serving weights (`prepare_params`); a MoE block's "mlp"
-    holds the router and the (E, d_in, d_out) expert stacks."""
+    Params are a dict {"layers": [block dicts], "norm_f", "embed"} and,
+    untied, "unembed"; a linear is {"w": f32 master} (plus "b" under
+    qkv_bias) and, for the kernel policies, the load-time serving weights
+    (`prepare_params`); a MoE block's "mlp" holds the router and the (E,
+    d_in, d_out) expert stacks.  Layer l is a block of kind
+    `self.kinds[l]` (`transformer.family_pattern`)."""
 
     def __init__(self, cfg: ModelConfig, device):
-        if cfg.family not in ("decoder", "moe"):
+        if cfg.family in ("encdec", "vlm") or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.family} models join the port in a later slice "
-                "(ROADMAP Queue 1, \"Other families\")")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("the port serves tied-embedding "
-                                      "decoders (qwen3, llama3.2, "
-                                      "granite-moe)")
+                f"{cfg.family} models ({cfg.name}) join the port in a later "
+                f"slice ({OTHER_FAMILIES_ITEM})")
         self.cfg = cfg
         self.device = device
         self.dtype = _DTYPES[cfg.dtype]
+        self.pattern = family_pattern(cfg)
+        self.kinds = layer_kinds(cfg)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random params with the reference init's shapes and scales
-        (normal * d_in^-0.5 linears, 0.02 embedding, unit norms, f32),
+        (normal * d_in^-0.5 linears, 0.02 embeddings, unit norms, f32),
         drawn from `generator` on the model's device, then prepared."""
         cfg, dev = self.cfg, self.device
-        params = {"layers": [init_block(generator, cfg, dev)
-                             for _ in range(cfg.n_layers)],
+        params = {"layers": [init_block(generator, cfg, kind, dev)
+                             for kind in self.kinds],
                   "norm_f": L.init_norm(cfg.d_model, dev),
                   "embed": L.init_embedding(generator, cfg.vocab_size,
                                             cfg.d_model, dev)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.init_embedding(generator, cfg.vocab_size,
+                                                 cfg.d_model, dev)
         return self.prepare_params(params)
+
+    def unembed_table(self, params):
+        """The (V, d) table the logits are taken against: the embedding's
+        when tied, else params["unembed"]'s."""
+        return params["embed" if self.cfg.tie_embeddings
+                      else "unembed"]["table"]
 
     def prepare_params(self, params: dict) -> dict:
         """Add the kernels' load-time weights to every linear and expert
-        stack whose route consumes them (a no-op otherwise).  The router
-        stays f32 (the reference's "fp32" policy)."""
+        stack whose route consumes them (a no-op otherwise): each linear
+        of a block's mixer (attention, RG-LRU, mLSTM / sLSTM; not the
+        conv, lam or r) and MLP.  The router stays f32 (the reference's
+        "fp32" policy)."""
         pol, moe = self.cfg.policy, self.cfg.is_moe
         prep_dense = needs_prep(pol)
         prep_experts = moe and needs_prep(pol, "grouped_matmul")
         for lp in params["layers"]:
-            for name in ATTN_LINEARS if prep_dense else ():
-                prepare_linear(lp["attn"][name], pol, self.dtype)
-            for name in MLP_LINEARS:
+            for mixer in MIXERS if prep_dense else ():
+                for lin in lp.get(mixer, {}).values():
+                    if isinstance(lin, dict) and "w" in lin:
+                        prepare_linear(lin, pol, self.dtype)
+            for name in MLP_LINEARS if "mlp" in lp else ():
                 if prep_experts:
                     prepare_grouped_linear(lp["mlp"][name], pol)
                 elif prep_dense and not moe:
@@ -83,17 +99,22 @@ class Model:
 
     def decay_mask(self, params) -> dict:
         """AdamW's weight-decay flags in params' structure: the reference
-        decays leaves of 2 dims and more in its layout, where every
-        layer's leaves carry the scan axis, so each layer's norm scales
-        decay too; the final norm does not."""
-        return {k: tree_map(lambda p, stacked=(k == "layers"):
-                            stacked or p.ndim >= 2, v)
-                for k, v in params.items()}
+        decays leaves of 2 dims and more in its layout, where the leaves
+        of the scan groups' layers carry the scan axis, so all of them
+        decay (norm scales and `lam` too); a tail layer's leaves and the
+        other params decay from 2 dims on."""
+        grouped = n_grouped(self.cfg)
+        mask = {k: tree_map(lambda p: p.ndim >= 2, v)
+                for k, v in params.items() if k != "layers"}
+        mask["layers"] = [tree_map(lambda p, g=(i < grouped):
+                                   g or p.ndim >= 2, lp)
+                          for i, lp in enumerate(params["layers"])]
+        return mask
 
     def init_caches(self, batch_size: int, s_ctx: int) -> list:
-        return [init_block_cache(self.cfg, batch_size, s_ctx, self.dtype,
-                                 self.device)
-                for _ in range(self.cfg.n_layers)]
+        return [init_block_cache(self.cfg, kind, batch_size, s_ctx,
+                                 self.dtype, self.device)
+                for kind in self.kinds]
 
     def _forward(self, params, tokens, offset, caches, per_row=False):
         """-> (final hidden states, caches, aux); serving drops the aux
@@ -115,14 +136,15 @@ class Model:
     def train_logits(self, params, batch):
         """-> (f32 logits (B, S, V), aux loss); differentiable."""
         x, aux = self.backbone_features(params, batch)
-        return L.apply_unembed(x, params["embed"]["table"]), aux
+        return L.apply_unembed(x, self.unembed_table(params)), aux
 
     @torch.no_grad()
     def prefill(self, params, tokens):
         """tokens (B, S) -> (f32 logits of the last position, caches)."""
         caches = self.init_caches(tokens.shape[0], tokens.shape[1])
         x, caches, _ = self._forward(params, tokens, 0, caches)
-        return L.apply_unembed(x[:, -1:], params["embed"]["table"]), caches
+        return L.apply_unembed(x[:, -1:], self.unembed_table(params)), \
+            caches
 
     @torch.no_grad()
     def decode_step(self, params, batch, caches):
@@ -134,7 +156,7 @@ class Model:
                   and "block_table" in caches[0])
         x, caches, _ = self._forward(params, batch["tokens"],
                                      batch["index"], caches, per_row=verify)
-        return L.apply_unembed(x, params["embed"]["table"],
+        return L.apply_unembed(x, self.unembed_table(params),
                                per_row=verify), caches
 
 

@@ -1,9 +1,14 @@
-"""Decoder blocks and the layer stack, dense or MoE (port of the decoder
-path of `repro.models.transformer`).
+"""Blocks and the layer stack of every family the port serves (port of
+`repro.models.transformer`).
 
-The reference stacks per-layer params on a scan axis; the port keeps a
-plain per-layer list (`models.convert` unstacks), and caches are a
-matching list of per-layer dicts.
+A family is a repeating block pattern (`family_pattern`): decoder and
+MoE ("attn",), RecurrentGemma ("rg", "rg", "attn_local"), xLSTM seven
+"mlstm" and one "slstm".  Layer l has kind pattern[l % P].  The
+reference stacks the first n_layers // P groups of P blocks on a scan
+axis (`stack.groups.p0 .. p{P-1}`) and runs the n_layers mod P layers
+left as an unscanned tail; the port keeps a plain per-layer list in that
+same order (`models.convert` unstacks groups and tail), and caches are a
+matching list of per-layer caches.
 
 Remat, as the reference's `jax.checkpoint` around each scanned block,
 applies to the cacheless forward while autograd records it (a train
@@ -38,43 +43,122 @@ from . import layers as L
 from .config import ModelConfig
 
 
-def init_block(generator, cfg: ModelConfig, device="cpu"):
+ATTN_KINDS = ("attn", "attn_local")
+
+
+def family_pattern(cfg: ModelConfig):
+    if cfg.family in ("decoder", "vlm", "moe"):
+        return ("attn",)
+    if cfg.family == "rglru":
+        return tuple(cfg.pattern) or ("rg", "rg", "attn_local")
+    if cfg.family == "xlstm":
+        n = cfg.slstm_every or 8
+        return ("mlstm",) * (n - 1) + ("slstm",)
+    raise ValueError(cfg.family)
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """Each layer's block kind, in layer order."""
+    pattern = family_pattern(cfg)
+    return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+
+
+def n_grouped(cfg: ModelConfig) -> int:
+    """The layers the reference stacks on its scan axis (the rest are its
+    unscanned tail)."""
+    P = len(family_pattern(cfg))
+    return cfg.n_layers // P * P
+
+
+def init_block(generator, cfg: ModelConfig, kind: str = "attn",
+               device="cpu"):
     d = cfg.d_model
-    return {"norm1": L.init_norm(d, device),
-            "attn": L.init_attention(generator, cfg, device),
-            "norm2": L.init_norm(d, device),
-            "mlp": (L.init_moe(generator, cfg, device) if cfg.is_moe
-                    else L.init_mlp(generator, cfg, device))}
+    p = {"norm1": L.init_norm(d, device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = L.init_attention(generator, cfg, device)
+    elif kind == "rg":
+        p["rg"] = L.init_rglru(generator, cfg, device)
+    elif kind == "mlstm":
+        p["mix"] = L.init_mlstm(generator, cfg, device)
+    elif kind == "slstm":
+        p["mix"] = L.init_slstm(generator, cfg, device)
+    else:
+        raise ValueError(kind)
+    if cfg.d_ff > 0:
+        p["norm2"] = L.init_norm(d, device)
+        p["mlp"] = (L.init_moe(generator, cfg, device) if cfg.is_moe
+                    else L.init_mlp(generator, cfg, device))
+    return p
 
 
-def init_block_cache(cfg: ModelConfig, batch: int, s_ctx: int, dtype,
-                     device="cpu"):
-    """One layer's decode cache: the quantized layout (codes + per-row
-    scales) when the policy sets fmt_kv, else raw compute-dtype K/V."""
-    pol = get_policy(cfg.policy)
-    if pol.kv_quantized:
-        return init_kv_cache(batch, s_ctx, cfg.n_kv_heads, cfg.hd,
-                             fmt=pol.fmt_kv, packed=pol.kv_packed,
-                             device=device)
-    shp = (batch, s_ctx, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shp, dtype=dtype, device=device),
-            "v": torch.zeros(shp, dtype=dtype, device=device)}
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_ctx: int,
+                     dtype, device="cpu"):
+    """One layer's decode cache.  A full attention layer's: the quantized
+    layout (codes + per-row scales) when the policy sets fmt_kv, else raw
+    compute-dtype K/V.  A local layer's stays raw, (B, min(window, s_ctx),
+    KV, hd), under any policy (the shift-left update would roll codes and
+    scales together, and the window bounds it already).  RG-LRU: {"h":
+    (B, dr) f32, "conv": (B, cw - 1, dr)}; mLSTM (C, n, m); sLSTM (c, n,
+    h, m) with m at -10."""
+    def zeros(shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    hd, KV = cfg.hd, cfg.n_kv_heads
+    if kind == "attn":
+        pol = get_policy(cfg.policy)
+        if pol.kv_quantized:
+            return init_kv_cache(batch, s_ctx, KV, hd, fmt=pol.fmt_kv,
+                                 packed=pol.kv_packed, device=device)
+        return {"k": zeros((batch, s_ctx, KV, hd), dtype),
+                "v": zeros((batch, s_ctx, KV, hd), dtype)}
+    if kind == "attn_local":
+        w = min(cfg.window or s_ctx, s_ctx)
+        return {"k": zeros((batch, w, KV, hd), dtype),
+                "v": zeros((batch, w, KV, hd), dtype)}
+    if kind == "rg":
+        dr = cfg.d_rnn or cfg.d_model
+        return {"h": zeros((batch, dr)),
+                "conv": zeros((batch, cfg.conv_width - 1, dr), dtype)}
+    if kind == "mlstm":
+        H = cfg.n_heads
+        return (zeros((batch, H, hd, hd)), zeros((batch, H, hd)),
+                zeros((batch, H)))
+    if kind == "slstm":
+        d = cfg.d_model
+        return (zeros((batch, d)), zeros((batch, d)), zeros((batch, d)),
+                torch.full((batch, d), -10.0, device=device))
+    raise ValueError(kind)
 
 
-def apply_block(params, x, cfg: ModelConfig, *, offset=0, cache=None,
-                per_row: bool = False):
+def apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *,
+                offset=0, cache=None, per_row: bool = False):
     """-> (x, cache, aux): aux is the MoE load-balancing loss, 0 for a
     dense block.  `per_row`: the verify pass (`layers` module doc)."""
     h = L.apply_norm(params["norm1"], x, eps=cfg.norm_eps, per_row=per_row)
-    y, cache = L.apply_attention(params["attn"], h, cfg, offset=offset,
-                                 cache=cache, per_row=per_row)
-    x = x + y.to(x.dtype)
-    h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps, per_row=per_row)
-    if cfg.is_moe:
-        y, aux = L.apply_moe(params["mlp"], h, cfg)
+    if kind in ATTN_KINDS:
+        local = kind == "attn_local"
+        y, cache = L.apply_attention(
+            params["attn"], h, cfg, offset=offset, cache=cache,
+            per_row=per_row, window=cfg.window if local else None,
+            cache_mode="window" if local else "full")
+    elif kind == "rg":
+        y, cache = L.apply_rglru(params["rg"], h, cfg, state=cache)
+    elif kind == "mlstm":
+        y, cache = L.apply_mlstm(params["mix"], h, cfg, state=cache)
+    elif kind == "slstm":
+        y, cache = L.apply_slstm(params["mix"], h, cfg, state=cache)
     else:
-        y, aux = L.apply_mlp(params["mlp"], h, cfg), 0.0
+        raise ValueError(kind)
     x = x + y.to(x.dtype)
+    aux = 0.0
+    if cfg.d_ff > 0:
+        h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps,
+                         per_row=per_row)
+        if cfg.is_moe:
+            y, aux = L.apply_moe(params["mlp"], h, cfg)
+        else:
+            y = L.apply_mlp(params["mlp"], h, cfg)
+        x = x + y.to(x.dtype)
     return x, cache, aux
 
 
@@ -102,10 +186,10 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
-def _block_fn(lp, cfg: ModelConfig):
+def _block_fn(lp, cfg: ModelConfig, kind: str):
     """x -> (x, aux) through one cacheless block."""
     def run(x):
-        x, _, aux = apply_block(lp, x, cfg)
+        x, _, aux = apply_block(lp, x, cfg, kind)
         return x, aux
     return run
 
@@ -123,7 +207,8 @@ def _chain(fns):
 
 def _remat_stack(layers, x, cfg: ModelConfig):
     """The cacheless stack under remat (module doc) -> (x, aux)."""
-    blocks = [_remat(_block_fn(lp, cfg), cfg) for lp in layers]
+    blocks = [_remat(_block_fn(lp, cfg, kind), cfg)
+              for lp, kind in zip(layers, layer_kinds(cfg))]
     n, k = len(layers), cfg.remat_block
     if k > 1 and n % k == 0 and n > k:
         blocks = [_remat(_chain(blocks[i:i + k]), cfg)
@@ -140,9 +225,9 @@ def apply_stack(layers, x, cfg: ModelConfig, *, offset=0, caches=None,
         x, aux = _remat_stack(layers, x, cfg)
         return x, caches, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(layers):
+    for i, (lp, kind) in enumerate(zip(layers, layer_kinds(cfg))):
         c = None if caches is None else caches[i]
-        x, c, a = apply_block(lp, x, cfg, offset=offset, cache=c,
+        x, c, a = apply_block(lp, x, cfg, kind, offset=offset, cache=c,
                               per_row=per_row)
         aux = aux + a
     return x, caches, aux

@@ -218,14 +218,11 @@ def test_page_allocator_invariants():
 
 
 # a captured step's offset is a 0-dim device tensor: S_NEW rows written at
-# offsets inside the cache, at its last fitting start, and past either end
-# (the port clamps to [0, S_CTX - S_NEW]).  The reference's
-# dynamic_update_slice clamps past the end too, but counts a negative
-# start from the end (jax's allow_negative_indices) where the port clamps
-# it to 0; no caller passes one, so a negative offset is held to the int
-# path only
+# offsets inside the cache, at its last fitting start, past either end,
+# and negative (counted from the end, then clamped, as the reference's
+# dynamic_update_slice does)
 S_CTX, S_NEW = 16, 3
-OFFSETS = [0, 5, S_CTX - S_NEW, S_CTX - 1, -3, 40]
+OFFSETS = [0, 5, S_CTX - S_NEW, S_CTX - 1, -1, -3, -S_CTX - 2, 40]
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,8 +253,6 @@ def test_update_kv_cache_tensor_offset_bit_identical(fmt, packed, offset):
     for key in TKV.QUANT_KEYS:
         np.testing.assert_array_equal(_np(by_tensor[key]), _np(by_int[key]),
                                       err_msg=key)
-    if offset < 0:
-        return
     upd = _ref_update(fmt, packed)
     ref = upd(RKV.init_kv_cache(B, S_CTX, N_KV, HD, **kw),
               jnp.asarray(base_k), jnp.asarray(base_v), jnp.int32(0))
