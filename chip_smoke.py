@@ -208,6 +208,33 @@ Phases (every failure raises; the exit code is then non-zero):
    I. xlstm-1.3b (48 layers: 7 mLSTM + 1 sLSTM x 6, no MLP) through
       `generate` as G (324 split-K launches a call), and once more
       through `launch.serve.main` (static mode, its own model).
+3l. The encoder-decoder and VLM families at their published widths,
+   seeded weights, w4a8_kv4_attn8 with use_flash, on the data
+   pipeline's stub batches, each model alone on the card (peak memory
+   printed):
+   J. whisper-medium (24 encoder + 24 decoder layers, LayerNorm, GELU,
+      learned positions, hd 64): `encode` of B 2 x 1,500 frames (24 DPA
+      flash launches, non-causal, bq = bk = 125; 144 tiled fused
+      launches at M 3,000), `prefill` of a 32-token prompt (the encoder
+      again, 24 cross-attention flash launches at Sq 32 x Sk 1,500; the
+      decoder's linears split-K, its cross K/V tiled) and 32 greedy
+      `decode_step`s (cross K/V projected at every step: 48 tiled, 192
+      split-K launches a step), the prompt stepped through decode_step
+      near the prefill's logits; encoder and cross-attention layer 0
+      against the plain version (flip budget), the encoder's layer-0
+      linears at M 3,000 and 3,072 and decoder layer 0's ten linears in
+      one decode step (split-K at M 2, the cross K/V tiled) against
+      theirs; then the encoder
+      under the model's own fp8_dpa (24 f32 flash launches, bf16
+      instance, non-causal, hd 64), layer 0 within one bf16 ulp;
+   K. pixtral-12b (40 layers, d 5,120, hd 128, 12.25 B parameters): a
+      scoring `train_logits` of 4,096 stub embeddings (280 tiled fused
+      launches, 40 causal DPA flash launches), layer 0's attention and
+      seven linears (tiled at M 4,096) against the plain version,
+      `prefill` of the same embeddings and 16 greedy token
+      `decode_step`s (280 split-K launches a step), layer 0's seven
+      linears of one step (split-K at M 1) against the plain version.
+   Each path's launches per kernel, walls, tokens/s and profiles printed.
 4. Where the time goes: torch.profiler over one steady decode step and
    one prefill chunk of each engine and one serve step of path c, each
    eager and graphed (wall, device busy share, launches; the prequant
@@ -3476,7 +3503,8 @@ def recorded_attention(calls):
         layers._sdpa = inner
 
 
-def check_path_attention(what, calls, plain, kernel=None, window=None):
+def check_path_attention(what, calls, plain, kernel=None, window=None,
+                         causal=True):
     """Each layer's attention output on a path (`recorded_attention`)
     against `plain`, the kernel's plain version, on the same inputs laid
     out heads-first here and not by the route.  Pins what lies between
@@ -3490,7 +3518,9 @@ def check_path_attention(what, calls, plain, kernel=None, window=None):
     version records its codes too, and the layer is held to phase 2's
     bound (`_dpa_flash_misses`, at most DPA_FLASH_MAX_FLIPS of its live
     codes flipped), one layer at a time (a code buffer is H x S x S
-    bytes).  A local attention path passes its `window`."""
+    bytes).  A local attention path passes its `window`, a non-causal one
+    (an encoder's, a cross-attention's: Sq may differ from Sk) `causal`
+    False."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     worst, flips = 0.0, []
@@ -3504,11 +3534,13 @@ def check_path_attention(what, calls, plain, kernel=None, window=None):
             tol = _bf16_ulp(want) + FLASH_F32_RTOL * float(want.abs().max())
             bad = int((err > tol).sum())
         else:
-            B, H, S, _ = qh.shape
-            if codes is None:
-                codes = [torch.zeros((B, H, S, S), dtype=torch.uint8,
+            B, H, Sq, _ = qh.shape
+            Sk = kh.shape[2]
+            if codes is None or codes[0].shape != (B, H, Sq, Sk):
+                codes = None                # free the old buffers first
+                codes = [torch.zeros((B, H, Sq, Sk), dtype=torch.uint8,
                                      device=q.device) for _ in range(2)]
-                mask = FA._mask(S, kh.shape[2], True, window, q.device)
+                mask = FA._mask(Sq, Sk, causal, window, q.device)
             for c in codes:
                 c.zero_()
             again = kernel(qh, kh, vh, codes[0])
@@ -3688,18 +3720,22 @@ def run_scoring(cfg, params, S=4096):
 # phase 3k: the recurrent families (paths G, H, I)
 # -----------------------------------------------------------------------------
 
-# a block's linears by kind (its mixer's; the MLP adds 3 when d_ff > 0)
+# a block's linears by kind (its mixers'; the MLP adds 3 when d_ff > 0,
+# 2 for a GELU MLP): a decoder block's self- and cross-attention
 MIXER_LINEARS = {"attn": 4, "attn_local": 4, "rg": 4, "mlstm": 7,
-                 "slstm": 5}
+                 "slstm": 5, "enc": 4, "dec": 8}
 RG_PROMPT = 4096                  # path H's prefill
 RG_DECODE = 16                    # greedy steps after it
 
 
-def linears_per_call(model) -> int:
+def linears_per_call(model, kinds=None) -> int:
     """Fused matmul launches one model call makes: every linear of every
-    block."""
-    mlp = 3 if model.cfg.d_ff > 0 else 0
-    return sum(MIXER_LINEARS[k] + mlp for k in model.kinds)
+    block of `kinds` (default the model's; an encoder-decoder's are its
+    decoder's)."""
+    cfg = model.cfg
+    mlp = (3 if cfg.act == "silu" else 2) if cfg.d_ff > 0 else 0
+    return sum(MIXER_LINEARS[k] + mlp
+               for k in (model.kinds if kinds is None else kinds))
 
 
 def check_dpa_flash_wide(gen, H=16, KV=1, S=RG_PROMPT, hd=256,
@@ -4081,6 +4117,505 @@ def run_recurrent_front_end():
     gc.collect()
     return counts
 
+
+
+# -----------------------------------------------------------------------------
+# phase 3l: the encoder-decoder and VLM families (paths J, K)
+# -----------------------------------------------------------------------------
+
+J_BATCH, J_PROMPT, J_DECODE = 2, 32, 32      # path J: whisper-medium
+K_SEQ, K_DECODE = 4096, 16                   # path K: pixtral-12b
+
+
+def stub_batch(cfg, B, S, frames=0, step=0):
+    """One batch of the data pipeline (`SyntheticLM`, seed 0) with the
+    config's stub front end, on the card: frames (B, frames, d) beside
+    the tokens, or embeddings (B, S, d) in place of them."""
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    return make_pipeline(DataConfig(
+        vocab_size=cfg.vocab_size, batch=B, seq=S, frontend=cfg.frontend,
+        d_model=cfg.d_model, frames=frames), device="cuda").batch(step)
+
+
+def grow_caches(caches, s_ctx):
+    """A prefill's caches (each leaf (B, S, ...)) copied into zeroed
+    caches of s_ctx positions: room for the decode steps after it."""
+    import torch
+
+    def grow(t):
+        out = torch.zeros((t.shape[0], s_ctx) + t.shape[2:], dtype=t.dtype,
+                          device=t.device)
+        out[:, :t.shape[1]] = t
+        return out
+    return [{k: grow(v) for k, v in c.items()} for c in caches]
+
+
+def _flash_blocks(q, k):
+    """The flash routes' (bq, bk) for heads-first q, k
+    (`kernels.registry`: blocks of up to FLASH_BLOCK cut to divide)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import FLASH_BLOCK, _fit_block
+    return (_fit_block(min(FLASH_BLOCK, FA.max_bq(q.shape[-1])), q.shape[2]),
+            _fit_block(FLASH_BLOCK, k.shape[2]))
+
+
+def hold_dpa_layer(what, calls, pol, causal):
+    """`check_path_attention` on recorded DPA flash calls, each run again
+    at the route's blocks (bk is part of the numerics: 125 for 1,500
+    keys)."""
+    from repro_torch.kernels import flash_attention as FA
+    kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, causal=causal)
+
+    def plain(q, k, v, c):
+        return FA.dpa_flash_attention_ref(q, k, v, p_codes=c,
+                                          bk=_flash_blocks(q, k)[1], **kw)
+
+    def kernel(q, k, v, c):
+        bq, bk = _flash_blocks(q, k)
+        return FA.dpa_flash_attention(q, k, v, p_codes=c, bq=bq, bk=bk, **kw)
+    blocks = [_flash_blocks(*(t.transpose(1, 2) for t in c[:2]))
+              for c in calls]
+    err, flips = check_path_attention(what, calls, plain, kernel=kernel,
+                                      causal=causal)
+    print(f"{what}: (bq, bk) {sorted(set(blocks))}, Sq x Sk "
+          f"{sorted({(c[0].shape[1], c[1].shape[1]) for c in calls})}")
+    return {"max_abs_err": err, "p_codes_flipped": flips,
+            "blocks": sorted(set(blocks))}
+
+
+def hold_tiled_layer(what, lins):
+    """Linears [(name, prepared params, x (M, K))] through the fused
+    matmul's tiled route, at M and at the route's padded M (a multiple of
+    128), against the plain version at the fused route's pin
+    (`hold_linears`)."""
+    import torch
+    calls = []
+    for name, lin, x in lins:
+        M, K = x.shape
+        for pad in sorted({M, -(-M // 128) * 128}):
+            xp = torch.zeros((pad, K), dtype=x.dtype, device=x.device)
+            xp[:M] = x
+            calls.append((xp, lin["wq"], lin["sw"], FP4_FUSED))
+    return hold_linears(what, calls, {"tiled": len(calls)})
+
+
+@contextlib.contextmanager
+def recorded_linears(calls, limit):
+    """Inside, the first `limit` fused-matmul calls append their (x, wq,
+    sw, keywords) as the model's linears hand them to the wrapper
+    (`kernels.ops.dpa_matmul_fused_pipeline`: M already padded), so the
+    first calls of a pass are its layer 0's."""
+    from repro_torch.kernels import dpa_matmul as DM
+    inner = DM.dpa_matmul_fused
+
+    def record(x, wq, sw, **kw):
+        if len(calls) < limit:
+            calls.append((x, wq, sw, kw))
+        return inner(x, wq, sw, **kw)
+
+    # the wrapper counts on the function its module's name holds (now
+    # `record`): one attribute dict, so its launch counters stay its own
+    record.__dict__ = inner.__dict__
+    DM.dpa_matmul_fused = record
+    try:
+        yield
+    finally:
+        DM.dpa_matmul_fused = inner
+
+
+def hold_linears(what, calls, want):
+    """Recorded fused-matmul calls (`recorded_linears`) run again through
+    the kernel on their own operands and held to the plain version at the
+    fused route's pin; `want` {route: n} is how many of them each route
+    must take (`fused_plan` of the call's shape).  -> max |diff|."""
+    from repro_torch.kernels import dpa_matmul as DM
+    routes, worst, shapes = {}, 0.0, []
+    for x, wq, sw, kw in calls:
+        (M, K), N = x.shape, sw.shape[-1]
+        plan = DM.fused_plan(1, M, K, N)
+        routes[plan.route] = routes.get(plan.route, 0) + 1
+        worst = max(worst, _held(
+            f"{what} M={M} K={K} N={N} {_plan_str(plan)}",
+            DM.dpa_matmul_fused(x, wq, sw, **kw),
+            DM.dpa_matmul_fused_ref(x, wq, sw, **kw)))
+        shapes.append(f"{M}x{K}x{N} {plan.route}"
+                      + (f" split {plan.split}" if plan.route == "splitk"
+                         else ""))
+    if routes != want:
+        raise AssertionError(f"{what}: routes {routes}, want {want}")
+    print(f"{what}: {len(calls)} linears (M x K x N: {', '.join(shapes)}) "
+          f"within the fused route's pin (max |diff| {worst:.3g})")
+    return worst
+
+
+def _timed(fn):
+    """(result, synchronized wall seconds) of one call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _cosine(a, b) -> float:
+    import torch
+    return float(torch.nn.functional.cosine_similarity(
+        a.reshape(1, -1).float(), b.reshape(1, -1).float()))
+
+
+def run_encdec(name="whisper-medium"):
+    """Path J: whisper-medium at its published widths, seeded weights,
+    w4a8_kv4_attn8 with use_flash, B 2 x 1,500 stub frames and a 32-token
+    decoder prompt from the data pipeline's stub batch.  `encode` (the
+    encoder's non-causal self-attention through the DPA flash kernel at
+    hd 64, Sq = Sk = 1,500, bq = bk = 125, after its K/V pre-pass; every
+    linear tiled at M = 3,000), `prefill` (the encoder again; the
+    decoder's self-attention over its quantized cache on the plain
+    route, cross-attention Sq 32 x Sk 1,500 through the DPA flash kernel,
+    the decoder's linears on the split-K route, the cross K/V on the
+    tiled route), then 32 greedy `decode_step`s from the prefill's
+    caches grown to 64 positions (cross K/V projected from `enc_out`
+    at every step: tiled), each timed and counted.  The prompt stepped
+    through decode_step from empty caches must land near the prefill's
+    last logits (cosine >= 0.95).  Encoder layer 0's and decoder layer
+    0's flash calls held to the plain version (`hold_dpa_layer`), encoder
+    layer 0's linears at M = 3,000 (`hold_tiled_layer`), decoder layer
+    0's linears in one decode step (`hold_linears`: eight split-K at M
+    2, the cross K/V tiled).  Then the
+    encoder under the model's own fp8_dpa (fake-quant linears, f32
+    attention: the f32 flash kernel's bf16 instance, non-causal, hd 64,
+    bq = bk = 125), counted, and its layer 0 held within one bf16 ulp."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.configs.whisper_medium import N_AUDIO_CTX
+    from repro_torch.core.linear import apply_linear
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    cfg = get_config(name).replace(policy="w4a8_kv4_attn8", use_flash=True)
+    pol = get_policy(cfg.policy)
+    model, params = build(cfg)
+    B, S, Se, n_dec = J_BATCH, J_PROMPT, N_AUDIO_CTX, J_DECODE
+    n_enc, n_dl = len(model.enc_kinds), cfg.n_layers
+    batch = stub_batch(cfg, B, S, frames=Se)
+    enc_lin = linears_per_call(model, model.enc_kinds)
+    dec_lin = linears_per_call(model)
+    if (enc_lin, dec_lin) != (144, 240):
+        raise AssertionError(f"{name}: {enc_lin} / {dec_lin} linears a call")
+    enc_want = {"dpa_flash_attention": n_enc,
+                "dpa_flash_attention.prepass": n_enc,
+                "quantize_pack_rows": 2 * n_enc,
+                "dpa_matmul_fused": enc_lin, "dpa_matmul_fused.tiled": enc_lin,
+                "dpa_act_quant": enc_lin}
+    rep, counts = {}, []
+
+    model.encode(params, batch["frames"])
+    zero_counts()
+    enc_out, wall = _timed(lambda: model.encode(params, batch["frames"]))
+    n = read_counts()
+    check_counts(f"{name} encode ({cfg.policy}, use_flash)", n, enc_want)
+    counts.append(n)
+    if enc_out.shape != (B, Se, cfg.d_model) or not bool(
+            torch.isfinite(enc_out).all()):
+        raise AssertionError(f"encode {tuple(enc_out.shape)}")
+    rep["encode"] = {"wall_s": wall, "frames_per_s": B * Se / wall}
+
+    model.prefill(params, batch)
+    zero_counts()
+    (logits, caches), wall = _timed(lambda: model.prefill(params, batch))
+    n = read_counts()
+    cross_tiled = 2 * n_dl
+    check_counts(f"{name} prefill ({cfg.policy}, use_flash)", n, {
+        "dpa_flash_attention": n_enc + n_dl,
+        "dpa_flash_attention.prepass": n_enc + n_dl,
+        "quantize_pack_rows": 2 * (n_enc + n_dl),
+        "dpa_matmul_fused": enc_lin + dec_lin,
+        "dpa_matmul_fused.tiled": enc_lin + cross_tiled,
+        "dpa_matmul_fused.splitk": dec_lin - cross_tiled,
+        "dpa_act_quant": enc_lin + cross_tiled})
+    counts.append(n)
+    if logits.shape != (B, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    rep["prefill"] = {"wall_s": wall, "tokens_per_s": B * S / wall}
+
+    caches = grow_caches(caches, S + n_dec)
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    new = [nxt]
+    zero_counts()
+    t0 = time.monotonic()
+    for t in range(n_dec):
+        out, caches = model.decode_step(
+            params, {"tokens": nxt, "index": S + t, "enc_out": enc_out},
+            caches)
+        nxt = out[:, -1].argmax(-1)[:, None]
+        new.append(nxt)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = read_counts()
+    check_counts(f"{name} decode ({cfg.policy})", n, {
+        "dpa_matmul_fused": dec_lin * n_dec,
+        "dpa_matmul_fused.tiled": cross_tiled * n_dec,
+        "dpa_matmul_fused.splitk": (dec_lin - cross_tiled) * n_dec,
+        "dpa_act_quant": cross_tiled * n_dec})
+    counts.append(n)
+    new = torch.cat(new, dim=1)
+    if not bool(((new >= 0) & (new < cfg.vocab_size)).all()) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"decode tokens {new.tolist()}")
+    rep["decode"] = {"steps": n_dec, "wall_s": wall,
+                     "ms_per_step": wall / n_dec * 1e3,
+                     "tokens_per_s": B * n_dec / wall,
+                     "tokens": new.tolist()}
+
+    # the prompt through decode_step from empty caches (teacher-forced)
+    fresh = model.init_caches(B, S + n_dec)
+    for t in range(S):
+        step_logits, fresh = model.decode_step(
+            params, {"tokens": batch["tokens"][:, t:t + 1], "index": t,
+                     "enc_out": enc_out}, fresh)
+    cos = _cosine(step_logits[:, -1], logits[:, -1])
+    same = bool(torch.equal(step_logits[:, -1].argmax(-1),
+                            logits[:, -1].argmax(-1)))
+    print(f"{name}: the prompt stepped through decode_step vs prefill: "
+          f"last logits cosine {cos:.6f}, greedy tokens equal {same}")
+    if cos < 0.95:
+        raise AssertionError(f"stepped prompt vs prefill: cosine {cos}")
+    rep["stepped_vs_prefill"] = {"cosine": cos, "greedy_equal": same}
+    del fresh
+
+    # encoder layer 0's flash call and its linears on their own inputs
+    # (norm1 of the frames for the projections, the attention's output
+    # for wo, norm2 of the residual for wu, gelu of wu's for wd), and
+    # decoder layer 0's cross-attention, against their plain versions
+    calls = []
+    with recorded_attention(calls):
+        model.encode(params, batch["frames"])
+    rep["encoder_attention"] = hold_dpa_layer(
+        f"{name} encoder self-attention (w4a8)", calls[:1], pol, False)
+    lp = params["enc_layers"][0]
+    x0 = batch["frames"].to(model.dtype)
+    a = calls[0][3].reshape(B, Se, -1)
+    del calls
+    h = L.apply_norm(lp["norm1"], x0, eps=cfg.norm_eps)
+    h2 = L.apply_norm(lp["norm2"], x0 + apply_linear(lp["attn"]["wo"], a, pol),
+                      eps=cfg.norm_eps)
+    u = L.gelu(apply_linear(lp["mlp"]["wu"], h2, pol).float()).to(
+        model.dtype)
+    rows = (lambda t: t.reshape(B * Se, -1).contiguous())
+    rep["tiled_max_abs_err"] = hold_tiled_layer(
+        f"{name} encoder layer 0",
+        [(f"{m}.{w}", lp[m][w], rows(x)) for m, w, x in (
+            ("attn", "wq", h), ("attn", "wk", h), ("attn", "wv", h),
+            ("attn", "wo", a), ("mlp", "wu", h2), ("mlp", "wd", u))])
+    del h, a, h2, u
+    calls = []
+    with recorded_attention(calls):
+        model.prefill(params, batch)
+    cross = [c for c in calls if c[1].shape[1] == Se and c[0].shape[1] == S]
+    del calls
+    rep["cross_attention"] = hold_dpa_layer(
+        f"{name} cross-attention (w4a8)", cross[:1], pol, False)
+    del cross
+    # decoder layer 0's linears in one decode step: self-attention, the
+    # cross K/V from enc_out (tiled, M 3,000 padded to 3,072), cross wq
+    # and wo, the GELU MLP (split-K at M 2 padded to 8)
+    lins = []
+    with recorded_linears(lins, 10):
+        model.decode_step(params, {"tokens": nxt, "index": S + n_dec - 1,
+                                   "enc_out": enc_out}, caches)
+    rep["decoder_linears_max_abs_err"] = hold_linears(
+        f"{name} decoder layer 0, one decode step", lins,
+        {"splitk": 8, "tiled": 2})
+    del lins
+    rep["profile"] = {
+        "encode": profile_window(f"{name} encode (B {B} x {Se} frames)",
+                                 lambda: model.encode(params,
+                                                      batch["frames"]),
+                                 watch=("dpa_flash", "fused_tiled",
+                                        "act_quant", "quantize_rows")),
+        "decode_step": profile_window(
+            f"{name} decode step (B {B}, eager)",
+            lambda: model.decode_step(
+                params, {"tokens": nxt, "index": S + n_dec - 1,
+                         "enc_out": enc_out}, caches),
+            watch=("dpa_fused", "fused_tiled"), timed=3)}
+
+    # the encoder under the model's own policy: f32 attention
+    cfg8 = cfg.replace(policy="fp8_dpa")
+    model8 = build_model(cfg8, device="cuda")
+    model8.encode(params, batch["frames"])
+    zero_counts()
+    enc8, wall = _timed(lambda: model8.encode(params, batch["frames"]))
+    n = read_counts()
+    check_counts(f"{name} encode (fp8_dpa, use_flash)", n,
+                 {"flash_attention": n_enc})
+    counts.append(n)
+    calls = []
+    with recorded_attention(calls):
+        model8.encode(params, batch["frames"])
+    err, _ = check_path_attention(
+        f"{name} encoder self-attention (fp8_dpa, f32 flash)", calls[:1],
+        lambda q, k, v: FA.flash_attention_ref(q, k, v, causal=False))
+    del calls
+    rep["encode_fp8_dpa"] = {
+        "wall_s": wall, "frames_per_s": B * Se / wall,
+        "attn_max_abs_err_vs_plain": err,
+        "cosine_vs_w4a8": _cosine(enc8, enc_out),
+        "profile": profile_window(f"{name} encode (fp8_dpa)",
+                                  lambda: model8.encode(params,
+                                                        batch["frames"]),
+                                  watch=("flash",))}
+    print(f"{name}: encode {rep['encode']['wall_s'] * 1e3:.1f} ms "
+          f"({rep['encode']['frames_per_s']:.0f} frames/s), prefill "
+          f"{rep['prefill']['wall_s'] * 1e3:.1f} ms, {n_dec} greedy steps "
+          f"{rep['decode']['ms_per_step']:.1f} ms each "
+          f"({rep['decode']['tokens_per_s']:.1f} tokens/s); fp8_dpa encode "
+          f"{wall * 1e3:.1f} ms; new tokens {new.tolist()}")
+    del model, model8, params, caches, enc_out, enc8
+    return add_counts(*counts), rep
+
+
+def run_vlm(name="pixtral-12b"):
+    """Path K: pixtral-12b at its published widths, seeded weights,
+    w4a8_kv4_attn8 with use_flash, on the data pipeline's stub batch of
+    B 1 x 4,096 embeddings.  A scoring `train_logits` (every linear
+    tiled; causal DPA flash at hd 128 after its K/V pre-pass), then
+    `prefill` of the same embeddings (tiled linears; attention over the
+    quantized cache on the plain route) and 16 greedy token
+    `decode_step`s (split-K), each timed and counted.  The prefill's last
+    logits near the scoring pass's (cosine >= 0.95); layer 0's flash call
+    and seven linears of the scoring pass (tiled, M 4,096) and of one
+    decode step (split-K, M 1) held to the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    cfg = get_config(name).replace(policy="w4a8_kv4_attn8", use_flash=True)
+    pol = get_policy(cfg.policy)
+    model, params = build(cfg)
+    L, S, n_dec = cfg.n_layers, K_SEQ, K_DECODE
+    lin = linears_per_call(model)
+    if lin != 280:
+        raise AssertionError(f"{name}: {lin} linears a call")
+    batch = stub_batch(cfg, 1, S)
+    emb = {"embeddings": batch["embeddings"]}
+    rep, counts = {}, []
+
+    model.train_logits(params, emb)
+    zero_counts()
+    (logits, _), wall = _timed(lambda: model.train_logits(params, emb))
+    n = read_counts()
+    check_counts(f"{name} scoring ({cfg.policy}, use_flash)", n, {
+        "dpa_flash_attention": L, "dpa_flash_attention.prepass": L,
+        "quantize_pack_rows": 2 * L, "dpa_matmul_fused": lin,
+        "dpa_matmul_fused.tiled": lin, "dpa_act_quant": lin})
+    counts.append(n)
+    if logits.shape != (1, S, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"scoring logits {tuple(logits.shape)}")
+    last = logits[:, -1].clone()
+    del logits
+    rep["scoring"] = {"wall_s": wall, "tokens_per_s": S / wall}
+    calls, lins = [], []
+    with recorded_attention(calls), recorded_linears(lins, 7):
+        model.train_logits(params, emb)
+    rep["attention"] = hold_dpa_layer(f"{name} scoring attention (w4a8)",
+                                      calls[:1], pol, True)
+    del calls
+    rep["tiled_max_abs_err"] = hold_linears(
+        f"{name} layer 0, scoring pass", lins, {"tiled": 7})
+    del lins
+    rep["scoring"]["profile"] = profile_window(
+        f"{name} scoring ({S} embeddings)",
+        lambda: model.train_logits(params, emb),
+        watch=("dpa_flash", "fused_tiled", "act_quant", "quantize_rows"))
+
+    zero_counts()
+    (first, caches), wall = _timed(lambda: model.prefill(params, emb))
+    n = read_counts()
+    check_counts(f"{name} prefill ({cfg.policy})", n, {
+        "dpa_matmul_fused": lin, "dpa_matmul_fused.tiled": lin,
+        "dpa_act_quant": lin})
+    counts.append(n)
+    cos = _cosine(first[:, -1], last)
+    print(f"{name}: prefill's last logits vs the scoring pass's: cosine "
+          f"{cos:.6f}")
+    if first.shape != (1, 1, cfg.vocab_size) or cos < 0.95:
+        raise AssertionError(f"prefill logits {tuple(first.shape)}, cosine "
+                             f"{cos} to the scoring pass's")
+    rep["prefill"] = {"wall_s": wall, "tokens_per_s": S / wall,
+                      "cosine_vs_scoring": cos}
+    caches = grow_caches(caches, S + n_dec)
+    nxt = first[:, -1].argmax(-1)[:, None]
+    new = [nxt]
+    zero_counts()
+    t0 = time.monotonic()
+    for t in range(n_dec):
+        out, caches = model.decode_step(params, {"tokens": nxt,
+                                                 "index": S + t}, caches)
+        nxt = out[:, -1].argmax(-1)[:, None]
+        new.append(nxt)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = read_counts()
+    check_counts(f"{name} decode ({cfg.policy})", n, {
+        "dpa_matmul_fused": lin * n_dec,
+        "dpa_matmul_fused.splitk": lin * n_dec})
+    counts.append(n)
+    new = torch.cat(new, dim=1)
+    if not bool(((new >= 0) & (new < cfg.vocab_size)).all()) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"decode tokens {new.tolist()}")
+    lins = []
+    with recorded_linears(lins, 7):
+        model.decode_step(params, {"tokens": nxt, "index": S + n_dec - 1},
+                          caches)
+    rep["splitk_max_abs_err"] = hold_linears(
+        f"{name} layer 0, one decode step", lins, {"splitk": 7})
+    del lins
+    rep["decode"] = {"steps": n_dec, "wall_s": wall,
+                     "ms_per_step": wall / n_dec * 1e3,
+                     "tokens_per_s": n_dec / wall, "tokens": new.tolist(),
+                     "profile": profile_window(
+                         f"{name} decode step (B 1, eager)",
+                         lambda: model.decode_step(
+                             params, {"tokens": nxt, "index": S + n_dec - 1},
+                             caches), watch=("dpa_fused",), timed=3)}
+    print(f"{name}: scoring {rep['scoring']['wall_s']:.3f} s "
+          f"({rep['scoring']['tokens_per_s']:.1f} tokens/s), prefill "
+          f"{rep['prefill']['wall_s']:.3f} s, {n_dec} greedy steps "
+          f"{rep['decode']['ms_per_step']:.1f} ms each; new tokens "
+          f"{new.tolist()}")
+    del model, params, caches
+    return add_counts(*counts), rep
+
+
+def run_families():
+    """Phase 3l: paths J and K, each model alone on the card, its peak
+    memory printed.  -> (counts, report)."""
+    import torch
+    counts, report = [], {}
+    for name, run in (("whisper-medium", run_encdec),
+                      ("pixtral-12b", run_vlm)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"{name}: {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+              "the card before the model")
+        t0 = time.monotonic()
+        n, rep = run(name)
+        gc.collect()
+        rep["peak_gb"] = _peak_gb()
+        rep["seconds"] = time.monotonic() - t0
+        print(f"{name}: peak device memory {rep['peak_gb']:.2f} GB "
+              f"(max_memory_allocated); path {rep['seconds']:.1f} s")
+        counts.append(n)
+        report[name] = rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return add_counts(*counts), report
 
 
 def run_quantize_op(gen, M=4096, K=9728):
@@ -4849,6 +5384,10 @@ def main() -> None:
     # the DPA flash kernel's hd 256 instance
     n_rec, rec, wide_t = run_recurrent(gen)
     t_rec = time.monotonic() - t_start
+    # phase 3l: the encoder-decoder and VLM families at full width (paths
+    # J, K)
+    n_fam, fam = run_families()
+    t_fam = time.monotonic() - t_start
     # phase 5: training
     train = run_training()
     t_total = time.monotonic() - t_start
@@ -4860,11 +5399,23 @@ def main() -> None:
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
           f"{t_granite - t_front:.1f} s, quantize_pack op "
           f"{t_quant - t_granite:.1f} s, recurrent families "
-          f"{t_rec - t_quant:.1f} s, training {t_total - t_rec:.1f} s")
+          f"{t_rec - t_quant:.1f} s, encoder-decoder and VLM "
+          f"{t_fam - t_rec:.1f} s, training {t_total - t_fam:.1f} s")
     n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
+
+    # phase 3l's fused-matmul holds: layer 0's linears at the paths' shapes
+    fam_mm = {
+        "whisper-medium encoder, tiled M 3000 / 3072":
+            fam["whisper-medium"]["tiled_max_abs_err"],
+        "whisper-medium decoder decode step, split-K M 2 and cross K/V "
+        "tiled": fam["whisper-medium"]["decoder_linears_max_abs_err"],
+        "pixtral-12b scoring, tiled M 4096":
+            fam["pixtral-12b"]["tiled_max_abs_err"],
+        "pixtral-12b decode step, split-K M 1":
+            fam["pixtral-12b"]["splitk_max_abs_err"]}
 
     def lib(t):
         return {k: t[k] for k in ("library_ms", "library_device_ms")}
@@ -4874,10 +5425,14 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"]
-         + n_rec["dpa_matmul_fused"],
+         + n_rec["dpa_matmul_fused"]
+         + n_fam["dpa_matmul_fused"],
          "splitk_launches": n_serve["dpa_matmul_fused.splitk"]
-         + n_rec["dpa_matmul_fused.splitk"],
-         "max_abs_err": max(mm_err, gmm_err, tl_err), **times(mm_t),
+         + n_rec["dpa_matmul_fused.splitk"]
+         + n_fam["dpa_matmul_fused.splitk"],
+         "max_abs_err": max(mm_err, gmm_err, tl_err, *fam_mm.values()),
+         **times(mm_t),
+         "families": fam_mm,
          "device_from": mm_t.get("device_from"),
          "bound_by": "bytes", "library_ms": None,
          "cold": mm_t["cold"], "plans": mm_t["plans"],
@@ -4893,7 +5448,8 @@ def main() -> None:
              "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
              "replaces": "src/repro/kernels/dpa_matmul.py:184",
              "launches": n_d["dpa_matmul_fused.tiled"]
-             + n_rec["dpa_matmul_fused.tiled"],
+             + n_rec["dpa_matmul_fused.tiled"]
+             + n_fam["dpa_matmul_fused.tiled"],
              "max_abs_err": tl_err, **times(tl_t),
              "bound_by": "operations", "library_ms": None,
              "fp16_bound_ms": tl_t["fp16_bound_ms"],
@@ -4910,7 +5466,8 @@ def main() -> None:
         {"name": "dpa_act_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
-         "launches": n_d["dpa_act_quant"] + n_rec["dpa_act_quant"],
+         "launches": n_d["dpa_act_quant"] + n_rec["dpa_act_quant"]
+         + n_fam["dpa_act_quant"],
          "max_abs_err": 0.0, **times(tl_t["prepass"]),
          "bound_by": "bytes", "library_ms": None,
          "library": "none: no PyTorch call quantizes per (row, K block of "
@@ -4988,9 +5545,10 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_flash.cu",
          "replaces": "src/repro/kernels/flash_attention.py:218",
          "launches": n_d["dpa_flash_attention"]
-         + n_rec["dpa_flash_attention"],
+         + n_rec["dpa_flash_attention"] + n_fam["dpa_flash_attention"],
          "prepass_launches": n_d["dpa_flash_attention.prepass"]
-         + n_rec["dpa_flash_attention.prepass"],
+         + n_rec["dpa_flash_attention.prepass"]
+         + n_fam["dpa_flash_attention.prepass"],
          "max_abs_err": dfa_t["max_abs_err"], **times(dfa_t),
          "device_from": dfa_t.get("device_from"),
          "bound_by": dfa_t["bound_by"], "library_ms": None,
@@ -5025,11 +5583,19 @@ def main() -> None:
                          "layer, B=1 S=4096 H=16 KV=1 hd=256 window 2048 "
                          "causal, bf16, raw K/V on the fp4 grid, bq 64 bk "
                          "128, pre-pass included (bound: the band's live "
-                         "pairs at the fp8 peak)"}},
+                         "pairs at the fp8 peak)"},
+         "families": {
+             "launches": n_fam["dpa_flash_attention"],
+             "whisper-medium encoder (non-causal, Sq = Sk = 1500, bq = bk "
+             "= 125, hd 64)": fam["whisper-medium"]["encoder_attention"],
+             "whisper-medium cross-attention (Sq 32 x Sk 1500, bq 32, bk "
+             "125, hd 64)": fam["whisper-medium"]["cross_attention"],
+             "pixtral-12b scoring (causal, S 4096, hd 128)":
+                 fam["pixtral-12b"]["attention"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:100",
-         "launches": n_c["flash_attention"],
+         "launches": n_c["flash_attention"] + n_fam["flash_attention"],
          "max_abs_err": fa_t["max_abs_err"], **times(fa_t),
          "device_from": fa_t.get("device_from"),
          "bound_by": fa_t["bound_by"], **lib(fa_t),
@@ -5045,7 +5611,13 @@ def main() -> None:
                  "prepass_launches": n_c["flash_attention.prepass"],
                  "at": "the same layer in f32 (K/V split by the pre-pass, "
                        "included; six bf16 products; bound: six bf16 "
-                       "products at the bf16 peak)"}},
+                       "products at the bf16 peak)"},
+         "families": {
+             "launches": n_fam["flash_attention"],
+             "whisper-medium encoder under fp8_dpa (bf16, non-causal, Sq = "
+             "Sk = 1500, bq = bk = 125, hd 64), max |diff| vs plain":
+                 fam["whisper-medium"]["encode_fp8_dpa"][
+                     "attn_max_abs_err_vs_plain"]}},
         {"name": "quantize_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:70",
@@ -5067,7 +5639,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:50",
          "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"]
-         + n_rec["quantize_pack_rows"],
+         + n_rec["quantize_pack_rows"]
+         + n_fam["quantize_pack_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
          "device_from": qz_t["quantize_pack_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
@@ -5109,6 +5682,13 @@ def main() -> None:
               f"graphed ({g['eager']['tokens_per_s']:.1f} eager), decode "
               f"step device {g['profile']['graphed']['busy_ms']} ms, peak "
               f"{r['peak_gb']:.2f} GB")
+    print("families: " + json.dumps(fam))
+    for name, r in fam.items():
+        print(f"summary {name}: path {r['seconds']:.1f} s, peak "
+              f"{r['peak_gb']:.2f} GB, " + ", ".join(
+                  f"{k} {v['wall_s'] * 1e3:.1f} ms"
+                  for k, v in r.items() if isinstance(v, dict)
+                  and "wall_s" in v))
     print("train: " + json.dumps(train))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))

@@ -1,7 +1,7 @@
 """Config registry of the port: the configurations it serves (decoder,
-MoE and the recurrent families), and `reduce_config`, the CPU smoke
-variant of the same family (port of `repro.configs.base`; whisper and
-pixtral join with their slices)."""
+MoE, the recurrent families, the encoder-decoder and the VLM), and
+`reduce_config`, the CPU smoke variant of the same family (port of
+`repro.configs.base`)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,8 @@ ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     "qwen3-4b": "qwen3_4b",
     "llama3.2-3b": "llama32_3b",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-medium": "whisper_medium",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "dbrx-132b": "dbrx_132b",

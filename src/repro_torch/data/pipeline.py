@@ -16,9 +16,14 @@ with no iterator state to persist.  Two sources:
                  so its batches equal the reference's bit for bit.
 
 Both emit {"tokens": (B, S), "labels": (B, S)} int64 tensors on the
-pipeline's device, labels the next tokens.  The reference's stub front
-ends (precomputed embeddings, audio frames) belong to the VLM and audio
-families, which the port does not have yet.
+pipeline's device, labels the next tokens.  With a stub front end
+(`frontend="stub"`) a batch also carries what the stubbed encoder would
+hand the model, drawn as `jax.random.normal` draws it (`threefry.normal`:
+the uniforms bit for bit, the normals to a few ulp): the audio family's
+{"frames": (B, frames, d_model)} f32 beside the tokens, or, without
+frames, the VLM's {"embeddings": (B, S, d_model)} f32 in place of the
+tokens.  SyntheticLM draws them from its step's key, MemmapTokens from
+`PRNGKey(step)`, as the reference does.
 """
 from __future__ import annotations
 
@@ -42,14 +47,20 @@ class DataConfig:
     path: Optional[str] = None       # memmap token file
     n_shards: int = 1
     shard: int = 0
-    frontend: str = "none"           # none | stub (not ported: raises)
+    frontend: str = "none"           # none | stub (emit embeddings)
+    d_model: int = 0                 # for stub frontends
+    frames: int = 0                  # encdec: encoder length
 
 
-def _check_frontend(cfg: DataConfig):
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} feeds the VLM and audio families, "
-            "which join the port in ROADMAP Queue 1, \"Other families\"")
+def _add_frontend(batch: dict, cfg: DataConfig, key) -> dict:
+    if cfg.frontend == "stub" and cfg.frames:      # enc-dec: audio frames
+        b = batch["tokens"].shape[0]
+        batch["frames"] = TF.normal(key, (b, cfg.frames, cfg.d_model))
+    elif cfg.frontend == "stub":                   # vlm: fused embeddings
+        b, s = batch["tokens"].shape
+        batch["embeddings"] = TF.normal(key, (b, s, cfg.d_model))
+        del batch["tokens"]
+    return batch
 
 
 class SyntheticLM:
@@ -57,7 +68,6 @@ class SyntheticLM:
     model can learn P(next | cur), so training loss decreases visibly."""
 
     def __init__(self, cfg: DataConfig, device=None):
-        _check_frontend(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         v = cfg.vocab_size
@@ -82,12 +92,12 @@ class SyntheticLM:
         coin = TF.bernoulli(k2, 0.5, tuple(follow.shape))
         seq = torch.cat([base[:, :1], torch.where(coin, follow, base[:, 1:])],
                         dim=1)
-        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        return _add_frontend({"tokens": seq[:, :-1], "labels": seq[:, 1:]},
+                             cfg, key)
 
 
 class MemmapTokens:
     def __init__(self, cfg: DataConfig, device=None):
-        _check_frontend(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = np.uint32 if cfg.vocab_size > 65535 else np.uint16
@@ -104,7 +114,8 @@ class MemmapTokens:
         rows = np.stack([self._data[s:s + span] for s in starts]).astype(
             np.int64)
         rows = torch.from_numpy(rows).to(self.device)
-        return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+        return _add_frontend({"tokens": rows[:, :-1], "labels": rows[:, 1:]},
+                             cfg, TF.prng_key(step, self.device))
 
 
 def make_pipeline(cfg: DataConfig, device=None):

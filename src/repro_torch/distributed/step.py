@@ -81,8 +81,9 @@ def chunked_xent(params, model, x, labels, chunk: int,
 
 
 def make_loss_fn(model):
-    """-> loss_fn(params, {"tokens", "labels"}) -> (loss + aux, {"loss",
-    "aux"}); differentiable."""
+    """-> loss_fn(params, batch) -> (loss + aux, {"loss", "aux"}); batch
+    {"tokens", "labels"}, the VLM's {"embeddings", "labels"} or the
+    encoder-decoder's {"frames", "tokens", "labels"}; differentiable."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
@@ -102,14 +103,23 @@ def make_loss_fn(model):
 def value_and_grad(loss_fn):
     """`jax.value_and_grad(loss_fn, has_aux=True)` over a params tree ->
     fn(params, batch) -> ((total, parts), grads in params' structure).
-    Marks every param leaf as requiring grad."""
+    Marks every param leaf as requiring grad.  The one leaf a loss may
+    leave unused is the token table of a batch that carries "embeddings"
+    (the VLM's stub front end): it gets zeros, as in JAX.  Any other
+    unused leaf raises: a port fault has cut it off the loss."""
     def fn(params, batch):
         paths = flatten_with_paths(params)
         flat = [leaf.requires_grad_(True) for _, leaf in paths]
         with torch.enable_grad():
             total, parts = loss_fn(params, batch)
-        grads = dict(zip((p for p, _ in paths),
-                         torch.autograd.grad(total, flat)))
+        may_skip = {("embed", "table")} if "embeddings" in batch else set()
+        grads = {}
+        for (path, x), g in zip(paths, torch.autograd.grad(
+                total, flat, allow_unused=True)):
+            if g is None and path not in may_skip:
+                raise RuntimeError(f"param {'.'.join(path)} does not reach "
+                                   "the loss")
+            grads[path] = torch.zeros_like(x) if g is None else g
         return (total.detach(), {k: torch.as_tensor(v).detach()
                                  for k, v in parts.items()}), \
             tree_map_with_path(lambda path, _: grads[path], params)
@@ -169,10 +179,10 @@ def make_compressed_train_step(model, opt_cfg, mesh, fmt_name="fp8_e4m3",
 
 
 def make_prefill_step(model):
-    """-> prefill_step(params, tokens (B, S)) -> (f32 logits of the last
-    position, caches): `Model.prefill`."""
-    def prefill_step(params, tokens):
-        return model.prefill(params, tokens)
+    """-> prefill_step(params, tokens (B, S) or a batch) -> (f32 logits
+    of the last position, caches): `Model.prefill`."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
     return prefill_step
 
 

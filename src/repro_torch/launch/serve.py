@@ -318,7 +318,7 @@ def main(argv=None):
         args.policy = "kv4_attn8_packed"    # engine needs a fmt_kv preset
     if args.policy:
         cfg = cfg.replace(policy=args.policy)
-    if cfg.frontend == "stub":
+    if cfg.family in ("encdec", "vlm") or cfg.frontend == "stub":
         raise SystemExit("serve demo targets token-in/token-out archs")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev)

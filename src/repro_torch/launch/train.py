@@ -87,7 +87,10 @@ def main(argv=None):
     step_fn = make_train_step(model, opt_cfg)
     pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     batch=args.batch, seq=args.seq,
-                                    frontend=cfg.frontend),
+                                    frontend=cfg.frontend,
+                                    d_model=cfg.d_model,
+                                    frames=16 if cfg.family == "encdec"
+                                    else 0),
                          device=model.device)
     state = build_state(model, 0)
     sup = Supervisor(SupervisorConfig(ckpt_dir=args.ckpt_dir,

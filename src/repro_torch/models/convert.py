@@ -9,9 +9,12 @@ leading scan axis, one stack per pattern slot (`stack.groups.p0 ..
 p{P-1}`: group g's slot i is layer g P + i), plus an unscanned tail of
 n_layers mod P layers; the port keeps a per-layer list in that order.
 A MoE block's router and (E, d_in, d_out) expert stacks, an RG-LRU
-block's conv and lam, an xLSTM block's "mix", the QKV biases and an
+block's conv and lam, an xLSTM block's "mix", the QKV, GELU MLP and
+LayerNorm biases, a decoder block's "norm_cross" and "cross" and an
 untied model's "unembed" table cross like any other leaf, as f32
-masters.
+masters.  The encoder-decoder's two stacks ("enc_stack", "dec_stack",
+one pattern slot each) become "enc_layers" and "dec_layers"; its
+"enc_norm" and learned positions "pos_dec" cross as they are.
 
 A train state crosses the same way (`convert_state`): the reference's
 {"params", "opt": {"m", "v", "count"}}, whose m and v mirror the params.
@@ -34,33 +37,37 @@ def _tensor(a, device, dtype=np.float32):
     return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 
 
-def convert_tree(np_params: dict, model) -> dict:
-    """A tree in the reference's params structure (params, their
-    gradients, or an optimizer moment), numpy leaves -> the port's
-    structure of f32 tensors on the model's device, unprepared."""
-    dev = model.device
-
-    def tensors(t):
-        return tree_map(lambda a: _tensor(a, dev), t)
-
-    stack = np_params["stack"]
+def _unstack(stack: dict, P: int, n_layers: int, dev) -> list:
+    """One reference stack of a P-slot pattern {"groups": {"p0" ..},
+    "tail": [..]} -> its per-layer list of n_layers (group g's slot i is
+    layer g P + i, then the tail)."""
     groups = stack["groups"]
-    P = len(model.pattern)
     if set(groups) != {f"p{i}" for i in range(P)}:
-        raise ValueError(f"a {P}-slot pattern {model.pattern}, got groups "
-                         f"{sorted(groups)}")
+        raise ValueError(f"a {P}-slot pattern, got groups {sorted(groups)}")
     n_groups = np.asarray(groups["p0"]["norm1"]["scale"]).shape[0]
     layers = [tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
                        groups[f"p{i}"])
               for g in range(n_groups) for i in range(P)]
-    layers += [tensors(t) for t in stack.get("tail", [])]
-    if len(layers) != model.cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers for a "
-                         f"{model.cfg.n_layers}-layer config")
-    out = {"layers": layers, "norm_f": tensors(np_params["norm_f"]),
-           "embed": tensors(np_params["embed"])}
-    if "unembed" in np_params:
-        out["unembed"] = tensors(np_params["unembed"])
+    layers += [tree_map(lambda a: _tensor(a, dev), t)
+               for t in stack.get("tail", [])]
+    if len(layers) != n_layers:
+        raise ValueError(f"{len(layers)} layers for a {n_layers}-layer "
+                         "stack")
+    return layers
+
+
+def convert_tree(np_params: dict, model) -> dict:
+    """A tree in the reference's params structure (params, their
+    gradients, or an optimizer moment), numpy leaves -> the port's
+    structure of f32 tensors on the model's device, unprepared."""
+    src = {"layers": "stack", "enc_layers": "enc_stack",
+           "dec_layers": "dec_stack"}
+    out = {key: _unstack(np_params[src[key]], len(model.pattern),
+                         len(kinds), model.device)
+           for key, kinds, _ in model.stacks()}
+    for key, leaf in np_params.items():
+        if key not in src.values():
+            out[key] = tree_map(lambda a: _tensor(a, model.device), leaf)
     return out
 
 

@@ -1,6 +1,7 @@
-"""Layer library of the port: attention (full and sliding-window), the
-SwiGLU MLP, MoE, the RG-LRU block (RecurrentGemma) and the mLSTM and
-sLSTM blocks (xLSTM) (port of `repro.models.layers`).
+"""Layer library of the port: RMSNorm and LayerNorm, attention (full,
+sliding-window, non-causal and cross), the SwiGLU and GELU MLPs, MoE,
+the RG-LRU block (RecurrentGemma) and the mLSTM and sLSTM blocks (xLSTM)
+(port of `repro.models.layers`).
 
 Every projection goes through `core.linear.apply_linear` (the DPA
 contract) and every attention/unembed through an `exec_plan` route, so
@@ -46,24 +47,38 @@ def _rows_apart(x, per_row: bool) -> bool:
     return per_row and x.device.type == "cuda" and x.shape[1] > 1
 
 
-def init_norm(d: int, device="cpu"):
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def init_norm(d: int, device="cpu", kind: str = "rmsnorm"):
+    """Unit scale; a LayerNorm ("layernorm") also has a zero bias."""
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def _row_sums(t, per_row: bool):
+    """Sums over the last dim, keepdim; `per_row`: each query row's on its
+    contiguous (B, 1, ...) slice, the decode step's shape (module doc)."""
+    if _rows_apart(t, per_row):
+        return torch.cat([t[:, i:i + 1].contiguous().sum(dim=-1, keepdim=True)
+                          for i in range(t.shape[1])], dim=1)
+    return t.sum(dim=-1, keepdim=True)
 
 
 def apply_norm(params, x, *, eps: float = 1e-5, per_row: bool = False):
-    """RMSNorm in f32; the mean is a sum times f32(1/d), as the jitted
+    """RMSNorm, or LayerNorm when the params carry a bias, in f32; a mean
+    (LayerNorm's variance too) is a sum times f32(1/d), as the jitted
     reference computes it.  `per_row`: the verify pass (module doc): the
-    sum runs on each query row's contiguous (B, 1, ...) squares, the
-    decode step's shape; the elementwise rest treats rows alike."""
+    sums run on each query row's contiguous (B, 1, ...) slice; the
+    elementwise rest treats rows alike."""
     xf = x.to(torch.float32)
-    sq = xf * xf
-    if _rows_apart(x, per_row):
-        ss = torch.cat([sq[:, i:i + 1].contiguous().sum(dim=-1, keepdim=True)
-                        for i in range(x.shape[1])], dim=1)
+    inv_d = recip(xf.shape[-1])
+    if "bias" in params:
+        c = xf - _row_sums(xf, per_row) * inv_d
+        var = _row_sums(c * c, per_row) * inv_d
+        y = c * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
     else:
-        ss = sq.sum(dim=-1, keepdim=True)
-    ms = ss * recip(xf.shape[-1])
-    y = xf * torch.rsqrt(ms + eps) * params["scale"]
+        ms = _row_sums(xf * xf, per_row) * inv_d
+        y = xf * torch.rsqrt(ms + eps) * params["scale"]
     return y.to(x.dtype)
 
 
@@ -191,7 +206,8 @@ def _window_fill(dst, new):
 
 def apply_attention(params, x, cfg, *, offset=0, cache=None,
                     per_row: bool = False, window=None,
-                    cache_mode: str = "full"):
+                    cache_mode: str = "full", cross_kv=None,
+                    causal: bool = True):
     """Returns (y, cache).  Cache layouts: the paged quantized pool (with
     "block_table"; `offset` a (B,) position vector), the contiguous
     quantized cache ("k_codes"), the raw full cache ("k"), or none.
@@ -201,21 +217,30 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
     attending over the whole cache (not causal, offset 0) with its
     unfilled leading slots masked (`window_valid`); prefill keeps its
     last W rows, left-padded with zeros.  `per_row`: the verify pass
-    (module doc)."""
+    (module doc).
+    `cross_kv` {"k", "v": (B, Se, KV, hd)}: cross-attention over those
+    keys and values (the encoder's, projected by the caller): no K/V
+    projection, no k-norm, no rope, no cache, not causal.  `causal`
+    False: every query sees every key (the encoder).  Rope on q and k
+    when the config has a rope theta and the keys are the layer's own."""
     policy = get_policy(cfg.policy)
     B, Sq, _ = x.shape
     hd = cfg.hd
     q = apply_linear(params["wq"], x, policy).reshape(B, Sq, cfg.n_heads, hd)
-    k = apply_linear(params["wk"], x, policy).reshape(B, Sq, cfg.n_kv_heads,
-                                                      hd)
-    v = apply_linear(params["wv"], x, policy).reshape(B, Sq, cfg.n_kv_heads,
-                                                      hd)
+    if cross_kv is not None:
+        k, v, cache = cross_kv["k"], cross_kv["v"], None
+    else:
+        k = apply_linear(params["wk"], x, policy).reshape(
+            B, Sq, cfg.n_kv_heads, hd)
+        v = apply_linear(params["wv"], x, policy).reshape(
+            B, Sq, cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = apply_norm(params["q_norm"], q, eps=cfg.norm_eps,
                        per_row=per_row)
-        k = apply_norm(params["k_norm"], k, eps=cfg.norm_eps,
-                       per_row=per_row)
-    if cfg.rope_theta > 0:
+        if cross_kv is None:
+            k = apply_norm(params["k_norm"], k, eps=cfg.norm_eps,
+                           per_row=per_row)
+    if cross_kv is None and cfg.rope_theta > 0:
         pos = _positions(offset, B, Sq, x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
@@ -259,7 +284,8 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
         k, v = KV.dequantize_cache(cache, fmt=policy.fmt_kv,
                                    packed=policy.kv_packed)
         kv_on_grid = True
-    causal, valid = True, None
+    causal = causal and cross_kv is None
+    valid = None
     if cache is not None and cache_mode == "window":
         if Sq == 1:
             _window_append(cache["k"], k)
@@ -288,25 +314,34 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
 
 
 # -----------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GELU)
 # -----------------------------------------------------------------------------
 
+def gelu(x):
+    """jax.nn.gelu's default, the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def init_mlp(generator, cfg, device="cpu"):
+    """SwiGLU (act "silu"): wg, wu, wd; GELU: wu and wd, with biases."""
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.act != "silu":
-        raise NotImplementedError("the port's decoder is SwiGLU; GELU MLPs "
-                                  "are ROADMAP Queue 1, \"Decoder "
-                                  "breadth\"")
-    return {"wg": init_linear(generator, d, f, device=device),
-            "wu": init_linear(generator, d, f, device=device),
-            "wd": init_linear(generator, f, d, device=device)}
+    if cfg.act == "silu":
+        return {"wg": init_linear(generator, d, f, device=device),
+                "wu": init_linear(generator, d, f, device=device),
+                "wd": init_linear(generator, f, d, device=device)}
+    return {"wu": init_linear(generator, d, f, bias=True, device=device),
+            "wd": init_linear(generator, f, d, bias=True, device=device)}
 
 
 def apply_mlp(params, x, cfg):
     policy = get_policy(cfg.policy)
-    g = apply_linear(params["wg"], x, policy)
-    u = apply_linear(params["wu"], x, policy)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    if "wg" in params:
+        g = apply_linear(params["wg"], x, policy)
+        u = apply_linear(params["wu"], x, policy)
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    else:
+        u = apply_linear(params["wu"], x, policy)
+        h = gelu(u.to(torch.float32)).to(x.dtype)
     return apply_linear(params["wd"], h, policy)
 
 
@@ -316,14 +351,12 @@ def apply_mlp(params, x, cfg):
 
 def init_moe(generator, cfg, device="cpu"):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    if cfg.act != "silu":
-        raise NotImplementedError("the port's MoE experts are SwiGLU; GELU "
-                                  "experts are ROADMAP Queue 1, \"Decoder "
-                                  "breadth\"")
-    return {"router": init_linear(generator, d, E, device=device),
-            "wg": init_grouped_linear(generator, E, d, f, device=device),
-            "wu": init_grouped_linear(generator, E, d, f, device=device),
-            "wd": init_grouped_linear(generator, E, f, d, device=device)}
+    p = {"router": init_linear(generator, d, E, device=device)}
+    if cfg.act == "silu":
+        p["wg"] = init_grouped_linear(generator, E, d, f, device=device)
+    p["wu"] = init_grouped_linear(generator, E, d, f, device=device)
+    p["wd"] = init_grouped_linear(generator, E, f, d, device=device)
+    return p
 
 
 def _softmax(x):
@@ -389,8 +422,11 @@ def apply_moe(params, x, cfg):
     def expert_mm(name, z):
         return dpa_grouped_dot(z, params[name], policy, eq="becd,edf->becf")
 
-    h = torch.nn.functional.silu(expert_mm("wg", buf).to(torch.float32)
-                                 ).to(x.dtype) * expert_mm("wu", buf)
+    if "wg" in params:
+        h = torch.nn.functional.silu(expert_mm("wg", buf).to(torch.float32)
+                                     ).to(x.dtype) * expert_mm("wu", buf)
+    else:
+        h = gelu(expert_mm("wu", buf).to(torch.float32)).to(x.dtype)
     out_buf = expert_mm("wd", h)                                 # (B,E,C,d)
 
     # combine, per assignment in (token, slot) order: its expert's output

@@ -1,9 +1,12 @@
 """Blocks and the layer stack of every family the port serves (port of
 `repro.models.transformer`).
 
-A family is a repeating block pattern (`family_pattern`): decoder and
-MoE ("attn",), RecurrentGemma ("rg", "rg", "attn_local"), xLSTM seven
-"mlstm" and one "slstm".  Layer l has kind pattern[l % P].  The
+A family is a repeating block pattern (`family_pattern`): decoder, VLM
+and MoE ("attn",), RecurrentGemma ("rg", "rg", "attn_local"), xLSTM seven
+"mlstm" and one "slstm"; the encoder-decoder has two uniform stacks of
+"enc" blocks (non-causal self-attention) and "dec" blocks (causal
+self-attention, then cross-attention over the encoder's output
+`enc_out`).  Layer l has kind pattern[l % P].  The
 reference stacks the first n_layers // P groups of P blocks on a scan
 axis (`stack.groups.p0 .. p{P-1}`) and runs the n_layers mod P layers
 left as an unscanned tail; the port keeps a plain per-layer list in that
@@ -37,18 +40,21 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.kvcache import init_kv_cache
+from repro_torch.core.linear import apply_linear
 from repro_torch.core.policy import get_policy
 
 from . import layers as L
 from .config import ModelConfig
 
 
-ATTN_KINDS = ("attn", "attn_local")
+ATTN_KINDS = ("attn", "attn_local", "enc", "dec")
 
 
 def family_pattern(cfg: ModelConfig):
     if cfg.family in ("decoder", "vlm", "moe"):
         return ("attn",)
+    if cfg.family == "encdec":        # the decoder stack's (`EncDecModel`)
+        return ("dec",)
     if cfg.family == "rglru":
         return tuple(cfg.pattern) or ("rg", "rg", "attn_local")
     if cfg.family == "xlstm":
@@ -73,7 +79,7 @@ def n_grouped(cfg: ModelConfig) -> int:
 def init_block(generator, cfg: ModelConfig, kind: str = "attn",
                device="cpu"):
     d = cfg.d_model
-    p = {"norm1": L.init_norm(d, device)}
+    p = {"norm1": L.init_norm(d, device, cfg.norm)}
     if kind in ATTN_KINDS:
         p["attn"] = L.init_attention(generator, cfg, device)
     elif kind == "rg":
@@ -84,8 +90,11 @@ def init_block(generator, cfg: ModelConfig, kind: str = "attn",
         p["mix"] = L.init_slstm(generator, cfg, device)
     else:
         raise ValueError(kind)
+    if kind == "dec":
+        p["norm_cross"] = L.init_norm(d, device, cfg.norm)
+        p["cross"] = L.init_attention(generator, cfg, device)
     if cfg.d_ff > 0:
-        p["norm2"] = L.init_norm(d, device)
+        p["norm2"] = L.init_norm(d, device, cfg.norm)
         p["mlp"] = (L.init_moe(generator, cfg, device) if cfg.is_moe
                     else L.init_mlp(generator, cfg, device))
     return p
@@ -93,7 +102,8 @@ def init_block(generator, cfg: ModelConfig, kind: str = "attn",
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_ctx: int,
                      dtype, device="cpu"):
-    """One layer's decode cache.  A full attention layer's: the quantized
+    """One layer's decode cache.  A full attention layer's ("attn", or a
+    decoder block's "dec" self-attention): the quantized
     layout (codes + per-row scales) when the policy sets fmt_kv, else raw
     compute-dtype K/V.  A local layer's stays raw, (B, min(window, s_ctx),
     KV, hd), under any policy (the shift-left update would roll codes and
@@ -104,7 +114,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_ctx: int,
         return torch.zeros(shape, dtype=dt, device=device)
 
     hd, KV = cfg.hd, cfg.n_kv_heads
-    if kind == "attn":
+    if kind in ("attn", "dec"):
         pol = get_policy(cfg.policy)
         if pol.kv_quantized:
             return init_kv_cache(batch, s_ctx, KV, hd, fmt=pol.fmt_kv,
@@ -131,16 +141,20 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_ctx: int,
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *,
-                offset=0, cache=None, per_row: bool = False):
+                offset=0, cache=None, per_row: bool = False, enc_out=None):
     """-> (x, cache, aux): aux is the MoE load-balancing loss, 0 for a
-    dense block.  `per_row`: the verify pass (`layers` module doc)."""
+    dense block.  `per_row`: the verify pass (`layers` module doc).  A
+    "dec" block attends over `enc_out` (B, Se, d) after its
+    self-attention; the cross keys and values are projected from it at
+    every call, as in the reference (no cache holds them)."""
     h = L.apply_norm(params["norm1"], x, eps=cfg.norm_eps, per_row=per_row)
     if kind in ATTN_KINDS:
         local = kind == "attn_local"
         y, cache = L.apply_attention(
             params["attn"], h, cfg, offset=offset, cache=cache,
             per_row=per_row, window=cfg.window if local else None,
-            cache_mode="window" if local else "full")
+            cache_mode="window" if local else "full",
+            causal=kind != "enc")
     elif kind == "rg":
         y, cache = L.apply_rglru(params["rg"], h, cfg, state=cache)
     elif kind == "mlstm":
@@ -150,6 +164,15 @@ def apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *,
     else:
         raise ValueError(kind)
     x = x + y.to(x.dtype)
+    if kind == "dec":
+        pol = get_policy(cfg.policy)
+        h = L.apply_norm(params["norm_cross"], x, eps=cfg.norm_eps)
+        B, Se = enc_out.shape[:2]
+        kv = {name: apply_linear(params["cross"][w], enc_out, pol).reshape(
+            B, Se, cfg.n_kv_heads, cfg.hd)
+            for name, w in (("k", "wk"), ("v", "wv"))}
+        y, _ = L.apply_attention(params["cross"], h, cfg, cross_kv=kv)
+        x = x + y.to(x.dtype)
     aux = 0.0
     if cfg.d_ff > 0:
         h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps,
@@ -186,10 +209,10 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
-def _block_fn(lp, cfg: ModelConfig, kind: str):
+def _block_fn(lp, cfg: ModelConfig, kind: str, enc_out=None):
     """x -> (x, aux) through one cacheless block."""
     def run(x):
-        x, _, aux = apply_block(lp, x, cfg, kind)
+        x, _, aux = apply_block(lp, x, cfg, kind, enc_out=enc_out)
         return x, aux
     return run
 
@@ -205,10 +228,10 @@ def _chain(fns):
     return run
 
 
-def _remat_stack(layers, x, cfg: ModelConfig):
+def _remat_stack(layers, x, cfg: ModelConfig, kinds, enc_out=None):
     """The cacheless stack under remat (module doc) -> (x, aux)."""
-    blocks = [_remat(_block_fn(lp, cfg, kind), cfg)
-              for lp, kind in zip(layers, layer_kinds(cfg))]
+    blocks = [_remat(_block_fn(lp, cfg, kind, enc_out), cfg)
+              for lp, kind in zip(layers, kinds)]
     n, k = len(layers), cfg.remat_block
     if k > 1 and n % k == 0 and n > k:
         blocks = [_remat(_chain(blocks[i:i + k]), cfg)
@@ -217,17 +240,21 @@ def _remat_stack(layers, x, cfg: ModelConfig):
 
 
 def apply_stack(layers, x, cfg: ModelConfig, *, offset=0, caches=None,
-                per_row: bool = False):
+                per_row: bool = False, enc_out=None, kinds=None):
     """-> (x, caches, aux summed over the layers in f32); caches None runs
-    without state, under the config's remat when autograd records."""
+    without state, under the config's remat when autograd records.
+    `kinds`: each layer's block kind (default `layer_kinds(cfg)`; the
+    encoder-decoder passes its stack's); `enc_out`: the "dec" blocks'
+    cross-attention input."""
+    kinds = layer_kinds(cfg) if kinds is None else kinds
     if (caches is None and cfg.remat != "none" and _records(x)
             and not per_row):
-        x, aux = _remat_stack(layers, x, cfg)
+        x, aux = _remat_stack(layers, x, cfg, kinds, enc_out)
         return x, caches, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (lp, kind) in enumerate(zip(layers, layer_kinds(cfg))):
+    for i, (lp, kind) in enumerate(zip(layers, kinds)):
         c = None if caches is None else caches[i]
         x, c, a = apply_block(lp, x, cfg, kind, offset=offset, cache=c,
-                              per_row=per_row)
+                              per_row=per_row, enc_out=enc_out)
         aux = aux + a
     return x, caches, aux

@@ -1,6 +1,6 @@
 """The parts of `jax.random` the sampler and the data pipeline use, in
 plain torch: the Threefry-2x32 counter hash, `PRNGKey`, `fold_in`,
-`split`, `random_bits` in the partitionable layout, `uniform`,
+`split`, `random_bits` in the partitionable layout, `uniform`, `normal`,
 `bernoulli`, `gumbel` (mode "low") and `categorical`, each batched over a
 leading axis of keys and computed on the device of its inputs.
 
@@ -143,6 +143,44 @@ def uniform(key, n=None, minval: float = 0.0, maxval: float = 1.0,
             torch.float32)
     u = torch.clamp_min(u, float(lo))
     return u[..., 0] if n is None else u
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+# XLA's f32 erf_inv: a degree-8 polynomial in w - 2.5 (w < 5) or
+# sqrt(w) - 3, w = -log1p(-x^2) (M. Giles, "Approximating the erfinv
+# function"), highest power first
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x):
+    """XLA's f32 erf_inv on x in (-1, 1), in its order; each Horner step
+    c + p w is rounded once, as XLA contracts it into a fused
+    multiply-add (the f64 product is exact).  Its log1p is ATen's, so a
+    value may still differ from XLA's in the last bits."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).to(torch.float64)
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0]).to(
+        torch.float64)
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, np.float32(a).item(), np.float32(b).item())
+        p = (c.to(torch.float64) + p * w).to(torch.float32).to(torch.float64)
+    return p.to(torch.float32) * x
+
+
+def normal(key, shape):
+    """`jax.random.normal(key, shape, float32)`: sqrt(2) erf_inv(u), u
+    uniform on [nextafter(-1, 0), 1), JAX's uniforms bit for bit; through
+    `erf_inv` the normals agree with JAX's to a few ulp
+    (`tests/test_torch_families.py` states the bound).  key (2,) -> f32
+    tensor of `shape`."""
+    u = uniform(key, math.prod(shape), _NORMAL_LO, 1.0)
+    return (np.float32(np.sqrt(2.0)).item() * erf_inv(u)).reshape(shape)
 
 
 def bernoulli(key, p: float, shape):

@@ -169,10 +169,30 @@ def test_memmap_batch_bit_for_bit(tmp_path, vocab):
             assert np.array_equal(got[name].numpy(), np.asarray(want[name]))
 
 
+# jax.random.normal's erf_inv and the port's copy of it (its log1p is
+# ATen's): at most 3 ulp apart on these draws
+NORMAL_ULPS = 4
+
+
 def test_stub_frontends_and_default_device():
-    with pytest.raises(NotImplementedError, match="Other families"):
-        TP.make_pipeline(TP.DataConfig(vocab_size=64, batch=2, seq=8,
-                                       frontend="stub"), "cpu")
+    """The stub front ends' batches (frames beside the tokens, or
+    embeddings in place of them) against the reference's: tokens and
+    labels equal, the normals within NORMAL_ULPS ulp; then the CPU
+    default refused without a card."""
+    for extra in ({"frames": 5}, {}):
+        kw = dict(vocab_size=64, batch=2, seq=8, frontend="stub", d_model=16,
+                  **extra)
+        want = RP.make_pipeline(RP.DataConfig(**kw)).batch(3)
+        got = TP.make_pipeline(TP.DataConfig(**kw), "cpu").batch(3)
+        assert set(got) == set(want)
+        for name, w in want.items():
+            g, w = got[name].numpy(), np.asarray(w)
+            assert g.shape == w.shape, name
+            if w.dtype == np.float32:
+                ulp = np.spacing(np.abs(w))
+                assert np.all(np.abs(g - w) <= NORMAL_ULPS * ulp), name
+            else:
+                assert np.array_equal(g, w), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TP.make_pipeline(TP.DataConfig(vocab_size=64, batch=2, seq=8))
