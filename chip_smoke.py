@@ -241,6 +241,15 @@ Phases (every failure raises; the exit code is then non-zero):
    kernels' share on path c), over one graphed sampled decode step of
    path g beside the greedy one, and over one call of paths d and e
    (device busy share, top kernels); summary lines per step and mode.
+   After each path's profile window (paths A-D, G-K and the phase 5 train
+   step), where the time goes against the bound (`path_roofline`): per
+   route the launches, device ms, summed bound (`kernels/census.py`, the
+   launch counters' work over the window) and loss, from a window whose
+   records match the counters (`matched_window`), no route's device ms
+   below its bound / 1.05; and the path's analytic cell
+   (`launch/roofline.py:cell_roofline`) against its wall.  On paths D and
+   K the tiled route's census operations equal the analytic census's
+   linear MACs exactly (`check_linear_census`).
 5. Training (`repro_torch.launch.train`'s path; the train step takes the
    torch routes, and every kernel's launch counter must stay 0):
    a. one train step of reduced qwen3-4b, llama3.2-3b and granite-moe-1b
@@ -266,8 +275,9 @@ Phases (every failure raises; the exit code is then non-zero):
    d. `launch.train.main` in the process (reduced granite, 6 steps,
       async checkpoints every 3), its lines printed.
 
-Prints the engine reports, the prefill and scoring results and the
-profiles as JSON, the phase times, the kernels' JSON line, the card's
+Prints the engine reports, the prefill and scoring results, the
+profiles and the route tables (`roofline:`) as JSON, the phase times, the
+kernels' JSON line, the card's
 name and power limit, and, as the last line,
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -282,13 +292,10 @@ import math
 import subprocess
 import sys
 import time
+from fractions import Fraction
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (data sheet)
-FP8_OPS_PER_S = 1979e12           # H100 SXM dense fp8 tensor-core peak
-FP16_OPS_PER_S = 989e12           # H100 SXM dense fp16 tensor-core peak
-F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4   # the reference's fused-route pin
 FLASH_F32_RTOL = 2e-6             # the f32 flash route's pin (no TF32)
 # DPA flash kernel vs plain version: at most this share of the live
@@ -402,9 +409,19 @@ def graph_ms(fn, n: int = 20):
         return None
 
 
-def bound(nbytes: float, ops: float, peak: float = FP8_OPS_PER_S):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def bound(work, peak=None, ops_scale=1):
+    """(bound ms, "bytes" or "operations") of one launch's census
+    (`kernels.census.launch_work`), at `peak` op/s in place of its own
+    and its operations times `ops_scale` where given."""
+    from repro_torch.kernels import census as CS
+    args = (work.bytes, work.ops * ops_scale, peak or work.peak)
+    return CS.bound_s(*args) * 1e3, CS.bound_by(*args)
+
+
+def peak_ops(fmt):
+    """The card's peak op/s for operands in fmt (`kernels.census`)."""
+    from repro_torch.kernels import census as CS
+    return CS.PEAK_OPS[fmt]
 
 
 TIME_KEYS = ("ms", "plain_ms", "device_ms", "plain_device_ms")
@@ -484,6 +501,7 @@ def check_matmul(cfg, gen, projections, cold_layers):
     decode layer is also timed cold, rotating over `cold_layers` layers'
     weights."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import (dpa_matmul_fused_pipeline,
                                          prep_weights)
@@ -517,9 +535,9 @@ def check_matmul(cfg, gen, projections, cold_layers):
                                      f"{tuple(pipe.shape)}")
             t = timings(lambda: DM.dpa_matmul_fused(*args, **kw),
                         lambda: DM.dpa_matmul_fused_ref(*args, **kw))
-            nbytes = (xp.numel() * 2 + prep["wq"].numel()
-                      + prep["sw"].numel() * 4 + xp.shape[0] * N * 4)
-            t["bound_ms"], b_by = bound(nbytes, 2.0 * xp.shape[0] * K * N)
+            t["bound_ms"], b_by = bound(CS.launch_work(
+                "dpa_matmul_fused", plan.route, E=1, M=xp.shape[0], K=K,
+                N=N, x_bytes=2, fmt_w="fp4_e2m1", pack_w=True))
             timed[(K, N, M)] = t
             # the kernel's other fmt pair, (fp8, fp8) weights: untimed
             err8 = _held(f"dpa_matmul_fused {cfg.name} fp8 weights K={K} "
@@ -585,7 +603,6 @@ def cold_fused_layer(kern, shapes, lead, M, layers, gen):
     return cold_layer(kern.__name__, M, layers, calls)
 
 
-FP16_OPS_PER_S = 989e12           # H100 SXM dense fp16 tensor-core peak
 LARGE_M = 4096                    # path D's rows: one 4096-token sequence
 
 
@@ -635,6 +652,7 @@ def check_fused_tiled(cfg, gen, projections):
     bounds and, as speed references for the same (M, K, N), bf16
     `torch.matmul` and `torch._scaled_mm` with block scales."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import prep_grouped_weights, prep_weights
@@ -676,14 +694,14 @@ def check_fused_tiled(cfg, gen, projections):
                     lambda: DM.dpa_matmul_fused_ref(*args, **kw))
         pre = timings(lambda: DM.dpa_act_quant(x),
                       lambda: DM.dpa_act_quant_ref(x))
-        ops = 2.0 * LARGE_M * K * N
-        nbytes = (x.numel() * 2 + prep["wq"].numel() + prep["sw"].numel() * 4
-                  + LARGE_M * N * 4)
-        t["bound_ms"], _ = bound(nbytes, ops)
-        t["fp16_bound_ms"], _ = bound(nbytes, ops, FP16_OPS_PER_S)
+        work = CS.launch_work("dpa_matmul_fused", "tiled", E=1, M=LARGE_M,
+                              K=K, N=N, x_bytes=2, fmt_w="fp4_e2m1",
+                              pack_w=True)
+        t["bound_ms"], _ = bound(work)
+        t["fp16_bound_ms"], _ = bound(work, peak_ops("fp16"))
         t["prepass_ms"], t["prepass_device_ms"] = pre["ms"], pre["device_ms"]
-        pre["bound_ms"], _ = bound(x.numel() * 2 + codes.numel()
-                                   + scales.numel() * 4, 0.0)
+        pre["bound_ms"], _ = bound(CS.launch_work(
+            "dpa_act_quant", rows=LARGE_M, K=K, x_bytes=2))
         timed[("pre", K)] = pre
         wb = w.to(torch.bfloat16)
         t["bf16_matmul_ms"] = median_ms(lambda: torch.matmul(x, wb))
@@ -898,15 +916,19 @@ def _paged_case(cfg, pol, gen, lengths, page, positions=None):
     return q, cache, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def _paged_bytes(cfg, lengths, q, table, wc=None):
-    """Bytes one paged decode call must move: each live K and V row's
-    codes (`wc` bytes a row, packed fp4 by default) and scale once, q read
-    and the output written, the block table and positions."""
-    live_rows = sum(lengths) * cfg.n_kv_heads
-    wc = cfg.hd // 2 if wc is None else wc
-    return (2 * live_rows * (wc + 4)
-            + 2 * q.numel() * q.element_size() + table.numel() * 4
-            + len(lengths) * 4)
+def _paged_work(cfg, fmt, lengths, q, table, wc=None, live=None):
+    """The census of one paged decode call (`kernels.census`) over these
+    requests' live keys, which only the caller knows: each live K and V
+    row's codes (`wc` bytes a row, packed fp4 by default) and scale read
+    once, q read and the output written, the block table and positions;
+    QK and PV over `live` keys a query row (default: the lengths)."""
+    from repro_torch.kernels import census as CS
+    return CS.launch_work(
+        "paged_decode_attention", fmt=fmt, B=q.shape[0], sq=q.shape[1],
+        H=cfg.n_heads, KV=cfg.n_kv_heads, hd=cfg.hd,
+        code_bytes=cfg.hd // 2 if wc is None else wc,
+        q_bytes=q.element_size(), table_entries=table.numel(),
+        kv_rows=sum(lengths), pairs=sum(lengths if live is None else live))
 
 
 # paged decode vs its plain version, each output's own bound
@@ -1072,8 +1094,7 @@ def check_paged(cfg, pol, gen, ecfg):
                                pos)[0])
 
     def bound_of(lengths, args):
-        ops = 2 * 2 * sum(lengths) * cfg.n_heads * cfg.hd
-        return bound(_paged_bytes(cfg, lengths, args[0], args[5]), ops)
+        return bound(_paged_work(cfg, kw["fmt"], lengths, args[0], args[5]))
 
     t = timings(lambda: PD.paged_decode_attention(*main_args, **kw),
                 lambda: PD.paged_decode_attention_ref(*main_args, **kw))
@@ -1137,11 +1158,6 @@ def check_paged(cfg, pol, gen, ecfg):
 # KV formats it serves: (fmt_kv, kv_packed)
 PAGED_NEW_ATTN = ("fp4_e2m1", "fp16")
 PAGED_KV = (("fp4_e2m1", True), ("fp8_e4m3", False))
-# the peak each attention format's operations are bound at: fp16 at the
-# fp16 tensor-core rate; E4M3, and E2M1 (no narrower tensor core on an
-# H100), at the fp8 rate
-ATTN_PEAK = {"fp8_e4m3": FP8_OPS_PER_S, "fp4_e2m1": FP8_OPS_PER_S,
-             "fp16": FP16_OPS_PER_S}
 # the draft length of the verify fold's check and of phase 3j.  At the
 # engine's max_batch 4 the verify pass is 4 (k + 1) = 20 rows, below the
 # fused kernel's TILED_MIN_M = 128: there the split-K route's row bits do
@@ -1200,10 +1216,8 @@ def check_paged_formats(cfg, gen, ecfg):
                     f"{fmt_kv}{' packed' if packed else ''} KV, {name}: "
                     f"err {float(errs.flatten()[i])} > its bound "
                     f"{float(case_tol.flatten()[i])} (max err {err})")
-            wc = cache["k_codes"].shape[3]
-            ops = 2 * 2 * sum(lens) * cfg.n_heads * cfg.hd
-            b_ms, b_by = bound(_paged_bytes(cfg, lens, q, args[5], wc), ops,
-                               ATTN_PEAK[fmt])
+            b_ms, b_by = bound(_paged_work(cfg, fmt, lens, q, args[5],
+                                           cache["k_codes"].shape[3]))
             kern = lambda: PD.paged_decode_attention(*args, **kw)  # noqa
             if name == "engine" and packed:
                 t = timings(kern, lambda: PD.paged_decode_attention_ref(
@@ -1274,11 +1288,11 @@ def check_verify_fold(cfg, gen, ecfg, k=VERIFY_K):
                               cache["block_table"].shape[1]).split
         if plan.split != split:
             raise AssertionError(f"fold split {plan.split} != decode {split}")
+        # each live row read once for all k+1 tokens; row i of a request
+        # scores n - k + i keys
         live = [n - k + i for n in lengths for i in range(k + 1)]
-        ops = 2 * 2 * sum(live) * cfg.n_heads * cfg.hd
-        # each live row read once for all k+1 tokens
-        nbytes = _paged_bytes(cfg, lengths, q, cache["block_table"])
-        b_ms, b_by = bound(nbytes, ops, ATTN_PEAK[fmt])
+        b_ms, b_by = bound(_paged_work(cfg, fmt, lengths, q,
+                                       cache["block_table"], live=live))
         t = timings(fold, lambda: PD.paged_decode_attention_ref(
             q, *rest, pos, **kw))
         t.update(bound_ms=b_ms, bound_by=b_by, split=plan.split,
@@ -1334,6 +1348,7 @@ def check_grouped_fused(cfg, gen):
     M = 64.  Zero rows must give exactly 0.  One decode layer is also
     timed cold, rotating over the model's layers' expert weights."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     from repro_torch.kernels.ops import prep_grouped_weights
@@ -1375,9 +1390,9 @@ def check_grouped_fused(cfg, gen):
                                                             **FP4_FUSED),
                         lambda: GM.dpa_grouped_matmul_fused_ref(*args,
                                                                 **FP4_FUSED))
-            nbytes = (x.numel() * 2 + prep["wq"].numel()
-                      + prep["sw"].numel() * 4 + E * M * N * 4)
-            t["bound_ms"], b_by = bound(nbytes, 2.0 * E * M * K * N)
+            t["bound_ms"], b_by = bound(CS.launch_work(
+                "dpa_grouped_matmul_fused", plan.route, E=E, M=M, K=K, N=N,
+                x_bytes=2, fmt_w="fp4_e2m1", pack_w=True))
             timed[(K, N, M)] = t
             print(f"dpa_grouped_matmul_fused {label}: {_plan_str(plan)}; "
                   f"max_abs_err {err:.3g} (fp8 weights {err8:.3g}), {n_drop} "
@@ -1515,6 +1530,7 @@ def check_prequant(cfg, gen):
     warm (one call repeated: the weights sit in L2), and one decode layer
     also cold, rotating over `COLD_LAYERS` layers' weights."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     E = cfg.n_experts
@@ -1569,9 +1585,8 @@ def check_prequant(cfg, gen):
                     continue
                 t = timings(lambda: kern(*args, **kw),
                             lambda: ref(*args, **kw))
-                nbytes = (xq.numel() + sx.numel() * 4 + wq.numel()
-                          + sw.numel() * 4 + n_e * M * N * 4)
-                t["bound_ms"], b_by = bound(nbytes, 2.0 * n_e * M * K * N)
+                t["bound_ms"], b_by = bound(CS.launch_work(
+                    kern.__name__, E=n_e, M=M, K=K, N=N, **kw))
                 timed[(K, N, M)] = t
                 lib_ms, lib_dev, lib_err, note = library_prequant(*args, want)
                 lib[(K, N, M)] = (lib_ms, lib_dev)
@@ -2025,6 +2040,7 @@ def check_prequant_formats(cfg, gen):
     L2) and cold (rotating over `COLD_LAYERS` layers' weights), with its
     bound and its library call."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import dpa_grouped_matmul as GM
     from repro_torch.kernels import dpa_matmul as DM
     E = cfg.n_experts
@@ -2073,12 +2089,8 @@ def check_prequant_formats(cfg, gen):
                         continue
                     t = timings(lambda: kern(*args, **kw),
                                 lambda: ref(*args, **kw))
-                    nbytes = (xq.numel() * xq.element_size() + sx.numel() * 4
-                              + wq.numel() * wq.element_size()
-                              + sw.numel() * 4 + n_e * M * N * 4)
-                    t["bound_ms"], t["bound_by"] = bound(
-                        nbytes, 2.0 * n_e * M * K * N,
-                        FP8_OPS_PER_S if exact else FP16_OPS_PER_S)
+                    t["bound_ms"], t["bound_by"] = bound(CS.launch_work(
+                        kern.__name__, E=n_e, M=M, K=K, N=N, **kw))
                     timed[(K, N, M)] = t
                     lib[(K, N, M)] = library_prequant(*args, want, kw)
             res[name] = {"max_abs_err": worst,
@@ -2127,13 +2139,6 @@ def _attn_inputs(gen, H, KV, S, hd, dtype):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _attn_work(H, KV, S, hd, elem_bytes):
-    """(bytes, operations) of one causal attention call: q, k, v read and
-    the output written once; QK^T and PV over the live (q, k) pairs."""
-    nbytes = elem_bytes * hd * S * (2 * H + 2 * KV)
-    return nbytes, 4.0 * H * hd * S * (S + 1) / 2
-
-
 def _library_sdpa(q, k, v, want):
     """One PyTorch call for the same f32 attention (causal, GQA), TF32 off:
     -> (ms, device ms, max_abs_err vs the plain version, note)."""
@@ -2164,6 +2169,7 @@ def check_flash(gen):
     same values, and (bf16) bf16 SDPA as a speed reference.  -> the bf16
     instance's timings, the f32 instance's under "f32"."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.registry import _fit_block
     worst, res = 0.0, {}
@@ -2203,11 +2209,14 @@ def check_flash(gen):
         args = (q, k, v)
         t = timings(lambda: FA.flash_attention(*args),
                     lambda: FA.flash_attention_ref(*args))
-        nbytes, ops = _attn_work(H, KV, S, hd, q.element_size())
-        t["f32_bound_ms"] = bound(nbytes, ops, F32_OPS_PER_S)[0]
+        work = CS.launch_work("flash_attention", B=1, H=H, KV=KV, sq=S,
+                              sk=S, hd=hd, elem=q.element_size(),
+                              causal=True, window=None)
         products = 3 if name == "bf16" else 6
-        t["bound_ms"], t["bound_by"] = bound(nbytes, products * ops,
-                                             FP16_OPS_PER_S)
+        t["bound_ms"], t["bound_by"] = bound(work)
+        # the same products once each, on the f32 CUDA cores
+        t["f32_bound_ms"] = bound(work, peak_ops("fp32"),
+                                  Fraction(1, products))[0]
         if name == "bf16":
             fq, fk, fv = q.float(), k.float(), v.float()
             lib_ms, lib_dev, lib_err, note = _library_sdpa(fq, fk, fv,
@@ -2297,6 +2306,7 @@ def check_dpa_flash(gen):
     beside the fp8 and fp16 operations bounds and, as a speed reference,
     bf16 `scaled_dot_product_attention` on the same inputs."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.core import kvcache as KVC
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.registry import _fit_block
@@ -2353,21 +2363,23 @@ def check_dpa_flash(gen):
         if out is None:
             t = timings(lambda: FA.dpa_flash_attention(*args, **kw),
                         lambda: FA.dpa_flash_attention_ref(*args, **ref_kw))
-            nbytes, ops = _attn_work(H, KV, S, hd, 2)
-            t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
-            t["fp16_bound_ms"] = bound(nbytes, ops, FP16_OPS_PER_S)[0]
+            work = CS.launch_work("dpa_flash_attention", B=1, H=H, KV=KV,
+                                  sq=S, sk=S, hd=hd, q_bytes=2,
+                                  kv_row_bytes=hd * 2, causal=True,
+                                  window=window)
+            t["bound_ms"], t["bound_by"] = bound(work)
+            t["fp16_bound_ms"] = bound(work, peak_ops("fp16"))[0]
             # this design runs PV twice (p split into two fp16 pieces)
-            t["fp16_bound_pv_twice_ms"] = bound(nbytes, 1.5 * ops,
-                                                FP16_OPS_PER_S)[0]
+            t["fp16_bound_pv_twice_ms"] = bound(work, peak_ops("fp16"),
+                                                Fraction(3, 2))[0]
             t["live_logits"] = live     # each an expf and an IEEE division
             pre = lambda: (FA._prepass(k, fmt_kv),  # noqa: E731
                            FA._prepass(v, fmt_kv))
             t["prepass_ms"] = median_ms(pre)
             t["prepass_device_ms"] = device_ms(pre)
-            made = [c for x in pre() for c in x]   # K and V codes, scales
-            t["prepass_bound_ms"] = bound(
-                2 * k.numel() * 2 + sum(c.numel() * c.element_size()
-                                        for c in made), 0.0)[0]
+            # two row-quantizer launches, K and V
+            t["prepass_bound_ms"] = 2 * bound(CS.launch_work(
+                "quantize_pack_rows", M=KV * S, K=hd, x_bytes=2))[0]
             sd_ms, sd_dev, note = _library_sdpa_bf16(q, k, v)
             t["speed_references"] = {"sdpa_bf16_ms": sd_ms,
                                      "sdpa_bf16_device_ms": sd_dev,
@@ -2412,6 +2424,7 @@ def check_quantizers(gen):
     (quantize_rows) and packed E2M1 (quantize_pack_rows), and path D's
     pre-pass shape (32,768 x 128) in both, each beside its byte bound."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.kernels import quantize as QZ
 
     def same(a, b):
@@ -2480,9 +2493,11 @@ def check_quantizers(gen):
             fn, ref, kw = calls(fmt)
             gq, gs = fn(x, **kw)
             t = timings(lambda: fn(x, **kw), lambda: ref(x, **kw))
-            nbytes = x.numel() * 2 + gq.numel() * gq.element_size() \
-                + gs.numel() * 4
-            t["bound_ms"], t["bound_by"] = bound(nbytes, 0.0)
+            t["bound_ms"], t["bound_by"] = bound(
+                CS.launch_work("quantize_pack_rows", M=M, K=K, x_bytes=2)
+                if fmt == "packed" else
+                CS.launch_work("quantize_rows", M=M, K=K, x_bytes=2,
+                               fmt=fmt))
             t["max_abs_err"] = 0.0
             t["plan"] = QZ.quantize_plan(M, K, x.dtype, "fp4_e2m1").route
             print(f"{fn.__name__} {fmt} M={M} K={K} bf16: {fmt_times(t)} "
@@ -2548,10 +2563,10 @@ def zero_counts():
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch counter and its route counters
-    (`repro_torch.kernels.counters`; a graph replay adds its capture's
-    delta)."""
+    (`repro_torch.kernels.counters`, without their work; a graph replay
+    adds its capture's delta)."""
     from repro_torch.kernels import counters
-    return counters.snapshot()
+    return counters.launches(counters.snapshot())
 
 
 def check_counts(what, got, want):
@@ -2564,58 +2579,163 @@ def check_counts(what, got, want):
         f"{k} {v}" for k, v in got.items() if v))
 
 
-# the watched kernels' names in a profile, and the counters whose
-# launches each name stands for
-REPLAY_KERNELS = {
-    "dpa_fused_kernel": ("dpa_matmul_fused", "dpa_grouped_matmul_fused"),
-    "paged_decode": ("paged_decode_attention",),
-    "dpa_prequant_kernel": ("dpa_matmul_prequant",
-                            "dpa_grouped_matmul_prequant")}
-
-
-# small kernels launched before a retried window's replay (see
-# check_replay)
-REPLAY_PADS = (0, 3, 17, 61, 5, 29, 113, 251)
+# the kernels a replay's profile window reports shares of
+REPLAY_WATCH = ("dpa_fused_kernel", "paged_decode", "dpa_prequant_kernel")
 
 
 def check_replay(label, graph):
     """One profiler window over a single replay of a captured step: each
-    watched kernel runs as often as the capture's counter delta says, so
-    the counts on the graphed paths rest on the trace, not on the
-    arithmetic alone.  The profiler now and then loses a kernel record,
-    the same one in each identical window of a run (on an H100 the
-    granite prefill chunk's replay read 166-167 of 168 fused launches in
-    one to four windows in a row; eager windows, whose counts the
-    wrappers make exact, lost up to 3 of 252).  So a window that does not match is tried
-    again after a few small kernels (`REPLAY_PADS`), which move the
-    records in the profiler's buffers; one window must equal the delta,
-    else the check fails.  -> the first window's profile (its times are
-    the replay's alone), with the pads of the matching one."""
+    kernel runs as often as the capture's counter delta says (a replay
+    adds that delta to the counters), so the counts on the graphed paths
+    rest on the trace, not on the arithmetic alone (`matched_window`,
+    which tries again where the profiler lost a record).  -> the first
+    window's profile (its times are the replay's alone), with the pads of
+    the matching one."""
+    from repro_torch.kernels import counters
+    what = f"{label} (one replay)"
+    first = profile_window(what, graph.run, watch=REPLAY_WATCH,
+                           require=True, timed=5)
+    matched = matched_window(what, first, graph.run)
+    want = {k: v for k, v in counters.launches(graph.delta).items() if v}
+    if counters.launches(matched["work"]) != want:
+        raise AssertionError(f"{label}: one replay counted "
+                             f"{counters.launches(matched['work'])}, its "
+                             f"capture {want}")
+    print(f"  {label}: one replay's kernels = the capture's delta")
+    return dict(first, matched_after_pads=matched["matched_after_pads"])
+
+
+# every kernel's name in a profile, and the counter keys whose launches
+# each name stands for (`kernels.counters`): a route table's rows
+PROFILE_ROUTES = {
+    "dpa_fused_kernel": ("dpa_matmul_fused.splitk",
+                         "dpa_grouped_matmul_fused.splitk"),
+    "fused_tiled_kernel": ("dpa_matmul_fused.tiled",
+                           "dpa_grouped_matmul_fused.tiled"),
+    "act_quant_kernel": ("dpa_act_quant",),
+    "dpa_prequant_kernel": ("dpa_matmul_prequant",
+                            "dpa_grouped_matmul_prequant"),
+    "paged_decode_kernel": ("paged_decode_attention",),
+    "dpa_flash": ("dpa_flash_attention",),      # both head-dim layouts
+    "flash_tc_kernel": ("flash_attention",),
+    "kv_split_kernel": ("flash_attention.prepass",),
+    "quantize_rows_kernel": ("quantize_rows", "quantize_pack_rows")}
+# small kernels launched before a retried window's call (`matched_window`)
+REPLAY_PADS = (0, 3, 17, 61, 5, 29, 113, 251)
+# a route's profiled device ms may not read below its summed bound / this
+ROUTE_FLOOR = 1.05
+# every path's route table and cell, in the order the phases ran
+ROOFLINE = []
+
+
+def matched_window(label, prof, fn):
+    """A profile of one call of fn (`profile_window`) whose records of
+    each route table's kernels equal the launches the counters took over
+    it: prof itself, or a window tried again after a few small kernels
+    (`REPLAY_PADS`), which move the records in the profiler's buffers.
+    The profiler loses a record now and then, the same one in identical
+    windows of a run (on an H100 the granite prefill chunk's replay read
+    166-167 of 168 fused launches in one to four windows in a row, eager
+    windows up to 3 of 252; most losses fall at a profiling run's start,
+    which `PROFILE_LEAD` takes).  A lost record never passes as a fast kernel:
+    none of eight windows matching fails the run."""
     import torch
-    want = {w: sum(graph.delta[c] for c in cs)
-            for w, cs in REPLAY_KERNELS.items()}
-    pad = torch.zeros((), device="cuda")
-    seen, first = [], None
+    seen = []
     for k in REPLAY_PADS:
-        def fn(k=k):
-            for _ in range(k):
-                pad.add_(1)
-            return graph.run()
-        prof = profile_window(
-            f"{label} (one replay" + (f", after {k} small kernels)" if k
-                                      else ")"),
-            fn, watch=tuple(REPLAY_KERNELS), require=True,
-            timed=0 if k else 5)
-        first = first or prof
-        got = {w: v["launches"] for w, v in prof["watch"].items()}
+        if k:
+            pad = torch.zeros((), device="cuda")
+
+            def padded(k=k, pad=pad):
+                for _ in range(k):
+                    pad.add_(1)
+                return fn()
+            prof = profile_window(f"{label} (after {k} small kernels)",
+                                  padded, require=True, warm=False)
+        got = {r: n for r, (n, _) in prof["routes"].items()}
+        want = {r: sum(prof["work"].get(key, 0) for key in r.split(" + "))
+                for r in got}
         if got == want:
-            print(f"  {label}: one replay's kernels {got} = the capture's "
-                  "delta")
-            return dict(first, matched_after_pads=k)
-        seen.append(got)
-    raise AssertionError(f"{label}: the profiler saw {seen} kernels in "
-                         f"{len(REPLAY_PADS)} replays, the capture counted "
-                         f"{want}")
+            return dict(prof, matched_after_pads=k)
+        seen.append({r: (got[r], want[r]) for r in got if got[r] != want[r]})
+        print(f"  {label}: records (seen, counted) {seen[-1]}; trying again")
+    raise AssertionError(f"{label}: the profiler's records (seen, counted) "
+                         f"{seen} in {len(REPLAY_PADS)} windows")
+
+
+def check_route_floor(label, rows):
+    """No impossible reading: each route's profiled device ms is at least
+    its summed bound / ROUTE_FLOOR."""
+    low = [r for r in rows if r["device_ms"] is not None
+           and r["device_ms"] < r["bound_ms"] / ROUTE_FLOOR]
+    if low:
+        raise AssertionError(f"{label}: device ms below the bound / "
+                             f"{ROUTE_FLOOR}: " + "; ".join(
+                                 f"{r['route']} {r['device_ms']:.5f} ms < "
+                                 f"{r['bound_ms']:.5f}" for r in low))
+
+
+def check_linear_census(what, delta, cfg, tokens):
+    """The runtime census against the analytic one: the tiled route's
+    operations over one pass of `tokens` tokens equal 2 tokens layers
+    (proj + mlp) MACs a token of `launch.analytic`, exactly (integers).
+    -> the operations."""
+    from repro_torch.launch import analytic as AN
+    proj, _ = AN._attn_macs_per_token(cfg, tokens)
+    want = 2 * tokens * cfg.n_layers * (proj + AN._mlp_macs_per_token(cfg))
+    got = delta.get("dpa_matmul_fused.tiled:ops", 0)
+    if got != want:
+        raise AssertionError(f"{what}: the tiled route's census counts "
+                             f"{got} operations, the analytic census "
+                             f"{want}")
+    print(f"  {what}: the tiled route's {got} operations = 2 x {tokens} "
+          f"x {cfg.n_layers} x (proj + mlp) of the analytic census")
+    return got
+
+
+def cell_report(label, cfg, kind, seq, batch, wall_ms):
+    """`launch.roofline.cell_roofline` at (kind, seq, batch) against a
+    measured wall (ms): the share of the bound at bf16 and at the DPA
+    peak."""
+    from repro_torch.launch.roofline import cell_roofline
+    c = {k: v for k, v in cell_roofline(cfg, kind, seq, batch).items()
+         if k != "suggest"}
+    c.update(wall_ms=wall_ms, share_bf16=c["bound_bf16_s"] * 1e3 / wall_ms,
+             share_dpa=c["bound_s"] * 1e3 / wall_ms)
+    print(f"  cell {label}: {cfg.name} {kind} seq {seq} batch {batch}, "
+          f"{c['flops']:.4g} analytic FLOPs, {c['hbm_bytes']:.4g} bytes; "
+          f"bound {c['bound_s'] * 1e3:.3f} ms at the {c['dpa_fmt']} peak "
+          f"({c['dominant']}), {c['bound_bf16_s'] * 1e3:.3f} at bf16; wall "
+          f"{wall_ms:.3f} ms, of which the bound is {c['share_dpa']:.2%} "
+          f"at the DPA peak and {c['share_bf16']:.2%} at bf16")
+    return c
+
+
+def path_roofline(label, prof, fn, cell=None, wall_ms=None):
+    """Where one profiled window's time goes against the bound: its route
+    table (`launch.roofline.route_table`: launches, summed bound, device
+    ms, loss) from a window whose records match the counters
+    (`matched_window`), held to `check_route_floor`; and, given cell =
+    (cfg, kind, seq, batch), `cell_report` against wall_ms (default: the
+    window's unprofiled wall, else its profiled one).  Kept in ROOFLINE.
+    -> the matched window's profile."""
+    from repro_torch.launch.roofline import route_table
+    wall_ms = wall_ms or prof.get("unprofiled_wall_ms") or prof["wall_ms"]
+    prof = matched_window(label, prof, fn)
+    rows = route_table(prof["work"], {r: ms for r, (_, ms)
+                                      in prof["routes"].items()})
+    check_route_floor(label, rows)
+    out = {"path": label, "routes": rows}
+    print(f"roofline {label} (records matched after "
+          f"{prof['matched_after_pads']} pads): " + ("no kernel launch"
+                                                     if not rows else ""))
+    for r in rows:
+        print(f"    {r['route']}: {r['launches']} launches, device "
+              f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['ratio']:.2f}x), loss {r['loss_ms']:.4f} ms")
+    if cell is not None:
+        out["cell"] = cell_report(label, *cell, wall_ms)
+    ROOFLINE.append(out)
+    return prof
 
 
 def per_call_projections(cfg):
@@ -2987,12 +3107,15 @@ def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
             "index": torch.full((), s_ctx - 2, dtype=torch.int32,
                                 device="cuda")}
     label = f"{cfg.name} serve step (B={n_prompts}, {cfg.policy})"
-    prof = {"eager": profile_window(f"{label}, eager",
-                                    Step(step, bufs).run,
+    cell = (cfg, "decode", prompt_len + n_new, n_prompts)
+    eager = Step(step, bufs).run
+    prof = {"eager": profile_window(f"{label}, eager", eager,
                                     watch=("dpa_prequant_kernel",), timed=3)}
+    path_roofline(f"{label}, eager", prof["eager"], eager, cell)
     graph = StepGraph(step, bufs, name="serve step")
     print(_capture_line("serve step (profiled)", graph.stats))
     prof["graphed"] = check_replay(f"{label}, graphed", graph)
+    path_roofline(f"{label}, graphed", prof["graphed"], graph.run, cell)
     res["graphed"]["profile"] = prof
     counts = res["graphed"].pop("counts")
     return counts, {**res["graphed"], "eager": res["eager"]}
@@ -3633,8 +3756,10 @@ def run_prefill(cfg, params, S=4096):
           f"{ref_tok}, its top-2 margin {float(top[0] - top[1]):.3g}); "
           f"last-position logits vs use_flash off: max |diff| {err:.4g}, "
           f"logit scale {scale:.4g}, cosine {cos:.6f}")
-    prof = profile_window(f"{cfg.name} prefill ({S} tokens)",
-                          lambda: step(params, tokens))
+    label = f"{cfg.name} prefill ({S} tokens)"
+    prof = profile_window(label, lambda: step(params, tokens))
+    path_roofline(label, prof, lambda: step(params, tokens),
+                  (cfg, "prefill", S, 1), wall * 1e3)
     return counts, {"wall_s": wall, "first_token": tok, "ref_token": ref_tok,
                     "max_abs_diff_vs_ref_attn": err, "logit_scale": scale,
                     "cosine_vs_ref_attn": cos,
@@ -3707,8 +3832,11 @@ def run_scoring(cfg, params, S=4096):
         kernel=lambda q, k, v, c: FA.dpa_flash_attention(
             q, k, v, p_codes=c, bq=FLASH_BLOCK, **kw))
     del calls
-    prof = profile_window(f"{cfg.name} scoring ({S} tokens)",
-                          lambda: loss_fn(params, batch))
+    label = f"{cfg.name} scoring ({S} tokens)"
+    prof = profile_window(label, lambda: loss_fn(params, batch))
+    matched = path_roofline(label, prof, lambda: loss_fn(params, batch),
+                            (cfg, "prefill", S, 1), wall * 1e3)
+    check_linear_census(label, matched["work"], cfg, S)
     return counts, {"wall_s": wall, "tokens_per_s": S / wall, "loss": loss,
                     "loss_ref_attn": ref_loss, "loss_diff": loss - ref_loss,
                     "attn_max_abs_err_vs_plain": layer_err,
@@ -3752,6 +3880,7 @@ def check_dpa_flash_wide(gen, H=16, KV=1, S=RG_PROMPT, hd=256,
     bound: the live (q, k) pairs of the band, x 2 products x 2 flop x hd
     x H, at the fp8 peak."""
     import torch
+    from repro_torch.kernels import census as CS
     from repro_torch.core import kvcache as KVC
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.registry import _fit_block
@@ -3804,10 +3933,16 @@ def check_dpa_flash_wide(gen, H=16, KV=1, S=RG_PROMPT, hd=256,
             t = timings(lambda: FA.dpa_flash_attention(*args, **kw),
                         lambda: FA.dpa_flash_attention_ref(*args, **ref_kw))
             pairs = int(mask.sum())
-            ops = 2.0 * 2.0 * hd * pairs * H
-            nbytes = 2 * hd * S_ * (2 * H + 2 * KV)
-            t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
-            t["fp16_bound_ms"] = bound(nbytes, ops, FP16_OPS_PER_S)[0]
+            if pairs != CS.attn_pairs(S_, S_, True, win):
+                raise AssertionError(f"the census counts "
+                                     f"{CS.attn_pairs(S_, S_, True, win)} "
+                                     f"band pairs, the mask {pairs}")
+            work = CS.launch_work("dpa_flash_attention", B=1, H=H, KV=KV,
+                                  sq=S_, sk=S_, hd=hd, q_bytes=2,
+                                  kv_row_bytes=hd * 2, causal=True,
+                                  window=win)
+            t["bound_ms"], t["bound_by"] = bound(work)
+            t["fp16_bound_ms"] = bound(work, peak_ops("fp16"))[0]
             t["band_pairs_per_head"] = pairs
             pre = lambda: (FA._prepass(k, fmt_kv),  # noqa: E731
                            FA._prepass(v, fmt_kv))
@@ -3903,10 +4038,14 @@ def run_recurrent_generate(model, params, *, n_prompts=2, prompt_len=32,
             "index": torch.full((), s_ctx - 2, dtype=torch.int32,
                                 device="cuda")}
     label = f"{cfg.name} serve step (B={n_prompts}, {cfg.policy})"
-    prof = {"eager": profile_window(f"{label}, eager", Step(step, bufs).run,
+    cell = (cfg, "decode", prompt_len + n_new, n_prompts)
+    eager = Step(step, bufs).run
+    prof = {"eager": profile_window(f"{label}, eager", eager,
                                     watch=("dpa_fused_kernel",), timed=3)}
+    path_roofline(f"{label}, eager", prof["eager"], eager, cell)
     graph = StepGraph(step, bufs, name="serve step")
     prof["graphed"] = check_replay(f"{label}, graphed", graph)
+    path_roofline(f"{label}, graphed", prof["graphed"], graph.run, cell)
     del graph
     res["graphed"]["profile"] = prof
     res["graphed"]["tokens_equal_eager"] = equal
@@ -4013,9 +4152,11 @@ def run_rg_prefill(cfg, params, S=RG_PROMPT, n_decode=RG_DECODE):
         kernel=lambda q, k, v, c: FA.dpa_flash_attention(
             q, k, v, p_codes=c, bq=FA.max_bq(hd), **kw), window=W)
     del calls
-    prof = profile_window(f"{cfg.name} prefill ({S} tokens, use_flash)",
-                          lambda: model.prefill(params, tokens),
+    label = f"{cfg.name} prefill ({S} tokens, use_flash)"
+    prof = profile_window(label, lambda: model.prefill(params, tokens),
                           watch=("dpa_flash", "dpa_fused", "quantize_rows"))
+    path_roofline(label, prof, lambda: model.prefill(params, tokens),
+                  (cfg, "prefill", S, 1), wall * 1e3)
     # greedy decode from the prefill's caches; the window slides
     first_window = caches[local[0]]["k"].clone()
     zero_counts()
@@ -4430,18 +4571,31 @@ def run_encdec(name="whisper-medium"):
         f"{name} decoder layer 0, one decode step", lins,
         {"splitk": 8, "tiled": 2})
     del lins
+    def encode():
+        return model.encode(params, batch["frames"])
+
+    def step():
+        return model.decode_step(params, {"tokens": nxt,
+                                          "index": S + n_dec - 1,
+                                          "enc_out": enc_out}, caches)
+
+    labels = (f"{name} encode (B {B} x {Se} frames)",
+              f"{name} decode step (B {B}, eager)")
     rep["profile"] = {
-        "encode": profile_window(f"{name} encode (B {B} x {Se} frames)",
-                                 lambda: model.encode(params,
-                                                      batch["frames"]),
+        "encode": profile_window(labels[0], encode,
                                  watch=("dpa_flash", "fused_tiled",
                                         "act_quant", "quantize_rows")),
-        "decode_step": profile_window(
-            f"{name} decode step (B {B}, eager)",
-            lambda: model.decode_step(
-                params, {"tokens": nxt, "index": S + n_dec - 1,
-                         "enc_out": enc_out}, caches),
-            watch=("dpa_fused", "fused_tiled"), timed=3)}
+        "decode_step": profile_window(labels[1], step,
+                                      watch=("dpa_fused", "fused_tiled"),
+                                      timed=3)}
+    path_roofline(labels[0], rep["profile"]["encode"], encode)
+    path_roofline(labels[1], rep["profile"]["decode_step"], step,
+                  (cfg, "decode", S + n_dec, B))
+    # the analytic census's prefill: the encoder and the decoder prompt
+    ROOFLINE.append({"path": f"{name} prefill (B {B} x {S} tokens)",
+                     "cell": cell_report(f"{name} prefill", cfg, "prefill",
+                                         S, B,
+                                         rep["prefill"]["wall_s"] * 1e3)})
 
     # the encoder under the model's own policy: f32 attention
     cfg8 = cfg.replace(policy="fp8_dpa")
@@ -4464,10 +4618,12 @@ def run_encdec(name="whisper-medium"):
         "wall_s": wall, "frames_per_s": B * Se / wall,
         "attn_max_abs_err_vs_plain": err,
         "cosine_vs_w4a8": _cosine(enc8, enc_out),
-        "profile": profile_window(f"{name} encode (fp8_dpa)",
-                                  lambda: model8.encode(params,
-                                                        batch["frames"]),
-                                  watch=("flash",))}
+        "profile": path_roofline(
+            f"{name} encode (fp8_dpa)",
+            profile_window(f"{name} encode (fp8_dpa)",
+                           lambda: model8.encode(params, batch["frames"]),
+                           watch=("flash",)),
+            lambda: model8.encode(params, batch["frames"]))}
     print(f"{name}: encode {rep['encode']['wall_s'] * 1e3:.1f} ms "
           f"({rep['encode']['frames_per_s']:.0f} frames/s), prefill "
           f"{rep['prefill']['wall_s'] * 1e3:.1f} ms, {n_dec} greedy steps "
@@ -4527,10 +4683,16 @@ def run_vlm(name="pixtral-12b"):
     rep["tiled_max_abs_err"] = hold_linears(
         f"{name} layer 0, scoring pass", lins, {"tiled": 7})
     del lins
-    rep["scoring"]["profile"] = profile_window(
-        f"{name} scoring ({S} embeddings)",
-        lambda: model.train_logits(params, emb),
+    label = f"{name} scoring ({S} embeddings)"
+    prof = profile_window(
+        label, lambda: model.train_logits(params, emb),
         watch=("dpa_flash", "fused_tiled", "act_quant", "quantize_rows"))
+    rep["scoring"]["profile"] = prof
+    matched = path_roofline(label, prof,
+                            lambda: model.train_logits(params, emb),
+                            (cfg, "prefill", S, 1),
+                            rep["scoring"]["wall_s"] * 1e3)
+    check_linear_census(label, matched["work"], cfg, S)
 
     zero_counts()
     (first, caches), wall = _timed(lambda: model.prefill(params, emb))
@@ -4575,14 +4737,19 @@ def run_vlm(name="pixtral-12b"):
     rep["splitk_max_abs_err"] = hold_linears(
         f"{name} layer 0, one decode step", lins, {"splitk": 7})
     del lins
+    label = f"{name} decode step (B 1, eager)"
+
+    def step():
+        return model.decode_step(params, {"tokens": nxt,
+                                          "index": S + n_dec - 1}, caches)
+
     rep["decode"] = {"steps": n_dec, "wall_s": wall,
                      "ms_per_step": wall / n_dec * 1e3,
                      "tokens_per_s": n_dec / wall, "tokens": new.tolist(),
-                     "profile": profile_window(
-                         f"{name} decode step (B 1, eager)",
-                         lambda: model.decode_step(
-                             params, {"tokens": nxt, "index": S + n_dec - 1},
-                             caches), watch=("dpa_fused",), timed=3)}
+                     "profile": profile_window(label, step,
+                                               watch=("dpa_fused",), timed=3)}
+    path_roofline(label, rep["decode"]["profile"], step,
+                  (cfg, "decode", S + n_dec, 1))
     print(f"{name}: scoring {rep['scoring']['wall_s']:.3f} s "
           f"({rep['scoring']['tokens_per_s']:.1f} tokens/s), prefill "
           f"{rep['prefill']['wall_s']:.3f} s, {n_dec} greedy steps "
@@ -4914,6 +5081,9 @@ def train_full_width(cfg):
     prof = profile_window("train step granite-moe-1b-a400m",
                           lambda: step(state, batches[0]),
                           watch=TRAIN_WATCH, require=True)
+    path_roofline("train step granite-moe-1b-a400m", prof,
+                  lambda: step(state, batches[0]),
+                  (cfg, "train", TRAIN_S, TRAIN_B), median)
     busy = prof["busy_ms"]
     out = {"losses": losses, "grad_norms": gnorms, "step_walls_ms": walls,
            "median_step_ms": median,
@@ -5113,17 +5283,33 @@ def profile_engine(model, params, ecfg, sampler=None,
                                 device="cuda")
             windows["prefill chunk (32 tokens)"] = lambda: engine._prefill(
                 tokens=chunk, index=0)
-        out[mode] = {name: profile_window(f"{model.cfg.name} {name}, {mode}",
-                                          fn, watch=("dpa_fused_kernel",
-                                                     "paged_decode"),
-                                          timed=3)
-                     for name, fn in windows.items()}
+        cells = {f"{tag}decode step (B=4)": (model.cfg, "decode", 64,
+                                             ecfg.max_batch),
+                 "prefill chunk (32 tokens)": (model.cfg, "prefill",
+                                               ecfg.prefill_chunk, 1)}
+        out[mode] = {}
+        for name, fn in windows.items():
+            label = f"{model.cfg.name} {name}, {mode}"
+            prof = profile_window(label, fn, watch=("dpa_fused_kernel",
+                                                    "paged_decode"), timed=3)
+            path_roofline(label, prof, fn, cells[name])
+            out[mode][name] = prof
         del engine
     return out
 
 
-def profile_window(label, fn, watch=(), require=False, timed=0):
-    """torch.profiler over one call of fn after a warm-up call: wall time,
+# small kernels each profiled window launches, and waits for, before its
+# call: the profiler loses the first records of a profiling run now and
+# then (from a few to over a hundred on an H100), and these take the
+# loss; their records (LEAD_KERNEL) are left out of the window
+PROFILE_LEAD = 128
+LEAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's
+
+
+def profile_window(label, fn, watch=(), require=False, timed=0,
+                   warm=True):
+    """torch.profiler over one call of fn after a warm-up call (unless
+    `warm` is off: fn ran just before): wall time,
     device busy time and share, launches, the top kernels by device
     time, and for each name in `watch` the device time and share of the
     kernels whose names contain it.  A session that records no device
@@ -5131,29 +5317,49 @@ def profile_window(label, fn, watch=(), require=False, timed=0):
     times; with `require` a fourth empty one fails.  With `timed`, also
     the median host wall of that many calls outside the profiler (its
     tracing stretches the gaps between a graph's kernels), each ended by
-    a synchronize, and the busy share against it."""
+    a synchronize, and the busy share against it.  Also the launch
+    counters' change over the profiled call (`work`) and, for each route
+    table's kernels (`PROFILE_ROUTES`), their records and device ms
+    (`routes`).  The call follows `PROFILE_LEAD` small kernels, which the
+    window leaves out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    from repro_torch.kernels import counters
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for attempt in range(4):
         if attempt:
             time.sleep(1.0)
+        before = counters.snapshot()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        work = {k: v for k, v in counters.diff(counters.snapshot(),
+                                               before).items() if v}
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if LEAD_KERNEL not in e.name]
         if kernels:
             break
-    by_name = {}
+    lead = len(device) - len(kernels)
+    by_name, records = {}, {}
     for e in kernels:
         dt = (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + dt
+        records[e.name] = records.get(e.name, 0) + 1
     busy = sum(by_name.values())
+    # each route table's kernels: [records, device ms]
+    routes = {" + ".join(keys): [
+        sum(n for k, n in records.items() if kname in k),
+        sum(v for k, v in by_name.items() if kname in k)]
+        for kname, keys in PROFILE_ROUTES.items()}
     if not kernels:
         if require:
             raise AssertionError(f"profile {label}: four sessions saw no "
@@ -5161,7 +5367,7 @@ def profile_window(label, fn, watch=(), require=False, timed=0):
         print(f"profile {label}: wall {wall_ms:.1f} ms; the profiler saw no "
               "device events (busy share not measured)")
         return {"wall_ms": wall_ms, "busy_ms": None,
-                "unprofiled_wall_ms": None}
+                "unprofiled_wall_ms": None, "work": work, "routes": routes}
     bare_ms = None
     if timed:
         walls = []
@@ -5174,7 +5380,8 @@ def profile_window(label, fn, watch=(), require=False, timed=0):
         bare_ms = sorted(walls)[len(walls) // 2]
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.2f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel "
-          "launches" + ("" if bare_ms is None else
+          f"launches (lead-in: {lead} of {PROFILE_LEAD} records)"
+          + ("" if bare_ms is None else
                         f"; unprofiled wall {bare_ms:.2f} ms (busy "
                         f"{busy / bare_ms:.1%})"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -5189,7 +5396,8 @@ def profile_window(label, fn, watch=(), require=False, timed=0):
               "device busy time")
     return {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(kernels),
             "unprofiled_wall_ms": bare_ms,
-            "top": [[k[:100], v] for k, v in top], "watch": watched}
+            "top": [[k[:100], v] for k, v in top], "watch": watched,
+            "work": work, "routes": routes}
 
 
 def serving_summary(engines, gen):
@@ -5278,6 +5486,7 @@ def main() -> None:
     from repro_torch.launch.engine import EngineConfig
 
     t_start = time.monotonic()
+    ROOFLINE.clear()
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -5690,6 +5899,7 @@ def main() -> None:
                   for k, v in r.items() if isinstance(v, dict)
                   and "wall_s" in v))
     print("train: " + json.dumps(train))
+    print("roofline: " + json.dumps(ROOFLINE))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))
     print("prequant plans: " + json.dumps(pq_plans))

@@ -1,4 +1,6 @@
 """Model configurations of the port."""
-from .base import get_config, reduce_config
+from .base import (LONG_CTX_ARCHS, SHAPES, cell_applicable, get_config,
+                   list_archs, reduce_config)
 
-__all__ = ["get_config", "reduce_config"]
+__all__ = ["LONG_CTX_ARCHS", "SHAPES", "cell_applicable", "get_config",
+           "list_archs", "reduce_config"]

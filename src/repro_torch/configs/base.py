@@ -1,10 +1,11 @@
 """Config registry of the port: the configurations it serves (decoder,
-MoE, the recurrent families, the encoder-decoder and the VLM), and
-`reduce_config`, the CPU smoke variant of the same family (port of
-`repro.configs.base`)."""
+MoE, the recurrent families, the encoder-decoder and the VLM), the
+(arch x shape) grid the analysis reports on, and `reduce_config`, the
+CPU smoke variant of the same family (port of `repro.configs.base`)."""
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
@@ -21,10 +22,31 @@ ARCH_MODULES = {
     "xlstm-1.3b": "xlstm_1_3b",
 }
 
+# (arch x shape) grid: seq, global batch, which step is lowered
+SHAPES: Dict[str, dict] = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+# long_500k runs only for constant-state (sub-quadratic) families
+LONG_CTX_ARCHS = ("recurrentgemma-9b", "xlstm-1.3b")
+
 
 def get_config(name: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
     return mod.CONFIG
+
+
+def list_archs():
+    return list(ARCH_MODULES)
+
+
+def cell_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CTX_ARCHS
+    return True
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.device import batched_rowwise_dot
-from repro_torch.kernels import build
+from repro_torch.kernels import build, census
 from repro_torch.kernels import dpa_matmul as DM
 
 
@@ -56,15 +56,13 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     plan = DM.launch_fused(x, wq, sw, out, E, M, K, N, fmt_x=fmt_x,
                            fmt_w=fmt_w, pack_w=pack_w, bk=bk,
                            what="dpa_grouped_matmul_fused")
-    dpa_grouped_matmul_fused.launches += 1
-    dpa_grouped_matmul_fused.tiled_launches += plan.route == "tiled"
-    dpa_grouped_matmul_fused.splitk_launches += plan.route == "splitk"
+    census.count(dpa_grouped_matmul_fused, census.launch_work(
+        "dpa_grouped_matmul_fused", plan.route, E=E, M=M, K=K, N=N,
+        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
     return out
 
 
-dpa_grouped_matmul_fused.launches = 0
-dpa_grouped_matmul_fused.tiled_launches = 0
-dpa_grouped_matmul_fused.splitk_launches = 0
+census.declare(dpa_grouped_matmul_fused, "splitk", "tiled")
 
 
 # -----------------------------------------------------------------------------
@@ -102,8 +100,9 @@ def dpa_grouped_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
     out = torch.empty((E, M, N), dtype=torch.float32, device=xq.device)
     DM.launch_prequant(xq, wq, sx, sw, out, E, M, K, N,
                        what="dpa_grouped_matmul_prequant", **kw)
-    dpa_grouped_matmul_prequant.launches += 1
+    census.count(dpa_grouped_matmul_prequant, census.launch_work(
+        "dpa_grouped_matmul_prequant", E=E, M=M, K=K, N=N, **kw))
     return out
 
 
-dpa_grouped_matmul_prequant.launches = 0
+census.declare(dpa_grouped_matmul_prequant)

@@ -34,7 +34,7 @@ from repro_torch.core.formats import get_format, torch_dtype
 from repro_torch.core.packing import unpack_fp4_axis
 from repro_torch.core.quantize import (absmax_block_scale, decode_fp4,
                                        encode_fp4)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, census
 
 BK = 128                     # the K block: part of the numerics contract
 KERNEL_W = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
@@ -250,7 +250,9 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     (K, N) fp8 codes) with (1, N) column scales -> (M, N) f32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  `dpa_matmul_fused.launches` counts launches."""
+    kernel or raises.  `dpa_matmul_fused.launches` counts launches,
+    `.<route>_launches` those of each route, and the census
+    (`kernels.census`) their bytes, operations and bound."""
     build.forward_only("dpa_matmul_fused", x, wq, sw)
     check_fused(x, wq, sw, pack_w)
     if x.device.type == "cpu":
@@ -264,15 +266,13 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     plan = launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x,
                         fmt_w=fmt_w, pack_w=pack_w, bk=bk,
                         what="dpa_matmul_fused")
-    dpa_matmul_fused.launches += 1
-    dpa_matmul_fused.tiled_launches += plan.route == "tiled"
-    dpa_matmul_fused.splitk_launches += plan.route == "splitk"
+    census.count(dpa_matmul_fused, census.launch_work(
+        "dpa_matmul_fused", plan.route, E=1, M=M, K=K, N=N,
+        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
     return out
 
 
-dpa_matmul_fused.launches = 0
-dpa_matmul_fused.tiled_launches = 0
-dpa_matmul_fused.splitk_launches = 0
+census.declare(dpa_matmul_fused, "splitk", "tiled")
 
 
 # -----------------------------------------------------------------------------
@@ -319,11 +319,13 @@ def dpa_act_quant(x, bk: int = BK):
         scales.data_ptr(), x.numel() // K, K,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dpa_act_quant")
-    dpa_act_quant.launches += 1
+    census.count(dpa_act_quant, census.launch_work(
+        "dpa_act_quant", rows=x.numel() // K, K=K,
+        x_bytes=x.element_size()))
     return codes, scales
 
 
-dpa_act_quant.launches = 0
+census.declare(dpa_act_quant)
 
 
 def dpa_fused_tiled_ref(codes, scales, wq, sw, *, fmt_w: str,
@@ -490,8 +492,9 @@ def dpa_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     launch_prequant(xq, wq, sx, sw, out, 1, M, K, N, what="dpa_matmul_prequant",
                     **kw)
-    dpa_matmul_prequant.launches += 1
+    census.count(dpa_matmul_prequant, census.launch_work(
+        "dpa_matmul_prequant", E=1, M=M, K=K, N=N, **kw))
     return out
 
 
-dpa_matmul_prequant.launches = 0
+census.declare(dpa_matmul_prequant)

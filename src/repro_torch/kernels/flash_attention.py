@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.device import batched_rowwise_dot
 from repro_torch.core.kvcache import dequantize_kv
 from repro_torch.core.quantize import quant_rows_grid
-from repro_torch.kernels import build
+from repro_torch.kernels import build, census
 from repro_torch.kernels.quantize import quantize_pack_rows, quantize_rows
 
 NEG_INF = -1e30
@@ -190,7 +190,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `flash_attention.launches` counts launches,
-    `.prepass_launches` the f32 inputs' K/V splits (two a call)."""
+    `.prepass_launches` the f32 inputs' K/V splits (two a call), and the
+    census (`kernels.census`) the work of each."""
     build.forward_only("flash_attention", q, k, v)
     _check(q, k, v, q.shape[3])
     bq, bk = _blocks(q, k, bq, bk)
@@ -210,10 +211,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         raise ValueError("flash_attention kernel needs 16-byte aligned "
                          "operands")
     B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1:3]
     lib = build.load_library()
     if q.dtype == torch.float32:
         k, v = _split_pieces(lib, k), _split_pieces(lib, v)
-        flash_attention.prepass_launches += 2
+        split = census.launch_work("flash_attention", "prepass",
+                                   rows=B * KV * Sk, hd=D)
+        for _ in range(2):
+            census.count(flash_attention, split, "prepass", own=False)
     out = torch.empty_like(q)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -221,7 +226,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         k.shape[-2], bq, bk, int(causal), int(window or 0),
         float(scale if scale is not None else D ** -0.5), _stream(q))
     build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    census.count(flash_attention, census.launch_work(
+        "flash_attention", B=B, H=H, KV=KV, sq=Sq, sk=Sk, hd=D,
+        elem=q.element_size(), causal=bool(causal), window=window or None))
     return out
 
 
@@ -238,8 +245,7 @@ def _split_pieces(lib, x):
     return out
 
 
-flash_attention.launches = 0
-flash_attention.prepass_launches = 0
+census.declare(flash_attention, "prepass")
 
 
 def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
@@ -256,7 +262,9 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises: raw K/V first go through `_prepass` (two row
     quantizer launches).  `dpa_flash_attention.launches` counts launches,
-    `.prepass_launches` those on raw K/V."""
+    `.prepass_launches` those on raw K/V, and the census
+    (`kernels.census`) their work (the pre-pass's own launches are the
+    row quantizers')."""
     build.forward_only("dpa_flash_attention", q, k, v, k_scale, v_scale)
     fmt_kv = fmt_kv or fmt
     D = q.shape[3]
@@ -282,6 +290,7 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
                                 p_codes.shape != (B, H, Sq, Sk)):
         raise ValueError("p_codes must be a (B, H, Sq, Sk) uint8 tensor")
     packed = bool(kv_quant and kv_packed)
+    kv_row_bytes = k.shape[-1] * k.element_size() + (4 if kv_quant else 0)
     if kv_quant:
         want = torch.float8_e4m3fn if fmt_kv == "fp8_e4m3" else torch.uint8
         if k.dtype != want or v.dtype != want:
@@ -311,9 +320,11 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
         int(window or 0), float(scale if scale is not None else D ** -0.5),
         _stream(q))
     build.check(err, "dpa_flash_attention")
-    dpa_flash_attention.launches += 1
-    if not kv_quant:
-        dpa_flash_attention.prepass_launches += 1
+    census.count(dpa_flash_attention, census.launch_work(
+        "dpa_flash_attention", B=B, H=H, KV=Hkv, sq=Sq, sk=Sk, hd=D,
+        q_bytes=q.element_size(), kv_row_bytes=kv_row_bytes,
+        causal=bool(causal), window=window or None),
+        *(() if kv_quant else ("prepass",)))
     return out
 
 
@@ -333,5 +344,4 @@ def _prepass(x, fmt_kv):
             scales.view(x.shape[:-1] + (1,)))
 
 
-dpa_flash_attention.launches = 0
-dpa_flash_attention.prepass_launches = 0
+census.declare(dpa_flash_attention, "prepass")

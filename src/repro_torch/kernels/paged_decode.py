@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, census
 from repro_torch.kernels.dpa_matmul import MAX_CLUSTER, SMS
 from repro_torch.models.decode_attn import (dpa_paged_decode_attn,
                                              dpa_paged_verify_attn)
@@ -192,7 +192,9 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (one launch for all B S_q rows) or raises.  Counters:
     `paged_decode_attention.launches` every launch, `.<fmt>_launches` by
-    attention format, `.verify_launches` the verify folds (S_q > 1)."""
+    attention format, `.verify_launches` the verify folds (S_q > 1); the
+    census (`kernels.census`) their work, over the keys the block table
+    reaches (the positions stay on the device)."""
     build.forward_only("paged_decode_attention", q, k_codes, k_scale,
                        v_codes, v_scale)
     _check(q, k_codes, k_scale, v_codes, v_scale, block_table, positions)
@@ -205,11 +207,15 @@ def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale,
     out = launch_paged(q, k_codes, k_scale, v_codes, v_scale, block_table,
                        positions, fmt=fmt, fmt_kv=fmt_kv, kv_packed=kv_packed,
                        scale=scale)
-    fn = paged_decode_attention
-    fn.launches += 1
-    setattr(fn, f"{fmt}_launches", getattr(fn, f"{fmt}_launches") + 1)
-    if q.shape[1] > 1:
-        fn.verify_launches += 1
+    B, sq, H, hd = q.shape
+    reach = block_table.shape[1] * k_codes.shape[1]   # keys a row can read
+    census.count(paged_decode_attention, census.launch_work(
+        "paged_decode_attention", fmt=fmt, B=B, sq=sq, H=H,
+        KV=k_codes.shape[2], hd=hd,
+        code_bytes=k_codes.shape[3] * k_codes.element_size(),
+        q_bytes=q.element_size(), table_entries=block_table.numel(),
+        kv_rows=B * reach, pairs=B * sq * reach),
+        fmt, *(("verify",) if sq > 1 else ()))
     return out
 
 
@@ -247,7 +253,4 @@ def launch_paged(q, k_codes, k_scale, v_codes, v_scale, block_table,
     return out
 
 
-paged_decode_attention.launches = 0
-for _fmt in _KERNEL_ATTN:
-    setattr(paged_decode_attention, f"{_fmt}_launches", 0)
-paged_decode_attention.verify_launches = 0
+census.declare(paged_decode_attention, *_KERNEL_ATTN, "verify")

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.formats import FloatFormat, get_format, torch_dtype
 from repro_torch.core.packing import pack_fp4
 from repro_torch.core.quantize import cast_to, compute_scale, encode_fp4
-from repro_torch.kernels import build
+from repro_torch.kernels import build, census
 
 # the kernel's format codes (2 is packed E2M1): every format of the table
 _KERNEL_FMT = {"fp8_e4m3": 0, "fp4_e2m1": 1, "fp16": 3, "bf16": 4,
@@ -155,11 +155,13 @@ def quantize_rows(x, *, fmt: str):
             f"table, {sorted(_KERNEL_FMT)}; {fmt!r} is not one")
     codes = torch.empty(x.shape, dtype=torch_dtype(name), device=x.device)
     out = _launch(x, codes, name, False, "quantize_rows")
-    quantize_rows.launches += 1
+    census.count(quantize_rows, census.launch_work(
+        "quantize_rows", M=x.shape[0], K=x.shape[1],
+        x_bytes=x.element_size(), fmt=name))
     return out
 
 
-quantize_rows.launches = 0
+census.declare(quantize_rows)
 
 
 def quantize_pack_rows(x):
@@ -175,8 +177,9 @@ def quantize_pack_rows(x):
     M, K = x.shape
     codes = torch.empty((M, K // 2), dtype=torch.uint8, device=x.device)
     out = _launch(x, codes, "fp4_e2m1", True, "quantize_pack_rows")
-    quantize_pack_rows.launches += 1
+    census.count(quantize_pack_rows, census.launch_work(
+        "quantize_pack_rows", M=M, K=K, x_bytes=x.element_size()))
     return out
 
 
-quantize_pack_rows.launches = 0
+census.declare(quantize_pack_rows)

@@ -254,12 +254,15 @@ def test_counters_list_every_kernel_wrapper():
         "dpa_grouped_matmul_fused", "dpa_grouped_matmul_prequant",
         "dpa_flash_attention", "flash_attention", "quantize_rows",
         "quantize_pack_rows", "dpa_act_quant"}
-    assert {k for k in snap if "." in k} == {
+    assert {k for k in counters.launches(snap) if "." in k} == {
         "dpa_matmul_fused.splitk", "dpa_grouped_matmul_fused.splitk",
         "dpa_matmul_fused.tiled", "dpa_grouped_matmul_fused.tiled",
         "dpa_flash_attention.prepass", "flash_attention.prepass",
         "paged_decode_attention.fp8_e4m3", "paged_decode_attention.fp4_e2m1",
         "paged_decode_attention.fp16", "paged_decode_attention.verify"}
+    # beside each launch counter, the census of the launches it counts
+    assert set(snap) == {f"{k}{w}" for k in counters.launches(snap)
+                         for w in ("", ":bytes", ":ops", ":bound_s")}
 
 
 def test_failed_capture_names_the_port_line():
