@@ -16,9 +16,7 @@ Phases (every failure raises; the exit code is then non-zero):
      split also ragged M = 1, 17, 64, 127 for both weight formats, and
      the rows of M = 8 and 1 calls held to the same rows of an M = 64
      call with `torch.equal`; one decode layer also timed cold, rotating
-     over the model's layers' weights; every (column tile, split) the
-     route takes timed at the engines' shapes (the evidence for
-     `splitk_cols`);
+     over the model's layers' weights;
    - its tiled route (`fused_plan` from `TILED_MIN_M` rows on: the
      pre-pass `dpa_act_quant`, then fp16 tensor cores) at M = 4096 at
      each of qwen3-4b's five projection shapes with packed-fp4 weights,
@@ -28,9 +26,7 @@ Phases (every failure raises; the exit code is then non-zero):
      exactly; one qwen3-4b layer at M = 4096 timed, with the pre-pass
      alone, the fp8 and fp16 operations bounds and, as speed references,
      bf16 `torch.matmul` and `torch._scaled_mm` with block scales (or its
-     refusal); and both routes swept at M = 8 .. 512 on qwen3-4b's wg
-     (and wk) — the split-K route at its plan also past the threshold —
-     the evidence for the threshold;
+     refusal);
    - `paged_decode_attention` at the engine's decode geometry plus the
      block-table edge cases (odd lengths, mid-page positions, an idle
      slot on the scratch page) and one long context (B 2, 2,048 pages of
@@ -59,8 +55,7 @@ Phases (every failure raises; the exit code is then non-zero):
      at +-6, and at the largest |acc| the plan admits (K = 2^16 - 128);
      each shape's plan (column tile, split) is printed, one decode layer
      is also timed cold (rotating over 24 layers' weight codes, as path
-     c walks them, for the kernel and the library call alike), and every
-     (column tile, split) the kernel takes is timed at path c's shapes;
+     c walks them, for the kernel and the library call alike);
    - the TransDot datapath (`core.dpa`, `core.fpnew_ref`, `core.oracle`)
      on CUDA tensors: every batch of `tests/golden/dpa_vectors.npz`
      replayed bit for bit, seeded random batches in 8 modes (specials, a
@@ -93,7 +88,18 @@ Phases (every failure raises; the exit code is then non-zero):
      rows, K 334 and 335 (the scalar route), rows past what a block holds
      (the reread routes) and an offset view, held to identical codes and
      scales, each case's launch plan printed; timed at 4096 x 9728 and
-     32,768 x 128.
+     32,768 x 128;
+   - the tuner (`repro_torch.runtime.tuner`, `run_tuner`): its smoke
+     space at the serving paths' shapes (qwen3-4b and granite-moe-1b at
+     full width: every (bn, split) the fused and prequant routes take at
+     each layer shape, the flash routes' (bq, bk) at 4096 tokens, the
+     quantizers' (lanes, nv), the paged routes at the engine's geometry)
+     measured into a fresh DB under `build/`, each record printed with the
+     static plan marked and each (route, shape)'s tuned / static ratio;
+     every tuned plan that differs from the static one held against the
+     plain version once (bit for bit for the quantizers and prequant's
+     int8 route, the fused route's pin, the flash routes' pins and
+     DPA_FLASH_MAX_FLIPS at the tuned bk).
    Each kernel, its plain version and (for the prequant pair)
    `torch._scaled_mm` / `torch._scaled_grouped_mm` on the e4m3-widened
    codes are timed two ways: `ms` / `plain_ms` / `library_ms`, the median
@@ -123,7 +129,13 @@ Phases (every failure raises; the exit code is then non-zero):
       kernel's split-K route, every decode step's attention through the
       paged kernel; two requests are replayed through `generate` and
       teacher-forced through the static path (greedy agreement and the
-      top-2 margins where the paths differ, reported);
+      top-2 margins where the paths differ, reported).  The tuner's
+      engine pseudo-op (page size 8 and 16, `kv4_attn8_packed`, the same
+      geometry) is measured on this model's weights, and the second
+      graphed run serves with the tuner's DB active: every plan says
+      "tuned", the launch counts are the untuned run's, and the tokens
+      equal the untuned runs' where every tuned split is the static one
+      (else the teacher-forced replay holds them);
    b. granite-moe-1b-a400m (24 layers, 32 experts top-8) serves 8
       synthetic requests through the engine: attention projections
       through the fused kernel, expert matmuls through the grouped fused
@@ -764,134 +776,6 @@ def check_fused_tiled(cfg, gen, projections):
           f"{layer['bf16_matmul_device_ms']}); _scaled_mm "
           f"{layer['scaled_mm_ms']} ms (device {layer['scaled_mm_device_ms']})")
     return worst, layer
-
-
-SWEEP_M = (8, 16, 32, 64, 128, 256, 512)
-SWEEP_SHAPES = ((2560, 9728), (2560, 1024))   # qwen3-4b wg (the sweep), wk
-
-
-def _splitk_launch(lib, x, wq, w_fmt, sw, out, E, M, K, N, bm, bn, split):
-    """One launch of csrc/dpa_matmul.cu through its C entry point (bf16
-    x): no wrapper, so no path's launch count."""
-    import torch
-    from repro_torch.kernels import build as B
-    B.check(lib.dpa_grouped_fused_launch(
-        x.data_ptr(), 1, wq.data_ptr(), w_fmt, sw.data_ptr(), out.data_ptr(),
-        E, M, K, N, bm, bn, split, torch.cuda.current_stream().cuda_stream),
-        "dpa_grouped_fused_launch")
-
-
-def sweep_fused_plan(gen):
-    """Both routes of the fused kernel at qwen3-4b's wg (K 2560, N 9728)
-    and its narrowest projection wk (N 1024), M = 8 .. 512, through the C
-    entry points (no path's launches): the split-K route at its plan's
-    (bn, split) and rows, also past the threshold, and the tiled route
-    with its pre-pass; each held to the plain version and timed on the
-    device: the evidence for `TILED_MIN_M`."""
-    import torch
-    from repro_torch.kernels import build as B
-    from repro_torch.kernels import dpa_matmul as DM
-    from repro_torch.kernels.ops import prep_weights
-    lib = B.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    res = {}
-    for (K, N), M in ((kn, M) for kn in SWEEP_SHAPES for M in SWEEP_M):
-        prep = prep_weights((torch.randn((K, N), generator=gen, device="cuda")
-                             * K ** -0.5).to(torch.bfloat16), "w4a8_kv4_attn8")
-        x = torch.randn((M, K), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        want = DM.dpa_matmul_fused_ref(x, prep["wq"], prep["sw"], **FP4_FUSED)
-        out = torch.empty_like(want)
-        codes = torch.empty((M, K), dtype=torch.uint8, device="cuda")
-        scales = torch.empty((M, K // 128), device="cuda")
-        bn, split = DM.splitk_cols(1, K, N)
-        bm = DM.splitk_rows(M, K, bn, split)
-
-        def splitk():
-            _splitk_launch(lib, x, prep["wq"], 0, prep["sw"], out, 1, M, K, N,
-                           bm, bn, split)
-
-        def tiled():
-            B.check(lib.dpa_act_quant_launch(
-                x.data_ptr(), 1, codes.data_ptr(), scales.data_ptr(), M, K,
-                stream), "dpa_act_quant_launch")
-            B.check(lib.dpa_fused_tiled_launch(
-                codes.data_ptr(), scales.data_ptr(), prep["wq"].data_ptr(),
-                0, prep["sw"].data_ptr(), out.data_ptr(), 1, M, K, N,
-                stream), "dpa_fused_tiled_launch")
-
-        row = {}
-        for name, fn in (("splitk", splitk), ("tiled", tiled)):
-            out.fill_(float("nan"))
-            fn()
-            err, ok = _close(out, want)
-            if not ok:
-                raise AssertionError(f"fused {name} M={M}: max err {err}")
-            row[name], row[name + "_from"] = device_ms_from(fn)
-        route = DM.fused_plan(1, M, K, N).route
-        res[f"{K}x{N} M={M}"] = {**row, "splitk_plan": f"bm{bm}/bn{bn}/s"
-                                 f"{split}", "plan": route}
-        print(f"fused plan sweep K={K} N={N} M={M}: splitk (bm {bm} bn {bn} "
-              f"split {split}) {row['splitk']} ms, tiled {row['tiled']} ms "
-              f"(device, per call); the plan takes {route}")
-    return res
-
-
-def sweep_splitk_plans(gen, M=8):
-    """Every (bn, split) the split-K route takes at the engines' shapes
-    (qwen3-4b's five projections, granite-moe-1b's two attention shapes
-    and its two expert shapes at E 32) at the decode step's M = 8,
-    through the C entry point (no path's launches), each held to the
-    plain version at the pin and timed on the device: the evidence for
-    `splitk_cols`."""
-    import torch
-    from repro_torch.kernels import build as B
-    from repro_torch.kernels import dpa_grouped_matmul as GM
-    from repro_torch.kernels import dpa_matmul as DM
-    from repro_torch.kernels.ops import prep_grouped_weights
-    lib = B.load_library()
-    res = {}
-    shapes = [(1, K, N) for K, N in ((2560, 4096), (2560, 1024), (4096, 2560),
-                                     (2560, 9728), (9728, 2560), (1024, 1024),
-                                     (1024, 512))]
-    shapes += [(32, 1024, 512), (32, 512, 1024)]
-    for E, K, N in shapes:
-        w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
-        prep = prep_grouped_weights(w, "w4a8_kv4_attn8")
-        x = torch.randn((E, M, K), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        want = GM.dpa_grouped_matmul_fused_ref(x, prep["wq"], prep["sw"],
-                                               **FP4_FUSED)
-        out = torch.empty_like(want)
-        times = {}
-        for bn in DM.SPLITK_COLS:
-            for split in range(1, DM.MAX_CLUSTER + 1):
-                if N % bn or (K // DM.BK) % split or DM.splitk_smem_bytes(
-                        8, bn, K, split) > DM.SMEM_LIMIT:
-                    continue
-
-                def call(bn=bn, split=split):
-                    _splitk_launch(lib, x, prep["wq"], 0, prep["sw"], out, E,
-                                   M, K, N, 8, bn, split)
-                out.fill_(float("nan"))
-                call()
-                err, ok = _close(out, want)
-                if not ok:
-                    raise AssertionError(f"splitk E={E} K={K} N={N} bn {bn} "
-                                         f"split {split}: max err {err}")
-                times[f"bn{bn}/s{split}"] = device_ms(call)
-        bn, split = DM.splitk_cols(E, K, N)
-        best = min((v, k) for k, v in times.items() if v is not None)[1] \
-            if any(v is not None for v in times.values()) else None
-        res[f"E{E} {K}x{N}"] = {"plan": f"bn{bn}/s{split}", "best": best,
-                                "device_us": {k: None if v is None else
-                                              v * 1e3
-                                              for k, v in times.items()}}
-        print(f"splitk plans E={E} K={K} N={N} M={M} (device us; the plan "
-              f"takes bn{bn}/s{split}, the fastest {best}): " + ", ".join(
-                  f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
-                  for k, v in times.items()))
-    return res
 
 
 def _paged_case(cfg, pol, gen, lengths, page, positions=None):
@@ -1635,62 +1519,6 @@ def check_prequant(cfg, gen):
           f"{-36 * K}): equal to (acc * sx) * sw; plan "
           f"{DM.prequant_plan(1, 8, K, 64)}")
     return out
-
-
-def sweep_prequant_plans(gen, M=8):
-    """Every launch (bn, split) the kernel takes at path B's prequant
-    shapes (M = 8; dense K x N 1024 x 1024 and 1024 x 512, grouped E 32
-    at 1024 x 512 and 512 x 1024), through the C entry point (not the
-    wrapper: these launches are no path's), each held to the plain
-    version and timed on the device: the evidence for `prequant_plan`."""
-    import torch
-    from repro_torch.kernels import build as B
-    from repro_torch.kernels import dpa_grouped_matmul as GM
-    from repro_torch.kernels import dpa_matmul as DM
-    lib = B.load_library()
-    fmt = DM.PREQUANT_FMT["fp4_e2m1", True]
-    res = {}
-    for E, K, N in ((1, 1024, 1024), (1, 1024, 512), (32, 1024, 512),
-                    (32, 512, 1024)):
-        xq = torch.randint(0, 256, (E, M, K // 2), generator=gen,
-                           device="cuda", dtype=torch.int32).to(torch.uint8)
-        wq = torch.randint(0, 256, (E, K // 2, N), generator=gen,
-                           device="cuda", dtype=torch.int32).to(torch.uint8)
-        sx = torch.rand((E, M, 1), generator=gen, device="cuda") + 0.05
-        sw = torch.rand((E, 1, N), generator=gen, device="cuda") + 0.05
-        want = GM.dpa_grouped_matmul_prequant_ref(xq, wq, sx, sw,
-                                                  **FP4_PACKED)
-        out = torch.empty_like(want)
-        times = {}
-        for bn in DM.COL_TILES:
-            for split in range(1, DM.MAX_CLUSTER + 1):
-                if (K // DM.BK) % split:
-                    continue
-
-                def call(bn=bn, split=split):
-                    B.check(lib.dpa_prequant_launch(
-                        xq.data_ptr(), fmt, sx.data_ptr(), wq.data_ptr(),
-                        fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, bn,
-                        split, torch.cuda.current_stream().cuda_stream),
-                        "dpa_prequant_launch")
-                out.fill_(float("nan"))
-                call()
-                torch.cuda.synchronize()
-                if not torch.equal(out, want):
-                    raise AssertionError(f"prequant E={E} K={K} N={N} bn {bn}"
-                                         f" split {split}: differs from the "
-                                         "plain version")
-                times[f"bn{bn}/s{split}"] = device_ms(call)
-        plan = DM.prequant_plan(E, M, K, N)
-        res[f"E{E} {K}x{N}"] = {"plan": f"bn{plan.bn}/s{plan.split}",
-                                "device_us": {k: None if v is None else
-                                              v * 1e3
-                                              for k, v in times.items()}}
-        print(f"prequant plans E={E} K={K} N={N} M={M} (device us; the plan "
-              f"takes bn{plan.bn}/s{plan.split}): " + ", ".join(
-                  f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
-                  for k, v in times.items()))
-    return res
 
 
 def cold_prequant_layer(kern, shapes, operand, kw=FP4_PACKED, M=8,
@@ -2512,6 +2340,285 @@ def check_quantizers(gen):
 # phase 3: the engine at full width
 # -----------------------------------------------------------------------------
 
+# the tuner (phase 2's sweep, phase 3a's engine pseudo-op and tuned run)
+TUNE_DB = ROOT / "build" / "tuned_smoke.json"
+TUNE_OPS = ("matmul", "grouped_matmul", "flash_attn", "paged_decode",
+            "verify_attn", "quantize_pack")
+TUNED_RUN = 2                     # SERVE_ORDER's second graphed run
+# the serving paths' configs and the policies they serve under (None:
+# every policy of `tuner.OP_POLICIES`; fp4_dpa_packed is path B's alone)
+TUNE_PATHS = (("qwen3-4b", ("w4a8_kv4_attn8", "fp8_dpa", "fp32")),
+              ("granite-moe-1b-a400m", None))
+
+
+def _tune_groups(db) -> dict:
+    """A DB's records by (op, policy, class, shape, route), fastest
+    first."""
+    groups = {}
+    for rec in db["records"].values():
+        key = (rec["op"], rec["policy"], rec["shape_class"],
+               tuple(rec["shape"]), rec["route"])
+        groups.setdefault(key, []).append(rec)
+    return {k: sorted(v, key=lambda r: (r["us"], json.dumps(r["knobs"])))
+            for k, v in sorted(groups.items())}
+
+
+def _knobs_str(knobs) -> str:
+    return " ".join(f"{k} {v}" for k, v in sorted(knobs.items())) or "static"
+
+
+def run_tuner(gen):
+    """The tuner's smoke space at the serving paths' shapes (qwen3-4b and
+    granite-moe-1b at full width under the policies they serve, every op
+    but the engine pseudo-op, which phase 3a measures on its model;
+    `TUNE_PATHS`), measured on the card into a
+    fresh DB (`TUNE_DB`): each record printed with its device us a call,
+    its spread and the static plan marked, each (route, shape)'s static /
+    tuned ratio (>= 1: the static plan is always measured).  Then, with
+    the DB active, every key resolves to a tuned entry, and each tuned
+    plan that differs from the static one is held once against the plain
+    version (`hold_tuned`).  -> the phase's summary."""
+    from repro_torch.core import exec_plan
+    from repro_torch.core.policy import get_policy
+    from repro_torch.runtime import tuner
+    t0 = time.monotonic()
+    TUNE_DB.parent.mkdir(parents=True, exist_ok=True)
+    if TUNE_DB.exists():
+        TUNE_DB.unlink()
+    tuner.clear_caches()
+    measured = 0
+    for name, policies in TUNE_PATHS:
+        measured += tuner.run_sweep(
+            str(TUNE_DB), smoke=True, device="cuda", ops=TUNE_OPS,
+            configs=(name,), policies=policies)["measured"]
+    t_sweep = time.monotonic() - t0
+    groups = _tune_groups(tuner.load_db(str(TUNE_DB)))
+    rows = []
+    for (op, policy, cls, shape, route), recs in groups.items():
+        static = next(r for r in recs if not r["knobs"])
+        best = recs[0]
+        for r in recs:
+            print(f"tuner {op}/{route} {policy} {cls} {list(shape)} "
+                  f"{_knobs_str(r['knobs'])}: {r['us'] / 1e3:.5f} device ms"
+                  f" (spread {r['spread']:.3f}, {r['reps']} replays of "
+                  f"{r['calls']} call(s){', cold' if r.get('cold') else ''})"
+                  + (" <- the static plan" if r is static else ""))
+        ratio = static["us"] / best["us"]
+        rows.append({"op": op, "route": route, "policy": policy,
+                     "class": cls, "shape": list(shape),
+                     "static_ms": static["us"] / 1e3,
+                     "tuned_ms": best["us"] / 1e3,
+                     "tuned_knobs": best["knobs"], "ratio": ratio,
+                     "candidates": len(recs)})
+        print(f"tuner {op}/{route} {policy} {list(shape)}: tuned "
+              f"{_knobs_str(best['knobs'])} {best['us'] / 1e3:.5f} ms, "
+              f"static {static['us'] / 1e3:.5f} ms: static / tuned "
+              f"{ratio:.3f} over {len(recs)} plans")
+    before = exec_plan.use_tuned_db(str(TUNE_DB))
+    held = []
+    try:
+        for (op, policy, cls, shape, route), recs in groups.items():
+            ctx = recs[0]["ctx"]
+            entry = exec_plan.resolve(op, policy, **ctx)
+            if not entry.tuned or entry.name != route:
+                raise AssertionError(f"tuner: {op} {policy} {list(shape)} "
+                                     f"resolved {entry.name}, tuned "
+                                     f"{entry.tuned}, with its DB active")
+            knobs = dict(entry.tuned_knobs)
+            pol = get_policy(policy)
+            if knobs and entry.plan(pol, ctx, **knobs) != entry.plan(pol,
+                                                                     ctx):
+                held.append(hold_tuned(op, route, pol, ctx, knobs, gen))
+    finally:
+        exec_plan.use_tuned_db(before)
+    seconds = time.monotonic() - t0
+    static_best = sum(1 for r in rows if not r["tuned_knobs"])
+    top = max(rows, key=lambda r: r["ratio"])
+    print(f"tuner phase: {seconds:.1f} s ({t_sweep:.1f} s the sweep of "
+          f"{measured} configs); the static plan fastest in "
+          f"{static_best} of {len(rows)} (route, shape)s; largest static / "
+          f"tuned {top['ratio']:.3f} ({top['op']}/{top['route']} "
+          f"{top['shape']} {_knobs_str(top['tuned_knobs'])}); "
+          f"{len(held)} tuned plans held against the plain version")
+    return {"seconds": seconds, "sweep_seconds": t_sweep,
+            "measured": measured, "keys": len(rows),
+            "static_best": static_best, "largest_ratio": top["ratio"],
+            "largest_ratio_at": {k: top[k] for k in (
+                "op", "route", "shape", "tuned_knobs")},
+            "held": held, "table": rows, "env": tuner.env_fingerprint()}
+
+
+def hold_tuned(op, route, pol, ctx, knobs, gen) -> dict:
+    """One launch with the tuned knobs against the kernel's plain version
+    on fresh inputs at the key's shape: bit for bit for the quantizers
+    and the prequant kernel's int8 route (packed E2M1 x packed E2M1), the
+    fused route's pin, and the flash routes' pins at the tuned bk (DPA:
+    `_dpa_flash_misses`, at most DPA_FLASH_MAX_FLIPS of the live p codes
+    flipped)."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.kernels.ops import prep_grouped_weights, prep_weights
+    what = f"tuned {op}/{route} {_knobs_str(knobs)}"
+    res = {"op": op, "route": route, "knobs": knobs}
+    if route in ("cuda_fused", "cuda_grouped_fused"):
+        E, M, K, N = ctx.get("e", 1), ctx["m"], ctx["k"], ctx["n"]
+        kw = dict(fmt_x=pol.fmt_acts, fmt_w=pol.fmt_weights)
+        w = torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5
+        x = torch.randn((E, M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        if E == 1:
+            prep = prep_weights(w[0].to(torch.bfloat16), pol)
+            got = DM.dpa_matmul_fused(x[0], prep["wq"], prep["sw"],
+                                      pack_w=prep["pack_w"], **kw, **knobs)
+            want = DM.dpa_matmul_fused_ref(x[0], prep["wq"], prep["sw"],
+                                           pack_w=prep["pack_w"], **kw)
+        else:
+            prep = prep_grouped_weights(w, pol)
+            got = GM.dpa_grouped_matmul_fused(
+                x, prep["wq"], prep["sw"], pack_w=prep["pack_w"], **kw,
+                **knobs)
+            want = GM.dpa_grouped_matmul_fused_ref(
+                x, prep["wq"], prep["sw"], pack_w=prep["pack_w"], **kw)
+        err, ok = _close(got, want)
+        res.update(shape=[E, M, K, N], max_abs_err=err)
+    elif route in ("cuda_prequant", "cuda_grouped_prequant"):
+        E, M, K, N = ctx.get("e", 1), ctx["m"], ctx["k"], ctx["n"]
+        xq = torch.randint(0, 256, (E, M, K // 2), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.uint8)
+        wq = torch.randint(0, 256, (E, K // 2, N), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.uint8)
+        sx = torch.rand((E, M, 1), generator=gen, device="cuda") + 0.05
+        sw = torch.rand((E, 1, N), generator=gen, device="cuda") + 0.05
+        got = GM.dpa_grouped_matmul_prequant(xq, wq, sx, sw, **FP4_PACKED,
+                                             **knobs)
+        want = GM.dpa_grouped_matmul_prequant_ref(xq, wq, sx, sw,
+                                                  **FP4_PACKED)
+        ok = bool(torch.equal(got, want))
+        res.update(shape=[E, M, K, N], bit_for_bit=ok,
+                   max_abs_err=float((got - want).abs().max()))
+    elif route == "cuda_dpa_flash":
+        H, KV, S, hd = ctx["heads"], ctx["kv_heads"], ctx["sq"], ctx["hd"]
+        q, k, v = _attn_inputs(gen, H, KV, S, hd, torch.bfloat16)
+        codes = [torch.zeros((1, H, S, S), dtype=torch.uint8, device="cuda")
+                 for _ in range(2)]
+        kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv)
+        got = FA.dpa_flash_attention(q, k, v, p_codes=codes[0], **kw,
+                                     **knobs)
+        want = FA.dpa_flash_attention_ref(q, k, v, p_codes=codes[1],
+                                          bk=min(knobs["bk"], S), **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        mask = FA._mask(S, S, True, None, "cuda")
+        live = H * int(mask.sum())
+        bad, flips = _dpa_flash_misses(err, want.float(), codes, v, mask)
+        del codes
+        ok = not bad and flips <= DPA_FLASH_MAX_FLIPS * live
+        res.update(shape=[H, KV, S, hd], max_abs_err=float(err.max()),
+                   p_codes_flipped=[flips, live])
+    elif route == "cuda_f32_flash":
+        H, KV, S, hd = ctx["heads"], ctx["kv_heads"], ctx["sq"], ctx["hd"]
+        q, k, v = _attn_inputs(gen, H, KV, S, hd, torch.bfloat16)
+        got = FA.flash_attention(q, k, v, **knobs)
+        want = FA.flash_attention_ref(q, k, v)
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= _bf16_ulp(want.float()) + FLASH_F32_RTOL
+                   * float(want.float().abs().max())).all())
+        res.update(shape=[H, KV, S, hd], max_abs_err=float(err.max()))
+    elif route in ("cuda_quantize_rows", "cuda_quantize_pack"):
+        x = torch.randn((ctx["m"], ctx["k"]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        if ctx["pack"]:
+            got = QZ.quantize_pack_rows(x, **knobs)
+            want = QZ.quantize_pack_rows_ref(x)
+        else:
+            got = QZ.quantize_rows(x, fmt=ctx["fmt"], **knobs)
+            want = QZ.quantize_rows_ref(x, fmt=ctx["fmt"])
+        ok = all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+                 for g, w in zip(got, want))
+        res.update(shape=[ctx["m"], ctx["k"]], bit_for_bit=ok,
+                   max_abs_err=0.0 if ok else None)
+    else:
+        raise AssertionError(f"{what}: no plain version to hold it to")
+    if not ok or not bool(torch.isfinite(got if torch.is_tensor(got)
+                                         else got[1]).all()):
+        raise AssertionError(f"{what} at {res.get('shape')}: {res}")
+    print(f"{what} at {res['shape']}: held against the plain version "
+          f"({'bit for bit' if res.get('bit_for_bit') else 'max_abs_err ' + format(res['max_abs_err'], '.3g')}"
+          + (f", {res['p_codes_flipped'][0]} of {res['p_codes_flipped'][1]}"
+             " live p codes flipped" if "p_codes_flipped" in res else "")
+          + ")")
+    return res
+
+
+def tune_engine(cfg, params) -> dict:
+    """The tuner's engine pseudo-op on the card: qwen3-4b at full width
+    under `tuner.ENGINE_POLICY` on phase 3a's weights, phase 3a's
+    geometry (`tuner.CARD_ENGINE_GEOMETRY`) at page sizes 8 and 16 (the
+    smoke grid), into `TUNE_DB`; the full grid's speculative points that
+    `check_verify_rows` refuses for the policy's linears, which the card
+    leaves out, are printed."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import tuner
+    t0 = time.monotonic()
+    emodel = build_model(cfg.replace(policy=tuner.ENGINE_POLICY),
+                         device="cuda")
+    stats = tuner.run_sweep(str(TUNE_DB), smoke=True, device="cuda",
+                            ops=(tuner.ENGINE_OP,),
+                            engine_fixture=(emodel, params))
+    points = {}
+    for rec in tuner.load_db(str(TUNE_DB))["records"].values():
+        if rec["op"] == tuner.ENGINE_OP:
+            points[_knobs_str(rec["knobs"])] = rec["us"]
+            print(f"tuner engine {tuner.ENGINE_POLICY} "
+                  f"{_knobs_str(rec['knobs'])}: {rec['us']:.1f} us a "
+                  f"generated token (best of {rec['reps']} graphed runs, "
+                  f"spread {rec['spread']:.3f})")
+    best = tuner.best_engine_knobs(str(TUNE_DB))
+    # the full grid's speculative points, which the card leaves out
+    refused = tuner.engine_points(tuner.ENGINE_KNOB_GRID, "cuda",
+                                  tuner.CARD_ENGINE_GEOMETRY)[1]
+    seconds = time.monotonic() - t0
+    print(f"tuner engine pseudo-op: {seconds:.1f} s, {stats['measured']} "
+          f"points, best {best}; left out: {refused or 'none'}")
+    return {"seconds": seconds, "us_per_token": points, "best": best,
+            "refused": refused}
+
+
+def check_tuned_run(cfg, ecfg, rep, counts, want_counts) -> bool:
+    """The tuned engine run's plans: the decode step's paged route and
+    every linear resolved "tuned", on the kernels, with the launch counts
+    of the untuned graphed run.  -> whether every tuned split-K plan is
+    the static one (then the tokens must be the untuned runs')."""
+    from repro_torch.core import exec_plan
+    from repro_torch.core.policy import get_policy
+    pol = get_policy(cfg.policy)
+    plans = rep["linear_plans"]
+    if rep["decode_selection"] != "tuned" or any(
+            p["selection"] != "tuned" or p["route"] != "cuda_fused"
+            for p in plans.values()):
+        raise AssertionError(f"tuned run: decode {rep['decode_selection']},"
+                             f" linears {plans}")
+    if counts != want_counts:
+        raise AssertionError(f"tuned run launches {counts}, untuned "
+                             f"{want_counts}")
+    fused = exec_plan.route("matmul", "cuda_fused")
+    same = True
+    for shape, p in plans.items():
+        k, n = map(int, shape.split("x"))
+        ctx = dict(m=ecfg.max_batch, k=k, n=n)
+        static, tuned = fused.plan(pol, ctx), fused.plan(pol, ctx,
+                                                         **p["knobs"])
+        same &= static == tuned
+        print(f"tuned run {shape}: {_knobs_str(p['knobs'])} -> {tuned} "
+              f"(static {static})")
+    print(f"tuned run: every plan tuned, launches = the untuned graphed "
+          f"run's; every split-K plan the static one: {same}")
+    return same
+
+
 def teacher_forced(model, params, req, s_ctx, chunk):
     """Step the static contiguous-cache path over the engine's own token
     timeline and compare its argmax with each engine token.  The prompt
@@ -2931,7 +3038,7 @@ def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
     return rep, counts, engine
 
 
-def run_engine(cfg, ecfg):
+def run_engine(cfg, ecfg, tuned=False):
     """The engine over 8 requests eagerly (`graphs=False`, the reference)
     and with its steps as CUDA graphs, in turns (`SERVE_ORDER`): every
     request's tokens equal in every run, the launch counts the config
@@ -2939,18 +3046,38 @@ def run_engine(cfg, ecfg):
     each graph of the first graphed run holding its kernels to the
     capture's counts.  The first run of each mode is the one reported
     (the graphed one's counts are the path's), beside every run's
-    tokens/s."""
+    tokens/s.
+
+    `tuned`: the tuner's engine pseudo-op is measured on this model's
+    weights into `TUNE_DB` (`tune_engine`), and run `TUNED_RUN` (the
+    second graphed) serves with that DB active (`check_tuned_run`): its
+    tokens must equal the other runs' where every tuned split-K plan is
+    the static one, else two of its requests are teacher-forced under the
+    DB (the first token and at least half must agree)."""
     import numpy as np
+    from repro_torch.core import exec_plan
     from repro_torch.launch.serve import generate
 
     model, params = build(cfg)
     restore = finite_steps(model)
+    tune = tune_engine(cfg, params) if tuned else None
     reps, served = {"eager": [], "graphed": []}, []
-    for mode in SERVE_ORDER:
+    for i, mode in enumerate(SERVE_ORDER):
         reqs = workload(cfg)
-        rep, counts, engine = serve_once(f"{cfg.name} engine ({mode})", cfg,
-                                         model, params, ecfg, reqs,
-                                         graphs=mode == "graphed")
+        db = str(TUNE_DB) if tuned and i == TUNED_RUN else None
+        before = exec_plan.use_tuned_db(db)
+        try:
+            rep, counts, engine = serve_once(
+                f"{cfg.name} engine ({mode}{', tuned' if db else ''})", cfg,
+                model, params, ecfg, reqs, graphs=mode == "graphed")
+        finally:
+            exec_plan.use_tuned_db(before)
+        if db:
+            tune["same_splits"] = check_tuned_run(
+                cfg, ecfg, rep, counts, reps["graphed"][0]["counts"])
+            tune["run"] = {k: rep[k] for k in (
+                "tokens_per_s", "decode_selection", "linear_plans",
+                "p50_latency_s", "p50_ttft_s")}
         reps[mode].append(rep)
         served.append(reqs)
         if mode == "graphed" and len(reps[mode]) == 1:
@@ -2966,6 +3093,12 @@ def run_engine(cfg, ecfg):
     for i, run in enumerate(served[1:], 1):
         differ = [a.rid for a, b in zip(served[0], run)
                   if a.out_tokens != b.out_tokens]
+        if tune is not None and i == TUNED_RUN:
+            tune["requests_differ"] = differ
+            if not tune["same_splits"]:
+                tune["teacher_forced"] = tuned_replay(model, params, ecfg,
+                                                      run)
+                continue
         if differ:
             raise AssertionError(f"{cfg.name}: run {i} ({SERVE_ORDER[i]}) "
                                  "gave other tokens than the eager run 0 "
@@ -2973,11 +3106,18 @@ def run_engine(cfg, ecfg):
     rep, reqs = reps["graphed"][0], served[SERVE_ORDER.index("graphed")]
     print(f"{cfg.name}: every request's tokens equal in all "
           f"{len(SERVE_ORDER)} runs ({' '.join(SERVE_ORDER)}; "
-          f"{rep['gen_tokens']} tokens each)")
+          f"{rep['gen_tokens']} tokens each)" if tune is None else
+          f"{cfg.name}: {len(tune['requests_differ'])} of {len(reqs)} "
+          f"requests' tokens differ in the tuned run {TUNED_RUN} (every "
+          f"split the static one: {tune['same_splits']}), none in the "
+          f"others ({' '.join(SERVE_ORDER)}; {rep['gen_tokens']} tokens "
+          "each)")
     counts = rep.pop("counts")
     rep["eager"] = reps["eager"][0]
     rep["tokens_per_s_runs"] = {m: [r["tokens_per_s"] for r in rs]
                                 for m, rs in reps.items()}
+    if tune is not None:
+        rep["tuned"] = tune
     if cfg.is_moe:
         moe_repeatable(params, cfg)
         want = {"moe_experts": cfg.n_experts, "moe_top_k": cfg.top_k,
@@ -3025,6 +3165,27 @@ def run_engine(cfg, ecfg):
             "rid": r.rid, "n_prompt": r.n_prompt, "greedy_agree":
             int(same.sum()), "identical_up_to": first, "teacher_forced": tf})
     return model, params, rep, counts, [r.out_tokens for r in reqs]
+
+
+def tuned_replay(model, params, ecfg, reqs) -> list:
+    """Where a tuned split differs from the static one: two requests of
+    the tuned run teacher-forced through the static path under the DB
+    (the same plans): the first token must be the run's, and at least
+    half of the tokens."""
+    from repro_torch.core import exec_plan
+    out = []
+    before = exec_plan.use_tuned_db(str(TUNE_DB))
+    try:
+        for r in reqs[:2]:
+            tf = teacher_forced(model, params, r, ecfg.s_max,
+                                ecfg.prefill_chunk)
+            if not tf["first_token_agrees"] or 2 * tf["agree"] < tf["tokens"]:
+                raise AssertionError(f"tuned run, request {r.rid}: "
+                                     f"teacher-forced replay {tf}")
+            out.append(dict(tf, rid=r.rid))
+    finally:
+        exec_plan.use_tuned_db(before)
+    return out
 
 
 def run_generate(cfg, params, *, n_prompts=2, prompt_len=32, n_new=16):
@@ -4373,11 +4534,14 @@ def hold_linears(what, calls, want):
     routes, worst, shapes = {}, 0.0, []
     for x, wq, sw, kw in calls:
         (M, K), N = x.shape, sw.shape[-1]
-        plan = DM.fused_plan(1, M, K, N)
+        # the launch-plan knobs the call took (None: the automatic plan)
+        knobs = {k: v for k, v in kw.items() if k in ("bn", "split")}
+        kw = {k: v for k, v in kw.items() if k not in knobs}
+        plan = DM.fused_plan(1, M, K, N, **knobs)
         routes[plan.route] = routes.get(plan.route, 0) + 1
         worst = max(worst, _held(
             f"{what} M={M} K={K} N={N} {_plan_str(plan)}",
-            DM.dpa_matmul_fused(x, wq, sw, **kw),
+            DM.dpa_matmul_fused(x, wq, sw, **kw, **knobs),
             DM.dpa_matmul_fused_ref(x, wq, sw, **kw)))
         shapes.append(f"{M}x{K}x{N} {plan.route}"
                       + (f" split {plan.split}" if plan.route == "splitk"
@@ -5482,7 +5646,6 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import build
-    from repro_torch.kernels.dpa_matmul import TILED_MIN_M
     from repro_torch.launch.engine import EngineConfig
 
     t_start = time.monotonic()
@@ -5516,8 +5679,7 @@ def main() -> None:
     gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite),
                                   granite.n_layers)
     tl_err, tl_t = check_fused_tiled(qwen, gen, _dense_shapes(qwen))
-    fused_sweep = sweep_fused_plan(gen)
-    splitk_plans = sweep_splitk_plans(gen)
+    tune = run_tuner(gen)
     pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
     gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
     pdf_t = check_paged_formats(qwen, gen, ecfg)
@@ -5526,7 +5688,6 @@ def main() -> None:
     gfold_t = check_verify_fold(granite, gen, ecfg)
     gf_err, gf_t = check_grouped_fused(granite, gen)
     pq_t = check_prequant(granite, gen)
-    pq_plans = sweep_prequant_plans(gen)
     t_dp = time.monotonic()
     dp_t = check_datapath()
     pqo_t = check_prequant_oracle()
@@ -5541,7 +5702,7 @@ def main() -> None:
     t_kernels = time.monotonic() - t_start
 
     # phase 3a / 4: qwen3-4b through the engine, eager and graphed
-    model, params, rep_q, n_q, greedy_q = run_engine(qwen, ecfg)
+    model, params, rep_q, n_q, greedy_q = run_engine(qwen, ecfg, tuned=True)
     prof_q = profile_engine(model, params, ecfg)
     t_engine_q = time.monotonic() - t_start
     # phase 3g / 4: sampled decoding; phase 3h: the prefix cache
@@ -5600,8 +5761,10 @@ def main() -> None:
     # phase 5: training
     train = run_training()
     t_total = time.monotonic() - t_start
-    print(f"phase times: kernels {t_kernels:.1f} s, qwen3-4b engine "
-          f"{t_engine_q - t_kernels:.1f} s, qwen3-4b sampled and prefix "
+    print(f"phase times: kernels {t_kernels:.1f} s (of which the tuner "
+          f"{tune['seconds']:.1f} s), qwen3-4b engine "
+          f"{t_engine_q - t_kernels:.1f} s (of which the tuner's engine "
+          f"pseudo-op {rep_q['tuned']['seconds']:.1f} s), qwen3-4b sampled and prefix "
           f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b speculative "
           f"{t_spec - t_sampled:.1f} s, qwen3-4b prefill and "
           f"scoring {t_qwen - t_spec:.1f} s, front ends "
@@ -5629,6 +5792,13 @@ def main() -> None:
     def lib(t):
         return {k: t[k] for k in ("library_ms", "library_device_ms")}
 
+    def tuned(*routes):
+        """The tuner phase's (route, shape)s of these routes: static and
+        tuned device ms, the tuned knobs."""
+        return [{k: r[k] for k in ("route", "policy", "shape", "static_ms",
+                                   "tuned_ms", "tuned_knobs", "ratio")}
+                for r in tune["table"] if r["route"] in routes]
+
     kernels = [
         {"name": "dpa_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
@@ -5645,6 +5815,7 @@ def main() -> None:
          "device_from": mm_t.get("device_from"),
          "bound_by": "bytes", "library_ms": None,
          "cold": mm_t["cold"], "plans": mm_t["plans"],
+         "tuner": tuned("cuda_fused"),
          "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4 "
                "(padded to 8), split-K route; cold: 36 layers' weights",
          "granite": {"max_abs_err": gmm_err, **times(gmm_t),
@@ -5695,6 +5866,7 @@ def main() -> None:
              f: n_serve[f"paged_decode_attention.{f}"]
              for f in ("fp8_e4m3",) + PAGED_NEW_ATTN},
          "formats": {"hd128": pdf_t, "hd64": gpdf_t},
+         "tuner": tuned("cuda_block_table"),
          "verify_fold": {"launches": n_serve["paged_decode_attention.verify"],
                          "hd128": fold_t, "hd64": gfold_t,
                          "at": f"B=4, k={VERIFY_K}: {4 * (VERIFY_K + 1)} "
@@ -5718,6 +5890,7 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": pq_t["dense"]["library_ms"],
          "library_device_ms": pq_t["dense"]["library_device_ms"],
          "cold": pq_t["dense"]["cold"], "plans": pq_t["dense"]["plans"],
+         "tuner": tuned("cuda_prequant"),
          "formats": pqf_t["dense"],
          "oracle_outputs": {k: v for k, v in pqo_t.items()
                             if k.endswith("E=1")},
@@ -5732,6 +5905,7 @@ def main() -> None:
          "max_abs_err": gf_err, **times(gf_t),
          "bound_by": "bytes", "library_ms": None,
          "cold": gf_t["cold"], "plans": gf_t["plans"],
+         "tuner": tuned("cuda_grouped_fused"),
          "at": "granite-moe-1b, one layer's 3 expert matmuls (E=32) at "
                "M=8 (4 rows padded), split-K route; cold: 24 layers' "
                "expert weights"},
@@ -5744,6 +5918,7 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": pq_t["grouped"]["library_ms"],
          "library_device_ms": pq_t["grouped"]["library_device_ms"],
          "cold": pq_t["grouped"]["cold"], "plans": pq_t["grouped"]["plans"],
+         "tuner": tuned("cuda_grouped_prequant"),
          "formats": pqf_t["grouped"],
          "oracle_outputs": {k: v for k, v in pqo_t.items()
                             if not k.endswith("E=1")},
@@ -5770,6 +5945,7 @@ def main() -> None:
          "prepass_device_ms": dfa_t["prepass_device_ms"],
          "prepass_bound_ms": dfa_t["prepass_bound_ms"],
          "speed_references": dfa_t["speed_references"],
+         "tuner": tuned("cuda_dpa_flash"),
          "p_codes_flipped": dfa_t["flips"],
          "path_d_p_codes_flipped_per_layer":
              score_d["attn_p_codes_flipped_per_layer"],
@@ -5810,6 +5986,7 @@ def main() -> None:
          "bound_by": fa_t["bound_by"], **lib(fa_t),
          "f32_bound_ms": fa_t["f32_bound_ms"],
          "speed_references": fa_t["speed_references"],
+         "tuner": tuned("cuda_f32_flash"),
          "at": "one layer of qwen3-4b prefill: B=1 S=4096 H=32 KV=8 hd=128 "
                "causal, bf16 (path C's instance: split-bf16 tensor cores; "
                "bound: three bf16 products at the bf16 peak; library: f32 "
@@ -5837,6 +6014,7 @@ def main() -> None:
          "library": "none: no PyTorch call computes per-row absmax scales "
                     "and the saturating cast in one pass",
          "plan": qz_t["quantize_rows"]["plan"],
+         "tuner": tuned("cuda_quantize_rows"),
          "formats": [f for f in qz_t["formats"] if f != "packed"],
          "routes": qz_t["routes"],
          "prepass_shape": {**times(qz_t["quantize_rows.prepass"]),
@@ -5855,6 +6033,7 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": None,
          "library": "none: PyTorch has no E2M1 encode or nibble pack",
          "plan": qz_t["quantize_pack_rows"]["plan"],
+         "tuner": tuned("cuda_quantize_pack"),
          "formats": ["packed fp4_e2m1"],
          "prepass_shape": {
              **times(qz_t["quantize_pack_rows.prepass"]),
@@ -5902,10 +6081,9 @@ def main() -> None:
     print("roofline: " + json.dumps(ROOFLINE))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))
-    print("prequant plans: " + json.dumps(pq_plans))
-    print("fused plan sweep: " + json.dumps(
-        {"tiled_min_m": TILED_MIN_M, "device_ms": fused_sweep}))
-    print("splitk plans: " + json.dumps(splitk_plans))
+    print("tuner: " + json.dumps({**{k: v for k, v in tune.items()
+                                     if k != "table"},
+                                  "engine": rep_q["tuned"]}))
     print(f"total {t_total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -33,10 +33,11 @@ def dpa_grouped_matmul_fused_ref(x, wq, sw, *, fmt_x: str, fmt_w: str,
 
 
 def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
-                             bk: int = DM.BK, pack_w: bool = False):
+                             bk: int = DM.BK, pack_w: bool = False,
+                             bn=None, split=None):
     """(E, M, K) raw x times pre-quantized expert weights wq ((E, K//2, N)
     packed fp4 or (E, K, N) fp8 codes) with (E, 1, N) column scales ->
-    (E, M, N) f32.
+    (E, M, N) f32.  `bn`, `split`: the split-K override (`fused_plan`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_fused.launches` counts
@@ -44,6 +45,8 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     build.forward_only("dpa_grouped_matmul_fused", x, wq, sw)
     DM.check_fused(x, wq, sw, pack_w,
                    lead=(x.shape[0],) if x.ndim == 3 else (-1,))
+    if bn is not None or split is not None:
+        DM.fused_plan(*x.shape, wq.shape[-1], bn=bn, split=split)
     if x.device.type == "cpu":
         return dpa_grouped_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x,
                                             fmt_w=fmt_w, bk=bk,
@@ -55,7 +58,8 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
     plan = DM.launch_fused(x, wq, sw, out, E, M, K, N, fmt_x=fmt_x,
                            fmt_w=fmt_w, pack_w=pack_w, bk=bk,
-                           what="dpa_grouped_matmul_fused")
+                           what="dpa_grouped_matmul_fused", bn=bn,
+                           split=split)
     census.count(dpa_grouped_matmul_fused, census.launch_work(
         "dpa_grouped_matmul_fused", plan.route, E=E, M=M, K=K, N=N,
         x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
@@ -81,10 +85,11 @@ def dpa_grouped_matmul_prequant_ref(xq, wq, sx, sw, *, fmt_x: str,
 
 
 def dpa_grouped_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
-                                pack_x: bool = False, pack_w: bool = False):
+                                pack_x: bool = False, pack_w: bool = False,
+                                bn=None, split=None):
     """(E, M, K') codes xq times (E, K', N) codes wq with (E, M, 1) row and
     (E, 1, N) column f32 scales -> (E, M, N) f32; K' = K / 2 on a packed
-    side.
+    side.  `bn`, `split`: the launch override (`prequant_plan`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_prequant.launches` counts
@@ -93,13 +98,16 @@ def dpa_grouped_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
     E = xq.shape[0] if xq.ndim == 3 else -1
     M, K, N = DM.check_prequant(xq, wq, sx, sw, pack_x, pack_w, lead=(E,))
     kw = dict(fmt_x=fmt_x, fmt_w=fmt_w, pack_x=pack_x, pack_w=pack_w)
+    if bn is not None or split is not None:
+        DM.prequant_plan(E, M, K, N, bn=bn, split=split)
     if xq.device.type == "cpu":
         return dpa_grouped_matmul_prequant_ref(xq, wq, sx, sw, **kw)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     out = torch.empty((E, M, N), dtype=torch.float32, device=xq.device)
     DM.launch_prequant(xq, wq, sx, sw, out, E, M, K, N,
-                       what="dpa_grouped_matmul_prequant", **kw)
+                       what="dpa_grouped_matmul_prequant", bn=bn,
+                       split=split, **kw)
     census.count(dpa_grouped_matmul_prequant, census.launch_work(
         "dpa_grouped_matmul_prequant", E=E, M=M, K=K, N=N, **kw))
     return out

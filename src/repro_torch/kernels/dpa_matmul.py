@@ -179,13 +179,42 @@ def splitk_rows(M: int, K: int, bn: int, split: int) -> int:
     return bm
 
 
-@functools.lru_cache(maxsize=None)
-def fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
+def fused_plan(E: int, M: int, K: int, N: int, *, bn=None,
+               split=None) -> FusedPlan:
     """The route by shape: "tiled" from `TILED_MIN_M` rows per expert on
     (or where no split-K launch fits), else "splitk" with `splitk_cols`'
     (bn, split) and `splitk_rows`' rows.  Raises for what no route takes:
     K not a positive multiple of 128, N not a positive multiple of 32, E
-    outside [1, 65535], M < 1.  Memoized."""
+    outside [1, 65535], M < 1.  The automatic plan is memoized.
+
+    `bn` and `split` (both or neither) override the split-K route's
+    (bn, split), as the tuner's measured plans do; like the automatic
+    choice they do not depend on M.  An override passes the automatic
+    plan's checks or raises `ValueError`: bn one of `SPLITK_COLS` dividing
+    N, split at most `MAX_CLUSTER` dividing K / 128, the block at 8 rows
+    within `SMEM_LIMIT`.  From `TILED_MIN_M` rows on the tiled route
+    serves, which has no such knobs."""
+    if bn is None and split is None:
+        return _auto_fused_plan(E, M, K, N)
+    _check_fused_shape(E, M, K, N)
+    if bn is None or split is None:
+        raise ValueError(f"a split-K override takes bn and split together; "
+                         f"got bn={bn}, split={split}")
+    bn, split = int(bn), int(split)
+    if bn not in SPLITK_COLS or N % bn:
+        raise ValueError(f"split-K bn must be one of {SPLITK_COLS} dividing "
+                         f"N={N}; got {bn}")
+    if not 1 <= split <= MAX_CLUSTER or (K // BK) % split:
+        raise ValueError(f"split-K split must be 1..{MAX_CLUSTER} dividing "
+                         f"K / {BK} = {K // BK}; got {split}")
+    if splitk_smem_bytes(8, bn, K, split) > SMEM_LIMIT:
+        raise ValueError(f"split-K block (8 rows, bn {bn}, split {split}) "
+                         f"needs more than {SMEM_LIMIT} bytes of shared "
+                         f"memory at K={K}")
+    return _fused_route(E, M, K, N, (bn, split))
+
+
+def _check_fused_shape(E, M, K, N):
     if K <= 0 or K % BK:
         raise ValueError(f"fused kernel needs K % {BK} == 0, K > 0; got "
                          f"K={K}")
@@ -195,7 +224,9 @@ def fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
     if not 1 <= E <= 65535 or M < 1:
         raise ValueError(f"fused kernel needs 1 <= E <= 65535 and M >= 1; "
                          f"got E={E}, M={M}")
-    cols = splitk_cols(E, K, N)
+
+
+def _fused_route(E, M, K, N, cols) -> FusedPlan:
     if M >= TILED_MIN_M or cols is None:
         return FusedPlan("tiled", TILE, TILE, 1,
                          E * -(-M // TILE) * -(-N // TILE))
@@ -205,10 +236,22 @@ def fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
                      E * -(-M // bm) * (N // bn) * split)
 
 
+@functools.lru_cache(maxsize=None)
+def _auto_fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
+    _check_fused_shape(E, M, K, N)
+    return _fused_route(E, M, K, N, splitk_cols(E, K, N))
+
+
+# the memo is the automatic path's alone
+fused_plan.cache_info = _auto_fused_plan.cache_info
+fused_plan.cache_clear = _auto_fused_plan.cache_clear
+
+
 def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
-                 what) -> FusedPlan:
+                 what, bn=None, split=None) -> FusedPlan:
     """Launch the shape's `fused_plan` route on CUDA operands (E = 1
-    dense), or raise for what the kernels do not serve.  -> the plan."""
+    dense), with the split-K override (bn, split) where given, or raise
+    for what the kernels do not serve.  -> the plan."""
     w_fmt = KERNEL_W.get((fmt_w, pack_w))
     if fmt_x != "fp8_e4m3" or w_fmt is None:
         raise NotImplementedError(
@@ -217,7 +260,7 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
             "open in ROADMAP Queue 2 under dpa_matmul_fused (formats open)")
     if bk != BK:
         raise ValueError(f"kernel needs bk == {BK}; got bk={bk}")
-    plan = fused_plan(E, M, K, N)
+    plan = fused_plan(E, M, K, N, bn=bn, split=split)
     if fmt_w == "fp8_e4m3" and wq.dtype != torch.float8_e4m3fn:
         raise TypeError(f"fp8 weights must be float8_e4m3fn, got {wq.dtype}")
     if fmt_w == "fp4_e2m1" and wq.dtype != torch.uint8:
@@ -245,9 +288,11 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
 
 
 def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
-                     pack_w: bool = False):
+                     pack_w: bool = False, bn=None, split=None):
     """(M, K) raw x times pre-quantized wq ((K//2, N) packed fp4 or
-    (K, N) fp8 codes) with (1, N) column scales -> (M, N) f32.
+    (K, N) fp8 codes) with (1, N) column scales -> (M, N) f32.  `bn`,
+    `split`: the split-K route's launch override (`fused_plan`), checked
+    on any device; the plain version has no launch to take it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_fused.launches` counts launches,
@@ -255,6 +300,9 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     (`kernels.census`) their bytes, operations and bound."""
     build.forward_only("dpa_matmul_fused", x, wq, sw)
     check_fused(x, wq, sw, pack_w)
+    if bn is not None or split is not None:
+        fused_plan(1, x.shape[0], x.shape[1], wq.shape[1], bn=bn,
+                   split=split)
     if x.device.type == "cpu":
         return dpa_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x, fmt_w=fmt_w,
                                     bk=bk, pack_w=pack_w)
@@ -265,7 +313,7 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     plan = launch_fused(x, wq, sw, out, 1, M, K, N, fmt_x=fmt_x,
                         fmt_w=fmt_w, pack_w=pack_w, bk=bk,
-                        what="dpa_matmul_fused")
+                        what="dpa_matmul_fused", bn=bn, split=split)
     census.count(dpa_matmul_fused, census.launch_work(
         "dpa_matmul_fused", plan.route, E=1, M=M, K=K, N=N,
         x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
@@ -404,14 +452,43 @@ class PrequantPlan(NamedTuple):
     blocks: int
 
 
-@functools.lru_cache(maxsize=None)
-def prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
+def prequant_plan(E: int, M: int, K: int, N: int, *, bn=None,
+                  split=None) -> PrequantPlan:
     """The smallest split (a cluster size <= 8 dividing K / 128), and at
     it the widest column tile (rows x columns <= `MAX_TILE`), that bring
     the grid to `SMS` blocks; where none does, 16 columns at the largest
     split.  Raises for what the kernel cannot take exactly: K not a
     positive multiple of 128 or not below 2^16, N not a multiple of 16,
-    E outside [1, 65535], M < 1.  Memoized: one lookup per call."""
+    E outside [1, 65535], M < 1.  The automatic plan is memoized: one
+    lookup per call.
+
+    `bn` and `split` (both or neither) override the launch, as the
+    tuner's measured plans do, and pass the same checks or raise
+    `ValueError`: bn one of `COL_TILES` dividing N with bn x row_tile <=
+    `MAX_TILE`, split at most `MAX_CLUSTER` dividing K / 128.  The row
+    tile is the kernel's own choice by M (`launch_rows` in
+    csrc/dpa_prequant.cu picks its template instance), not a launch
+    parameter, so no override reaches it."""
+    if bn is None and split is None:
+        return _auto_prequant_plan(E, M, K, N)
+    row_tile = _check_prequant_shape(E, M, K, N)
+    if bn is None or split is None:
+        raise ValueError(f"a prequant override takes bn and split together;"
+                         f" got bn={bn}, split={split}")
+    bn, split = int(bn), int(split)
+    if bn not in COL_TILES or N % bn or bn * row_tile > MAX_TILE:
+        raise ValueError(f"prequant bn must be one of {COL_TILES} dividing "
+                         f"N={N} with bn x {row_tile} rows <= {MAX_TILE}; "
+                         f"got {bn}")
+    if not 1 <= split <= MAX_CLUSTER or (K // BK) % split:
+        raise ValueError(f"prequant split must be 1..{MAX_CLUSTER} dividing "
+                         f"K / {BK} = {K // BK}; got {split}")
+    return PrequantPlan(bn, split, row_tile,
+                        E * -(-M // row_tile) * (N // bn) * split)
+
+
+def _check_prequant_shape(E, M, K, N) -> int:
+    """Raise for a shape the kernel cannot take; -> its row tile."""
     if K <= 0 or K % BK or K >= K_EXACT:
         raise ValueError(f"prequant kernel needs 0 < K < {K_EXACT} with K % "
                          f"{BK} == 0 (int32 sums exact in f32); got K={K}")
@@ -421,7 +498,12 @@ def prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
     if not 1 <= E <= 65535 or M < 1:
         raise ValueError(f"prequant kernel needs 1 <= E <= 65535 and M >= 1;"
                          f" got E={E}, M={M}")
-    row_tile = next((t for t in ROW_TILES if M <= t), ROW_TILES[-1])
+    return next((t for t in ROW_TILES if M <= t), ROW_TILES[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _auto_prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
+    row_tile = _check_prequant_shape(E, M, K, N)
     tiles = E * -(-M // row_tile)
     splits = [s for s in range(1, MAX_CLUSTER + 1) if (K // BK) % s == 0]
     for split in splits:
@@ -434,6 +516,10 @@ def prequant_plan(E: int, M: int, K: int, N: int) -> PrequantPlan:
                         tiles * (N // bn) * splits[-1])
 
 
+prequant_plan.cache_info = _auto_prequant_plan.cache_info
+prequant_plan.cache_clear = _auto_prequant_plan.cache_clear
+
+
 # the kernel's operand formats (csrc/dpa_prequant.cu), by (format, packed)
 PREQUANT_FMT = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1,
                 ("fp8_e5m2", False): 2, ("fp4_e2m1", False): 3,
@@ -443,11 +529,12 @@ PREQUANT_REFUSED = {("fp16", "bf16"), ("bf16", "fp16")}
 
 
 def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
-                    pack_x, pack_w, what):
+                    pack_x, pack_w, what, bn=None, split=None):
     """Launch `csrc/dpa_prequant.cu` on CUDA operands (E = 1 dense) with
-    the shape's `prequant_plan`, or raise for what the kernel does not
-    serve: every format the Pallas kernel takes, on either side, packed
-    E2M1 or one code a byte, in any mix but fp16 x bf16."""
+    the shape's `prequant_plan` (the override (bn, split) where given), or
+    raise for what the kernel does not serve: every format the Pallas
+    kernel takes, on either side, packed E2M1 or one code a byte, in any
+    mix but fp16 x bf16."""
     for fmt, pack in ((fmt_x, pack_x), (fmt_w, pack_w)):
         if (fmt, pack) not in PREQUANT_FMT:
             raise ValueError(f"{what}: no {fmt} operand format "
@@ -457,7 +544,7 @@ def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
             f"{what} kernel has no exact tensor-core product of {fmt_x} x "
             f"{fmt_w}; open in ROADMAP Queue 2 under dpa_matmul_prequant "
             "(fp16 x bf16)")
-    plan = prequant_plan(E, M, K, N)
+    plan = prequant_plan(E, M, K, N, bn=bn, split=split)
     for name, t, fmt in (("xq", xq, fmt_x), ("wq", wq, fmt_w)):
         if t.dtype != torch_dtype(fmt):
             raise TypeError(f"{what}: {fmt} {name} must be "
@@ -476,22 +563,26 @@ def launch_prequant(xq, wq, sx, sw, out, E, M, K, N, *, fmt_x, fmt_w,
 
 
 def dpa_matmul_prequant(xq, wq, sx, sw, *, fmt_x: str, fmt_w: str,
-                        pack_x: bool = False, pack_w: bool = False):
+                        pack_x: bool = False, pack_w: bool = False,
+                        bn=None, split=None):
     """(M, K') codes xq times (K', N) codes wq with (M, 1) row and (1, N)
-    column f32 scales -> (M, N) f32; K' = K / 2 on a packed side.
+    column f32 scales -> (M, N) f32; K' = K / 2 on a packed side.  `bn`,
+    `split`: the launch override (`prequant_plan`), checked on any device.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_prequant.launches` counts launches."""
     build.forward_only("dpa_matmul_prequant", xq, wq, sx, sw)
     M, K, N = check_prequant(xq, wq, sx, sw, pack_x, pack_w)
     kw = dict(fmt_x=fmt_x, fmt_w=fmt_w, pack_x=pack_x, pack_w=pack_w)
+    if bn is not None or split is not None:
+        prequant_plan(1, M, K, N, bn=bn, split=split)
     if xq.device.type == "cpu":
         return dpa_matmul_prequant_ref(xq, wq, sx, sw, **kw)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     launch_prequant(xq, wq, sx, sw, out, 1, M, K, N, what="dpa_matmul_prequant",
-                    **kw)
+                    bn=bn, split=split, **kw)
     census.count(dpa_matmul_prequant, census.launch_work(
         "dpa_matmul_prequant", E=1, M=M, K=K, N=N, **kw))
     return out

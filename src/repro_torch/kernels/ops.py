@@ -70,11 +70,13 @@ def _prep(w, policy, k_dim: int, bk: int, bn: int) -> dict:
             "n": int(w.shape[-1]), "pack_w": pack_w}
 
 
-def dpa_matmul_fused_pipeline(x, prep: dict, policy, *, bm=128, bk=128):
+def dpa_matmul_fused_pipeline(x, prep: dict, policy, *, bm=128, bk=128,
+                              bn=None, split=None):
     """Fused-quant pipeline: x ships at its native width (f32/bf16) and
     quantizes in the kernel prologue; `prep` holds the load-time weights
     (`prep_weights`).  Pads M and K like the reference, slices, and casts
-    the f32 output back to x's dtype."""
+    the f32 output back to x's dtype.  `bn`, `split`: the split-K launch
+    override (`kernels.dpa_matmul.fused_plan`), passed to the kernel."""
     policy = get_policy(policy)
     lead, K, N = x.shape[:-1], x.shape[-1], prep["n"]
     x2 = x.reshape(-1, K)
@@ -83,16 +85,19 @@ def dpa_matmul_fused_pipeline(x, prep: dict, policy, *, bm=128, bk=128):
     x2p, _ = _pad_to(x2p, bk, 1)
     out = _dm.dpa_matmul_fused(
         x2p.contiguous(), prep["wq"], prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"])
+        fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"], bn=bn,
+        split=split)
     out = out[: x2.shape[0], :N]
     return out.reshape(*lead, N).to(x.dtype)
 
 
-def dpa_matmul_prequant_pipeline(x, prep: dict, policy, *, bm=128, bk=128):
+def dpa_matmul_prequant_pipeline(x, prep: dict, policy, *, bm=128, bk=128,
+                                 bn=None, split=None):
     """Prequant pipeline: a plain quantize pass over x (per-row scales over
     the whole K), codes padded and, on an fp4 side of a packed policy,
     nibble-packed along K; `prep` holds the load-time weights.  Pads,
-    slices and casts like the reference."""
+    slices and casts like the reference.  `bn`, `split`: the launch
+    override (`kernels.dpa_matmul.prequant_plan`)."""
     policy = get_policy(policy)
     lead, K, N = x.shape[:-1], x.shape[-1], prep["n"]
     x2 = x.reshape(-1, K)
@@ -100,7 +105,8 @@ def dpa_matmul_prequant_pipeline(x, prep: dict, policy, *, bm=128, bk=128):
                                  bk, 0)
     out = _dm.dpa_matmul_prequant(
         xq, prep["wq"], sx, prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"])
+        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
+        bn=bn, split=split)
     out = out[: x2.shape[0], :N]
     return out.reshape(*lead, N).to(x.dtype)
 
@@ -132,7 +138,7 @@ def grouped_views(eq: str, x):
 
 
 def dpa_grouped_fused_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
-                               bk=128):
+                               bk=128, bn=None, split=None):
     """Grouped fused-quant pipeline: per-expert rows ship at native width
     and quantize in the kernel prologue; `prep` holds the load-time expert
     weights (`prep_grouped_weights`).  Per-expert M pads to
@@ -145,12 +151,13 @@ def dpa_grouped_fused_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
     x3p, _ = _pad_to(x3p, bk, 2)
     out = _gm.dpa_grouped_matmul_fused(
         x3p.contiguous(), prep["wq"], prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"])
+        fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"], bn=bn,
+        split=split)
     return unview(out[:, :M, :N].to(x.dtype))
 
 
 def dpa_grouped_prequant_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
-                                  bk=128):
+                                  bk=128, bn=None, split=None):
     """Grouped prequant pipeline: the plain quantize pass over every
     expert's rows, then the grouped prequant kernel; padding, slicing and
     the output view as in `dpa_grouped_fused_pipeline`."""
@@ -160,7 +167,8 @@ def dpa_grouped_prequant_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
     xq, sx, pack_x = _quant_acts(x3, policy, min(bm, max(8, M)), bk, 1)
     out = _gm.dpa_grouped_matmul_prequant(
         xq, prep["wq"], sx, prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"])
+        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
+        bn=bn, split=split)
     return unview(out[:, :M, :N].to(x.dtype))
 
 
@@ -170,5 +178,7 @@ def quantize_rows(x, fmt: str, *, pack: bool = False):
     Resolved through `core.exec_plan` op ``quantize_pack``.  The CUDA
     kernel takes any row count, so the reference's `bm` row tile (and its
     padding of rows to it) has no counterpart here."""
-    entry = exec_plan.resolve("quantize_pack", None, fmt=fmt, pack=pack)
+    entry = exec_plan.resolve("quantize_pack", None, fmt=fmt, pack=pack,
+                              m=x.shape[0], k=x.shape[1],
+                              x_dtype=str(x.dtype).replace("torch.", ""))
     return entry.run(x, fmt=fmt, pack=pack)

@@ -55,9 +55,9 @@ class QuantizePlan(NamedTuple):
     blocks: int
 
 
-@functools.lru_cache(maxsize=None)
 def quantize_plan(M: int, K: int, x_dtype: torch.dtype, fmt: str, *,
-                  pack: bool = False, aligned: bool = True) -> QuantizePlan:
+                  pack: bool = False, aligned: bool = True, lanes=None,
+                  nv=None) -> QuantizePlan:
     """The launch by shape: the vector route where K x element bytes is a
     multiple of 16 and the base is 16-byte `aligned`, else the scalar
     route (chunks of two elements).  Each thread aims at `MAX_VECS`
@@ -66,7 +66,39 @@ def quantize_plan(M: int, K: int, x_dtype: torch.dtype, fmt: str, *,
     power-of-two group of lanes (several rows a warp, the absmax by a
     segmented shuffle); a longer one whole warps, one row a block, up to
     1024 threads; past that the row is walked in tiles (the "_reread"
-    routes).  Raises for what the kernel does not take.  Memoized."""
+    routes).  Raises for what the kernel does not take.  The automatic
+    plan is memoized.
+
+    `lanes` and `nv` (both or neither) override the threads a row and
+    the chunks a thread holds, as the tuner's measured plans do: lanes a
+    power of two up to 32 (rows share a block of `GROUP_THREADS`) or a
+    multiple of 32 up to 1024 (one row a block), nv 1 .. `MAX_VECS`, or
+    `ValueError`.  The absmax and the cast are per element, so every plan
+    writes the same bytes."""
+    if lanes is None and nv is None:
+        return _auto_quantize_plan(M, K, x_dtype, fmt, pack=pack,
+                                   aligned=aligned)
+    vector, width, chunks = _quantize_shape(M, K, x_dtype, fmt, pack,
+                                            aligned)
+    if lanes is None or nv is None:
+        raise ValueError(f"a quantize override takes lanes and nv together;"
+                         f" got lanes={lanes}, nv={nv}")
+    lanes, nv = int(lanes), int(nv)
+    if 1 <= lanes <= 32 and not lanes & (lanes - 1):
+        rows = GROUP_THREADS // lanes
+    elif 32 < lanes <= MAX_THREADS and lanes % 32 == 0:
+        rows = 1
+    else:
+        raise ValueError(f"quantize lanes must be a power of two <= 32 or a "
+                         f"multiple of 32 <= {MAX_THREADS}; got {lanes}")
+    if not 1 <= nv <= MAX_VECS:
+        raise ValueError(f"quantize nv must be 1..{MAX_VECS}; got {nv}")
+    return _quantize_route(M, vector, width, chunks, lanes, rows, nv)
+
+
+def _quantize_shape(M, K, x_dtype, fmt, pack, aligned):
+    """Raise for what the kernel does not take; -> (vector, width,
+    chunks a row)."""
     if x_dtype not in _X_BYTES:
         raise TypeError(f"quantize kernel takes f32/bf16 x, got {x_dtype}")
     if fmt not in _KERNEL_FMT or (pack and fmt != "fp4_e2m1"):
@@ -76,7 +108,22 @@ def quantize_plan(M: int, K: int, x_dtype: torch.dtype, fmt: str, *,
                          f"pack); got M={M}, K={K}")
     vector = aligned and K * _X_BYTES[x_dtype] % VECTOR_BYTES == 0
     width = VECTOR_BYTES // _X_BYTES[x_dtype] if vector else 2
-    chunks = -(-K // width)
+    return vector, width, -(-K // width)
+
+
+def _quantize_route(M, vector, width, chunks, lanes, rows, nv):
+    tiles = -(-chunks // (lanes * nv))
+    route = ("vector" if vector else "scalar") + ("_reread" if tiles > 1
+                                                  else "")
+    return QuantizePlan(route, width, lanes, rows, nv, tiles, -(-M // rows))
+
+
+@functools.lru_cache(maxsize=None)
+def _auto_quantize_plan(M: int, K: int, x_dtype: torch.dtype, fmt: str, *,
+                        pack: bool = False,
+                        aligned: bool = True) -> QuantizePlan:
+    vector, width, chunks = _quantize_shape(M, K, x_dtype, fmt, pack,
+                                            aligned)
     if chunks <= 32 * MAX_VECS:
         lanes = 1 << (-(-chunks // MAX_VECS) - 1).bit_length()
         rows = GROUP_THREADS // lanes
@@ -84,10 +131,11 @@ def quantize_plan(M: int, K: int, x_dtype: torch.dtype, fmt: str, *,
         lanes = 32 * min(MAX_THREADS // 32, -(-chunks // (32 * MAX_VECS)))
         rows = 1
     nv = min(MAX_VECS, -(-chunks // lanes))
-    tiles = -(-chunks // (lanes * nv))
-    route = ("vector" if vector else "scalar") + ("_reread" if tiles > 1
-                                                  else "")
-    return QuantizePlan(route, width, lanes, rows, nv, tiles, -(-M // rows))
+    return _quantize_route(M, vector, width, chunks, lanes, rows, nv)
+
+
+quantize_plan.cache_info = _auto_quantize_plan.cache_info
+quantize_plan.cache_clear = _auto_quantize_plan.cache_clear
 
 
 def quantize_rows_ref(x, *, fmt: str):
@@ -118,7 +166,7 @@ def _check(x, pack: bool):
         raise ValueError(f"fp4 packing needs an even K, got {x.shape[1]}")
 
 
-def _launch(x, codes, fmt: str, pack: bool, what: str):
+def _launch(x, codes, fmt: str, pack: bool, what: str, lanes=None, nv=None):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _X_BYTES:
@@ -127,7 +175,8 @@ def _launch(x, codes, fmt: str, pack: bool, what: str):
         raise ValueError(f"{what} kernel needs a contiguous x")
     M, K = x.shape
     plan = quantize_plan(M, K, x.dtype, fmt, pack=pack,
-                         aligned=x.data_ptr() % VECTOR_BYTES == 0)
+                         aligned=x.data_ptr() % VECTOR_BYTES == 0,
+                         lanes=lanes, nv=nv)
     scales = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     err = build.load_library().quantize_rows_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
@@ -138,14 +187,17 @@ def _launch(x, codes, fmt: str, pack: bool, what: str):
     return codes, scales
 
 
-def quantize_rows(x, *, fmt: str):
+def quantize_rows(x, *, fmt: str, lanes=None, nv=None):
     """(M, K) f32/bf16 -> (codes (M, K) in fmt's dtype, or uint8 E2M1
-    codes, scales (M, 1) f32).
+    codes, scales (M, 1) f32).  `lanes`, `nv`: the launch override
+    (`quantize_plan`); the plain version has no launch to take it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `quantize_rows.launches` counts launches."""
     build.forward_only("quantize_rows", x)
     _check(x, False)
+    if lanes is not None or nv is not None:
+        quantize_plan(*x.shape, x.dtype, fmt, lanes=lanes, nv=nv)
     if x.device.type == "cpu":
         return quantize_rows_ref(x, fmt=fmt)
     name = fmt.name if isinstance(fmt, FloatFormat) else fmt
@@ -154,7 +206,7 @@ def quantize_rows(x, *, fmt: str):
             f"quantize_rows kernel serves every format of the format "
             f"table, {sorted(_KERNEL_FMT)}; {fmt!r} is not one")
     codes = torch.empty(x.shape, dtype=torch_dtype(name), device=x.device)
-    out = _launch(x, codes, name, False, "quantize_rows")
+    out = _launch(x, codes, name, False, "quantize_rows", lanes, nv)
     census.count(quantize_rows, census.launch_work(
         "quantize_rows", M=x.shape[0], K=x.shape[1],
         x_bytes=x.element_size(), fmt=name))
@@ -164,19 +216,23 @@ def quantize_rows(x, *, fmt: str):
 census.declare(quantize_rows)
 
 
-def quantize_pack_rows(x):
+def quantize_pack_rows(x, *, lanes=None, nv=None):
     """(M, K) f32/bf16 -> (packed E2M1 codes (M, K / 2) uint8, scales (M,
-    1) f32).
+    1) f32).  `lanes`, `nv`: as `quantize_rows`'.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `quantize_pack_rows.launches` counts launches."""
     build.forward_only("quantize_pack_rows", x)
     _check(x, True)
+    if lanes is not None or nv is not None:
+        quantize_plan(*x.shape, x.dtype, "fp4_e2m1", pack=True, lanes=lanes,
+                      nv=nv)
     if x.device.type == "cpu":
         return quantize_pack_rows_ref(x)
     M, K = x.shape
     codes = torch.empty((M, K // 2), dtype=torch.uint8, device=x.device)
-    out = _launch(x, codes, "fp4_e2m1", True, "quantize_pack_rows")
+    out = _launch(x, codes, "fp4_e2m1", True, "quantize_pack_rows", lanes,
+                  nv)
     census.count(quantize_pack_rows, census.launch_work(
         "quantize_pack_rows", M=M, K=K, x_bytes=x.element_size()))
     return out

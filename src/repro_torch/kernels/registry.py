@@ -9,12 +9,15 @@ version is the wrapper's decision, by the device its tensors lie on — a
 CUDA tensor takes the kernel or raises.  No environment variable turns a
 kernel route off.
 
-Uniform run signatures per op:
+Uniform run signatures per op (a CUDA route also takes its launch-plan
+`knobs` as keywords, and its `plan(policy, ctx, **knobs)` says which
+launch they give at ctx or raises `ValueError`; the tuner sweeps them):
 
-  matmul          run(x, lin, policy) -> (..., N)
-  grouped_matmul  run(x, lin, policy, *, eq) -> einsum output, x.dtype
+  matmul          run(x, lin, policy) -> (..., N); knobs bn, split
+  grouped_matmul  run(x, lin, policy, *, eq) -> einsum output, x.dtype;
+                      knobs bn, split
   flash_attn      run(q, k, v, *, policy, causal, window, offset, valid,
-                      scale, kv_on_grid) -> (B, Sq, H, hd)
+                      scale, kv_on_grid) -> (B, Sq, H, hd); knobs bq, bk
   decode_attn     run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
   paged_decode    run(q, cache, positions, *, policy, scale)
                       -> (B, 1, H, hd)
@@ -23,7 +26,13 @@ Uniform run signatures per op:
   unembed         run(x, table, policy, *, per_row=False)
                       -> (B, S, V) f32
   quantize_pack   run(x, *, fmt, pack, bm=None) -> (codes, (M, 1) f32
-                      scales); bm, the reference's row tile, is ignored
+                      scales); bm, the reference's row tile, is ignored;
+                      knobs lanes, nv
+
+The paged routes declare no knobs: their cluster split sets the bits of
+the sum, and the verify fold must keep the decode step's
+(`kernels/paged_decode.py:fold_plan`).  `tests` names each route's
+`tests/test_torch_*.py` files (`launch/plan_table.py --check`).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
 from repro_torch.core.linear import GROUPED_EQS
 from repro_torch.core.packing import operand_nbytes, pack_fp4_axis
 from repro_torch.core.quantize import fake_quant
+from repro_torch.kernels import dpa_matmul as DM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_decode as PD
@@ -94,12 +104,40 @@ def _prepared(lin):
     return lin
 
 
-def _mm_fused(x, lin, policy):
-    return kops.dpa_matmul_fused_pipeline(x, _prepared(lin), policy)
+def _mm_fused(x, lin, policy, *, bn=None, split=None):
+    return kops.dpa_matmul_fused_pipeline(x, _prepared(lin), policy, bn=bn,
+                                          split=split)
 
 
-def _mm_prequant(x, lin, policy):
-    return kops.dpa_matmul_prequant_pipeline(x, _prepared(lin), policy)
+def _mm_prequant(x, lin, policy, *, bn=None, split=None):
+    return kops.dpa_matmul_prequant_pipeline(x, _prepared(lin), policy,
+                                             bn=bn, split=split)
+
+
+def _up(v: int, mult: int) -> int:
+    return -(-v // mult) * mult
+
+
+def _mm_dims(ctx):
+    """(E, M, K, N) the kernel sees for a linear's ctx: the pipelines pad
+    M to min(128, max(8, M)), K to 128 and (at load) N to 128.  Raises
+    `ValueError` where the ctx carries no shape."""
+    m, k, n = ctx.get("m"), ctx.get("k"), ctx.get("n")
+    if not (m and k and n):
+        raise ValueError(f"no launch plan without m, k, n; ctx {ctx}")
+    return (int(ctx.get("e", 1)), _up(m, min(128, max(8, m))), _up(k, DM.BK),
+            _up(n, 128))
+
+
+def _fused_plan(policy, ctx, *, bn=None, split=None):
+    return DM.fused_plan(*_mm_dims(ctx), bn=bn, split=split)
+
+
+def _prequant_plan(policy, ctx, *, bn=None, split=None):
+    return DM.prequant_plan(*_mm_dims(ctx), bn=bn, split=split)
+
+
+MM_KNOBS = ("bn", "split")
 
 
 def _mm_fake_quant(x, lin, policy):
@@ -132,6 +170,9 @@ def _mm_operand_bytes(policy, ctx):
 exec_plan.register(
     "matmul", "cuda_fused", backend="cuda", run=_mm_fused,
     priority=30, reference="torch_fake_quant", tol=0.35,
+    knobs=MM_KNOBS, plan=_fused_plan,
+    tests=("tests/test_torch_dpa_matmul.py", "tests/test_torch_fused_plan.py",
+           "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {
         "kernel_path": policy.use_kernel,
         "fused_quant": policy.fused_quant,
@@ -143,6 +184,9 @@ exec_plan.register(
 exec_plan.register(
     "matmul", "cuda_prequant", backend="cuda", run=_mm_prequant,
     priority=25, reference="torch_fake_quant", tol=0.35,
+    knobs=MM_KNOBS, plan=_prequant_plan,
+    tests=("tests/test_torch_dpa_matmul.py",
+           "tests/test_torch_prequant_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {
         "kernel_path": policy.use_kernel,
         "prequant": not policy.fused_quant,
@@ -153,12 +197,14 @@ exec_plan.register(
 
 exec_plan.register(
     "matmul", "torch_fake_quant", backend="torch", run=_mm_fake_quant,
-    priority=10,
+    priority=10, tests=("tests/test_torch_model.py",
+                        "tests/test_torch_exec_plan.py"),
     predicate=lambda policy, ctx: {"dpa_enabled": policy.enabled},
     note="STE quant-dequant operands, f32 accumulation")
 
 exec_plan.register(
     "matmul", "torch_f32", backend="torch", run=_mm_f32, priority=0,
+    tests=("tests/test_torch_model.py", "tests/test_torch_engine.py"),
     note="DPA disabled: the f32 datapath")
 
 
@@ -166,13 +212,14 @@ exec_plan.register(
 # grouped_matmul: per-expert einsums (grouped linear / MoE)
 # -----------------------------------------------------------------------------
 
-def _gmm_fused(x, lin, policy, *, eq):
-    return kops.dpa_grouped_fused_pipeline(x, _prepared(lin), policy, eq=eq)
+def _gmm_fused(x, lin, policy, *, eq, bn=None, split=None):
+    return kops.dpa_grouped_fused_pipeline(x, _prepared(lin), policy, eq=eq,
+                                           bn=bn, split=split)
 
 
-def _gmm_prequant(x, lin, policy, *, eq):
+def _gmm_prequant(x, lin, policy, *, eq, bn=None, split=None):
     return kops.dpa_grouped_prequant_pipeline(x, _prepared(lin), policy,
-                                              eq=eq)
+                                              eq=eq, bn=bn, split=split)
 
 
 def _grouped_einsum(eq, x, w):
@@ -232,6 +279,9 @@ def _gmm_kernel_bits(policy, ctx, quant_bit, quant_ok):
 exec_plan.register(
     "grouped_matmul", "cuda_grouped_fused", backend="cuda", run=_gmm_fused,
     priority=30, reference="torch_fake_quant", tol=0.35,
+    knobs=MM_KNOBS, plan=_fused_plan,
+    tests=("tests/test_torch_grouped_matmul.py", "tests/test_torch_moe.py",
+           "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: _gmm_kernel_bits(
         policy, ctx, "fused_quant", policy.fused_quant),
     bytes_moved=_gmm_operand_bytes,
@@ -241,6 +291,9 @@ exec_plan.register(
 exec_plan.register(
     "grouped_matmul", "cuda_grouped_prequant", backend="cuda",
     run=_gmm_prequant, priority=25, reference="torch_fake_quant", tol=0.35,
+    knobs=MM_KNOBS, plan=_prequant_plan,
+    tests=("tests/test_torch_grouped_matmul.py",
+           "tests/test_torch_prequant_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: _gmm_kernel_bits(
         policy, ctx, "prequant", not policy.fused_quant),
     bytes_moved=_gmm_operand_bytes,
@@ -250,6 +303,7 @@ exec_plan.register(
 exec_plan.register(
     "grouped_matmul", "torch_fake_quant", backend="torch",
     run=_gmm_fake_quant, priority=10,
+    tests=("tests/test_torch_grouped_matmul.py", "tests/test_torch_moe.py"),
     predicate=lambda policy, ctx: {"dpa_enabled": policy.enabled},
     bytes_moved=_gmm_wide_bytes,
     note="per-expert STE quant-dequant, f32 accumulation")
@@ -257,6 +311,7 @@ exec_plan.register(
 exec_plan.register(
     "grouped_matmul", "torch_f32", backend="torch", run=_gmm_f32,
     priority=0, bytes_moved=_gmm_wide_bytes,
+    tests=("tests/test_torch_moe.py",),
     note="DPA disabled: plain grouped einsum")
 
 
@@ -277,24 +332,66 @@ def _heads_first(t):
     return t.transpose(1, 2).contiguous()         # (B,S,H,d) -> (B,H,S,d)
 
 
+def _flash_blocks(hd, sq, skv, bq, bk, max_q):
+    """(bq, bk) of a flash launch: by default `FLASH_BLOCK` (q rows at most
+    `max_q`), cut to divide the sequences; an override (both or neither,
+    as the tuner's measured plans give them) is cut to the lengths and
+    must divide them and stay within the kernel's blocks, or
+    `ValueError`."""
+    if bq is None and bk is None:
+        return _fit_block(min(FLASH_BLOCK, max_q), sq), \
+            _fit_block(FLASH_BLOCK, skv)
+    if bq is None or bk is None:
+        raise ValueError(f"a flash override takes bq and bk together; got "
+                         f"bq={bq}, bk={bk}")
+    bq, bk = min(int(bq), sq), min(int(bk), skv)
+    if not (1 <= bq <= max_q and 1 <= bk <= FA.MAX_BLOCK) or sq % bq \
+            or skv % bk:
+        raise ValueError(f"flash blocks must divide Sq={sq} / Sk={skv} "
+                         f"within bq <= {max_q}, bk <= {FA.MAX_BLOCK} at hd "
+                         f"{hd}; got bq={bq}, bk={bk}")
+    return bq, bk
+
+
+def _fa_dims(ctx):
+    hd, sq, skv = ctx.get("hd"), ctx.get("sq"), ctx.get("skv")
+    if not (hd and sq and skv):
+        raise ValueError(f"no launch plan without hd, sq, skv; ctx {ctx}")
+    return hd, sq, skv
+
+
+def _fa_dpa_plan(policy, ctx, *, bq=None, bk=None):
+    hd, sq, skv = _fa_dims(ctx)
+    return _flash_blocks(hd, sq, skv, bq, bk, FA.max_bq(hd))
+
+
+def _fa_f32_plan(policy, ctx, *, bq=None, bk=None):
+    hd, sq, skv = _fa_dims(ctx)
+    return _flash_blocks(hd, sq, skv, bq, bk, FA.MAX_BLOCK)
+
+
 def _fa_cuda_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
-                 kv_on_grid):
+                 kv_on_grid, bq=None, bk=None):
+    bq, bk = _fa_dpa_plan(policy, dict(hd=q.shape[-1], sq=q.shape[1],
+                                       skv=k.shape[1]), bq=bq, bk=bk)
     out = FA.dpa_flash_attention(
         _heads_first(q), _heads_first(k), _heads_first(v),
         fmt=policy.fmt_attn, fmt_kv=_kv_fmt(policy), causal=causal,
-        window=window,
-        bq=_fit_block(min(FLASH_BLOCK, FA.max_bq(q.shape[-1])), q.shape[1]),
-        bk=_fit_block(FLASH_BLOCK, k.shape[1]))
+        window=window, bq=bq, bk=bk)
     return out.transpose(1, 2)
 
 
 def _fa_cuda_f32(q, k, v, *, policy, causal, window, offset, valid, scale,
-                 kv_on_grid):
+                 kv_on_grid, bq=None, bk=None):
+    bq, bk = _fa_f32_plan(policy, dict(hd=q.shape[-1], sq=q.shape[1],
+                                       skv=k.shape[1]), bq=bq, bk=bk)
     out = FA.flash_attention(
         _heads_first(q), _heads_first(k), _heads_first(v), causal=causal,
-        window=window, bq=_fit_block(FLASH_BLOCK, q.shape[1]),
-        bk=_fit_block(FLASH_BLOCK, k.shape[1]))
+        window=window, bq=bq, bk=bk)
     return out.transpose(1, 2)
+
+
+FA_KNOBS = ("bq", "bk")
 
 
 def _fa_dpa(q, k, v, *, policy, causal, window, offset, valid, scale,
@@ -322,6 +419,10 @@ def _fa_common_bits(policy, ctx):
 exec_plan.register(
     "flash_attn", "cuda_dpa_flash", backend="cuda", run=_fa_cuda_dpa,
     priority=30, reference="torch_dpa_attn", tol=0.075,
+    knobs=FA_KNOBS, plan=_fa_dpa_plan,
+    tests=("tests/test_torch_flash_attention.py",
+           "tests/test_torch_flash_plan.py", "tests/test_torch_prefill.py",
+           "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: dict(
         _fa_common_bits(policy, ctx),
         dpa_attn=policy.attn_enabled,
@@ -332,19 +433,25 @@ exec_plan.register(
 exec_plan.register(
     "flash_attn", "cuda_f32_flash", backend="cuda", run=_fa_cuda_f32,
     priority=20, reference="torch_ref_attn", tol=2e-6,
+    knobs=FA_KNOBS, plan=_fa_f32_plan,
+    tests=("tests/test_torch_flash_attention.py",
+           "tests/test_torch_attn_plan.py", "tests/test_torch_prefill.py",
+           "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: dict(
         _fa_common_bits(policy, ctx), f32_attn=not policy.attn_enabled),
     note="the seed f32 flash kernel")
 
 exec_plan.register(
     "flash_attn", "torch_dpa_attn", backend="torch", run=_fa_dpa,
-    priority=10,
+    priority=10, tests=("tests/test_torch_flash_attention.py",
+                        "tests/test_torch_model.py"),
     predicate=lambda policy, ctx: {"dpa_attn": policy.attn_enabled},
     note="any-shape DPA attention (global softmax max)")
 
 exec_plan.register(
     "flash_attn", "torch_ref_attn", backend="torch", run=_fa_ref,
-    priority=0, note="f32 logits + softmax (the seed datapath)")
+    priority=0, tests=("tests/test_torch_flash_attention.py",
+                       "tests/test_torch_model.py"), note="f32 logits + softmax (the seed datapath)")
 
 
 # -----------------------------------------------------------------------------
@@ -365,7 +472,8 @@ def _da_dpa(q, cache, offset, *, policy, scale):
 
 exec_plan.register(
     "decode_attn", "torch_dpa_decode", backend="torch", run=_da_dpa,
-    priority=0,
+    priority=0, tests=("tests/test_torch_model.py",
+                       "tests/test_torch_kvcache.py"),
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     bytes_moved=lambda policy, ctx: _kv_rows_bytes(
         policy, ctx.get("batch", 1) * ctx.get("s_ctx", 0)
@@ -399,6 +507,8 @@ def _pd_view_rows(ctx):
 exec_plan.register(
     "paged_decode", "cuda_block_table", backend="cuda", run=_pd_kernel,
     priority=10, reference="torch_gather", tol=_pd_tol,
+    tests=("tests/test_torch_paged_decode.py",
+           "tests/test_torch_attn_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     bytes_moved=lambda policy, ctx: _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
@@ -407,7 +517,7 @@ exec_plan.register(
 
 exec_plan.register(
     "paged_decode", "torch_gather", backend="torch", run=_pd_gather,
-    priority=0,
+    priority=0, tests=("tests/test_torch_paged_decode.py",),
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     bytes_moved=lambda policy, ctx: 3 * _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
@@ -428,6 +538,8 @@ def _va_gather(q, cache, positions, *, policy, scale):
 exec_plan.register(
     "verify_attn", "cuda_block_table", backend="cuda", run=_pd_kernel,
     priority=10, reference="torch_gather", tol=_pd_tol,
+    tests=("tests/test_torch_spec_decode.py",
+           "tests/test_torch_attn_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     # the fold reads each query row's live rows: S_q passes over the view
     bytes_moved=lambda policy, ctx: ctx.get("sq", 1) * _kv_rows_bytes(
@@ -438,7 +550,7 @@ exec_plan.register(
 
 exec_plan.register(
     "verify_attn", "torch_gather", backend="torch", run=_va_gather,
-    priority=0,
+    priority=0, tests=("tests/test_torch_spec_decode.py",),
     predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
     # gather re-materializes the view (the 3x of paged_decode's), then the
     # batch fold repeats it per query row (write + attention read: 2 more
@@ -472,7 +584,8 @@ def _ue_tied(x, table, policy, *, per_row=False):
 
 exec_plan.register(
     "unembed", "torch_tied_table", backend="torch", run=_ue_tied,
-    priority=0,
+    priority=0, tests=("tests/test_torch_model.py",
+                       "tests/test_torch_spec_decode.py"),
     bytes_moved=lambda policy, ctx: 4 * ctx.get("size", 0),
     note="f32-accumulation logits over the embedding table")
 
@@ -481,14 +594,24 @@ exec_plan.register(
 # quantize_pack: row quantization (+fp4 nibble pack)
 # -----------------------------------------------------------------------------
 
-def _qp_cuda(x, *, fmt, pack, **_):
+def _qp_cuda(x, *, fmt, pack, lanes=None, nv=None, **_):
     # bm, the reference's row tile, is swallowed: the kernel's launch plan
     # (`quantize_plan`) groups threads by row over any row count
     if pack:
         if fmt != "fp4_e2m1":
             raise ValueError("pack=True is the fp4 pipeline")
-        return QZ.quantize_pack_rows(x.contiguous())
-    return QZ.quantize_rows(x.contiguous(), fmt=fmt)
+        return QZ.quantize_pack_rows(x.contiguous(), lanes=lanes, nv=nv)
+    return QZ.quantize_rows(x.contiguous(), fmt=fmt, lanes=lanes, nv=nv)
+
+
+def _qp_plan(policy, ctx, *, lanes=None, nv=None):
+    m, k = ctx.get("m"), ctx.get("k")
+    if not (m and k):
+        raise ValueError(f"no launch plan without m, k; ctx {ctx}")
+    dtype = getattr(torch, ctx.get("x_dtype", "float32"))
+    return QZ.quantize_plan(m, k, dtype, ctx.get("fmt"),
+                            pack=bool(ctx.get("pack", False)), lanes=lanes,
+                            nv=nv)
 
 
 def _qp_torch(x, *, fmt, pack, **_):
@@ -502,6 +625,9 @@ def _qp_torch(x, *, fmt, pack, **_):
 exec_plan.register(
     "quantize_pack", "cuda_quantize_pack", backend="cuda", run=_qp_cuda,
     priority=20, reference="torch_quantize", tol=0.0,
+    knobs=("lanes", "nv"), plan=_qp_plan,
+    tests=("tests/test_torch_quantize_rows.py",
+           "tests/test_torch_quantize_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {"fp4": ctx.get("fmt") == "fp4_e2m1",
                                    "pack": ctx.get("pack", False)},
     note="absmax -> E2M1 cast -> nibble pack, one kernel")
@@ -509,12 +635,15 @@ exec_plan.register(
 exec_plan.register(
     "quantize_pack", "cuda_quantize_rows", backend="cuda", run=_qp_cuda,
     priority=10, reference="torch_quantize", tol=0.0,
+    knobs=("lanes", "nv"), plan=_qp_plan,
+    tests=("tests/test_torch_quantize_rows.py",
+           "tests/test_torch_quantize_plan.py", "tests/test_torch_tuner.py"),
     predicate=lambda policy, ctx: {"unpacked": not ctx.get("pack", False)},
     note="absmax + cast row quantizer")
 
 exec_plan.register(
     "quantize_pack", "torch_quantize", backend="torch", run=_qp_torch,
-    priority=0,
+    priority=0, tests=("tests/test_torch_quantize_rows.py",),
     predicate=lambda policy, ctx: {
         "pack_needs_fp4": (not ctx.get("pack", False))
         or ctx.get("fmt") == "fp4_e2m1"},

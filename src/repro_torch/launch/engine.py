@@ -93,6 +93,12 @@ reductions per query row, `models.layers`, and its linears on the fused
 kernel's split-K route below `TILED_MIN_M` rows, `check_verify_rows`).
 Tensor parallelism is a later slice of the port (ROADMAP Queue 1:
 "Tensor-parallel serving and collectives").
+
+Measured plans (`runtime.tuner`): the engine takes the DB active at its
+construction (`exec_plan.use_tuned_db`), resolves its plans and captures
+its graphs under it, and makes it the active DB while it steps, so eager
+and graphed steps launch the same plans; the report states each plan's
+selection, "tuned" or "prior".
 """
 from __future__ import annotations
 
@@ -284,6 +290,7 @@ class Engine:
                 "blocks keep per-slot state the paged cache does not "
                 "model)")
         pol = get_policy(cfg.policy)
+        self.tuned_db = exec_plan.tuned_db()
         if (spec is not None or adaptive is not None) and cfg.is_moe:
             raise NotImplementedError(
                 f"speculative decoding of a MoE model ({cfg.name}): expert "
@@ -315,6 +322,13 @@ class Engine:
                                  k=cfg.d_model, n=cfg.d_ff)
             self.moe_plan = exec_plan.describe("grouped_matmul", pol,
                                                **self._moe_ctx)
+        # every linear's plan at the decode step's rows (the split-K
+        # route's knobs do not depend on M)
+        from repro_torch.runtime.tuner import linear_shapes
+        self.linear_plans = {
+            f"{k}x{n}": exec_plan.describe(
+                "matmul", pol, w_dtype="float32", m=ecfg.max_batch, k=k,
+                n=n) for k, n in linear_shapes(cfg)["dense"]}
         if ecfg.s_max % ecfg.prefill_chunk:
             raise ValueError(f"S_max ({ecfg.s_max}) must be a multiple of "
                              f"prefill_chunk ({ecfg.prefill_chunk})")
@@ -896,7 +910,14 @@ class Engine:
     def step(self, now: float = 0.0):
         """One scheduler tick: admit, decode the running batch (one
         speculative round in spec mode), spend the leftover token budget
-        on prefill chunks."""
+        on prefill chunks; under the DB active at construction."""
+        before = exec_plan.use_tuned_db(self.tuned_db)
+        try:
+            self._tick(now)
+        finally:
+            exec_plan.use_tuned_db(before)
+
+    def _tick(self, now: float):
         self._admit(now)
         budget = self.ecfg.token_budget - (
             self._spec_decode_all(now) if self.rungs
@@ -983,8 +1004,12 @@ class Engine:
             "p50_ttft_s": pct(ttft, 50),
             "decode_route": self.plan["route"],
             "decode_backend": self.plan["backend"],
-            # the port has no tuned table: resolution is the priority scan
-            "decode_selection": "prior",
+            "decode_selection": self.plan["selection"],
+            "linear_plans": {
+                shape: {"route": d["route"], "selection": d["selection"],
+                        "knobs": d.get("tuned_knobs", {})}
+                for shape, d in self.linear_plans.items()},
+            "tuned_db": self.tuned_db,
             "decode_bytes_per_step_layer": self.plan["bytes_moved"],
             "temperature": self.sampler.temperature,
             "device": str(self.device),
@@ -1081,8 +1106,7 @@ class Engine:
             "moe_top_k": cfg.top_k,
             "moe_grouped_route": plan["route"],
             "moe_grouped_backend": plan["backend"],
-            # the port has no tuned table: resolution is the priority scan
-            "moe_grouped_selection": "prior",
+            "moe_grouped_selection": plan["selection"],
             "moe_grouped_bytes_per_step_layer": plan["bytes_moved"],
             "expert_w_bytes": w_bytes,
             "expert_w_bytes_f32": 4 * n_w,

@@ -28,16 +28,23 @@ Everything runs on `--device` (default "cuda"); `--eager` runs the steps
 without CUDA graphs.  The port's default block table holds 16 pages (the
 reference's 8), so that a 192-token prompt and 32 new tokens fit.
 
+`--tuned-db PATH` serves with a measurement DB (`python -m
+repro_torch.launch.tune`): it is made active (`exec_plan.use_tuned_db`)
+before the model is built, so every plan the steps resolve and capture
+consults it, and the engine takes its fastest engine knobs (page size,
+rescaling `--max-pages-per-req` so S_max is kept, and speculative k), as
+the reference's front end does.
+
 Flags whose modules the port does not have yet exit naming their ROADMAP
 item (Queue 1): `--tp` or `--n-model` above 1 ("Tensor-parallel serving
-and collectives"), `--tuned-db` ("Tuner", which also owns the
-reference's tuner-derived `--spec-k`).
+and collectives").
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -61,7 +68,6 @@ PLAN_ROUTES = {
 
 # refused flags -> the ROADMAP Queue 1 item that brings their module
 _TP_ITEM = "ROADMAP Queue 1, \"Tensor-parallel serving and collectives\""
-_TUNER_ITEM = "ROADMAP Queue 1, \"Tuner\""
 
 
 def plan_routes(policy, shapes=None) -> dict:
@@ -172,9 +178,29 @@ def _refuse_unported(args) -> None:
     if args.tp > 1:
         raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
                          f"ported yet ({_TP_ITEM})")
-    if args.tuned_db:
-        raise SystemExit(f"--tuned-db: the tuner and its measured table "
-                         f"are not ported yet ({_TUNER_ITEM})")
+
+
+def apply_tuned_engine_knobs(args) -> Optional[dict]:
+    """The DB's fastest engine knob point applied to the engine flags:
+    the page size (with `--max-pages-per-req` rescaled so S_max, the
+    tokens a request may hold, is kept) and, where no draft policy was
+    named, speculative k under the tuner's draft policy.  -> the point
+    (None: the DB has none for this environment)."""
+    from repro_torch.runtime import tuner
+    best = tuner.best_engine_knobs(args.tuned_db)
+    if not best:
+        return None
+    ps = int(best.get("page_size", args.page_size))
+    if ps != args.page_size:
+        s_max = args.page_size * args.max_pages_per_req
+        args.max_pages_per_req = max(1, s_max // ps)
+        args.page_size = ps
+    if not args.spec_draft and not args.adaptive_draft and \
+            int(best.get("spec_k", 0)) > 0:
+        args.spec_draft = tuner.ENGINE_DRAFT_POLICY
+        args.spec_k = int(best["spec_k"])
+    print(f"tuned engine knobs from {args.tuned_db}: {best}")
+    return best
 
 
 def run_engine(cfg, model, params, args):
@@ -289,7 +315,9 @@ def main(argv=None):
     eg.add_argument("--json", default="",
                     help="also dump the engine report to this JSON file")
     eg.add_argument("--tuned-db", default="",
-                    help="tuned measurement DB (not ported yet)")
+                    help="measurement DB (python -m repro_torch.launch."
+                         "tune): measured launch plans for every route, "
+                         "and the engine's page size and speculative k")
     sg = ap.add_argument_group("sampling + speculation", "engine mode")
     sg.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
@@ -310,7 +338,19 @@ def main(argv=None):
                          "static --spec-draft policy")
     args = ap.parse_args(argv)
     _refuse_unported(args)
+    if not args.tuned_db:
+        return serve(args)
+    before = exec_plan.use_tuned_db(args.tuned_db)
+    try:
+        if args.engine:
+            apply_tuned_engine_knobs(args)
+        return serve(args)
+    finally:
+        exec_plan.use_tuned_db(before)
 
+
+def serve(args):
+    """Build the model and serve as the parsed flags say."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)

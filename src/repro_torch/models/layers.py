@@ -147,7 +147,7 @@ def _sdpa(q, k, v, *, causal, window, offset, valid=None, use_flash=False,
     B, Sq, H, hd = q.shape
     policy = get_policy(policy if policy is not None else "fp32")
     entry = exec_plan.resolve("flash_attn", policy, sq=Sq,
-                              skv=k.shape[1], use_flash=use_flash,
+                              skv=k.shape[1], hd=hd, use_flash=use_flash,
                               has_valid=valid is not None,
                               kv_on_grid=kv_on_grid)
     if (entry.backend != "cuda" and q_chunk and Sq > q_chunk

@@ -435,9 +435,7 @@ def test_front_end_static_mode_and_moe_line():
                  id="flags3-Tensor-parallel serving and collectives"),
     pytest.param(("--n-model", "2",),
                  "Tensor-parallel serving and collectives",
-                 id="flags4-Tensor-parallel serving and collectives"),
-    pytest.param(("--engine", "--tuned-db", "tuned.json"), "Tuner",
-                 id="flags5-Tuner")])
+                 id="flags4-Tensor-parallel serving and collectives")])
 def test_front_end_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit) as exc:
         _main(*flags)
@@ -447,6 +445,33 @@ def test_front_end_refuses_unported_flags(flags, item):
 ENGINE_SMALL = ("--engine", "--requests", "3", "--prompt-len", "10", "--gen",
                 "5", "--page-size", "8", "--prefill-chunk", "8",
                 "--max-batch", "2")
+
+
+def test_front_end_serves_with_a_tuned_db(tmp_path):
+    """`--engine --tuned-db` at reduced size: the DB's fastest engine point
+    (page size 8, S_max kept) is applied and printed, the engine takes the
+    DB (its linears' plans say "tuned"), and the front end closes it
+    again."""
+    from repro_torch.core import exec_plan
+    from repro_torch.runtime import tuner
+    db = str(tmp_path / "tuned.json")
+
+    def measure(cfg, reps):
+        slow = cfg["knobs"].get("page_size") == 16
+        return {"us": 2.0 if slow else 1.0, "reps": reps, "spread": 0.0}
+
+    tuner.run_sweep(db, smoke=True, ops=[tuner.ENGINE_OP, "matmul"],
+                    policies=[tuner.ENGINE_POLICY, "w4a8_kv4_attn8"],
+                    measure=measure)
+    flags = list(ENGINE_SMALL)
+    flags[flags.index("--page-size") + 1] = "16"
+    rep, text = _main(*flags, "--policy", "w4a8_kv4_attn8", "--tuned-db", db)
+    assert f"tuned engine knobs from {db}: {{'page_size': 8, 'spec_k': 0}}" \
+        in text
+    assert rep["n_requests"] == 3 and rep["tuned_db"] == db
+    assert all(p["selection"] == "tuned"
+               for p in rep["linear_plans"].values())
+    assert exec_plan.tuned_db() is None
 
 
 @pytest.mark.parametrize("flags,line", [
