@@ -117,8 +117,9 @@ Phases (every failure raises; the exit code is then non-zero):
    read just after.  The serving paths run eagerly (`graphs=False`, the
    reference) and with their steps as CUDA graphs
    (`launch.graphs.StepGraph`; a replay adds its capture's counts), the
-   engines four times in turns (`SERVE_ORDER`), `generate` once each
-   way, and every request's tokens must be equal in every run; after the
+   engines three times in turns (`SERVE_ORDER`; the eager run serves the
+   first `EAGER_REQUESTS`), `generate` once each way, and every request's
+   tokens must be equal in every run that serves it; after the
    first graphed run one profiler window over a single replay of each
    graph must show each
    watched kernel (`dpa_fused_kernel`, `paged_decode`,
@@ -275,8 +276,8 @@ Phases (every failure raises; the exit code is then non-zero):
       CPU's own step is then held at 1e-2 (`TRAIN_FLIP_LEAF`);
    b. granite-moe-1b at its published widths under its config's fp8_dpa,
       remat full, attn_chunk 512, logits_chunk 512, bf16 compute and f32
-      masters: 8 steps of batch 2 x 4096 on `SyntheticLM`, lr 1e-3 with 2
-      warmup steps; every loss and grad norm finite and step 8's loss
+      masters: 4 steps of batch 2 x 4096 on `SyntheticLM`, lr 1e-3 with 2
+      warmup steps; every loss and grad norm finite and step 4's loss
       below step 1's; median step wall, trained tokens/s, the device
       busy share of one profiled step, peak memory, one `batch()`;
    c. granite at full width cut to 4 layers: two identical backward
@@ -286,6 +287,23 @@ Phases (every failure raises; the exit code is then non-zero):
       restore seconds printed);
    d. `launch.train.main` in the process (reduced granite, 6 steps,
       async checkpoints every 3), its lines printed.
+6. Tensor parallelism (`run_tp`): two gloo ranks share the card
+   (`launch.mesh.run_ranks`; NCCL refuses two ranks on one card).
+   qwen3-4b under w4a8_kv4_attn8 at phase 3a's geometry, eager, greedy
+   on 2 of phase 3's requests cut to 8 new tokens, two requests behind a
+   40-token shared prefix with the prefix cache on (a hit with a
+   copy-on-write page) and one self-draft round of k 2: the tp=1 engine in this process, then
+   each rank at tp 2 on its own seeded copy of the weights (half of
+   every page of the pool, the sharded routes, whose body is the paged
+   decode kernel after the pool all-gather); every rank's tokens and
+   launch counts must equal tp=1's.  Then granite-moe-1b-a400m under
+   fp8_dpa, B 1 x S 1024 a rank, 2 steps of `make_compressed_train_step`
+   on the f32 route and on the E4M3 wire: losses equal across ranks,
+   params the same bits on every rank, the f32 route within 1e-4 of the
+   same rows stepped in one process, the E4M3 wire's first loss within
+   1e-3 and its params within 5e-3, its residual live.  Pool bytes, wire
+   bytes, decode-step walls, gloo's take on CUDA tensors and each rank's
+   peak memory are printed.
 
 Prints the engine reports, the prefill and scoring results, the
 profiles and the route tables (`roofline:`) as JSON, the phase times, the
@@ -2927,7 +2945,11 @@ def _capture_line(name, st) -> str:
             f"{st['max_allocated_after'] / 1e9:.3f} GB")
 
 
-SERVE_ORDER = ("eager", "graphed", "graphed", "eager")
+SERVE_ORDER = ("eager", "graphed", "graphed")
+# requests of an engine's eager reference run: the first 4 of phase 3's 8
+# (a request's tokens do not depend on the batch it rides in: phase 3g
+# serves two requests alone against their in-batch tokens)
+EAGER_REQUESTS = 4
 
 
 def workload(cfg, **kw):
@@ -3039,9 +3061,10 @@ def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
 
 
 def run_engine(cfg, ecfg, tuned=False):
-    """The engine over 8 requests eagerly (`graphs=False`, the reference)
-    and with its steps as CUDA graphs, in turns (`SERVE_ORDER`): every
-    request's tokens equal in every run, the launch counts the config
+    """The engine over 8 requests with its steps as CUDA graphs, and over
+    the first `EAGER_REQUESTS` eagerly (`graphs=False`, the reference), in
+    turns (`SERVE_ORDER`): every request's tokens equal in every run that
+    serves it, the launch counts the config
     implies on each run, and one profiler window over a single replay of
     each graph of the first graphed run holding its kernels to the
     capture's counts.  The first run of each mode is the one reported
@@ -3063,7 +3086,7 @@ def run_engine(cfg, ecfg, tuned=False):
     tune = tune_engine(cfg, params) if tuned else None
     reps, served = {"eager": [], "graphed": []}, []
     for i, mode in enumerate(SERVE_ORDER):
-        reqs = workload(cfg)
+        reqs = workload(cfg)[:EAGER_REQUESTS if mode == "eager" else None]
         db = str(TUNE_DB) if tuned and i == TUNED_RUN else None
         before = exec_plan.use_tuned_db(db)
         try:
@@ -3091,7 +3114,10 @@ def run_engine(cfg, ecfg, tuned=False):
     if not restore():
         raise AssertionError("non-finite logits")
     for i, run in enumerate(served[1:], 1):
-        differ = [a.rid for a, b in zip(served[0], run)
+        # the first graphed run against the eager run on its requests, a
+        # later one against the first graphed run on all of them
+        ref = served[0] if i == 1 else served[1]
+        differ = [a.rid for a, b in zip(ref, run)
                   if a.out_tokens != b.out_tokens]
         if tune is not None and i == TUNED_RUN:
             tune["requests_differ"] = differ
@@ -3101,12 +3127,14 @@ def run_engine(cfg, ecfg, tuned=False):
                 continue
         if differ:
             raise AssertionError(f"{cfg.name}: run {i} ({SERVE_ORDER[i]}) "
-                                 "gave other tokens than the eager run 0 "
-                                 f"for requests {differ}")
+                                 f"gave other tokens than run {int(i > 1)} "
+                                 f"({SERVE_ORDER[int(i > 1)]}) for "
+                                 f"requests {differ}")
     rep, reqs = reps["graphed"][0], served[SERVE_ORDER.index("graphed")]
     print(f"{cfg.name}: every request's tokens equal in all "
           f"{len(SERVE_ORDER)} runs ({' '.join(SERVE_ORDER)}; "
-          f"{rep['gen_tokens']} tokens each)" if tune is None else
+          f"{rep['gen_tokens']} tokens each graphed, the eager run the "
+          f"first {EAGER_REQUESTS} requests)" if tune is None else
           f"{cfg.name}: {len(tune['requests_differ'])} of {len(reqs)} "
           f"requests' tokens differ in the tuned run {TUNED_RUN} (every "
           f"split the static one: {tune['same_splits']}), none in the "
@@ -3299,8 +3327,9 @@ FRONT_END_LINES = ("engine: 8 reqs", "latency: p50", "ttft p50",
 
 def run_sampled(cfg, ecfg, model, params, greedy_tokens, greedy_prof):
     """Sampled decoding (temperature 0.8, top-k 50, top-p 0.95, seed 7)
-    on phase 3's workload, eagerly and graphed: every request's tokens
-    equal in both runs and other than the greedy ones somewhere; two
+    on phase 3's workload, graphed, and eagerly on its first
+    `EAGER_REQUESTS`: every request's tokens equal in both runs and the
+    graphed ones other than the greedy ones somewhere; two
     requests served alone get their in-batch tokens (the decode step has
     a fixed shape, so only the slot and the other rows differ); a
     temperature-0 config with a seed and top-k gives the greedy run's
@@ -3311,7 +3340,7 @@ def run_sampled(cfg, ecfg, model, params, greedy_tokens, greedy_prof):
     scfg = SamplerConfig(**SAMPLED)
     runs = {}
     for mode in ("eager", "graphed"):
-        reqs = workload(cfg)
+        reqs = workload(cfg)[:EAGER_REQUESTS if mode == "eager" else None]
         rep, counts, engine = serve_once(
             f"{cfg.name} sampled engine ({mode})", cfg, model, params, ecfg,
             reqs, sampler=scfg, graphs=mode == "graphed")
@@ -3325,7 +3354,7 @@ def run_sampled(cfg, ecfg, model, params, greedy_tokens, greedy_prof):
     if graphed == greedy_tokens:
         raise AssertionError("the sampled run gave the greedy tokens")
     print(f"{cfg.name} sampled ({SAMPLED}): graphed tokens equal the eager "
-          f"run's for all {len(graphed)} requests; "
+          f"run's for its {len(eager)} requests; "
           f"{sum(a != b for a, b in zip(graphed, greedy_tokens))} requests' "
           "tokens differ from greedy")
     for i in ALONE:
@@ -3458,7 +3487,8 @@ PROBE_OPS = ("apply_norm", "apply_linear", "rope", "apply_attention",
 # requests of a's workload the runs with slow draft steps serve (the
 # fake-quant rungs re-quantize every f32 master weight each step): the
 # first four, one batch, whose greedy tokens do not depend on the rest
-SPEC_FEW = 4
+SPEC_FEW = 2                      # requests of the other spec runs,
+SPEC_NEW = 8                      # each cut to this many new tokens
 FRONT_END_ADAPTIVE = ["--arch", "qwen3-4b", "--engine", "--policy",
                       "w4a8_kv4_attn8", "--adaptive-draft", "--requests", "4",
                       "--prompt-len", "96", "--gen", "16"]
@@ -3626,15 +3656,25 @@ def _spec_line(name, rep, plain, prof) -> str:
             f"{rep['tokens_per_s'] / plain['tokens_per_s']:.2f}x); {steps}")
 
 
+def spec_requests(cfg, cut=True):
+    """The first `SPEC_FEW` of phase 3's requests, each cut to `SPEC_NEW`
+    new tokens (the prefix of their greedy tokens) unless `cut` is off."""
+    reqs = workload(cfg)[:SPEC_FEW]
+    for r in reqs:
+        r.max_new = min(r.max_new, SPEC_NEW) if cut else r.max_new
+    return reqs
+
+
 def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     """Phase 3j: qwen3-4b at full width under its serving policy, graphed,
     speculative: the row-invariance probe; a self-draft at k = 4 (every
     draft accepted, phase 3a's greedy tokens for all 8 requests); on the
-    first `SPEC_FEW` requests a static w4a4_kv4_attn4 draft (their greedy
+    first `SPEC_FEW` requests cut to `SPEC_NEW` new tokens
+    (`spec_requests`) a static w4a4_kv4_attn4 draft (their greedy
     tokens), the default adaptive ladder under the default controller and
-    under one that switches every round (the greedy tokens; every rung's
-    attention format launched), and a sampled adaptive run twice (both
-    drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
+    (the requests whole) under one that switches every round (the greedy
+    tokens; every rung's attention format launched), and a sampled
+    adaptive run twice (both drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
     against the plain graphed engine, one replay of each draft and verify
     step profiled (once a step) and the pools' bytes.  -> (reports,
     counts summed)."""
@@ -3654,12 +3694,15 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
              dict(adaptive=ladder, ctrl_step=_every_round_cycler)))
     counts, profiles = [], {}
     for name, kw in runs:
-        reqs = workload(cfg)[:None if name == "self-draft" else SPEC_FEW]
+        # the switch-every-round run keeps its requests whole: it must
+        # draft enough rounds to walk every rung
+        reqs = (workload(cfg) if name == "self-draft" else spec_requests(
+            cfg, cut=not name.startswith("adaptive, every")))
         rep, n, engine = serve_once(f"{cfg.name} spec engine, {name}", cfg,
                                     model, params, ecfg, reqs, **kw)
         counts.append(n)
         differ = [r.rid for r in reqs
-                  if r.out_tokens != greedy_tokens[r.rid]]
+                  if r.out_tokens != greedy_tokens[r.rid][:r.max_new]]
         if differ:
             raise AssertionError(f"spec {name}: requests {differ} differ "
                                  "from the plain greedy tokens")
@@ -3693,7 +3736,7 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     sampled = []
     for i in range(2):
         name = f"sampled adaptive {i + 1}"
-        reqs = workload(cfg)[:SPEC_FEW]
+        reqs = spec_requests(cfg)
         rep, n, engine = serve_once(
             f"{cfg.name} spec engine, {name}", cfg, model, params, ecfg,
             reqs, sampler=SamplerConfig(**SAMPLED), adaptive=ladder)
@@ -5004,7 +5047,7 @@ TRAIN_POLICIES = ("fp8_dpa", "fp32")
 TRAIN_CPU_RTOL = 1e-4
 TRAIN_CPU_LEAF = 1e-3
 TRAIN_FLIP_LEAF = 1e-2
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 REPLAY_LAYERS, REPLAY_STEPS, REPLAY_EVERY, REPLAY_FAIL_AT = 4, 6, 3, 4
 # kernel families of a train step's profile (cuBLAS GEMMs, dtype casts
@@ -5417,6 +5460,362 @@ def run_training():
     return out
 
 
+# -----------------------------------------------------------------------------
+# phase 6: tensor parallelism on one card (two gloo ranks sharing it)
+# -----------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_BACKEND = "gloo"               # NCCL refuses two ranks on one card
+TP_TIMEOUT = 600.0                # s the ranks may take, both paths
+TP_REQUESTS = 2                   # the first of phase 3's 8 requests,
+TP_NEW = 8                        # each cut to this many new tokens
+TP_PREFIX = 40                    # shared prefix: 2.5 pages of 16, a CoW
+TP_SPEC_K = 2                     # one self-draft round of k tokens
+TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 1, 1024, 2   # per rank
+TP_REPORT = ("tp", "tp_requested", "tp_fallback_reason", "decode_route",
+             "verify_route", "draft_route", "tp_backend",
+             "tp_wire_staged_through_host", "tp_wire_bytes_per_step_layer",
+             "tp_wire_bytes_per_step", "pool_bytes_per_device",
+             "pool_bytes_allocated_per_device", "prefix_hits",
+             "prefix_cow_copies", "acceptance_rate", "spec_rounds",
+             "decode_steps", "prefill_calls", "gen_tokens", "wall_s")
+
+
+def tp_serving(cfg, model, params, ecfg, tp):
+    """Phase 6's three eager engine runs at TP width `tp` (1: the
+    reference, in this process): greedy over the first TP_REQUESTS of
+    phase 3's requests, cut to TP_NEW new tokens; two requests of 4 new
+    tokens behind a TP_PREFIX-token shared
+    prefix served one after the other with the prefix cache on (the
+    second hits, with a copy-on-write page); one self-draft request of
+    one round of TP_SPEC_K tokens on the split-K route.  Each run's
+    counters are zeroed just before `Engine.run` and read just after,
+    and held to the launches the run implies.  -> {run: tokens, counts,
+    report, decode-step walls}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.engine import (Engine, Request,
+                                           synthetic_workload)
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    def one(name, ecfg_, reqs, spec=None, sequential=False):
+        engine = Engine(model, params, dataclasses.replace(ecfg_, tp=tp),
+                        device="cuda", graphs=False, spec=spec)
+        walls, decode = [], engine._decode_batch
+
+        def timed(now):
+            t0 = time.perf_counter()
+            n = decode(now)
+            if n:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return n
+        engine._decode_batch = timed
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.monotonic()
+        if sequential:
+            for r in reqs:
+                engine.run([r])
+            rep = engine.report(time.monotonic() - t0)
+        else:
+            rep = engine.run(reqs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(f"{cfg.name} tp={tp} {name}", counts,
+                     engine_counts(cfg, rep, spec_rungs(engine)))
+        out = {"tokens": [list(r.out_tokens) for r in reqs],
+               "counts": counts,
+               "report": {k: rep[k] for k in TP_REPORT if k in rep},
+               "decode_step_ms": sorted(walls)[len(walls) // 2]
+               if walls else None}
+        del engine
+        gc.collect()
+        return out
+
+    first = workload(cfg)[:TP_REQUESTS]
+    for r in first:
+        r.max_new = min(r.max_new, TP_NEW)
+    spec_req = Request(rid=0, prompt=first[0].prompt, max_new=TP_SPEC_K + 2)
+    return {
+        "greedy": one("greedy", ecfg, first),
+        "prefix": one("prefix", dataclasses.replace(ecfg, prefix_cache=True),
+                      synthetic_workload(2, vocab=cfg.vocab_size, seed=1,
+                                         prompt_range=(24, 40),
+                                         gen_range=(4, 4),
+                                         shared_prefix=TP_PREFIX),
+                      sequential=True),
+        "spec": one("spec", ecfg, [spec_req],
+                    spec=SpecConfig(cfg.policy, k=TP_SPEC_K))}
+
+
+def gloo_cuda_all_gather(group) -> dict:
+    """Whether this torch's gloo all_gather takes CUDA tensors (PyTorch
+    documents gloo on the GPU for all_reduce and broadcast only).  A
+    probe, reported: the wire stages CUDA tensors through host memory
+    under gloo whatever it finds (`distributed.tp.STAGES_THROUGH_HOST`)."""
+    import torch
+    import torch.distributed as dist
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    x = torch.full((4,), float(rank), device="cuda")
+    parts = [torch.empty_like(x) for _ in range(n)]
+    try:
+        dist.all_gather(parts, x, group=group)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return {"takes_cuda": False, "error": str(exc).splitlines()[0][:200]}
+    return {"takes_cuda": True, "exact": all(
+        bool((p == float(i)).all()) for i, p in enumerate(parts))}
+
+
+def tp_train(rank, group) -> dict:
+    """granite-moe-1b-a400m at full width under fp8_dpa, data-parallel:
+    each rank steps TP_TRAIN_STEPS times on its TP_TRAIN_B x TP_TRAIN_S
+    row of the seeded batch, through `make_compressed_train_step` on the
+    f32 route and on the E4M3 wire, from the same seeded state; each
+    route's losses, step walls, residual, per-rank wire bytes and
+    whether every rank's params are the same bits.  Rank 0 then runs the
+    single-process references: the same rows' gradients in one process,
+    averaged in rank order and one AdamW update a step (what the f32
+    route computes across ranks; each route's largest param difference
+    from it).  Not against `make_train_step` on the joined batch: under
+    fp8_dpa its activation scales are per tensor and see both rows, so
+    its loss is another function's (PERF.md §6, PR 30)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import recip
+    from repro_torch.core.tree import flatten_with_paths, leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.step import (init_err_state,
+                                              make_compressed_train_step,
+                                              make_loss_fn, value_and_grad)
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config("granite-moe-1b-a400m").replace(policy="fp8_dpa")
+    model = build_model(cfg, device="cuda")
+    opt = adamw.AdamWConfig(lr=1e-3, total_steps=10)   # the reference test's
+    pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    batch=TP_RANKS * TP_TRAIN_B,
+                                    seq=TP_TRAIN_S, seed=0), device="cuda")
+    batches = [pipe.batch(i) for i in range(TP_TRAIN_STEPS)]
+
+    def rows(b, r):
+        return {k: v[r * TP_TRAIN_B:(r + 1) * TP_TRAIN_B].contiguous()
+                for k, v in b.items()}
+    out, kept = {}, {}
+    for fmt in (None, "fp8_e4m3"):
+        state = build_state(model, 0)
+        state["err"] = init_err_state(state["params"])
+        step = make_compressed_train_step(model, opt, group, fmt_name=fmt)
+        losses, walls = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, rows(b, rank))
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        route = fmt or "f32"
+        out[route] = {
+            "losses": losses, "step_walls_ms": walls,
+            "err_max": max(float(e.abs().max()) for e in
+                           leaves(state["err"])),
+            "replicas_agree": C.replicas_agree(state["params"], group),
+            "wire_bytes_per_step": C.wire_bytes(state["params"],
+                                                fmt or "fp32")}
+        if rank == 0:
+            kept[route] = {p: t.detach().clone() for p, t in
+                           flatten_with_paths(state["params"])}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        grad_fn = value_and_grad(make_loss_fn(model))
+        state = build_state(model, 0)
+        losses = []
+        for b in batches:
+            # the ranks' rows one after the other, their gradients and
+            # losses summed in rank order as they come
+            (_, parts), grads = grad_fn(state["params"], rows(b, 0))
+            loss = parts["loss"].clone()
+            for r in range(1, TP_RANKS):
+                (_, parts), more = grad_fn(state["params"], rows(b, r))
+                tree_map(lambda g, m: g.add_(m), grads, more)
+                loss += parts["loss"]
+                del more
+            grads = tree_map(lambda g: g.mul_(recip(TP_RANKS)), grads)
+            adamw.update(opt, grads, state["opt"], state["params"],
+                         model.decay_mask(state["params"]))
+            losses.append(float(loss * recip(TP_RANKS)))
+            del grads
+        final = dict(flatten_with_paths(state["params"]))
+        diffs = {route: max(float((final[p] - t).abs().max())
+                            for p, t in params.items())
+                 for route, params in kept.items()}
+        del state, final, kept
+        out["single"] = {"losses": losses, "max_param_diff": diffs}
+    return out
+
+
+def _tp_rank(rank, device, qwen, ecfg):
+    """One rank of phase 6 (run by `launch.mesh.run_ranks`, the group
+    active): the gloo probe, the TP serving runs on its own full-width
+    qwen3-4b (the seeded weights of this process's phase 3a), then the
+    compressed train steps; each path's peak memory."""
+    import torch
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import build as kbuild
+    kbuild.load_library()
+    group = TP.active_group()
+    out = {"gloo_cuda_all_gather": gloo_cuda_all_gather(group)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, params = build(qwen)
+    out["serving"] = tp_serving(qwen, model, params, ecfg, TP_RANKS)
+    out["serving_peak_gb"] = _peak_gb()
+    out["serving_s"] = time.monotonic() - t0
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out["train"] = tp_train(rank, group)
+    out["train_peak_gb"] = _peak_gb()
+    out["train_s"] = time.monotonic() - t0
+    return out
+
+
+def run_tp(qwen, ecfg):
+    """Phase 6: tensor parallelism on one card.  The tp=1 eager engine
+    serves phase 6's runs here (`tp_serving`) on phase 3a's seeded
+    weights; then TP_RANKS gloo ranks share the card (`run_ranks`),
+    each serving the same runs at tp=TP_RANKS on its own copy of the
+    weights and stepping the compressed train step (`tp_train`).  Holds:
+    every rank at tp 2 with no fallback on the sharded routes, its
+    tokens equal to tp=1's bit for bit, its launch counts (paged decode,
+    split-K) equal to tp=1's; the train step's losses equal across
+    ranks, the f32 route's losses and params within 1e-4 of the single
+    process and a zero residual, the E4M3 wire's first loss within 1e-3
+    and params within 5e-3 and a live residual, every rank's params the
+    same bits on both routes.  Everything is printed before it is
+    held."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.monotonic()
+    model, params = build(qwen)
+    ref = tp_serving(qwen, model, params, ecfg, 1)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.monotonic() - t0
+    store = ROOT / "build" / f"tp_store_{int(time.time() * 1e3)}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    t1 = time.monotonic()
+    ranks = run_ranks(_tp_rank, TP_RANKS, backend=TP_BACKEND, device="cuda",
+                      timeout=TP_TIMEOUT, init_method=f"file://{store}",
+                      args=(qwen, ecfg))
+    t_ranks = time.monotonic() - t1
+    train = [res["train"] for res in ranks]
+    single = train[0]["single"]
+    g = ref["greedy"]
+    r0 = ranks[0]["serving"]["greedy"]
+    rep = r0["report"]
+    print(f"tp: {TP_RANKS} {TP_BACKEND} ranks on one card: tp=1 reference "
+          f"{t_ref:.1f} s, the ranks {t_ranks:.1f} s (serving "
+          f"{[round(r['serving_s'], 1) for r in ranks]} s, training "
+          f"{[round(r['train_s'], 1) for r in ranks]} s); pool "
+          f"{rep['pool_bytes_allocated_per_device'] / 1e6:.2f} MB allocated "
+          f"a rank ({rep['pool_bytes_per_device'] / 1e6:.3f} MB of pages in "
+          f"use), wire {rep['tp_wire_bytes_per_step'] / 1e6:.2f} MB a decode "
+          f"step ({rep['tp_wire_bytes_per_step_layer'] / 1e3:.1f} KB a "
+          f"layer), staged through host memory "
+          f"{rep['tp_wire_staged_through_host']}; decode step median "
+          f"{r0['decode_step_ms']:.1f} ms at tp {TP_RANKS} vs "
+          f"{g['decode_step_ms']:.1f} ms at tp 1 (greedy wall tp 1 "
+          f"{g['report']['wall_s']:.2f} s, rank 0 {rep['wall_s']:.2f} s); "
+          "gloo all_gather on CUDA tensors: "
+          f"{ranks[0]['gloo_cuda_all_gather']}")
+    print(f"tp train (granite-moe-1b-a400m fp8_dpa, {TP_RANKS} x B "
+          f"{TP_TRAIN_B} x S {TP_TRAIN_S}): f32 route losses "
+          f"{train[0]['f32']['losses']}, E4M3 wire "
+          f"{train[0]['fp8_e4m3']['losses']}, single process (the ranks' "
+          f"rows) {single['losses']}; max param diff from the single "
+          f"process {single['max_param_diff']}; E4M3 residual max "
+          f"{train[0]['fp8_e4m3']['err_max']:.3e}; wire a step a rank f32 "
+          f"{train[0]['f32']['wire_bytes_per_step'] / 1e9:.3f} GB, E4M3 "
+          f"{train[0]['fp8_e4m3']['wire_bytes_per_step'] / 1e9:.3f} GB")
+    for i, r in enumerate(ranks):
+        walls = {k: [round(w, 1) for w in r["train"][k]["step_walls_ms"]]
+                 for k in ("f32", "fp8_e4m3")}
+        print(f"tp rank {i}: peak {r['serving_peak_gb']:.2f} GB serving, "
+              f"{r['train_peak_gb']:.2f} GB training; train steps (ms) f32 "
+              f"{walls['f32']}, E4M3 {walls['fp8_e4m3']}")
+    bad = []
+    for rank, res in enumerate(ranks):
+        for name, want in ref.items():
+            got = res["serving"][name]
+            rrep = got["report"]
+            if rrep["tp"] != TP_RANKS or "tp_fallback_reason" in rrep or \
+                    rrep["decode_route"] != "paged_decode_sharded":
+                bad.append(f"rank {rank} {name}: report {rrep}")
+            if got["tokens"] != want["tokens"]:
+                bad.append(f"rank {rank} {name}: tokens {got['tokens']} != "
+                           f"tp=1's {want['tokens']}")
+            if got["counts"] != want["counts"]:
+                bad.append(f"rank {rank} {name}: launches {got['counts']} "
+                           f"!= tp=1's {want['counts']}")
+        if res["serving"]["spec"]["report"]["verify_route"] != \
+                "verify_attn_sharded":
+            bad.append(f"rank {rank}: spec verify route")
+        if not res["serving"]["prefix"]["report"]["prefix_cow_copies"]:
+            bad.append(f"rank {rank}: no prefix hit with a CoW page")
+    # the f32 route against the single process on every step's loss and
+    # the params (tests/test_distributed.py's 1e-4); the E4M3 wire, as the
+    # reference's test holds it, on the loss entering its update (1e-3)
+    # and the params after it (5e-3), with a live residual; its later
+    # losses are reported (PERF.md)
+    for route, n_loss, tol, p_tol in (("f32", TP_TRAIN_STEPS, 1e-4, 1e-4),
+                                      ("fp8_e4m3", 1, 1e-3, 5e-3)):
+        losses = [t[route]["losses"] for t in train]
+        if any(x != losses[0] for x in losses[1:]):
+            bad.append(f"train {route}: the ranks' losses differ {losses}")
+        errs = [abs(a - b) for a, b in zip(losses[0][:n_loss],
+                                           single["losses"])]
+        if max(errs) >= tol or single["max_param_diff"][route] >= p_tol:
+            bad.append(f"train {route}: loss diffs {errs} (tol {tol}), "
+                       f"param diff {single['max_param_diff'][route]} "
+                       f"(tol {p_tol})")
+        if not all(t[route]["replicas_agree"] for t in train):
+            bad.append(f"train {route}: params differ between ranks")
+        if [t[route]["err_max"] > 0 for t in train] != \
+                [route != "f32"] * TP_RANKS:
+            bad.append(f"train {route}: residuals "
+                       f"{[t[route]['err_max'] for t in train]}")
+    if bad:
+        raise AssertionError("phase 6: " + "; ".join(bad))
+    print(f"tp: every rank's tokens equal the tp=1 eager engine's in all "
+          f"{len(ref)} runs (greedy, a prefix hit with a CoW copy, one "
+          "self-draft round), launch counts equal tp=1's; the train step's "
+          "params the same bits on every rank on both routes")
+    out = {"seconds": {"tp1_reference": t_ref, "ranks": t_ranks},
+           "launches": add_counts(
+               *[v["counts"] for v in ref.values()],
+               *[v["counts"] for r in ranks for v in r["serving"].values()]),
+           "tp1": {k: {"report": v["report"], "counts": v["counts"],
+                       "decode_step_ms": v["decode_step_ms"]}
+                   for k, v in ref.items()},
+           "ranks": [{"gloo_cuda_all_gather": r["gloo_cuda_all_gather"],
+                      "serving": {k: {"report": v["report"],
+                                      "decode_step_ms": v["decode_step_ms"]}
+                                  for k, v in r["serving"].items()},
+                      "serving_peak_gb": r["serving_peak_gb"],
+                      "serving_s": r["serving_s"], "train": r["train"],
+                      "train_peak_gb": r["train_peak_gb"],
+                      "train_s": r["train_s"]} for r in ranks]}
+    return out
+
+
 def profile_engine(model, params, ecfg, sampler=None,
                    modes=("eager", "graphed"), prefill=True):
     """One steady decode step (4 live requests; the scheduler's host work,
@@ -5760,6 +6159,11 @@ def main() -> None:
     t_fam = time.monotonic() - t_start
     # phase 5: training
     train = run_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.monotonic() - t_start
+    # phase 6: tensor parallelism, two gloo ranks sharing the card
+    tp = run_tp(qwen, ecfg)
     t_total = time.monotonic() - t_start
     print(f"phase times: kernels {t_kernels:.1f} s (of which the tuner "
           f"{tune['seconds']:.1f} s), qwen3-4b engine "
@@ -5772,8 +6176,11 @@ def main() -> None:
           f"{t_granite - t_front:.1f} s, quantize_pack op "
           f"{t_quant - t_granite:.1f} s, recurrent families "
           f"{t_rec - t_quant:.1f} s, encoder-decoder and VLM "
-          f"{t_fam - t_rec:.1f} s, training {t_total - t_fam:.1f} s")
+          f"{t_fam - t_rec:.1f} s, training {t_train - t_fam:.1f} s, "
+          f"tensor parallelism {t_total - t_train:.1f} s")
     n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
+    # phase 6: the tp=1 reference's runs and every rank's
+    n_tp = tp["launches"]
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
@@ -5805,10 +6212,12 @@ def main() -> None:
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"]
          + n_rec["dpa_matmul_fused"]
-         + n_fam["dpa_matmul_fused"],
+         + n_fam["dpa_matmul_fused"] + n_tp["dpa_matmul_fused"],
          "splitk_launches": n_serve["dpa_matmul_fused.splitk"]
          + n_rec["dpa_matmul_fused.splitk"]
-         + n_fam["dpa_matmul_fused.splitk"],
+         + n_fam["dpa_matmul_fused.splitk"]
+         + n_tp["dpa_matmul_fused.splitk"],
+         "tp_launches": n_tp["dpa_matmul_fused"],
          "max_abs_err": max(mm_err, gmm_err, tl_err, *fam_mm.values()),
          **times(mm_t),
          "families": fam_mm,
@@ -5857,7 +6266,9 @@ def main() -> None:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:332",
-         "launches": n_serve["paged_decode_attention"],
+         "launches": n_serve["paged_decode_attention"]
+         + n_tp["paged_decode_attention"],
+         "tp_launches": n_tp["paged_decode_attention"],
          "max_abs_err": max(pd_err, gpd_err), **times(pd_t),
          "bound_by": pd_t["bound_by"], "library_ms": None,
          "split": pd_t["split"], "splits_device_ms": pd_t["splits_device_ms"],
@@ -6078,6 +6489,7 @@ def main() -> None:
                   for k, v in r.items() if isinstance(v, dict)
                   and "wall_s" in v))
     print("train: " + json.dumps(train))
+    print("tp: " + json.dumps(tp))
     print("roofline: " + json.dumps(ROOFLINE))
     print("datapath: " + json.dumps({"seconds": t_dp, **dp_t,
                                      "prequant_vs_oracle": pqo_t}))

@@ -165,22 +165,40 @@ def make_block_table(n_slots: int, max_pages: int, device="cpu"):
                       device=device)
 
 
+def _shard_rows(ps_local: int, shard) -> tuple:
+    """(first row, page size) of the rank's slice of every page: a pool
+    sharded over n ranks holds rows [r * page / n, (r + 1) * page / n)
+    of each page on rank r (`distributed.sharding.cache_placement`)."""
+    rank, n = shard
+    if not 0 <= rank < n:
+        raise ValueError(f"shard {shard}: rank outside the group")
+    return rank * ps_local, ps_local * n
+
+
 def paged_write_tokens(cache, k_new, v_new, positions, *, fmt,
-                       packed: bool = False):
+                       packed: bool = False, shard=(0, 1)):
     """Quantize S_new tokens per batch slot into its pages (in place).
 
     k_new/v_new: (B, S_new, KV, hd); positions: (B,) int32 timeline index
     of each slot's first new token; token i of row b lands at
     (table[b, p // page], p % page) with p = positions[b] + i.  Idle
     slots carry an all-scratch table row, so their writes hit the scratch
-    page."""
-    ps = cache["k_codes"].shape[1]
+    page.  `shard` (rank, ranks): the pool holds only the rank's rows of
+    every page (`_shard_rows`); a token whose row lies on another rank
+    is written to the scratch page's first row instead, which no live
+    request reads (no host sync, no conflicting writes)."""
+    ps_local = cache["k_codes"].shape[1]
+    lo, ps = _shard_rows(ps_local, shard)
     table = cache["block_table"]
     s_new = k_new.shape[1]
     pos = positions.to(torch.int64)[:, None] + torch.arange(
         s_new, device=k_new.device)[None]
     page = torch.gather(table.to(torch.int64), 1, pos // ps)
-    slot = pos % ps
+    slot = pos % ps - lo
+    if ps_local != ps:
+        mine = (slot >= 0) & (slot < ps_local)
+        page = torch.where(mine, page, SCRATCH_PAGE)
+        slot = torch.where(mine, slot, 0)
     kc, ks = quantize_kv(k_new, fmt=fmt, packed=packed)
     vc, vs = quantize_kv(v_new, fmt=fmt, packed=packed)
     for key, new in (("k_codes", kc), ("k_scale", ks),
@@ -203,13 +221,16 @@ def gather_paged_kv(cache):
 
 
 def write_prefill_rows(cache, rows, page_ids, length: int, *,
-                       start: int = 0):
+                       start: int = 0, shard=(0, 1)):
     """Scatter a prefill's rows [`start`, `length`) into pages (in place).
 
     rows: contiguous-layout dict with leaves (S, KV, ...) for one request;
     page_ids: the request's pages in timeline order; rows before `start`
-    (a shared prefix) are not rewritten."""
-    ps = cache["k_codes"].shape[1]
+    (a shared prefix) are not rewritten.  `shard` (rank, ranks): the pool
+    holds only the rank's rows of every page, and only those are written,
+    at their offset within the rank's slice."""
+    ps_local = cache["k_codes"].shape[1]
+    first, ps = _shard_rows(ps_local, shard)
     n_need = -(-length // ps) if length else 0
     if n_need > len(page_ids):
         raise ValueError(f"{length} rows need {n_need} pages, "
@@ -219,12 +240,13 @@ def write_prefill_rows(cache, rows, page_ids, length: int, *,
     for key in QUANT_KEYS:
         pool, src = cache[key], rows[key]
         for j in range(n_need):
-            if (j + 1) * ps <= start:
+            # the page's global rows [lo, n), cut to the rank's slice
+            lo = max(start - j * ps, first)
+            n = min(length - j * ps, first + ps_local)
+            if lo >= n:
                 continue
             pid = int(page_ids[j])
-            lo = max(start - j * ps, 0)
-            n = min(ps, length - j * ps)
-            pool[pid, lo:n] = src[j * ps + lo:j * ps + n]
+            pool[pid, lo - first:n - first] = src[j * ps + lo:j * ps + n]
     return cache
 
 
@@ -238,15 +260,22 @@ def gather_page_rows(cache, page_ids, length: int) -> dict:
     if n_need > len(page_ids):
         raise ValueError(f"{length} rows need {n_need} pages, "
                          f"got {len(page_ids)}")
+    return {key: pages.reshape((-1,) + pages.shape[2:])[:length]
+            for key, pages in select_pages(cache, page_ids[:n_need]).items()}
+
+
+def select_pages(cache, page_ids) -> dict:
+    """The pool leaves' pages `page_ids`, in order, as (n, page, KV, ...)
+    copies, bit for bit (selected on the leaves' bit patterns, so any
+    narrow dtype moves unchanged)."""
     dev = cache["k_codes"].device
-    ids = torch.tensor([int(p) for p in page_ids[:n_need]],
-                       dtype=torch.int64, device=dev)
+    ids = torch.tensor([int(p) for p in page_ids], dtype=torch.int64,
+                       device=dev)
     out = {}
     for key in QUANT_KEYS:
         pool = cache[key]
         bits = pool.view(_BITS[pool.element_size()])
-        rows = bits.index_select(0, ids).reshape((-1,) + pool.shape[2:])
-        out[key] = rows[:length].view(pool.dtype)
+        out[key] = bits.index_select(0, ids).view(pool.dtype)
     return out
 
 

@@ -9,7 +9,11 @@ all of them (the reference's `jax.checkpoint` body).  A mean is a sum
 times f32(1/n), as the jitted reference computes it.
 
 `make_train_step` is `jax.value_and_grad` of the loss (torch autograd)
-and the in-place AdamW update (`optim.adamw`).  Training runs the torch
+and the in-place AdamW update (`optim.adamw`).
+`make_compressed_train_step` is its data-parallel form over a
+`torch.distributed` group: one process per rank, each on its slice of
+the batch, the gradients reduced through the exec plan's `allreduce` op
+(`distributed.collectives`).  Training runs the torch
 routes only, as the reference's runs its XLA routes: the CUDA kernels
 are forward-only, so a policy whose linears or attention resolve to a
 kernel route is refused (`check_trainable`).
@@ -28,8 +32,8 @@ from repro_torch.models import layers as L
 from repro_torch.optim import adamw
 from repro_torch.serving.sampler import greedy_tokens
 
-COLLECTIVES_ITEM = ("ROADMAP Queue 1, \"Tensor-parallel serving and "
-                    "collectives\"")
+MODEL_PARALLEL_ITEM = ("ROADMAP Queue 1, \"Model-parallel serving and "
+                       "training (`--n-model`)\"")
 
 
 def _logsumexp(logits):
@@ -169,13 +173,54 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig):
     return train_step
 
 
-def make_compressed_train_step(model, opt_cfg, mesh, fmt_name="fp8_e4m3",
-                               axis="data"):
-    """The data-parallel step with wire-compressed gradient reduction
-    needs collectives the port does not have yet."""
-    raise NotImplementedError(
-        f"make_compressed_train_step reduces gradients across devices: "
-        f"{COLLECTIVES_ITEM}")
+def make_compressed_train_step(model, opt_cfg: adamw.AdamWConfig, group,
+                               fmt_name="fp8_e4m3"):
+    """Data-parallel train step with wire-compressed gradient reduction
+    over `group` (which takes the place of the reference's mesh axis).
+
+    Every rank holds the params and optimizer state whole and calls the
+    step on its own slice of the batch: its loss and gradients, then the
+    gradients reduced through the exec plan's ``allreduce`` op (the
+    wire-compressed route when `fmt_name` names a wire format: codes at
+    format width plus f32 scales, error feedback carried in
+    state["err"]; the f32 route when it is None), then the same AdamW
+    update on every rank.  Each rank sums the widened partials in rank
+    order, so the ranks' params stay bit-identical
+    (`collectives.replicas_agree`).  The loss and its parts are means
+    over the ranks.  state["err"] is the rank's own residual
+    (`init_err_state`); it checkpoints with the rest of the state."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tp as TP
+    from repro_torch.distributed.collectives import CompressedReducer
+    check_trainable(model)
+    grad_fn = value_and_grad(make_loss_fn(model))
+    reducer = CompressedReducer(fmt_name)
+    n = dist.get_world_size(group)
+
+    def mean(x):
+        return TP.psum(x, group) * recip(n)
+
+    def train_step(state, batch):
+        params, opt_state = state["params"], state["opt"]
+        (total, parts), grads = grad_fn(params, batch)
+        grads, err = reducer.reduce(grads, state["err"], group,
+                                    n_devices=n)
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                             params, model.decay_mask(params))
+        metrics = {"loss": mean(parts["loss"]), "aux": mean(parts["aux"]),
+                   "total": mean(total), **om}
+        return {"params": params, "opt": opt_state, "err": err}, metrics
+
+    return train_step
+
+
+def init_err_state(params):
+    """The rank's zero error-feedback residuals, f32, in params'
+    structure (the reference stacks one per device on a leading axis;
+    here each rank holds its own)."""
+    from repro_torch.distributed.collectives import ef_state_like
+    return ef_state_like(params)
 
 
 def make_prefill_step(model):

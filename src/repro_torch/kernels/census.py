@@ -28,6 +28,12 @@ or a path's bound is the sum of its launches' bounds, not the bound of
 their summed bytes and operations: a launch that waits on memory does
 not lend its idle tensor cores to the next one.
 
+`pool_gather_work` counts the sharded paged routes' one collective, the
+pool all-gather of tensor-parallel serving (`distributed.tp`): the bytes
+a rank receives over the interconnect, bounded by the card's NVLink rate
+(`wire_bound_s`), the counterpart of the reference roofline's collective
+term.
+
 `declare` and `count` keep the wrappers' counters (`kernels.counters`):
 each launch adds one to `.launches` and its work to `.bytes`, `.ops`
 and `.bound_s`, and the same to `.<route>_launches`, `.<route>_bytes`,
@@ -45,6 +51,8 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM5 80GB HBM3 (data sheet)
 FP8_OPS_PER_S = 1979e12           # H100 SXM5 dense fp8 tensor-core peak
 FP16_OPS_PER_S = 989e12           # H100 SXM5 dense fp16 / bf16 peak
 F32_OPS_PER_S = 67e12             # H100 SXM5 f32 outside the tensor cores
+LINK_BYTES_PER_S = 450e9          # H100 SXM5 NVLink 4, one direction (of
+                                  # the data sheet's 900 GB/s both ways)
 PEAK_OPS = {"fp8_e4m3": FP8_OPS_PER_S, "fp8_e5m2": FP8_OPS_PER_S,
             "fp4_e2m1": FP8_OPS_PER_S, "fp16": FP16_OPS_PER_S,
             "bf16": FP16_OPS_PER_S, "fp32": F32_OPS_PER_S}
@@ -165,6 +173,23 @@ def _quantize_pack(M, K, x_bytes):
     out."""
     return Work(M * K * x_bytes + M * K // 2 + M * 4, 0,
                 PEAK_OPS["fp4_e2m1"])
+
+
+def pool_gather_work(n_ranks: int, pool_rows: int, hd: int, fmt: str,
+                     packed: bool = False) -> int:
+    """Bytes one rank receives in one layer's pool all-gather (the
+    sharded `paged_decode` / `verify_attn` routes): the other (n-1)/n of
+    the pool's K and V rows, codes and one f32 scale a row; 0 on one
+    rank."""
+    if n_ranks <= 1:
+        return 0
+    row = (hd // 2 if packed else hd * CODE_BYTES[fmt]) + 4
+    return int((n_ranks - 1) / n_ranks * 2 * pool_rows * row)
+
+
+def wire_bound_s(nbytes: float) -> float:
+    """The least time for `nbytes` received over NVLink, s."""
+    return nbytes / LINK_BYTES_PER_S
 
 
 # wrapper -> {route: counting function}; None is the wrapper's own launch

@@ -1,6 +1,6 @@
 """The port's routing table: every `core.exec_plan` route of the port's
 slices (port of `repro.kernels.registry`, without the reference's
-training and TP ops).
+training-only and native-narrow routes).
 
 Each op's lowest-priority route is a plain PyTorch route whose predicate
 checks only semantic viability.  The kernel routes' predicates follow the
@@ -28,6 +28,12 @@ launch they give at ctx or raises `ValueError`; the tuner sweeps them):
   quantize_pack   run(x, *, fmt, pack, bm=None) -> (codes, (M, 1) f32
                       scales); bm, the reference's row tile, is ignored;
                       knobs lanes, nv
+  allreduce       run(grad, err, *, group, fmt_name) -> (mean over the
+                      group's ranks, new error-feedback residual)
+
+The paged routes' ctx carries `n_devices`, the ranks of the active TP
+group (`distributed.tp`): the single-device routes serve n_devices 1,
+the `*_sharded` routes a pool sharded over several ranks.
 
 The paged routes declare no knobs: their cluster split sets the bits of
 the sum, and the verify fold must keep the decode step's
@@ -47,6 +53,7 @@ from repro_torch.core.quantize import fake_quant
 from repro_torch.kernels import dpa_matmul as DM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.census import pool_gather_work
 from repro_torch.kernels import paged_decode as PD
 from repro_torch.kernels import quantize as QZ
 from repro_torch.models import decode_attn as D
@@ -504,12 +511,18 @@ def _pd_view_rows(ctx):
             * ctx.get("page_size", 0) * ctx.get("kv_heads", 1))
 
 
+def _one_device_bits(policy, ctx):
+    """A single-device paged route: a quantized pool, all on this rank."""
+    return {"kv_quantized": policy.kv_quantized,
+            "single_device": ctx.get("n_devices", 1) <= 1}
+
+
 exec_plan.register(
     "paged_decode", "cuda_block_table", backend="cuda", run=_pd_kernel,
     priority=10, reference="torch_gather", tol=_pd_tol,
     tests=("tests/test_torch_paged_decode.py",
            "tests/test_torch_attn_plan.py", "tests/test_torch_tuner.py"),
-    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    predicate=_one_device_bits,
     bytes_moved=lambda policy, ctx: _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
     note="pages read through the block table; live rows only, codes + "
@@ -518,7 +531,7 @@ exec_plan.register(
 exec_plan.register(
     "paged_decode", "torch_gather", backend="torch", run=_pd_gather,
     priority=0, tests=("tests/test_torch_paged_decode.py",),
-    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    predicate=_one_device_bits,
     bytes_moved=lambda policy, ctx: 3 * _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
     note="gather_paged_kv re-materializes the contiguous view")
@@ -540,7 +553,7 @@ exec_plan.register(
     priority=10, reference="torch_gather", tol=_pd_tol,
     tests=("tests/test_torch_spec_decode.py",
            "tests/test_torch_attn_plan.py", "tests/test_torch_tuner.py"),
-    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    predicate=_one_device_bits,
     # the fold reads each query row's live rows: S_q passes over the view
     bytes_moved=lambda policy, ctx: ctx.get("sq", 1) * _kv_rows_bytes(
         policy, _pd_view_rows(ctx), ctx.get("hd", 0)),
@@ -551,7 +564,7 @@ exec_plan.register(
 exec_plan.register(
     "verify_attn", "torch_gather", backend="torch", run=_va_gather,
     priority=0, tests=("tests/test_torch_spec_decode.py",),
-    predicate=lambda policy, ctx: {"kv_quantized": policy.kv_quantized},
+    predicate=_one_device_bits,
     # gather re-materializes the view (the 3x of paged_decode's), then the
     # batch fold repeats it per query row (write + attention read: 2 more
     # view passes per query row)
@@ -560,6 +573,125 @@ exec_plan.register(
     note="per-request causal mask over the gathered block-table view, the "
          "(B, S_q) query axis folded into the batch, so row i reduces as "
          "a decode step at positions[b] + i")
+
+
+# -----------------------------------------------------------------------------
+# sharded paged attention: the pool lives 1/n per rank (within-page rows,
+# `distributed.sharding.cache_placement`), the wire carries format-width
+# codes + per-row scales, and the reassembled pool runs the route a single
+# device would.  Equal to tp=1 bit for bit by construction: no cross-rank
+# float reduction touches the softmax.
+# -----------------------------------------------------------------------------
+
+def _sharded_run(op):
+    """A sharded route's run: the pool all-gathered, then the route this
+    rank's device runs without the group (on the card `cuda_block_table`,
+    the paged decode kernel; on the CPU the same route's plain version)."""
+    def run(q, cache, positions, *, policy, scale):
+        from repro_torch.distributed import tp as TP
+        body = exec_plan.resolve(op, policy, n_devices=1, sq=q.shape[1])
+        return TP.sharded_paged_attn(
+            lambda q, full, pos: body.run(q, full, pos, policy=policy,
+                                          scale=scale), q, cache, positions)
+    return run
+
+
+def _pool_rows(ctx):
+    """Rows in the whole page pool (what the all-gather moves)."""
+    return (ctx.get("n_pages", 0) * ctx.get("page_size", 0)
+            * ctx.get("kv_heads", 1))
+
+
+def _tp_wire_bytes(policy, ctx):
+    """Bytes a rank receives for the pool all-gather (the reference's
+    formula, `kernels.census.pool_gather_work`)."""
+    return pool_gather_work(ctx.get("n_devices", 1), _pool_rows(ctx),
+                            ctx.get("hd", 0), policy.fmt_kv, policy.kv_packed)
+
+
+def _sharded_bits(policy, ctx):
+    return {"kv_quantized": policy.kv_quantized,
+            "multi_device": ctx.get("n_devices", 1) > 1}
+
+
+def _sharded_bytes(op):
+    """The single-device body's bytes at ctx plus the pool's wire."""
+    def bytes_moved(policy, ctx):
+        one = dict(ctx, n_devices=1)
+        body = exec_plan.resolve(op, policy, **one)
+        return body.bytes_moved(policy, one) + _tp_wire_bytes(policy, ctx)
+    return bytes_moved
+
+
+_SHARDED_NOTE = (
+    "all-gather the pool shards at format width (pure relayout), then the "
+    "route one device runs: the paged decode kernel on the card, its "
+    "plain version on the CPU.  The reference's body is its jnp_gather "
+    "route; the port's is the single-device route of its own plan, so "
+    "tp=N equals the port's tp=1 on the same device bit for bit")
+
+exec_plan.register(
+    "paged_decode", "paged_decode_sharded", backend="torch",
+    run=_sharded_run("paged_decode"),
+    priority=20, reference="torch_gather", tol=_pd_tol,
+    predicate=_sharded_bits, bytes_moved=_sharded_bytes("paged_decode"),
+    tests=("tests/test_torch_tp.py",), note=_SHARDED_NOTE)
+
+exec_plan.register(
+    "verify_attn", "verify_attn_sharded", backend="torch",
+    run=_sharded_run("verify_attn"),
+    priority=20, reference="torch_gather", tol=_pd_tol,
+    predicate=_sharded_bits, bytes_moved=_sharded_bytes("verify_attn"),
+    tests=("tests/test_torch_tp.py",),
+    note="sharded speculative verify: the same pool all-gather, then the "
+         "single-device verify route (the decode kernel's fold on the "
+         "card)")
+
+
+# -----------------------------------------------------------------------------
+# allreduce: gradient / partial reduction over a TP or data group.
+# run(grad, err, *, group, fmt_name) -> (mean, new_err)
+# -----------------------------------------------------------------------------
+
+def _ar_wire(grad, err, *, group, fmt_name):
+    from repro_torch.distributed.collectives import ef_compress_allreduce
+    return ef_compress_allreduce(grad, err, group, fmt_name)
+
+
+def _ar_f32(grad, err, *, group, fmt_name):
+    # the f32 wire leaves no residual: the error state is zeroed in place
+    # (a train step carries it from step to step, as AdamW's state)
+    from repro_torch.distributed.collectives import f32_allreduce_mean
+    return f32_allreduce_mean(grad, group), err.zero_()
+
+
+def _wire_fmt_bytes(ctx, default_bits=32):
+    from repro_torch.core.formats import get_format
+    fmt = ctx.get("wire_fmt")
+    bits = get_format(fmt).bits if fmt else default_bits
+    return ctx.get("size", 0) * bits // 8
+
+
+exec_plan.register(
+    "allreduce", "wire_compressed", backend="torch", run=_ar_wire,
+    priority=10, reference="torch_psum_f32", tol=0.1,
+    predicate=lambda policy, ctx: {
+        "multi_device": ctx.get("n_devices", 1) > 1,
+        "wire_fmt": ctx.get("wire_fmt") is not None},
+    bytes_moved=lambda policy, ctx: _wire_fmt_bytes(ctx) + 4,
+    tests=("tests/test_torch_collectives.py",),
+    note="error-feedback all-gather at wire-format width, f32 accumulation "
+         "in rank order (the DPA contract on the wire); tol is the fp8 "
+         "wire's quantization noise, which the residual feedback cancels "
+         "over steps")
+
+exec_plan.register(
+    "allreduce", "torch_psum_f32", backend="torch", run=_ar_f32, priority=0,
+    predicate=lambda policy, ctx: {},
+    bytes_moved=lambda policy, ctx: 4 * ctx.get("size", 0),
+    tests=("tests/test_torch_collectives.py",),
+    note="f32 all-gather, summed in rank order, times f32(1/n) (4 bytes "
+         "an element on the wire); also the identity on a one-rank group")
 
 
 # -----------------------------------------------------------------------------

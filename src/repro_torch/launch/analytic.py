@@ -12,6 +12,15 @@ kernels move: serving weights are counted at the compute dtype unless
 codes.  `kernels.census` counts what each launch of the port reads and
 writes.
 
+Wire model (per device, `cell_wire_bytes_per_device`): the port's
+tensor-parallel collectives.  A decode step all-gathers every full
+attention layer's KV pool at format width (codes + per-row f32 scales,
+`kernels.census.pool_gather_work`) under a kv-quantized policy, or,
+over raw caches, sums flash decoding's partial softmax (max,
+denominator and numerator, f32) over the ranks.  Weights are replicated
+and prefill is a single-rank reduction, so train and prefill cells move
+nothing on the wire.
+
 Byte model (per device):
   train   = opt traffic (params+m+v read&write, f32) + weight fwd/bwd
             reads + activation stores/loads per layer
@@ -156,3 +165,21 @@ def cell_hbm_bytes_per_device(cfg: ModelConfig, seq: int, batch: int,
         elif k == "slstm":
             cache += n * batch * cfg.d_model * 4 * 4
     return wread + cache / n_chips + batch * cfg.d_model * act_b
+
+
+def cell_wire_bytes_per_device(cfg: ModelConfig, seq: int, batch: int,
+                               kind: str, n_chips: int) -> float:
+    """Bytes one device receives over the interconnect in one step."""
+    if kind != "decode" or n_chips <= 1:
+        return 0.0
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels.census import pool_gather_work
+    pol = get_policy(cfg.policy)
+    n_attn = sum(n for k, n in _pattern_counts(cfg).items()
+                 if k in ("attn", "dec"))
+    if pol.kv_quantized:
+        return n_attn * pool_gather_work(
+            n_chips, batch * seq * cfg.n_kv_heads, cfg.hd, pol.fmt_kv,
+            pol.kv_packed)
+    # max, denominator (B, H) and numerator (B, H, hd) from each other rank
+    return n_attn * (n_chips - 1) * batch * cfg.n_heads * (2 + cfg.hd) * 4.0

@@ -91,8 +91,20 @@ speculative and adaptive outputs equal the plain engine's token for token
 (on the card too: the verify pass runs its row-count-sensitive
 reductions per query row, `models.layers`, and its linears on the fused
 kernel's split-K route below `TILED_MIN_M` rows, `check_verify_rows`).
-Tensor parallelism is a later slice of the port (ROADMAP Queue 1:
-"Tensor-parallel serving and collectives").
+Tensor parallelism (`EngineConfig.tp`, `distributed.tp`): one process
+per rank (`launch.mesh.run_ranks`), each running this engine on the same
+requests with the group active at construction.  Rank r holds rows [r *
+page / tp, (r + 1) * page / tp) of every page of every layer's pool
+(`distributed.sharding.cache_placement`); the decode and verify steps
+resolve the `*_sharded` routes, which all-gather the pool at format
+width (codes and scales: a pure relayout) and run the single-device
+route, so tp=N serves tp=1's tokens bit for bit.  Weights stay
+replicated, the staging cache is never sharded (prefill stays a
+single-rank reduction), and the ranks agree on the clock an open-loop
+workload's arrivals are read against.  The engine replicates instead,
+with its reason in the report, when page_size % tp != 0 or tp exceeds
+the active group's ranks; TP steps run eagerly (graphs=True with tp > 1
+on the card is refused: `GRAPHED_TP_ITEM`).
 
 Measured plans (`runtime.tuner`): the engine takes the DB active at its
 construction (`exec_plan.use_tuned_db`), resolves its plans and captures
@@ -108,6 +120,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
@@ -115,6 +128,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.packing import operand_nbytes
 from repro_torch.core.linear import needs_prep
 from repro_torch.core.policy import get_policy
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tp as TP
 from repro_torch.kernels.dpa_matmul import TILED_MIN_M
 from repro_torch.kernels.paged_decode import kernel_formats
 from repro_torch.launch.graphs import Step, StepGraph
@@ -141,6 +156,13 @@ class EngineConfig:
     prefill_chunk: int = 8       # prompt tokens per prefill call
     eos_id: int = -1             # stop token (-1: run to max_new)
     prefix_cache: bool = False   # share prompt prefixes across requests
+    # tensor-parallel width: shard the page pool's within-page rows over
+    # the active TP group (`distributed.tp`) and serve through the
+    # `*_sharded` routes (tp=1's tokens; the wire carries format-width
+    # codes + scales).  Falls back to 1, replicated, never a crash, when
+    # tp exceeds the group's ranks or page_size % tp != 0; the report
+    # states the reason
+    tp: int = 1
 
     @property
     def s_max(self) -> int:
@@ -222,6 +244,8 @@ def synthetic_workload(n_requests: int, *, vocab: int, seed: int = 0,
 
 
 MOE_SPEC_ITEM = "ROADMAP Queue 1, \"Speculation on the MoE engine\""
+GRAPHED_TP_ITEM = ("ROADMAP Queue 1, \"Graphed TP decode step under NCCL "
+                   "(>= 2 cards)\"")
 VERIFY_ROWS_ITEM = ("ROADMAP Queue 1, \"Speculative verify beyond the "
                     "split-K route\"")
 
@@ -298,10 +322,11 @@ class Engine:
                 "does not carry the decode steps' bits; open in "
                 f"{MOE_SPEC_ITEM}")
         self.sampler = sampler or SamplerConfig()
+        self._init_tp(ecfg, dev, graphs)
         self._plan_ctx = dict(batch=ecfg.max_batch, page_size=ecfg.page_size,
                               max_pages=ecfg.max_pages_per_req,
                               kv_heads=cfg.n_kv_heads, hd=cfg.hd,
-                              n_pages=ecfg.n_pages)
+                              n_pages=ecfg.n_pages, n_devices=self.tp)
         try:
             self.plan = exec_plan.describe("paged_decode", pol,
                                            **self._plan_ctx)
@@ -361,10 +386,9 @@ class Engine:
         self._block_table = torch.from_numpy(self._table.copy()).to(
             self.device)
         self.caches = [
-            dict(KV.init_paged_kv_cache(ecfg.n_pages, ecfg.page_size,
-                                        cfg.n_kv_heads, cfg.hd,
-                                        fmt=pol.fmt_kv, packed=pol.kv_packed,
-                                        device=self.device),
+            dict(self._shard_pool(KV.init_paged_kv_cache(
+                ecfg.n_pages, ecfg.page_size, cfg.n_kv_heads, cfg.hd,
+                fmt=pol.fmt_kv, packed=pol.kv_packed, device=self.device)),
                  block_table=self._block_table)
             for _ in range(cfg.n_layers)]
         # staging cache for chunked prefill: the contiguous layout
@@ -400,6 +424,47 @@ class Engine:
                            pin_memory=pin)
             for k in sorted({r.k for r in self.rungs})}
         self._make_steps()
+
+    def _init_tp(self, ecfg: EngineConfig, dev, graphs: bool):
+        """The TP width this engine serves at and its group: ecfg.tp over
+        the group active at construction, or 1 (replicated) with the
+        reason in `tp_fallback`."""
+        self.tp, self.tp_fallback, self._group = 1, "", None
+        self._shard = (0, 1)
+        if ecfg.tp <= 1:
+            return
+        group, world = TP.active_group(), TP.axis_size()
+        if ecfg.tp > world:
+            self.tp_fallback = (f"tp={ecfg.tp} exceeds the active group's "
+                                f"{world} rank(s); serving replicated")
+        elif ecfg.page_size % ecfg.tp:
+            self.tp_fallback = (f"page_size={ecfg.page_size} not divisible "
+                                f"by tp={ecfg.tp}; serving replicated")
+        elif ecfg.tp < world:
+            raise ValueError(f"tp={ecfg.tp} is less than the active group's "
+                             f"{world} ranks: make a group of tp ranks "
+                             "(launch.mesh)")
+        else:
+            if graphs and dev.type == "cuda":
+                raise NotImplementedError(
+                    f"tp={ecfg.tp} with graphs=True: the sharded steps' "
+                    "collectives are not captured into CUDA graphs (gloo's "
+                    "cannot be; NCCL capture needs >= 2 cards to test); "
+                    f"pass graphs=False (--eager). Open in "
+                    f"{GRAPHED_TP_ITEM}")
+            self.tp, self._group = ecfg.tp, group
+            self._shard = TP.shard()
+
+    def _shard_pool(self, pool: dict) -> dict:
+        """One layer's pool laid out on the TP group: this rank's slice of
+        every page's rows (`cache_placement`'s KV rule)."""
+        if self.tp == 1:
+            return pool
+        sizes = {SH.MODEL_AXIS: self.tp}
+        coords = {SH.MODEL_AXIS: self._shard[0]}
+        place = SH.cache_placement(pool, sizes)
+        return {k: SH.take_shard(v, place[k], coords, sizes)
+                for k, v in pool.items()}
 
     def _rung(self, name: str, k: int) -> _Rung:
         """Validate one draft policy against the serving one and build its
@@ -569,15 +634,18 @@ class Engine:
         for pool, staged in zip(self.caches, self._staging):
             rows = {k: staged[k][0] for k in KV.QUANT_KEYS}
             KV.write_prefill_rows(pool, rows, req.pages, req.n_prompt,
-                                  start=req.prefill_skip)
+                                  start=req.prefill_skip, shard=self._shard)
 
     def _cow_copy(self, src: int, dst: int, n_rows: int):
         """Copy the first `n_rows` rows of pool page `src` into the private
         page `dst`, every layer, in place (pure relayout: the graphs read
-        the pools at fixed addresses).  The shared source is only read."""
+        the pools at fixed addresses).  The shared source is only read.
+        Sharded, each rank copies the rows of [0, n_rows) it holds."""
+        ps_local = self.caches[0]["k_codes"].shape[1]
+        n = min(max(n_rows - self._shard[0] * ps_local, 0), ps_local)
         for pool in self.caches:
             for k in KV.QUANT_KEYS:
-                pool[k][dst, :n_rows].copy_(pool[k][src, :n_rows])
+                pool[k][dst, :n].copy_(pool[k][src, :n])
         self.cow_copies += 1
 
     def _load_prefix_to_staging(self, req: Request):
@@ -585,12 +653,23 @@ class Engine:
         into the staging cache, in place (the inverse relayout of the
         scatter), so the warm prefill's chunks attend over exactly the
         codes and scales a cold prefill of the same prompt would have
-        staged."""
+        staged.  Sharded, the matched pages are all-gathered first (the
+        staging cache holds whole rows on every rank)."""
         m = req.prefill_skip
         for pool, staged in zip(self.caches, self._staging):
-            rows = KV.gather_page_rows(pool, req.pages, m)
+            rows = self._prefix_rows(pool, req.pages, m)
             for k in KV.QUANT_KEYS:
                 staged[k][0, :m].copy_(rows[k])
+
+    def _prefix_rows(self, pool, pages, m: int) -> dict:
+        """The first m timeline rows held in `pages`, as whole rows."""
+        if self.tp == 1:
+            return KV.gather_page_rows(pool, pages, m)
+        n_pg = -(-m // self.ecfg.page_size)
+        full = TP._gather_pool(KV.select_pages(pool, pages[:n_pg]),
+                               self._group)
+        return {k: v.reshape((-1,) + v.shape[2:])[:m]
+                for k, v in full.items()}
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -913,7 +992,10 @@ class Engine:
         on prefill chunks; under the DB active at construction."""
         before = exec_plan.use_tuned_db(self.tuned_db)
         try:
-            self._tick(now)
+            # the engine's own group (None when replicated), whatever the
+            # caller has active
+            with TP.activate(self._group):
+                self._tick(now)
         finally:
             exec_plan.use_tuned_db(before)
 
@@ -951,6 +1033,9 @@ class Engine:
         t0 = time.monotonic()
         while pending or self.waiting or any(self.slots):
             now = time.monotonic() - t0
+            if self.tp > 1:
+                # ranks step in lockstep: one clock for admissions
+                now = TP.agree(now, self._group)
             while pending and pending[0].arrival <= now:
                 self.submit(pending.pop(0))
             if not self.waiting and not any(self.slots):
@@ -1024,6 +1109,42 @@ class Engine:
             rep.update(self.prefix_report())
         if self.cfg.is_moe:
             rep.update(self.moe_report())
+        rep.update(self.tp_report(rep["paged_bytes"]))
+        return rep
+
+    def tp_report(self, paged_bytes: int) -> dict:
+        """The TP width served and requested, a fallback's reason, and,
+        sharded, the wire and the pool's residency from the rank's own
+        pool tensors: one decode step all-gathers every layer's pool, so
+        each rank receives (tp - 1) / tp of the codes + scales of every
+        layer; and whether the wire stages CUDA tensors through host
+        memory (fixed by the backend, `distributed.tp`)."""
+        rep = {"tp": self.tp}
+        if self.ecfg.tp > 1:
+            rep["tp_requested"] = self.ecfg.tp
+            if self.tp_fallback:
+                rep["tp_fallback_reason"] = self.tp_fallback
+        if self.tp == 1:
+            return rep
+        e, cfg = self.ecfg, self.cfg
+        local_layer = sum(int(self.caches[0][k].nbytes)
+                          for k in KV.QUANT_KEYS)
+        pool_layer = local_layer * self.tp
+        f32_layer = 2 * 4 * (e.n_pages * e.page_size * cfg.n_kv_heads
+                             * cfg.hd)
+        wire_layer = (self.tp - 1) * pool_layer // self.tp
+        rep.update({
+            "tp_rank": self._shard[0],
+            "tp_backend": str(dist.get_backend(self._group)),
+            "tp_wire_staged_through_host": (
+                self.device.type == "cuda"
+                and TP.stages_through_host(self._group)),
+            "tp_wire_bytes_per_step_layer": wire_layer,
+            "tp_wire_bytes_per_step": wire_layer * cfg.n_layers,
+            "tp_wire_reduction_vs_f32": f32_layer / pool_layer,
+            "pool_bytes_per_device": paged_bytes // self.tp,
+            "pool_bytes_allocated_per_device": local_layer * cfg.n_layers,
+        })
         return rep
 
     def spec_report(self) -> dict:
@@ -1169,6 +1290,19 @@ def format_report(rep: dict, policy: str) -> str:
            f"{rep['resident_prefix_pages']} resident pages "
            f"({rep['resident_prefix_bytes'] / mb:.2f} MB at format width)"
            if "prefix_hit_rate" in rep else "")
+        + (f"\ntp: {rep['tp']} ranks, pool "
+           f"{rep['pool_bytes_per_device'] / mb:.2f} MB/rank in use "
+           f"({rep['pool_bytes_allocated_per_device'] / mb:.2f} MB "
+           f"allocated); wire {rep['tp_wire_bytes_per_step_layer'] / 1e3:.1f}"
+           f" KB codes+scales per step/layer "
+           f"({rep['tp_wire_reduction_vs_f32']:.1f}x under an f32 wire), "
+           f"{rep['tp_backend']}"
+           + (" staged through host memory"
+              if rep["tp_wire_staged_through_host"] else "")
+           if rep.get("tp", 1) > 1 else "")
+        + (f"\ntp: requested {rep['tp_requested']}, serving replicated — "
+           f"{rep['tp_fallback_reason']}"
+           if "tp_fallback_reason" in rep else "")
         + (f"\nmoe: {rep['moe_experts']} experts top-{rep['moe_top_k']}, "
            f"grouped via {rep['moe_grouped_route']} "
            f"[{rep['moe_grouped_backend']}, "

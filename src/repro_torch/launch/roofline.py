@@ -7,11 +7,12 @@
                  the policy's activation format's peak, `PEAK_OPS`; the
                  f32 CUDA-core peak when DPA is off]
   memory term  = analytic HBM bytes / (cards x HBM rate)
+  collective term = analytic wire bytes a card receives / NVLink rate
+                 (`analytic.cell_wire_bytes_per_device`: the TP decode
+                 step's pool all-gather; 0 on one card)
 
-plus MODEL_FLOPS / analytic FLOPs and the dominant term.  The
-reference's third term, collectives over the interconnect, waits for
-tensor-parallel serving (ROADMAP Queue 1); every cell here is one card's.
-Nothing is read from a dry run: the cells are arithmetic on the config.
+plus MODEL_FLOPS / analytic FLOPs and the dominant term.  Nothing is read
+from a dry run: the cells are arithmetic on the config.
 
 Usage: python -m repro_torch.launch.roofline [--arch A] [--shape S]
        [--cards N]
@@ -23,7 +24,8 @@ import argparse
 from repro_torch.configs import SHAPES, cell_applicable, get_config, \
     list_archs
 from repro_torch.core.policy import get_policy
-from repro_torch.kernels.census import HBM_BYTES_PER_S, PEAK_OPS
+from repro_torch.kernels.census import (HBM_BYTES_PER_S, PEAK_OPS,
+                                       wire_bound_s)
 from repro_torch.launch import analytic as A
 
 SUGGEST = {
@@ -31,6 +33,9 @@ SUGGEST = {
                "recompute (selective checkpointing)",
     "memory": "quantize the streamed side (weights for decode, cache to "
               "fp8) — the paper's narrow-wire contract on HBM",
+    "collective": "a narrower KV format on the wire (fp4 codes), fewer "
+                  "ranks per pool, or attention local to each rank's "
+                  "shard (flash decoding's partial softmax)",
 }
 
 
@@ -46,14 +51,19 @@ def model_flops(cfg, shape, kind: str) -> float:
     return 2.0 * n * shape["batch"]     # decode: one token per sequence
 
 
-def roofline_terms(flops, hbm_bytes, peak: float) -> dict:
-    """The compute and memory terms (s) of per-card totals at `peak`
-    op/s and the card's HBM rate, the dominant one and the bound."""
+def roofline_terms(flops, hbm_bytes, peak: float,
+                   wire_bytes: float = 0.0) -> dict:
+    """The compute, memory and collective terms (s) of per-card totals at
+    `peak` op/s, the card's HBM rate and its NVLink rate, the dominant
+    one and the bound."""
     compute_s = flops / peak
     memory_s = hbm_bytes / HBM_BYTES_PER_S
+    collective_s = wire_bound_s(wire_bytes)
+    dominant = max((compute_s, "compute"), (memory_s, "memory"),
+                   (collective_s, "collective"))[1]
     return dict(compute_s=compute_s, memory_s=memory_s,
-                dominant="compute" if compute_s > memory_s else "memory",
-                bound_s=max(compute_s, memory_s))
+                collective_s=collective_s, dominant=dominant,
+                bound_s=max(compute_s, memory_s, collective_s))
 
 
 def cell_roofline(cfg, kind: str, seq: int, batch: int,
@@ -64,16 +74,18 @@ def cell_roofline(cfg, kind: str, seq: int, batch: int,
     MODEL_FLOPS / analytic FLOPs."""
     flops = A.cell_flops_per_device(cfg, seq, batch, kind, n_cards)
     hbm = A.cell_hbm_bytes_per_device(cfg, seq, batch, kind, n_cards)
+    wire = A.cell_wire_bytes_per_device(cfg, seq, batch, kind, n_cards)
     pol = get_policy(cfg.policy)
     fmt = pol.fmt_acts if pol.enabled else "fp32"
-    base = roofline_terms(flops, hbm, PEAK_OPS["bf16"])
-    dpa = roofline_terms(flops, hbm, PEAK_OPS[fmt])
+    base = roofline_terms(flops, hbm, PEAK_OPS["bf16"], wire)
+    dpa = roofline_terms(flops, hbm, PEAK_OPS[fmt], wire)
     model_fl = model_flops(cfg, {"seq": seq, "batch": batch}, kind) / n_cards
     return dict(
         arch=cfg.name, kind=kind, seq=seq, batch=batch, n_cards=n_cards,
-        flops=flops, hbm_bytes=hbm, dpa_fmt=fmt,
+        flops=flops, hbm_bytes=hbm, wire_bytes=wire, dpa_fmt=fmt,
         compute_s=base["compute_s"], compute_dpa_s=dpa["compute_s"],
-        memory_s=base["memory_s"], dominant=dpa["dominant"],
+        memory_s=base["memory_s"], collective_s=dpa["collective_s"],
+        dominant=dpa["dominant"],
         bound_s=dpa["bound_s"], bound_bf16_s=base["bound_s"],
         model_analytic_ratio=model_fl / flops,
         roofline_frac=(model_fl / PEAK_OPS[fmt]) / dpa["bound_s"],
@@ -105,15 +117,17 @@ def route_table(work_delta: dict, device_ms: dict) -> list:
 
 def markdown_table(rows) -> str:
     hdr = ("| arch | shape | dominant | compute(bf16) s | compute(DPA) s | "
-           "memory s | DPA peak | MODEL/analytic | roofline frac |\n"
-           "|---|---|---|---|---|---|---|---|---|")
+           "memory s | DPA peak | MODEL/analytic | roofline frac | "
+           "collective s |\n"
+           "|---|---|---|---|---|---|---|---|---|---|")
     out = [hdr]
     for r in rows:
         out.append(
             f"| {r['arch']} | {r['shape']} | **{r['dominant']}** | "
             f"{r['compute_s']:.3e} | {r['compute_dpa_s']:.3e} | "
             f"{r['memory_s']:.3e} | {r['dpa_fmt']} | "
-            f"{r['model_analytic_ratio']:.2f} | {r['roofline_frac']:.3f} |")
+            f"{r['model_analytic_ratio']:.2f} | {r['roofline_frac']:.3f} | "
+            f"{r['collective_s']:.3e} |")
     return "\n".join(out)
 
 
@@ -136,7 +150,7 @@ def main(argv=None):
         ap.error(f"{args.arch} x {args.shape} is not a cell of the grid")
     rows.sort(key=lambda r: (r["shape"], r["arch"]))
     print(f"H100 SXM5 peaks (kernels.census), {args.cards} card(s); "
-          "no collective term (one card a cell, ROADMAP Queue 1)")
+          "collective term: the TP decode step's wire at the NVLink rate")
     print(markdown_table(rows))
     print()
     for r in rows:

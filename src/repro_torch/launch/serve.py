@@ -35,13 +35,21 @@ consults it, and the engine takes its fastest engine knobs (page size,
 rescaling `--max-pages-per-req` so S_max is kept, and speculative k), as
 the reference's front end does.
 
-Flags whose modules the port does not have yet exit naming their ROADMAP
-item (Queue 1): `--tp` or `--n-model` above 1 ("Tensor-parallel serving
-and collectives").
+`--tp N` with `--engine` serves tensor-parallel: `launch.mesh.run_ranks`
+spawns N ranks over `--dist-backend` (nccl: one card a rank; gloo: the
+CPU, or ranks that share a card), each running the engine on the same
+requests with 1/N of the page pool; rank 0 prints the report, and every
+rank's tokens must equal rank 0's.  The TP steps run eagerly: on the card
+`--tp` needs `--eager` (`engine.GRAPHED_TP_ITEM`).
+
+`--n-model` above 1 exits naming its ROADMAP item (Queue 1,
+"Model-parallel serving and training (`--n-model`)").
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 from typing import Optional
@@ -52,7 +60,7 @@ from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import exec_plan
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import get_policy
-from repro_torch.distributed.step import make_serve_step
+from repro_torch.distributed.step import MODEL_PARALLEL_ITEM, make_serve_step
 from repro_torch.launch.graphs import Step, StepGraph
 from repro_torch.models import build_model
 from repro_torch.models.transformer import layer_kinds
@@ -65,9 +73,6 @@ PLAN_ROUTES = {
     "paged_decode": {"page_size": 16, "max_pages": 8},
     "verify_attn": {"page_size": 16, "max_pages": 8, "sq": 4},
 }
-
-# refused flags -> the ROADMAP Queue 1 item that brings their module
-_TP_ITEM = "ROADMAP Queue 1, \"Tensor-parallel serving and collectives\""
 
 
 def plan_routes(policy, shapes=None) -> dict:
@@ -171,13 +176,22 @@ generate.capture_stats = None
 
 
 def _refuse_unported(args) -> None:
-    """Exit on a flag whose module the port does not have yet."""
+    """Exit on a flag whose module the port does not have yet, or a --tp
+    run the flags do not describe whole."""
     if args.n_model > 1:
         raise SystemExit(f"--n-model {args.n_model}: model-parallel "
-                         f"serving is not ported yet ({_TP_ITEM})")
-    if args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: tensor-parallel serving is not "
-                         f"ported yet ({_TP_ITEM})")
+                         f"serving is not ported yet ({MODEL_PARALLEL_ITEM})")
+    if args.tp > 1 and not args.engine:
+        raise SystemExit(f"--tp {args.tp} serves through the engine: add "
+                         "--engine")
+    if args.tp > 1 and not args.dist_backend:
+        raise SystemExit(f"--tp {args.tp}: name the collectives' backend "
+                         "with --dist-backend nccl or gloo")
+    if args.tp > 1 and resolve_device(args.device).type == "cuda" \
+            and not args.eager:
+        from repro_torch.launch.engine import GRAPHED_TP_ITEM
+        raise SystemExit(f"--tp {args.tp} on the card runs its steps "
+                         f"eagerly: add --eager ({GRAPHED_TP_ITEM})")
 
 
 def apply_tuned_engine_knobs(args) -> Optional[dict]:
@@ -224,7 +238,7 @@ def run_engine(cfg, model, params, args):
                         max_pages_per_req=args.max_pages_per_req,
                         token_budget=args.token_budget,
                         prefill_chunk=args.prefill_chunk,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache, tp=args.tp)
     adaptive = None
     if args.adaptive_draft:
         if args.spec_draft:
@@ -259,6 +273,8 @@ def run_engine(cfg, model, params, args):
         gen_range=(max(1, args.gen // 2), args.gen),
         shared_prefix=args.shared_prefix, mixed=args.mixed)
     rep = engine.run(reqs)
+    run_engine.last_tokens = {r.rid: list(r.out_tokens)
+                              for r in engine.finished}
     print(format_report(rep, cfg.policy))
     if engine.finished:
         sample = engine.finished[0]
@@ -268,6 +284,44 @@ def run_engine(cfg, model, params, args):
             json.dump(rep, f, indent=2, allow_nan=False)
         print(f"report written to {args.json}")
     return rep
+
+
+run_engine.last_tokens = None
+
+
+# seconds a --tp run's ranks may take before they are stopped and the
+# run fails (a hung collective must not hold the caller forever)
+TP_TIMEOUT = 3600.0
+
+
+def _serve_rank(rank, device, args):
+    """One rank of a --tp run: the flags served on the rank's device, its
+    printed lines kept -> (report, tokens by request, printed text)."""
+    args = argparse.Namespace(**dict(vars(args), device=str(device)))
+    if rank:
+        args.json = ""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rep = _serve_flags(args)
+    return rep, run_engine.last_tokens, out.getvalue()
+
+
+def serve_tp(args) -> dict:
+    """--tp N: N ranks (`launch.mesh.run_ranks`) serve the same requests;
+    rank 0's lines are printed, and every rank's tokens must equal rank
+    0's (the sharded routes are pure relayouts) -> rank 0's report."""
+    from repro_torch.launch.mesh import run_ranks
+    outs = run_ranks(_serve_rank, args.tp, backend=args.dist_backend,
+                     device=args.device, timeout=TP_TIMEOUT,
+                     init_method=args.dist_init or None, args=(args,))
+    print(outs[0][2], end="")
+    for rank, (_, tokens, _) in enumerate(outs):
+        if tokens != outs[0][1]:
+            raise SystemExit(f"rank {rank}'s tokens differ from rank 0's")
+    print(f"tp: {args.tp} ranks over {args.dist_backend}, every rank's "
+          "tokens equal rank 0's")
+    run_engine.last_tokens = outs[0][1]
+    return outs[0][0]
 
 
 def main(argv=None):
@@ -297,7 +351,16 @@ def main(argv=None):
                     help="tokens per scheduler step")
     eg.add_argument("--prefill-chunk", type=int, default=16)
     eg.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width (only 1 is served)")
+                    help="tensor-parallel width: ranks spawned, each "
+                         "holding 1/tp of the page pool")
+    eg.add_argument("--dist-backend", choices=("nccl", "gloo"), default="",
+                    help="collectives' backend for --tp (no default: "
+                         "nccl for one card a rank, gloo for the CPU or "
+                         "ranks sharing a card)")
+    eg.add_argument("--dist-init", default="",
+                    help="--tp ranks' rendezvous (file:///path or "
+                         "tcp://host:port; default: a file store in a "
+                         "fresh temporary directory)")
     eg.add_argument("--requests", type=int, default=16)
     eg.add_argument("--rate", type=float, default=0.0,
                     help="Poisson arrival rate, req/s (0 = all at t=0)")
@@ -338,6 +401,13 @@ def main(argv=None):
                          "static --spec-draft policy")
     args = ap.parse_args(argv)
     _refuse_unported(args)
+    if args.tp > 1:
+        return serve_tp(args)
+    return _serve_flags(args)
+
+
+def _serve_flags(args):
+    """Serve as the parsed flags say, with their measurement DB active."""
     if not args.tuned_db:
         return serve(args)
     before = exec_plan.use_tuned_db(args.tuned_db)

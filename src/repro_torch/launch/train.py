@@ -17,9 +17,10 @@ its `done: ... tok/s` line.
 The train step runs the torch routes (STE fake-quant linears on cuBLAS,
 plain attention): the CUDA kernels have no backward, so a policy whose
 linears or attention resolve to a kernel route is refused
-(`distributed.step.check_trainable`).  `--n-model` above 1 needs the
-collectives of ROADMAP Queue 1, "Tensor-parallel serving and
-collectives".
+(`distributed.step.check_trainable`).  `--n-model` above 1 exits naming
+ROADMAP Queue 1, "Model-parallel serving and training (`--n-model`)";
+the data-parallel step with a compressed gradient wire is
+`distributed.step.make_compressed_train_step`.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data.pipeline import DataConfig, make_pipeline
-from repro_torch.distributed.step import COLLECTIVES_ITEM, make_train_step
+from repro_torch.distributed.step import (MODEL_PARALLEL_ITEM,
+                                         make_train_step)
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault import Supervisor, SupervisorConfig
@@ -68,8 +70,8 @@ def main(argv=None):
                     help='"cuda" (default) or "cpu"')
     args = ap.parse_args(argv)
     if args.n_model > 1:
-        ap.exit(2, f"--n-model {args.n_model}: model parallelism needs "
-                   f"{COLLECTIVES_ITEM}\n")
+        ap.exit(2, f"--n-model {args.n_model}: model-parallel training is "
+                   f"not ported yet ({MODEL_PARALLEL_ITEM})\n")
 
     cfg = get_config(args.arch)
     if args.reduced:

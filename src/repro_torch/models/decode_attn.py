@@ -153,3 +153,56 @@ def dpa_paged_verify_attn(q, cache, positions, *, fmt: str, fmt_kv: str,
                         valid[:, None, None, :], fmt=fmt, scale=scale,
                         kv_on_grid=True)
     return out.reshape(B, sq, H, hd)
+
+
+# -----------------------------------------------------------------------------
+# flash decoding over a sequence-sharded raw cache
+# -----------------------------------------------------------------------------
+
+def _local_update(cache, new, offset, rank: int):
+    """Write `new` (B, 1, KV, hd) at global position `offset` (an int or a
+    0-dim integer tensor) into this rank's sequence shard `cache` (B,
+    S_loc, KV, hd), in place; a position on another rank leaves the
+    shard as it was."""
+    s_loc = cache.shape[1]
+    local = offset - rank * s_loc
+    new = new.to(cache.dtype)
+    if not torch.is_tensor(local):
+        if 0 <= local < s_loc:
+            cache[:, local:local + 1] = new
+        return cache
+    at = local.clamp(0, s_loc - 1).to(torch.int64).reshape(1)
+    keep = (local >= 0) & (local < s_loc)
+    cache.index_copy_(1, at, torch.where(keep, new,
+                                         cache.index_select(1, at)))
+    return cache
+
+
+def flash_decode(q, k_new, v_new, k_cache, v_cache, offset, group, *,
+                 scale):
+    """One decode step over raw caches sequence-sharded on `group` (each
+    rank holds positions [r * S_loc, (r + 1) * S_loc)): the partial-
+    softmax combine.  Each rank writes the new row where it lives,
+    scores its own keys, then the ranks agree on the softmax max
+    (all_reduce MAX) and sum the denominator and the numerator over the
+    group (summed in rank order, `distributed.tp.psum`).  q: (B, 1, H,
+    hd) -> (B, 1, H, hd) in q's dtype; the caches update in place."""
+    from repro_torch.distributed import tp as TP
+    rank = torch.distributed.get_rank(group)
+    _local_update(k_cache, k_new, offset, rank)
+    _local_update(v_cache, v_new, offset, rank)
+    s_loc, n_kv = k_cache.shape[1], k_cache.shape[2]
+    g = q.shape[2] // n_kv
+    kh = k_cache.to(torch.float32).repeat_interleave(g, dim=2)
+    vh = v_cache.to(torch.float32).repeat_interleave(g, dim=2)
+    qf = q.to(torch.float32)
+    logits = torch.einsum("bqhd,bshd->bhqs", qf, kh) * scale
+    pos = rank * s_loc + torch.arange(s_loc, device=q.device)
+    logits = torch.where(pos <= offset, logits, NEG_INF)
+    m = TP.all_reduce(logits.amax(dim=-1), torch.distributed.ReduceOp.MAX,
+                      group)                                   # (B, H, 1)
+    p = torch.exp(logits - m[..., None])
+    den = TP.psum(p.sum(dim=-1), group)                        # (B, H, 1)
+    num = TP.psum(torch.einsum("bhqs,bshd->bqhd", p, vh), group)
+    out = num / torch.clamp_min(den, 1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)

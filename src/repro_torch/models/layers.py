@@ -35,6 +35,7 @@ from repro_torch.core.linear import (apply_linear, dpa_grouped_dot,
                                      init_grouped_linear, init_linear)
 from repro_torch.core.policy import get_policy
 from repro_torch.core.quantize import recip
+from repro_torch.distributed import tp as TP
 
 # -----------------------------------------------------------------------------
 # norms
@@ -247,6 +248,23 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
 
     scale = hd ** -0.5
     kv_on_grid = False
+    if cache is not None and "seq_shard" in cache:
+        # a raw cache sequence-sharded over the active TP group
+        # (`distributed.sharding.shard_seq_caches`, which shards only
+        # where the sequence divides): flash decoding's partial-softmax
+        # combine.  An unsharded cache, or no group, takes the plain path
+        if not (cfg.flash_decode and Sq == 1 and cross_kv is None
+                and cache_mode == "full"):
+            raise NotImplementedError(
+                "a sequence-sharded cache serves flash_decode's single-token "
+                f"decode steps only (flash_decode={cfg.flash_decode}, "
+                f"S_q={Sq}, cache_mode={cache_mode!r})")
+        from repro_torch.models.decode_attn import flash_decode
+        y = flash_decode(q, k, v, cache["k"], cache["v"], offset,
+                         TP.require_group(), scale=scale)
+        y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd),
+                         policy)
+        return y, cache
     if cache is not None and "block_table" in cache:
         # the continuous-batching engine's paged pool: new tokens quantize
         # into each request's pages, attention reads codes through the
@@ -254,12 +272,15 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
         # verify window (the last accepted token and the drafts), scored
         # with per-request causal masks through the verify_attn route
         # (prefill runs against the contiguous staging cache)
+        # under a TP group (`distributed.tp`) the pool holds this rank's
+        # rows of every page and the sharded routes gather it
+        shard = TP.shard()
         KV.paged_write_tokens(cache, k, v, offset, fmt=policy.fmt_kv,
-                              packed=policy.kv_packed)
-        ctx = dict(batch=B, page_size=cache["k_codes"].shape[1],
+                              packed=policy.kv_packed, shard=shard)
+        ctx = dict(batch=B, page_size=cache["k_codes"].shape[1] * shard[1],
                    max_pages=cache["block_table"].shape[1],
                    kv_heads=cfg.n_kv_heads, hd=hd,
-                   n_pages=cache["k_codes"].shape[0])
+                   n_pages=cache["k_codes"].shape[0], n_devices=shard[1])
         entry = (exec_plan.resolve("paged_decode", policy, **ctx) if Sq == 1
                  else exec_plan.resolve("verify_attn", policy, sq=Sq, **ctx))
         y = entry.run(q, cache, offset, policy=policy, scale=scale)

@@ -51,6 +51,7 @@ from repro_torch.hwmodel import area as A  # noqa: E402
 from repro_torch.hwmodel import energy as E  # noqa: E402
 from repro_torch.hwmodel import throughput as T  # noqa: E402
 from repro_torch.hwmodel import timing as TM  # noqa: E402
+from repro_torch.core.policy import get_policy  # noqa: E402
 from repro_torch.kernels import census as C  # noqa: E402
 from repro_torch.kernels import counters  # noqa: E402
 from repro_torch.launch import analytic as AN  # noqa: E402
@@ -538,6 +539,61 @@ def test_cell_roofline_sizes_the_scoring_paths():
                           "decode", 4096, 4)
     assert off["dpa_fmt"] == "fp32"
     assert off["compute_dpa_s"] == off["flops"] / C.PEAK_OPS["fp32"]
+
+
+WIRE_POLICIES = ("w4a8_kv4_attn8", "kv4_attn8_packed", "kv8_attn_f32",
+                 "attn_fp16_dpa")
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("policy", WIRE_POLICIES)
+def test_wire_census_prices_the_sharded_routes(policy, n):
+    """The census's pool all-gather = the sharded routes' wire term in the
+    port's registry and the reference's (`_tp_wire_bytes`), at the
+    engine geometry of chip_smoke's TP phase."""
+    from repro.core.policy import get_policy as ref_policy
+    from repro.kernels import registry as RREG
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import registry as TREG
+    pol = get_policy(policy)
+    ctx = dict(n_devices=n, n_pages=80, page_size=16, kv_heads=8, hd=128)
+    got = C.pool_gather_work(n, 80 * 16 * 8, 128, pol.fmt_kv, pol.kv_packed)
+    assert got == TREG._tp_wire_bytes(pol, ctx) \
+        == RREG._tp_wire_bytes(ref_policy(policy), ctx) > 0
+    assert C.pool_gather_work(1, 80 * 16 * 8, 128, pol.fmt_kv,
+                              pol.kv_packed) == 0
+    assert C.wire_bound_s(got) == got / C.LINK_BYTES_PER_S
+
+
+@pytest.mark.parametrize("arch,shape,n", CELLS)
+def test_roofline_collective_term(arch, shape, n):
+    """The wire term: zero on one card and off decode; a kv-quantized
+    decode cell all-gathers every full attention layer's pool (B x S x KV
+    rows at format width), a raw-cache one sums flash decoding's f32
+    partials; the collective term is those bytes at the NVLink rate and
+    joins the bound."""
+    cfg, sh = get_config(arch), SHAPES[shape]
+    for policy in (cfg.policy, "w4a8_kv4_attn8"):
+        c = cfg.replace(policy=policy)
+        r = R.cell_roofline(c, sh["kind"], sh["seq"], sh["batch"], n)
+        wire = AN.cell_wire_bytes_per_device(c, sh["seq"], sh["batch"],
+                                             sh["kind"], n)
+        assert r["wire_bytes"] == wire
+        assert r["collective_s"] == wire / C.LINK_BYTES_PER_S
+        assert r["bound_s"] == max(r["compute_dpa_s"], r["memory_s"],
+                                   r["collective_s"])
+        if n == 1 or sh["kind"] != "decode":
+            assert wire == 0.0
+            continue
+        n_attn = sum(m for k, m in AN._pattern_counts(c).items()
+                     if k in ("attn", "dec"))
+        pol = get_policy(policy)
+        want = (n_attn * C.pool_gather_work(
+            n, sh["batch"] * sh["seq"] * c.n_kv_heads, c.hd, pol.fmt_kv,
+            pol.kv_packed) if pol.kv_quantized else
+            n_attn * (n - 1) * sh["batch"] * c.n_heads * (2 + c.hd) * 4.0)
+        assert wire == want and (wire > 0) == (n_attn > 0)
 
 
 def test_roofline_cli_runs_without_jax():

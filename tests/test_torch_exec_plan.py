@@ -73,11 +73,12 @@ def test_describe_and_table_integrity():
     assert d["reference"] == "torch_gather"
     # packed fp4 codes + f32 scales, K and V, over 4 x 256 rows x 8 heads
     assert d["bytes_moved"] == 2 * (4 * 256 * 8 * (64 + 4))
-    assert set(d["candidates"]) == {"cuda_block_table", "torch_gather"}
+    assert set(d["candidates"]) == {"cuda_block_table", "torch_gather",
+                                    "paged_decode_sharded"}
     assert set(exec_plan.ops()) == {"matmul", "grouped_matmul",
                                     "flash_attn", "decode_attn",
                                     "paged_decode", "verify_attn",
-                                    "unembed", "quantize_pack"}
+                                    "unembed", "quantize_pack", "allreduce"}
     for op in exec_plan.ops():
         for e in exec_plan.candidates(op):
             ref = exec_plan.reference_entry(e)

@@ -429,17 +429,37 @@ def test_front_end_static_mode_and_moe_line():
     assert rep["moe_grouped_route"] == "cuda_grouped_fused"
 
 
-@pytest.mark.parametrize("flags,item", [
-    pytest.param(("--engine", "--tp", "2"),
-                 "Tensor-parallel serving and collectives",
-                 id="flags3-Tensor-parallel serving and collectives"),
+@pytest.mark.parametrize("flags,says", [
+    pytest.param(("--engine", "--tp", "2"), "--dist-backend nccl or gloo",
+                 id="tp-without-backend"),
     pytest.param(("--n-model", "2",),
-                 "Tensor-parallel serving and collectives",
-                 id="flags4-Tensor-parallel serving and collectives")])
-def test_front_end_refuses_unported_flags(flags, item):
+                 "ROADMAP Queue 1, \"Model-parallel serving and training "
+                 "(`--n-model`)\"",
+                 id="flags4-Model-parallel serving and training")])
+def test_front_end_refuses_unported_flags(flags, says):
     with pytest.raises(SystemExit) as exc:
         _main(*flags)
-    assert f"ROADMAP Queue 1, \"{item}\"" in str(exc.value)
+    assert says in str(exc.value)
+
+
+def test_front_end_serves_tp_over_gloo(tmp_path):
+    """`--engine --tp 2 --dist-backend gloo` on the CPU: two spawned ranks
+    (a file store under tmp_path) serve the tp=1 tokens; rank 0's report
+    says tp 2 and the sharded route."""
+    flags = ENGINE_SMALL + ("--policy", "kv4_attn8_packed")
+    rep1, text1 = _main(*flags)
+    tokens1 = TSV.run_engine.last_tokens
+    rep2, text2 = _main(*flags, "--tp", "2", "--dist-backend", "gloo",
+                        "--dist-init", f"file://{tmp_path / 'store'}")
+    assert TSV.run_engine.last_tokens == tokens1 and len(tokens1) == 3
+    sample = [ln for ln in text1.splitlines() if ln.startswith("sample")]
+    assert sample and sample[0] in text2.splitlines()
+    assert rep2["tp"] == 2 and rep1["tp"] == 1
+    assert rep2["decode_route"] == "paged_decode_sharded"
+    assert "tp: 2 ranks," in text2
+    assert "tp: 2 ranks over gloo, every rank's tokens equal rank 0's" \
+        in text2
+    assert rep2["gen_tokens"] == rep1["gen_tokens"]
 
 
 ENGINE_SMALL = ("--engine", "--requests", "3", "--prompt-len", "10", "--gen",

@@ -231,8 +231,9 @@ def test_train_step_refuses_kernel_routes(policy):
     with pytest.raises(NotImplementedError, match="flash"):
         TS.make_train_step(build_model(flash, device="cpu"),
                            adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="collectives"):
-        TS.make_compressed_train_step(None, adamw.AdamWConfig(), None)
+    with pytest.raises(NotImplementedError, match="Backward passes"):
+        TS.make_compressed_train_step(build_model(cfg, device="cpu"),
+                                      adamw.AdamWConfig(), None)
 
 
 def _wrapper_calls():
