@@ -82,6 +82,20 @@ Phases (every failure raises; the exit code is then non-zero):
      and in cache mode (packed and unpacked fp4, fp8 codes), counting the
      probability codes that differ; timed with the pre-pass and without,
      beside bf16 `scaled_dot_product_attention` as a speed reference;
+   - (phase 2m) the kernels' new formats (`check_fused_formats`,
+     `check_dpa_flash_formats`; paged decode's in the two checks above):
+     the fused matmul with E2M1 and fp16 activations at qwen3-4b's five
+     projections, M 8 and 32 (split-K, E4M3 weights at one shape, the
+     row-invariance `torch.equal`) and 4096 (tiled, the pre-pass's codes
+     exact), and grouped at granite's expert shapes, within rtol 2e-5 /
+     atol 2e-4; paged decode with f32 attention over E4M3, fp16, packed
+     and unpacked E2M1 codes (f32 q, bound 1e-5), fp16 over fp16, E4M3
+     over bf16 and E5M2, at both models' engine shapes (and the long
+     context), and the verify fold in f32 over E4M3 and fp16 over fp16;
+     DPA flash in fp16 and E2M1 attention at hd 128 (S 4096), hd 64 (S
+     1000, bk 125) and hd 256 (path H's layer), fp16 cache codes, and
+     fp16 over packed-E2M1 cache rows, within its format's flip budget
+     and 0.075; each timed beside its bound at the format's peak;
    - `quantize_rows` and `quantize_pack_rows`, every instance (E4M3,
      E5M2, E2M1, packed E2M1, fp16, bf16, f32) on f32 and bf16 x, at M
      4096 x K 2560 and 9728, path D's pre-pass rows (32,768 x 128), hd 64
@@ -128,7 +142,7 @@ Phases (every failure raises; the exit code is then non-zero):
    a. qwen3-4b (36 layers) serves 8 synthetic requests through the
       continuous-batching engine: every projection through the fused
       kernel's split-K route, every decode step's attention through the
-      paged kernel; two requests are replayed through `generate` and
+      paged kernel; one request is replayed through `generate` and
       teacher-forced through the static path (greedy agreement and the
       top-2 margins where the paths differ, reported).  The tuner's
       engine pseudo-op (page size 8 and 16, `kv4_attn8_packed`, the same
@@ -186,11 +200,12 @@ Phases (every failure raises; the exit code is then non-zero):
       rows `torch.equal`, the per-row split as the engine runs it: none
       may differ, and a call that differs on equal inputs is named); a
       self-draft (every draft accepted, a's greedy tokens); on a's first
-      4 requests a static w4a4_kv4_attn4 draft, the default adaptive
-      ladder under the default controller and under one that switches
-      rung every round (a's greedy tokens; each rung that drafted
-      launched its attention format, all three in the switching run), a
-      sampled adaptive run twice (both drain, equal
+      request a static w4a4_kv4_attn4 draft, on its first 2 the default
+      adaptive ladder under the default controller, on the first one
+      under one that switches rung every round (a's greedy tokens; each
+      rung that drafted launched its attention format, all three in the
+      switching run), a
+      sampled adaptive run twice on the first request (both drain, equal
       tokens); one replay of each draft and verify step profiled; and one
       `launch.serve.main(FRONT_END_ADAPTIVE)` call (`--adaptive-draft`,
       its own model).
@@ -202,6 +217,30 @@ Phases (every failure raises; the exit code is then non-zero):
    layer's attention output on them with the kernel's plain version on
    the same inputs (on e with both sides' probability codes, to phase
    2's flip-aware bound).
+3m. The presets the kernels' new formats unlock, on a's weights (L,
+   M, N) and b's (L):
+   L. fp4_dpa_fused (packed-E2M1 weights, activations quantized onto
+      E2M1 in the fused kernel): qwen3-4b and granite-moe-1b through
+      `generate` (2 prompts of 32 + 16 new, eager and graphed, equal
+      tokens; every projection on the split-K route, counted by
+      activation format, `.fp4_e2m1`), and qwen3-4b's 4096-token scoring
+      with use_flash (every projection tiled at E2M1 after its pre-pass,
+      the f32 flash kernel's attention; the loss within SCORING_REF_TOL of
+      use_flash off);
+   M. the engine at a's geometry under kv8_attn_f32 (a's 8 requests),
+      kv16_attn_f32 and attn_fp16_dpa (its first 4), 8 new tokens each,
+      eager and graphed, greedy: equal tokens, every decode step's
+      attention through the paged kernel in f32 or fp16 attention over
+      E4M3 or fp16 codes (counted by format, the `fp32` bucket), the
+      linears f32; two requests teacher-forced as in a;
+   N. qwen3-4b's 4096-token scoring with use_flash under attn_fp16_dpa
+      and attn_fp4_packed: every layer's attention through the DPA flash
+      kernel in fp16 or E2M1 attention after its row-quantizer pre-pass,
+      each layer held to the plain version at its format's flip budget
+      (`DPA_FLASH_FLIP_BUDGET`) and within the route's 0.075.  (A prefill
+      writes a quantized cache and attends its dequantized rows through
+      the plain route, as the reference's does: DPA flash serves the
+      cache-free pass.)
 3k. The recurrent families at their published widths, seeded weights,
    w4a8_kv4_attn8, each model alone on the card (peak memory printed):
    first the DPA flash kernel's head-dim 256 instance against its plain
@@ -230,7 +269,7 @@ Phases (every failure raises; the exit code is then non-zero):
       flash launches, non-causal, bq = bk = 125; 144 tiled fused
       launches at M 3,000), `prefill` of a 32-token prompt (the encoder
       again, 24 cross-attention flash launches at Sq 32 x Sk 1,500; the
-      decoder's linears split-K, its cross K/V tiled) and 32 greedy
+      decoder's linears split-K, its cross K/V tiled) and 16 greedy
       `decode_step`s (cross K/V projected at every step: 48 tiled, 192
       split-K launches a step), the prompt stepped through decode_step
       near the prefill's logits; encoder and cross-attention layer 0
@@ -244,7 +283,7 @@ Phases (every failure raises; the exit code is then non-zero):
       scoring `train_logits` of 4,096 stub embeddings (280 tiled fused
       launches, 40 causal DPA flash launches), layer 0's attention and
       seven linears (tiled at M 4,096) against the plain version,
-      `prefill` of the same embeddings and 16 greedy token
+      `prefill` of the same embeddings and 8 greedy token
       `decode_step`s (280 split-K launches a step), layer 0's seven
       linears of one step (split-K at M 1) against the plain version.
    Each path's launches per kernel, walls, tokens/s and profiles printed.
@@ -276,8 +315,8 @@ Phases (every failure raises; the exit code is then non-zero):
       CPU's own step is then held at 1e-2 (`TRAIN_FLIP_LEAF`);
    b. granite-moe-1b at its published widths under its config's fp8_dpa,
       remat full, attn_chunk 512, logits_chunk 512, bf16 compute and f32
-      masters: 4 steps of batch 2 x 4096 on `SyntheticLM`, lr 1e-3 with 2
-      warmup steps; every loss and grad norm finite and step 4's loss
+      masters: 3 steps of batch 2 x 4096 on `SyntheticLM`, lr 1e-3 with 2
+      warmup steps; every loss and grad norm finite and step 3's loss
       below step 1's; median step wall, trained tokens/s, the device
       busy share of one profiled step, peak memory, one `batch()`;
    c. granite at full width cut to 4 layers: two identical backward
@@ -334,6 +373,20 @@ FLASH_F32_RTOL = 2e-6             # the f32 flash route's pin (no TF32)
 # FLASH_F32_RTOL of its row's largest output, plus, in a row with flipped
 # codes, what those flips can move it by
 DPA_FLASH_MAX_FLIPS = 1e-5
+# ... by attention format.  A code flips where its p / ps lies within a
+# logit's few-ulp move of a rounding boundary of the grid.  fp16 has 2^7
+# times E4M3's boundaries in a binade (10 mantissa bits against 3) and
+# keeps a code for p down to 2^-24 of the row's largest, where E4M3 rounds
+# every p / ps below 2^-10 to 0: the same logit noise flips two to three
+# orders of magnitude more of its codes (on an H100, 5.4e-4 to 1.37e-3 of
+# them at hd 64, 128 and 256; PERF.md), each moving its output by a 2^7
+# times smaller step, which `_dpa_flash_misses` bounds output by output.
+# Its budget is E4M3's times 2^9, 3.7 times the largest share measured, as
+# E4M3's is 2.6 times its own (3.9e-6 at hd 256).  E2M1 (1 mantissa bit)
+# keeps E4M3's
+DPA_FLASH_FLIP_BUDGET = {"fp8_e4m3": DPA_FLASH_MAX_FLIPS,
+                         "fp4_e2m1": DPA_FLASH_MAX_FLIPS,
+                         "fp16": DPA_FLASH_MAX_FLIPS * 2 ** 9}
 # path D against use_flash off (global-max p quantization): 10x the gap
 # measured on an H100 (1.1e-3, PERF.md)
 SCORING_REF_TOL = 1e-2
@@ -352,10 +405,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n: int = 25) -> float:
-    """Median CUDA-event time of fn over n runs after 3 warm-ups."""
+def median_ms(fn, n: int = 25, warm: int = 3) -> float:
+    """Median CUDA-event time of fn over n runs after `warm` warm-ups."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -371,7 +424,7 @@ def median_ms(fn, n: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def device_ms_from(fn, n: int = 20):
+def device_ms_from(fn, n: int = 20, warm: int = 3):
     """Device time of fn per call, and where it came from: the durations
     of the device activities (kernels, copies, fills) of n calls under
     torch.profiler, summed and divided by n, after warm-up ("profiler").
@@ -386,7 +439,7 @@ def device_ms_from(fn, n: int = 20):
     host gaps between the launches; (None, None) where capture fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     for attempt in range(2):
@@ -406,9 +459,9 @@ def device_ms_from(fn, n: int = 20):
     return ms, None if ms is None else "graph replay"
 
 
-def device_ms(fn, n: int = 20):
+def device_ms(fn, n: int = 20, warm: int = 3):
     """`device_ms_from`'s time alone."""
-    return device_ms_from(fn, n)[0]
+    return device_ms_from(fn, n, warm)[0]
 
 
 def graph_ms(fn, n: int = 20):
@@ -457,15 +510,23 @@ def peak_ops(fmt):
 TIME_KEYS = ("ms", "plain_ms", "device_ms", "plain_device_ms")
 
 
-def timings(kernel, plain) -> dict:
+# calls a plain version is timed over each way, after one warm-up: it
+# stands beside the kernel and takes milliseconds a call
+PLAIN_TIMED = 5
+
+
+def timings(kernel, plain, plain_n: int = PLAIN_TIMED) -> dict:
     """A kernel's and its plain version's time per call, each both ways:
     `ms` / `plain_ms` the median CUDA-event time of one call (host launch
     time included), `device_ms` / `plain_device_ms` the device time per
     call (`device_ms_from`; `device_from` says where the kernel's came
-    from)."""
+    from); the plain version over `plain_n` calls each way (one for the
+    new formats' many cases)."""
     dev, src = device_ms_from(kernel)
-    return {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
-            "device_ms": dev, "plain_device_ms": device_ms(plain),
+    return {"ms": median_ms(kernel),
+            "plain_ms": median_ms(plain, plain_n, 1),
+            "device_ms": dev,
+            "plain_device_ms": device_ms(plain, plain_n, 1),
             "device_from": src}
 
 
@@ -493,15 +554,44 @@ def _plan_str(plan) -> str:
             f"{plan.split} ({plan.blocks} blocks)")
 
 
-def _held(what, got, want):
-    """got within the fused route's pin of want and finite, or raise; ->
-    max |got - want|."""
+def _held(what, got, want, extra=0.0):
+    """got within the fused route's pin of want (plus `extra`, each
+    output's own allowance) and finite, or raise; -> max |got - want|."""
     import torch
-    err, ok = _close(got, want)
+    err, ok = _close(got, want, extra)
     if not ok or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: max err {err} over rtol {MATMUL_RTOL}"
                              f" / atol {MATMUL_ATOL}")
     return err
+
+
+def _block_sum_order(x, wq, sw, kw):
+    """What fp16 activations add to the fused route's pin.  A K block's
+    partial sum of 128 products stays exact in f32 while every code's
+    lowest bit lies within 24 bits of the sum: with E4M3 (3 mantissa
+    bits) and E2M1 codes that fails only for codes some 2^14 below the
+    block's largest, which random rows almost never hold, so the kernel
+    and the plain version agree on each block but for the fold's order.
+    With fp16 codes (10 mantissa bits) it fails for any code 2^7 below
+    the largest: the two sides round the block's sum in different
+    orders, each within PAGED_SUM_SIGMAS sqrt(128) 2^-24 of the block's
+    sum of |q w| (the random-walk size of an f32 sum's rounding, as
+    paged decode's bound takes it).  -> twice that over the blocks, in
+    output units (the plain version on |x| and |w|), or 0 for the other
+    formats."""
+    import torch
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    if kw["fmt_x"] != "fp16":
+        return 0.0
+    if kw["fmt_w"] == "fp4_e2m1":
+        wa = wq & 0x77                       # both nibbles' signs cleared
+    else:
+        wa = (wq.view(torch.uint8) & 0x7F).view(wq.dtype)
+    ref = GM.dpa_grouped_matmul_fused_ref if x.ndim == 3 else \
+        DM.dpa_matmul_fused_ref
+    mag = ref(x.abs(), wa, sw.abs(), **kw)
+    return 2 * PAGED_SUM_SIGMAS * math.sqrt(DM.BK) * 2.0 ** -24 * mag
 
 
 def rows_invariant(what, kern, x, args, kw, sub=(8, 1)):
@@ -636,11 +726,11 @@ def cold_fused_layer(kern, shapes, lead, M, layers, gen):
 LARGE_M = 4096                    # path D's rows: one 4096-token sequence
 
 
-def _close(got, want):
-    """-> (max |got - want|, within the fused route's pin)."""
+def _close(got, want, extra=0.0):
+    """-> (max |got - want|, within the fused route's pin plus `extra`)."""
     err = (got - want).abs()
     return float(err.max()), bool(
-        (err <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())
+        (err <= MATMUL_ATOL + MATMUL_RTOL * want.abs() + extra).all())
 
 
 def _scaled_mm_blockwise(codes, scales, wq, N):
@@ -796,9 +886,11 @@ def check_fused_tiled(cfg, gen, projections):
     return worst, layer
 
 
-def _paged_case(cfg, pol, gen, lengths, page, positions=None):
+def _paged_case(cfg, pol, gen, lengths, page, positions=None,
+                q_dtype=None):
     """A paged cache holding `lengths` rows per request (relaid out from a
-    contiguous one), queries at `positions` (default: the last row)."""
+    contiguous one), queries at `positions` (default: the last row), bf16
+    (or `q_dtype`)."""
     import torch
     from repro_torch.core import kvcache as KV
     B = len(lengths)
@@ -814,7 +906,7 @@ def _paged_case(cfg, pol, gen, lengths, page, positions=None):
     cache = KV.paged_from_contiguous(ref, lengths, page_size=page)
     pos = positions if positions is not None else [n - 1 for n in lengths]
     q = torch.randn((B, 1, cfg.n_heads, cfg.hd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+                    device="cuda").to(q_dtype or torch.bfloat16)
     return q, cache, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
@@ -869,7 +961,9 @@ def _paged_case_tol(args, kw, want):
     flip only where p / psq lies within PAGED_P_RTOL of a rounding
     boundary of the format's grid: there the grid at p / psq (1 -/+
     PAGED_P_RTOL) gives codes lo < hi, and such flips move an output by at
-    most sum_t (hi - lo) |v_t - out| / (den - sum_t (hi - lo)).  ->
+    most sum_t (hi - lo) |v_t - out| / (den - sum_t (hi - lo)).  fp32
+    attention has no codes (pg = p), so no flips; an f32 output's ulp is
+    f32's.  ->
     (bound shaped like want, {"candidates": codes that can flip,
     "flip_max": the largest flip term})."""
     import torch
@@ -904,15 +998,18 @@ def _paged_case_tol(args, kw, want):
     mag = batched_rowwise_dot(pg, v.abs().transpose(-1, -2)) / den
     order = 2 * PAGED_SUM_SIGMAS * n.sqrt() * 2.0 ** -24 * mag
     y = p / psq
-    gap = (_attn_grid(y * (1 + PAGED_P_RTOL), fmt)
-           - _attn_grid(y * (1 - PAGED_P_RTOL), fmt))       # (B, H, 1, S)
+    gap = torch.zeros_like(y) if fmt == "fp32" else (
+        _attn_grid(y * (1 + PAGED_P_RTOL), fmt)
+        - _attn_grid(y * (1 - PAGED_P_RTOL), fmt))          # (B, H, 1, S)
     flip = torch.zeros_like(out)
     b, h, z, t = gap.nonzero(as_tuple=True)
     if b.numel():
         w = gap[b, h, z, t] / (den - gap.sum(-1, keepdim=True))[b, h, z, 0]
         flip.index_put_((b, h, z), w[:, None]
                         * (v[b, h, t] - out[b, h, z]).abs(), accumulate=True)
-    ulp = torch.where(want == 0, 0.0, _bf16_ulp(want.float()))
+    ulp = torch.where(want == 0, 0.0, _bf16_ulp(want.float())
+                      if want.dtype == torch.bfloat16 else
+                      _bf16_ulp(want.float()) * 2.0 ** -16)
     tol = ulp + (order + flip).permute(0, 2, 1, 3)
     return tol, {"candidates": int(b.numel()),
                  "flip_max": float(flip.max())}
@@ -1060,6 +1157,17 @@ def check_paged(cfg, pol, gen, ecfg):
 # KV formats it serves: (fmt_kv, kv_packed)
 PAGED_NEW_ATTN = ("fp4_e2m1", "fp16")
 PAGED_KV = (("fp4_e2m1", True), ("fp8_e4m3", False))
+# the pairs f32 attention and 2-byte and unpacked KV codes brought (the
+# presets kv8_attn_f32, kv16_attn_f32 and attn_fp16_dpa among them), each
+# at the engine's shape and the long context, timed; then the remaining
+# KV codes (bf16, E5M2) under E4M3 attention at the engine's shape.
+# fp32 attention runs f32 q: its bound (1e-5) is below a bf16 ulp
+PAGED_SLICE_PAIRS = (("fp32", ("fp8_e4m3", False)), ("fp32", ("fp16", False)),
+                     ("fp32", ("fp4_e2m1", True)),
+                     ("fp32", ("fp4_e2m1", False)),
+                     ("fp16", ("fp16", False)))
+PAGED_SLICE_EXTRA = (("fp8_e4m3", ("bf16", False)),
+                     ("fp8_e4m3", ("fp8_e5m2", False)))
 # the draft length of the verify fold's check and of phase 3j.  At the
 # engine's max_batch 4 the verify pass is 4 (k + 1) = 20 rows, below the
 # fused kernel's TILED_MIN_M = 128: there the split-K route's row bits do
@@ -1088,6 +1196,7 @@ def check_paged_formats(cfg, gen, ecfg):
     out = {}
     cases = [(f, kv) for f in PAGED_NEW_ATTN for kv in PAGED_KV]
     cases.append(("fp8_e4m3", ("fp8_e4m3", False)))
+    cases += PAGED_SLICE_PAIRS + PAGED_SLICE_EXTRA
     lengths, long_lengths = [256, 201, 101, 18], [32768, 9001]
     for fmt, (fmt_kv, packed) in cases:
         pol = TransPrecisionPolicy(fmt_attn=fmt, fmt_kv=fmt_kv,
@@ -1100,7 +1209,9 @@ def check_paged_formats(cfg, gen, ecfg):
                 ("long", long_lengths, 16, [32767, 9000])):
             if name == "long" and fmt == "fp8_e4m3":
                 continue
-            q, cache, p = _paged_case(cfg, pol, gen, lens, page, pos)
+            q, cache, p = _paged_case(
+                cfg, pol, gen, lens, page, pos,
+                torch.float32 if fmt == "fp32" else None)
             args = (q, cache["k_codes"], cache["k_scale"], cache["v_codes"],
                     cache["v_scale"], cache["block_table"], p)
             got = PD.paged_decode_attention(*args, **kw)
@@ -1118,10 +1229,12 @@ def check_paged_formats(cfg, gen, ecfg):
                     f"{fmt_kv}{' packed' if packed else ''} KV, {name}: "
                     f"err {float(errs.flatten()[i])} > its bound "
                     f"{float(case_tol.flatten()[i])} (max err {err})")
-            b_ms, b_by = bound(_paged_work(cfg, fmt, lens, q, args[5],
-                                           cache["k_codes"].shape[3]))
+            b_ms, b_by = bound(_paged_work(
+                cfg, fmt, lens, q, args[5],
+                cache["k_codes"].shape[3] * cache["k_codes"].element_size()))
             kern = lambda: PD.paged_decode_attention(*args, **kw)  # noqa
-            if name == "engine" and packed:
+            if name == "engine" and (packed or (fmt, (fmt_kv, packed)) in
+                                     PAGED_SLICE_PAIRS):
                 t = timings(kern, lambda: PD.paged_decode_attention_ref(
                     *args, **kw))
             else:
@@ -1155,10 +1268,12 @@ def check_verify_fold(cfg, gen, ecfg, k=VERIFY_K):
     out = {}
     lengths = [256, 201, 101, 18]
     B, KV, G = len(lengths), cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    for fmt in ("fp8_e4m3",) + PAGED_NEW_ATTN:
-        pol = TransPrecisionPolicy(fmt_attn=fmt, fmt_kv="fp4_e2m1",
-                                   kv_packed=True)
-        kw = dict(fmt=fmt, fmt_kv="fp4_e2m1", kv_packed=True)
+    pairs = [(f, ("fp4_e2m1", True)) for f in ("fp8_e4m3",) + PAGED_NEW_ATTN]
+    for fmt, (fmt_kv, packed) in pairs + [("fp32", ("fp8_e4m3", False)),
+                                          ("fp16", ("fp16", False))]:
+        pol = TransPrecisionPolicy(fmt_attn=fmt, fmt_kv=fmt_kv,
+                                   kv_packed=packed)
+        kw = dict(fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
         pos0 = [n - 1 - k for n in lengths]
         _, cache, pos = _paged_case(cfg, pol, gen, lengths, ecfg.page_size,
                                     pos0)
@@ -1181,12 +1296,12 @@ def check_verify_fold(cfg, gen, ecfg, k=VERIFY_K):
         for i in range(k + 1):
             if not torch.equal(got[:, i:i + 1], want[i]):
                 raise AssertionError(
-                    f"verify fold {fmt}: row {i} differs from the "
-                    "single-position launch")
-        plan = PD.fold_plan(B, k + 1, KV, G, cfg.hd, cfg.hd // 2,
-                            ecfg.page_size, cache["block_table"].shape[1])
-        split = PD.paged_plan(B, KV, G, cfg.hd, cfg.hd // 2,
-                              ecfg.page_size,
+                    f"verify fold {fmt} over {fmt_kv}: row {i} differs "
+                    "from the single-position launch")
+        wc = cache["k_codes"].shape[3] * cache["k_codes"].element_size()
+        plan = PD.fold_plan(B, k + 1, KV, G, cfg.hd, wc, ecfg.page_size,
+                            cache["block_table"].shape[1])
+        split = PD.paged_plan(B, KV, G, cfg.hd, wc, ecfg.page_size,
                               cache["block_table"].shape[1]).split
         if plan.split != split:
             raise AssertionError(f"fold split {plan.split} != decode {split}")
@@ -1194,14 +1309,15 @@ def check_verify_fold(cfg, gen, ecfg, k=VERIFY_K):
         # scores n - k + i keys
         live = [n - k + i for n in lengths for i in range(k + 1)]
         b_ms, b_by = bound(_paged_work(cfg, fmt, lengths, q,
-                                       cache["block_table"], live=live))
+                                       cache["block_table"], wc, live=live))
         t = timings(fold, lambda: PD.paged_decode_attention_ref(
             q, *rest, pos, **kw))
         t.update(bound_ms=b_ms, bound_by=b_by, split=plan.split,
                  blocks=plan.blocks, rows=B * (k + 1),
                  stepped_device_ms=device_ms(stepped))
-        out[fmt] = t
-        print(f"verify fold hd={cfg.hd} {fmt} attention, B={B} k={k}: "
+        out[fmt if packed else f"{fmt} over {fmt_kv}"] = t
+        print(f"verify fold hd={cfg.hd} {fmt} attention over {fmt_kv}"
+              f"{' packed' if packed else ''}, B={B} k={k}: "
               f"{B * (k + 1)} rows in one launch (split {plan.split}, "
               f"{plan.blocks} blocks) equal to {k + 1} single-position "
               f"launches bit for bit; fold {fmt_times(t)}; the {k + 1} "
@@ -1418,6 +1534,8 @@ PREQUANT_EDGE_ROWS = (1, 16, 17, 64)
 # packed bytes whose two codes are both +-6 (E2M1 codes 0x7 and 0xF)
 SIX_BYTES = (0x77, 0x7F, 0xF7, 0xFF)
 # path B walks this many layers' weights between two calls of one matrix
+# layers' weights a cold layer rotates over: 24 x 50 MB of qwen3-4b
+# codes are 24 times the 50 MB L2
 COLD_LAYERS = 24
 
 
@@ -2096,11 +2214,13 @@ def _bf16_ulp(want):
     return torch.ldexp(torch.ones_like(want), e - 8)
 
 
-def _dpa_flash_misses(err, want, codes, v, live):
+def _dpa_flash_misses(err, want, codes, v, live, fmt="fp8_e4m3"):
     """-> (outputs past their bound, flipped p codes).  Each output may be
     off by one bf16 ulp of itself plus FLASH_F32_RTOL of its row's largest
     output.  A flipped code moves its probability by |p0 - p1| <= the gap
-    of the two E4M3 values / 448 (p <= 1, scale amax / 448), and moves the
+    of the two values / T (p <= 1, scale amax / T; T the attention format
+    fmt's target, 448 for E4M3; the codes are E4M3 bytes, or fp16 values
+    at fp16 attention), and moves the
     row's output by at most twice that times max |V| (once through acc,
     once through l >= 1): that is added to its row's bound.  Codes are
     compared where `live` ((Sq, Sk) bool) holds: a masked key's code is 0,
@@ -2114,10 +2234,15 @@ def _dpa_flash_misses(err, want, codes, v, live):
     flips = int(flipped.sum())
     if flips:
         idx = flipped.nonzero(as_tuple=True)
-        gap = (codes[0][idx].view(torch.float8_e4m3fn).float()
-               - codes[1][idx].view(torch.float8_e4m3fn).float()).abs()
+        from repro_torch.core.formats import get_format
+
+        def value(c):
+            return (c.view(torch.float8_e4m3fn) if c.dtype == torch.uint8
+                    else c).float()
+        gap = (value(codes[0][idx]) - value(codes[1][idx])).abs()
         moved = torch.zeros(err.shape[:-1], device=err.device)
-        moved.index_put_(idx[:-1], gap / 448.0, accumulate=True)
+        moved.index_put_(idx[:-1], gap / get_format(fmt).quant_target,
+                         accumulate=True)
         tol = tol + 2.0 * float(v.float().abs().max()) * moved[..., None]
     return int((err > tol).sum()), flips
 
@@ -2694,9 +2819,20 @@ def read_counts() -> dict:
     return counters.launches(counters.snapshot())
 
 
+# the fused wrappers, whose launches are also counted by activation format
+FUSED_WRAPPERS = ("dpa_matmul_fused", "dpa_grouped_matmul_fused")
+FUSED_X_FMTS = ("fp8_e4m3", "fp4_e2m1", "fp16")
+
+
 def check_counts(what, got, want):
     """Every kernel's launches over one path equal the count its config
-    and run imply (0 for the kernels the path does not run)."""
+    and run imply (0 for the kernels the path does not run).  A `want`
+    that names no activation format of a fused wrapper takes all its
+    launches at E4M3 (every policy on the fused kernel but path L's)."""
+    want = dict(want)
+    for w in FUSED_WRAPPERS:
+        if not any(f"{w}.{f}" in want for f in FUSED_X_FMTS):
+            want[f"{w}.fp8_e4m3"] = want.get(w, 0)
     want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise AssertionError(f"{what} launches {got}, want {want}")
@@ -2946,10 +3082,10 @@ def _capture_line(name, st) -> str:
 
 
 SERVE_ORDER = ("eager", "graphed", "graphed")
-# requests of an engine's eager reference run: the first 4 of phase 3's 8
+# requests of an engine's eager reference run: the first 2 of phase 3's 8
 # (a request's tokens do not depend on the batch it rides in: phase 3g
 # serves two requests alone against their in-batch tokens)
-EAGER_REQUESTS = 4
+EAGER_REQUESTS = 2
 
 
 def workload(cfg, **kw):
@@ -2980,7 +3116,10 @@ def engine_counts(cfg, rep, rungs=()) -> dict:
     dense, experts = per_call_projections(cfg)
     L = cfg.n_layers
     serve = rep["decode_steps"] + rep.get("verify_steps", 0)
-    calls = rep["prefill_calls"] + serve + sum(
+    # the serving policy's model calls, where its linears run the fused
+    # kernel (path M's f32 linears do not)
+    calls = (rep["prefill_calls"] + serve
+             if _fused_linears(get_policy(cfg.policy)) else 0) + sum(
         n for pol, n in rungs if _fused_linears(pol))
     want = {"dpa_matmul_fused": dense * L * calls,
             "dpa_matmul_fused.splitk": dense * L * calls,
@@ -3175,9 +3314,10 @@ def run_engine(cfg, ecfg, tuned=False):
     # first token must be the engine's; after it only decode attention
     # differs, which splits near-ties: a wrong page, position or cache row
     # would leave next to no token in agreement, so at least half must
-    # agree (the margins where they differ are reported beside)
+    # agree (the margins where they differ are reported beside).  One
+    # request: each replay steps eagerly
     rep["agreement"] = []
-    for r in reqs[:2]:
+    for r in reqs[:1]:
         out = generate(model, params, r.prompt[None], r.max_new, ecfg.s_max,
                        device="cuda")
         same = np.asarray(r.out_tokens) == out[0, r.n_prompt:].cpu().numpy()
@@ -3487,11 +3627,15 @@ PROBE_OPS = ("apply_norm", "apply_linear", "rope", "apply_attention",
 # requests of a's workload the runs with slow draft steps serve (the
 # fake-quant rungs re-quantize every f32 master weight each step): the
 # first four, one batch, whose greedy tokens do not depend on the rest
+SPEC_ONE = 1                      # ... of the static fp4 draft, the
+                                  # every-round switch and the sampled
+                                  # runs (their fake-quant draft steps
+                                  # take 0.15-0.5 s)
 SPEC_FEW = 2                      # requests of the other spec runs,
 SPEC_NEW = 8                      # each cut to this many new tokens
 FRONT_END_ADAPTIVE = ["--arch", "qwen3-4b", "--engine", "--policy",
-                      "w4a8_kv4_attn8", "--adaptive-draft", "--requests", "4",
-                      "--prompt-len", "96", "--gen", "16"]
+                      "w4a8_kv4_attn8", "--adaptive-draft", "--requests", "2",
+                      "--prompt-len", "96", "--gen", "8"]
 
 
 @contextlib.contextmanager
@@ -3656,10 +3800,10 @@ def _spec_line(name, rep, plain, prof) -> str:
             f"{rep['tokens_per_s'] / plain['tokens_per_s']:.2f}x); {steps}")
 
 
-def spec_requests(cfg, cut=True):
-    """The first `SPEC_FEW` of phase 3's requests, each cut to `SPEC_NEW`
-    new tokens (the prefix of their greedy tokens) unless `cut` is off."""
-    reqs = workload(cfg)[:SPEC_FEW]
+def spec_requests(cfg, cut=True, n=SPEC_FEW):
+    """The first n of phase 3's requests, each cut to `SPEC_NEW` new
+    tokens (the prefix of their greedy tokens) unless `cut` is off."""
+    reqs = workload(cfg)[:n]
     for r in reqs:
         r.max_new = min(r.max_new, SPEC_NEW) if cut else r.max_new
     return reqs
@@ -3670,11 +3814,12 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     speculative: the row-invariance probe; a self-draft at k = 4 (every
     draft accepted, phase 3a's greedy tokens for all 8 requests); on the
     first `SPEC_FEW` requests cut to `SPEC_NEW` new tokens
-    (`spec_requests`) a static w4a4_kv4_attn4 draft (their greedy
+    (`spec_requests`; `SPEC_ONE` of them for all but the default
+    ladder's run) a static w4a4_kv4_attn4 draft (their greedy
     tokens), the default adaptive ladder under the default controller and
     (the requests whole) under one that switches every round (the greedy
     tokens; every rung's attention format launched), and a sampled
-    adaptive run twice (both drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
+    adaptive run twice on `SPEC_ONE` request (both drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
     against the plain graphed engine, one replay of each draft and verify
     step profiled (once a step) and the pools' bytes.  -> (reports,
     counts summed)."""
@@ -3697,7 +3842,8 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
         # the switch-every-round run keeps its requests whole: it must
         # draft enough rounds to walk every rung
         reqs = (workload(cfg) if name == "self-draft" else spec_requests(
-            cfg, cut=not name.startswith("adaptive, every")))
+            cfg, cut=not name.startswith("adaptive, every"),
+            n=SPEC_FEW if name == "adaptive" else SPEC_ONE))
         rep, n, engine = serve_once(f"{cfg.name} spec engine, {name}", cfg,
                                     model, params, ecfg, reqs, **kw)
         counts.append(n)
@@ -3736,7 +3882,7 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     sampled = []
     for i in range(2):
         name = f"sampled adaptive {i + 1}"
-        reqs = spec_requests(cfg)
+        reqs = spec_requests(cfg, n=SPEC_ONE)
         rep, n, engine = serve_once(
             f"{cfg.name} spec engine, {name}", cfg, model, params, ecfg,
             reqs, sampler=SamplerConfig(**SAMPLED), adaptive=ladder)
@@ -3750,7 +3896,7 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     if sampled[0] != sampled[1]:
         raise AssertionError("sampled adaptive runs gave other tokens")
     print(f"spec sampled adaptive ({SAMPLED}): two runs drain and give "
-          f"the same tokens for all {SPEC_FEW} requests; acceptance "
+          f"the same tokens for all {SPEC_ONE} requests; acceptance "
           f"{out['sampled adaptive 1']['acceptance_rate']:.4f}")
     return out, add_counts(*counts)
 
@@ -3779,7 +3925,9 @@ def run_front_end_adaptive(cfg):
     print("front end: python -m repro_torch.launch.serve "
           + " ".join(FRONT_END_ADAPTIVE))
     print(text, end="")
-    if "adaptive: 3-rung ladder" not in text or rep["n_requests"] != 4:
+    n_req = int(FRONT_END_ADAPTIVE[FRONT_END_ADAPTIVE.index("--requests")
+                                   + 1])
+    if "adaptive: 3-rung ladder" not in text or rep["n_requests"] != n_req:
         raise AssertionError(f"adaptive front end printed: {text}")
     ladder = [get_policy(p) for p in default_ladder(cfg.policy)]
     rounds = [r["rounds"] * r["k"] for r in rep["adaptive_rungs"]]
@@ -3831,7 +3979,7 @@ def recorded_attention(calls):
 
 
 def check_path_attention(what, calls, plain, kernel=None, window=None,
-                         causal=True):
+                         causal=True, fmt="fp8_e4m3"):
     """Each layer's attention output on a path (`recorded_attention`)
     against `plain`, the kernel's plain version, on the same inputs laid
     out heads-first here and not by the route.  Pins what lies between
@@ -3847,7 +3995,8 @@ def check_path_attention(what, calls, plain, kernel=None, window=None,
     codes flipped), one layer at a time (a code buffer is H x S x S
     bytes).  A local attention path passes its `window`, a non-causal one
     (an encoder's, a cross-attention's: Sq may differ from Sk) `causal`
-    False."""
+    False; `fmt` is the DPA route's attention format (its codes' dtype and
+    flip bound)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     worst, flips = 0.0, []
@@ -3865,7 +4014,8 @@ def check_path_attention(what, calls, plain, kernel=None, window=None,
             Sk = kh.shape[2]
             if codes is None or codes[0].shape != (B, H, Sq, Sk):
                 codes = None                # free the old buffers first
-                codes = [torch.zeros((B, H, Sq, Sk), dtype=torch.uint8,
+                codes = [torch.zeros((B, H, Sq, Sk),
+                                     dtype=FA.p_code_dtype(fmt),
                                      device=q.device) for _ in range(2)]
                 mask = FA._mask(Sq, Sk, causal, window, q.device)
             for c in codes:
@@ -3877,10 +4027,10 @@ def check_path_attention(what, calls, plain, kernel=None, window=None,
                                      "inputs")
             want = plain(qh, kh, vh, codes[1]).float()
             err = (got.float() - want).abs()
-            bad, n = _dpa_flash_misses(err, want, codes, vh, mask)
+            bad, n = _dpa_flash_misses(err, want, codes, vh, mask, fmt)
             live = H * int(mask.sum())
             flips.append(n)
-            if n > DPA_FLASH_MAX_FLIPS * live:
+            if n > DPA_FLASH_FLIP_BUDGET[fmt] * live:
                 raise AssertionError(f"{what}: layer {i}: {n} of {live} p "
                                      "codes flipped")
         if got.shape != want.shape or bad:
@@ -3896,7 +4046,7 @@ def check_path_attention(what, calls, plain, kernel=None, window=None,
         print(f"{what}: {len(calls)} layers' attention outputs within "
               f"phase 2's bound of the plain version (max |diff| "
               f"{worst:.3g}); p codes flipped per layer {flips} (budget "
-              f"{DPA_FLASH_MAX_FLIPS:g} of each layer's live codes)")
+              f"{DPA_FLASH_FLIP_BUDGET[fmt]:g} of each layer's live codes)")
     return worst, flips
 
 
@@ -4049,6 +4199,311 @@ def run_scoring(cfg, params, S=4096):
 
 
 # -----------------------------------------------------------------------------
+# phase 3m: the presets the new formats unlock (paths L, M, N)
+# -----------------------------------------------------------------------------
+
+FUSED_PRESET = "fp4_dpa_fused"         # path L: E2M1 activations in the kernel
+# path M: (policy, requests of phase 3's 8), each request cut to
+# PAGED_PRESET_NEW new tokens
+PAGED_PRESETS = (("kv8_attn_f32", 8), ("kv16_attn_f32", 4),
+                 ("attn_fp16_dpa", 4))
+PAGED_PRESET_NEW = 8
+FLASH_PRESETS = ("attn_fp16_dpa", "attn_fp4_packed")   # path N
+
+
+def run_fused_generate(cfg, params, *, n_prompts=2, prompt_len=32,
+                       n_new=16):
+    """Path L's static serving: `generate` under fp4_dpa_fused (packed-E2M1
+    weights, activations quantized onto E2M1 in the fused kernel) over
+    params built for the model (prepared again for the policy), eagerly
+    and with the serve step as a CUDA graph: the same tokens, finite
+    logits, and every projection of every model call on the split-K route
+    with E2M1 activations (the counters by route and by activation
+    format; a MoE model's experts through the grouped kernel).  ->
+    (the graphed run's counts, report)."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = model.prepare_params(params)
+    restore = finite_steps(model)
+    prompt = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len),
+                           generator=torch.Generator().manual_seed(2))
+    s_ctx = prompt_len + n_new
+    calls = s_ctx - 1
+    dense, experts = per_call_projections(cfg)
+    n_d, n_e = dense * cfg.n_layers * calls, experts * cfg.n_layers * calls
+    want = {"dpa_matmul_fused": n_d, "dpa_matmul_fused.splitk": n_d,
+            "dpa_matmul_fused.fp4_e2m1": n_d,
+            "dpa_grouped_matmul_fused": n_e,
+            "dpa_grouped_matmul_fused.splitk": n_e,
+            "dpa_grouped_matmul_fused.fp4_e2m1": n_e}
+    outs, res = {}, {}
+    for mode in ("eager", "graphed"):
+        zero_counts()
+        t0 = time.monotonic()
+        out = generate(model, params, prompt, n_new, s_ctx, device="cuda",
+                       graphs=mode == "graphed")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        if tuple(out.shape) != (n_prompts, s_ctx) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"generate returned {tuple(out.shape)}")
+        check_counts(f"{cfg.name} generate ({cfg.policy}, {mode})", counts,
+                     want)
+        st = generate.capture_stats
+        timed = calls - 1 if st else calls
+        step_wall = wall - (st["warmup_s"] + st["capture_s"] if st else 0.0)
+        res[mode] = {"wall_s": wall, "model_calls": calls,
+                     "ms_per_call": step_wall / timed * 1e3}
+        print(f"generate ({mode}): {cfg.name} under {cfg.policy}, "
+              f"{n_prompts} prompts x {prompt_len} tokens + {n_new} new in "
+              f"{wall:.2f} s ({res[mode]['ms_per_call']:.1f} ms a model "
+              "call" + (" replayed)" if st else ")"))
+        outs[mode] = out.cpu()
+    if not restore():
+        raise AssertionError("non-finite logits")
+    if not torch.equal(outs["eager"], outs["graphed"]):
+        raise AssertionError(f"{cfg.name} {cfg.policy}: graphed generate "
+                             "tokens differ from the eager run's")
+    print(f"generate {cfg.name} {cfg.policy}: graphed tokens equal the "
+          "eager run's; new tokens "
+          f"{outs['graphed'][:, prompt_len:].tolist()}")
+    return counts, {**res["graphed"], "eager": res["eager"],
+                    "tokens_equal_eager": True}
+
+
+def run_fused_scoring(cfg, params, S=4096):
+    """Path L's long pass: the forward of `make_loss_fn` over one S-token
+    sequence under fp4_dpa_fused with use_flash: every projection on the
+    fused kernel's tiled route with E2M1 activations (the pre-pass
+    `dpa_act_quant` writes them as E4M3 bytes), every layer's attention
+    through the f32 flash kernel (f32 attention; its bf16 instance).  A
+    warm-up, then a timed and counted call; the loss finite, near ln V and
+    within SCORING_REF_TOL of the same call with use_flash off; the tiled
+    route's operations equal the analytic census's.  -> (counts,
+    report)."""
+    import math
+    import torch
+    from repro_torch.distributed.step import make_loss_fn
+    from repro_torch.kernels import counters
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cuda")
+    params = model.prepare_params(params)
+    loss_fn = make_loss_fn(model)
+    batch = {"tokens": _prompt(cfg, S, 5), "labels": _prompt(cfg, S, 6)}
+    loss_fn(params, batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    _, parts = loss_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    delta = counters.snapshot()
+    counts = read_counts()
+    n = per_call_projections(cfg)[0] * cfg.n_layers
+    check_counts(f"{cfg.name} scoring ({cfg.policy}, use_flash)", counts,
+                 {"flash_attention": cfg.n_layers, "dpa_matmul_fused": n,
+                  "dpa_matmul_fused.tiled": n,
+                  "dpa_matmul_fused.fp4_e2m1": n, "dpa_act_quant": n})
+    check_linear_census(f"{cfg.name} scoring ({cfg.policy})", delta, cfg, S)
+    _, ref_parts = make_loss_fn(build_model(
+        cfg.replace(use_flash=False), device="cuda"))(params, batch)
+    loss, ref_loss = float(parts["loss"]), float(ref_parts["loss"])
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(loss) and 0.5 * ln_v < loss < 1.5 * ln_v
+            and abs(loss - ref_loss) <= SCORING_REF_TOL):
+        raise AssertionError(f"{cfg.policy} scoring loss {loss} (use_flash "
+                             f"off {ref_loss}, limit {SCORING_REF_TOL})")
+    print(f"scoring: {cfg.name} {S} tokens under {cfg.policy}, loss "
+          f"{loss:.6f} (use_flash off {ref_loss:.6f}, diff "
+          f"{loss - ref_loss:.3g}) in {wall:.3f} s = {S / wall:.1f} "
+          "tokens/s")
+    label = f"{cfg.name} scoring ({S} tokens, {cfg.policy})"
+    prof = profile_window(label, lambda: loss_fn(params, batch))
+    path_roofline(label, prof, lambda: loss_fn(params, batch),
+                  (cfg, "prefill", S, 1), wall * 1e3)
+    return counts, {"wall_s": wall, "tokens_per_s": S / wall, "loss": loss,
+                    "loss_ref_attn": ref_loss, "loss_diff": loss - ref_loss,
+                    "profile": prof}
+
+
+def run_flash_formats(cfg, params, S=4096):
+    """Path N: the forward of `make_loss_fn` over one S-token sequence
+    with use_flash (the cache-free pass: a prefill writes a quantized
+    cache and attends its dequantized rows through the plain route, in
+    the reference as here) under attn_fp16_dpa and attn_fp4_packed, on
+    params built for the model: every layer's attention through the DPA
+    flash kernel in fp16 or E2M1 attention after its pre-pass (two
+    row-quantizer launches a layer: fp16 K/V codes by `quantize_rows`,
+    packed E2M1 by `quantize_pack_rows`), the linears f32 (cuBLAS, as the
+    reference computes them outside any kernel).  Per policy: a warm-up,
+    then a timed and counted call; the loss finite and near ln V (its
+    distance to use_flash off, where p is quantized under the row's global
+    max, reported); every layer's attention held to the plain version by
+    `check_path_attention` (its format's flip budget and each output's
+    bound) and within the route's tol.  -> (counts summed, {policy:
+    report})."""
+    import math
+    import torch
+    from repro_torch.core import exec_plan
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.step import make_loss_fn
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.registry import FLASH_BLOCK
+    from repro_torch.models import build_model
+    route_tol = exec_plan.route("flash_attn", "cuda_dpa_flash").tol
+    out, total = {}, {}
+    for name in FLASH_PRESETS:
+        pcfg = cfg.replace(policy=name, use_flash=True)
+        pol = get_policy(name)
+        model = build_model(pcfg, device="cuda")
+        p = model.prepare_params(params)
+        loss_fn = make_loss_fn(model)
+        batch = {"tokens": _prompt(pcfg, S, 5), "labels": _prompt(pcfg, S, 6)}
+        loss_fn(p, batch)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.monotonic()
+        _, parts = loss_fn(p, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        prepass = ("quantize_pack_rows" if pol.fmt_kv == "fp4_e2m1"
+                   else "quantize_rows")
+        L = pcfg.n_layers
+        check_counts(f"{pcfg.name} scoring ({name}, use_flash)", counts,
+                     {"dpa_flash_attention": L,
+                      "dpa_flash_attention.prepass": L, prepass: 2 * L})
+        _, ref_parts = make_loss_fn(build_model(
+            pcfg.replace(use_flash=False), device="cuda"))(p, batch)
+        loss, ref_loss = float(parts["loss"]), float(ref_parts["loss"])
+        ln_v = math.log(pcfg.vocab_size)
+        if not (math.isfinite(loss) and 0.5 * ln_v < loss < 1.5 * ln_v):
+            raise AssertionError(f"{name} scoring loss {loss} (ln V "
+                                 f"{ln_v:.4f})")
+        calls = []
+        with recorded_attention(calls):
+            loss_fn(p, batch)
+        kw = dict(fmt=pol.fmt_attn, fmt_kv=pol.fmt_kv, bk=FLASH_BLOCK)
+        err, flips = check_path_attention(
+            f"scoring {name}", calls,
+            lambda q, k, v, c, kw=kw: FA.dpa_flash_attention_ref(
+                q, k, v, p_codes=c, **kw),
+            kernel=lambda q, k, v, c, kw=kw: FA.dpa_flash_attention(
+                q, k, v, p_codes=c, bq=FLASH_BLOCK, **kw), fmt=pol.fmt_attn)
+        del calls
+        if err > route_tol:
+            raise AssertionError(f"{name}: a layer's attention is {err} off "
+                                 f"the plain version (route tol {route_tol})")
+        out[name] = {"wall_s": wall, "tokens_per_s": S / wall, "loss": loss,
+                     "loss_ref_attn": ref_loss,
+                     "loss_diff": loss - ref_loss,
+                     "attn_max_abs_err_vs_plain": err,
+                     "attn_p_codes_flipped_per_layer": flips}
+        print(f"scoring: {pcfg.name} {S} tokens under {name}, loss "
+              f"{loss:.6f} (use_flash off {ref_loss:.6f}, diff "
+              f"{loss - ref_loss:.3g}) in {wall:.3f} s = {S / wall:.1f} "
+              "tokens/s")
+        if name == FLASH_PRESETS[0]:     # one route table: the fp16 pass
+            label = f"{pcfg.name} scoring ({S} tokens, {name})"
+            prof = profile_window(label, lambda: loss_fn(p, batch))
+            path_roofline(label, prof, lambda: loss_fn(p, batch),
+                          (pcfg, "prefill", S, 1), wall * 1e3)
+            out[name]["profile"] = prof
+        total = add_counts(total, counts)
+        del model, p, loss_fn
+    return total, out
+
+
+def run_paged_presets(cfg, ecfg, params):
+    """Path M: the engine at phase 3a's geometry on the model's weights
+    (one build; each policy re-wraps them, `prepare_params`) under
+    kv8_attn_f32 (phase 3's 8 requests), kv16_attn_f32 and attn_fp16_dpa
+    (its first 4), each request cut to PAGED_PRESET_NEW new tokens,
+    greedy, with its steps as CUDA graphs and, on the first request,
+    eagerly: the graphed run's tokens equal the eager run's; every decode
+    step's attention through
+    the paged kernel in the policy's attention format over its cache codes
+    (f32 over E4M3, f32 over fp16, fp16 over fp16: the counters by format,
+    `engine_counts`), the linears f32 (no kernel); the first request
+    replayed through the static path in the engine's prefill chunks
+    (`teacher_forced`: the first token equal, at least half agreeing).
+    -> (the graphed runs' counts summed, {policy: report})."""
+    from repro_torch.models import build_model
+    out, total = {}, {}
+    for name, n_req in PAGED_PRESETS:
+        pcfg = cfg.replace(policy=name)
+        model = build_model(pcfg, device="cuda")
+        p = model.prepare_params(params)
+        restore = finite_steps(model)
+        runs = {}
+        for mode in ("eager", "graphed"):
+            reqs = workload(pcfg)[:1 if mode == "eager" else n_req]
+            for r in reqs:
+                r.max_new = min(r.max_new, PAGED_PRESET_NEW)
+            rep, counts, engine = serve_once(
+                f"{pcfg.name} {name} engine ({mode})", pcfg, model, p, ecfg,
+                reqs, graphs=mode == "graphed")
+            runs[mode] = (rep, counts, reqs)
+            del engine
+        if not restore():
+            raise AssertionError(f"{name}: non-finite logits")
+        differ = [a.rid for a, b in zip(runs["eager"][2], runs["graphed"][2])
+                  if a.out_tokens != b.out_tokens]
+        if differ:
+            raise AssertionError(f"{name}: graphed tokens differ from the "
+                                 f"eager run's for requests {differ}")
+        rep, counts, reqs = runs["graphed"]
+        agreement = []
+        for r in reqs[:1]:
+            tf = teacher_forced(model, p, r, ecfg.s_max, ecfg.prefill_chunk)
+            if not tf["first_token_agrees"] or 2 * tf["agree"] < tf["tokens"]:
+                raise AssertionError(f"{name} request {r.rid}: teacher-forced"
+                                     f" replay {tf}")
+            agreement.append(dict(tf, rid=r.rid))
+        out[name] = {k: rep[k] for k in (
+            "n_requests", "gen_tokens", "tokens_per_s", "wall_s",
+            "decode_steps", "prefill_calls", "p50_ttft_s", "p50_latency_s",
+            "decode_route")}
+        out[name].update(eager_tokens_per_s=runs["eager"][0]["tokens_per_s"],
+                         tokens_equal_eager=True, agreement=agreement,
+                         launches_by_format={
+                             k: v for k, v in counts.items()
+                             if k.startswith("paged_decode_attention.")
+                             and v})
+        print(f"{pcfg.name} under {name}: {n_req} requests x "
+              f"{PAGED_PRESET_NEW} new tokens, graphed tokens equal eager; "
+              f"{rep['tokens_per_s']:.2f} tok/s graphed "
+              f"({runs['eager'][0]['tokens_per_s']:.2f} eager)")
+        total = add_counts(total, counts)
+        del model, p
+    return total, out
+
+
+def run_format_paths(qwen, granite, ecfg):
+    """Paths L, M and N on fresh full-width models (`tools/formats_probe.py`
+    runs them alone; `main` runs each on the weights of the phase that
+    built them)."""
+    import gc as _gc
+    _, params = build(qwen)
+    res = {"L generate": run_fused_generate(
+               qwen.replace(policy=FUSED_PRESET), params)[1],
+           "L scoring": run_fused_scoring(
+               qwen.replace(policy=FUSED_PRESET, use_flash=True), params)[1],
+           "N": run_flash_formats(qwen, params)[1],
+           "M": run_paged_presets(qwen, ecfg, params)[1]}
+    del params
+    _gc.collect()
+    _, params = build(granite)
+    res["L granite generate"] = run_fused_generate(
+        granite.replace(policy=FUSED_PRESET), params)[1]
+    return res
+
+
+# -----------------------------------------------------------------------------
 # phase 3k: the recurrent families (paths G, H, I)
 # -----------------------------------------------------------------------------
 
@@ -4160,6 +4615,272 @@ def check_dpa_flash_wide(gen, H=16, KV=1, S=RG_PROMPT, hd=256,
             out = t
     out["max_abs_err"] = worst
     out["flips"] = flips
+    return out
+
+
+# -----------------------------------------------------------------------------
+# phase 2m: the kernels' remaining trans-precision formats (E2M1 and fp16
+# activations in the fused matmul, fp16 and E2M1 attention and fp16 K/V in
+# DPA flash; paged decode's in check_paged_formats / check_verify_fold)
+# -----------------------------------------------------------------------------
+
+NEW_ACT_FMTS = ("fp4_e2m1", "fp16")   # the fused kernels' new x formats
+# DPA flash in the new attention formats: (name, H, KV, S, hd, fmt,
+# fmt_kv, cache mode, packed cache, window, bq, bk), the first of each
+# format timed: one qwen3-4b scoring layer (hd 128, S 4096), an hd 64
+# layer at S 1000 (bk 125, whisper's), path H's local layer (hd 256,
+# window 2048, bq 64), fp16 cache codes, and fp16 attention over packed
+# E2M1 K/V (w16a16_kv4_attn16's mix)
+DPA_NEW_CASES = (
+    ("fp16 raw fp16", 32, 8, 4096, 128, "fp16", "fp16", False, False, None,
+     128, 128),
+    ("fp4 raw fp4", 32, 8, 4096, 128, "fp4_e2m1", "fp4_e2m1", False, False,
+     None, 128, 128),
+    ("fp16 raw fp16 hd 64", 16, 8, 1000, 64, "fp16", "fp16", False, False,
+     None, 125, 125),
+    ("fp4 raw fp4 hd 64", 16, 8, 1000, 64, "fp4_e2m1", "fp4_e2m1", False,
+     False, None, 125, 125),
+    ("fp16 cache fp16 hd 64", 16, 8, 1000, 64, "fp16", "fp16", True, False,
+     None, 125, 125),
+    ("fp16 raw fp16 hd 256 window 2048", 16, 1, 4096, 256, "fp16", "fp16",
+     False, False, 2048, 64, 128),
+    ("fp4 raw fp4 hd 256 window 2048", 16, 1, 4096, 256, "fp4_e2m1",
+     "fp4_e2m1", False, False, 2048, 64, 128),
+    ("fp16 cache fp16 hd 256 window 300", 16, 1, 1000, 256, "fp16", "fp16",
+     True, False, 300, 50, 125),
+    ("fp16 cache packed fp4", 32, 8, 1024, 128, "fp16", "fp4_e2m1", True,
+     True, None, 128, 128))
+
+
+def check_fused_formats(qwen, granite, gen):
+    """The fused matmul with E2M1 and fp16 activations against its plain
+    version at the fused route's pin, both routes: qwen3-4b's five
+    projection shapes with packed-fp4 weights at M 8 and 32 (split-K) and
+    4096 (tiled; the pre-pass's codes and scales equal its plain
+    version's), E4M3 weights at the first shape, the rows of M = 8 and 1
+    against an M = 64 call (`torch.equal`) at the shape with the largest
+    split, and granite's expert shapes grouped (E 32, M 8 and 11, dropped
+    rows exactly 0).  fp16 activations are held to the pin plus their
+    blocks' sum order (`_block_sum_order`).  Timed: one qwen3-4b layer at
+    M 8 and at M 4096 and one granite expert layer at M 8 per format,
+    each beside its bound at the format's peak (fp16: 989 Top/s).  ->
+    {fmt: {...}}."""
+    import torch
+    from repro_torch.kernels import census as CS
+    from repro_torch.kernels import dpa_grouped_matmul as GM
+    from repro_torch.kernels import dpa_matmul as DM
+    from repro_torch.kernels.ops import prep_grouped_weights, prep_weights
+    projections = _dense_shapes(qwen)
+    shapes = sorted(set(projections.values()))
+    weights = {}
+    for K, N in shapes:
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * K ** -0.5).to(torch.bfloat16)
+        weights[K, N] = (prep_weights(w, qwen.policy),
+                         prep_weights(w, "fp8_dpa_fused"))
+    E = granite.n_experts
+    gshapes = sorted(set(_expert_shapes(granite).values()))
+    gweights = {(K, N): prep_grouped_weights(
+        torch.randn((E, K, N), generator=gen, device="cuda") * K ** -0.5,
+        granite.policy) for K, N in gshapes}
+    out = {}
+    for fmt in NEW_ACT_FMTS:
+        fp4 = dict(fmt_x=fmt, fmt_w="fp4_e2m1", pack_w=True)
+        fp8 = dict(fmt_x=fmt, fmt_w="fp8_e4m3", pack_w=False)
+        xb = DM.X_CODE_BYTES[fmt]
+        edge = max(shapes, key=lambda kn: (
+            DM.fused_plan(1, 8, *kn, xb=xb).split, kn))
+        worst, timed, plans = 0.0, {}, {}
+        for K, N in shapes:
+            prep, prep8 = weights[K, N]
+            for M in (8, 32, LARGE_M):
+                x = torch.randn((M, K), generator=gen, device="cuda")
+                if M == LARGE_M:
+                    x[7, 128:256] = 0
+                    x[9] *= 1e3
+                x = x.to(torch.bfloat16)
+                args = (x, prep["wq"], prep["sw"])
+                plan = DM.fused_plan(1, M, K, N, xb=xb)
+                route = "tiled" if M == LARGE_M else "splitk"
+                if plan.route != route:
+                    raise AssertionError(f"{fmt} M={M}: plan {plan}")
+                plans[f"{K}x{N} M={M}"] = plan._asdict()
+                label = f"dpa_matmul_fused {fmt} activations K={K} N={N} M={M}"
+                err = _held(label, DM.dpa_matmul_fused(*args, **fp4),
+                            DM.dpa_matmul_fused_ref(*args, **fp4),
+                            _block_sum_order(*args, fp4))
+                worst = max(worst, err)
+                line = f"{label}: {_plan_str(plan)}; max_abs_err {err:.3g}"
+                if M == LARGE_M:
+                    codes, scales = DM.dpa_act_quant(x, fmt=fmt)
+                    want_c, want_s = DM.dpa_act_quant_ref(x, fmt=fmt)
+                    if not (torch.equal(codes, want_c)
+                            and torch.equal(scales, want_s)):
+                        raise AssertionError(f"dpa_act_quant {fmt} K={K}: "
+                                             "codes or scales differ from "
+                                             "the plain version")
+                    line += "; pre-pass codes and scales exact"
+                if M != 32:
+                    t = timings(lambda: DM.dpa_matmul_fused(*args, **fp4),
+                                lambda: DM.dpa_matmul_fused_ref(*args,
+                                                                **fp4), 1)
+                    t["bound_ms"], b_by = bound(CS.launch_work(
+                        "dpa_matmul_fused", route, E=1, M=M, K=K, N=N,
+                        x_bytes=2, fmt_w="fp4_e2m1", pack_w=True, fmt_x=fmt))
+                    timed[(K, N, M)] = t
+                    line += (f"; {fmt_times(t)} bound_ms "
+                             f"{t['bound_ms']:.5f} ({b_by})")
+                print(line)
+            if (K, N) == shapes[0]:
+                x = torch.randn((8, K), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                args = (x, prep8["wq"], prep8["sw"])
+                err = _held(f"dpa_matmul_fused {fmt} activations, E4M3 "
+                            f"weights K={K} N={N} M=8",
+                            DM.dpa_matmul_fused(*args, **fp8),
+                            DM.dpa_matmul_fused_ref(*args, **fp8),
+                            _block_sum_order(*args, fp8))
+                worst = max(worst, err)
+                print(f"dpa_matmul_fused {fmt} activations, E4M3 weights "
+                      f"K={K} N={N} M=8: max_abs_err {err:.3g}")
+            if (K, N) == edge:
+                x = torch.randn((64, K), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                rows_invariant(f"dpa_matmul_fused {fmt} activations K={K} "
+                               f"N={N}", DM.dpa_matmul_fused, x,
+                               (prep["wq"], prep["sw"]), fp4)
+        gtimed = {}
+        for K, N in gshapes:
+            prep = gweights[K, N]
+            for M, live in ((8, [4] * (E - 2) + [1, 0]),
+                            (11, [11] * (E - 3) + [7, 3, 0])):
+                x = _drop(torch.randn((E, M, K), generator=gen,
+                                      device="cuda"), live).to(torch.bfloat16)
+                args = (x, prep["wq"], prep["sw"])
+                label = (f"dpa_grouped_matmul_fused {fmt} activations E={E} "
+                         f"K={K} N={N} M={M}")
+                got = GM.dpa_grouped_matmul_fused(*args, **fp4)
+                err = _held(label, got,
+                            GM.dpa_grouped_matmul_fused_ref(*args, **fp4),
+                            _block_sum_order(*args, fp4))
+                if any(bool((got[e, n:] != 0).any())
+                       for e, n in enumerate(live)):
+                    raise AssertionError(f"{label}: dropped rows not 0")
+                worst = max(worst, err)
+                plan = DM.fused_plan(E, M, K, N, xb=xb)
+                line = (f"{label}: {_plan_str(plan)}; max_abs_err "
+                        f"{err:.3g}; dropped rows 0")
+                if M == 8:
+                    t = timings(
+                        lambda: GM.dpa_grouped_matmul_fused(*args, **fp4),
+                        lambda: GM.dpa_grouped_matmul_fused_ref(*args,
+                                                                **fp4), 1)
+                    t["bound_ms"], b_by = bound(CS.launch_work(
+                        "dpa_grouped_matmul_fused", "splitk", E=E, M=M, K=K,
+                        N=N, x_bytes=2, fmt_w="fp4_e2m1", pack_w=True,
+                        fmt_x=fmt))
+                    gtimed[(K, N, M)] = t
+                    line += (f"; {fmt_times(t)} bound_ms "
+                             f"{t['bound_ms']:.5f} ({b_by})")
+                print(line)
+        res = {"max_abs_err": worst, "plans": plans,
+               "decode_layer": _per_layer(timed, projections, 8),
+               "tiled_layer": _per_layer(timed, projections, LARGE_M),
+               "grouped_decode_layer": _per_layer(
+                   gtimed, _expert_shapes(granite), 8)}
+        out[fmt] = res
+        print(f"dpa_matmul_fused {fmt} activations, one qwen3-4b layer "
+              f"({len(projections)} calls): M=8 "
+              f"{fmt_times(res['decode_layer'])}"
+              f" bound {res['decode_layer']['bound_ms']:.5f} ms; M={LARGE_M} "
+              f"{fmt_times(res['tiled_layer'])} bound "
+              f"{res['tiled_layer']['bound_ms']:.4f} ms; granite expert "
+              f"layer (E {E}, M=8) {fmt_times(res['grouped_decode_layer'])}"
+              f" bound {res['grouped_decode_layer']['bound_ms']:.5f} ms")
+    return out
+
+
+def check_dpa_flash_formats(gen):
+    """The DPA flash kernel in fp16 and E2M1 attention (`DPA_NEW_CASES`)
+    against its plain version: both sides write every probability's code
+    (fp16 values at fp16 attention, E4M3 bytes at E2M1), at most the
+    format's `DPA_FLASH_FLIP_BUDGET` of the live codes may differ, and
+    every output is
+    held to its own bound (`_dpa_flash_misses`) and to the route's 0.075
+    (the flash_attn route's tol); cache rows made from the same K/V give
+    the raw mode's bits.  The first case of each format and head dim is
+    timed beside its bound at the format's peak.  -> {case: {...}}."""
+    import torch
+    from repro_torch.core import kvcache as KVC
+    from repro_torch.core import exec_plan
+    from repro_torch.kernels import census as CS
+    from repro_torch.kernels import flash_attention as FA
+    route_tol = exec_plan.route("flash_attn", "cuda_dpa_flash").tol
+    out, timed = {}, set()
+    for (name, H, KV, S, hd, fmt, fmt_kv, cache, packed, window, bq,
+         bk) in DPA_NEW_CASES:
+        q, k, v = _attn_inputs(gen, H, KV, S, hd, torch.bfloat16)
+        kw = dict(fmt=fmt, fmt_kv=fmt_kv, bq=bq, bk=bk, window=window)
+        if cache:
+            kc, ks = KVC.quantize_kv(k, fmt=fmt_kv, packed=packed)
+            vc, vs = KVC.quantize_kv(v, fmt=fmt_kv, packed=packed)
+            args = (q, kc, vc, ks, vs)
+            kw.update(kv_quant=True, kv_packed=packed)
+        else:
+            args = (q, k, v)
+        ref_kw = {x: y for x, y in kw.items() if x != "bq"}
+        codes = [torch.zeros((1, H, S, S), dtype=FA.p_code_dtype(fmt),
+                             device="cuda") for _ in range(2)]
+        zero_counts()
+        got = FA.dpa_flash_attention(*args, p_codes=codes[0], **kw)
+        counts = read_counts()
+        want = FA.dpa_flash_attention_ref(*args, p_codes=codes[1], **ref_kw)
+        torch.cuda.synchronize()
+        if counts["dpa_flash_attention"] != 1:
+            raise AssertionError(f"dpa_flash_attention {name}: launches "
+                                 f"{counts}")
+        err = (got.float() - want.float()).abs()
+        mask = FA._mask(S, S, True, window, "cuda")
+        live = H * int(mask.sum())
+        bad, flips = _dpa_flash_misses(err, want.float(), codes, v, mask,
+                                       fmt)
+        del codes
+        if not bool(torch.isfinite(got).all()) or bad or \
+                float(err.max()) > route_tol or \
+                flips > DPA_FLASH_FLIP_BUDGET[fmt] * live:
+            raise AssertionError(f"dpa_flash_attention {name} S={S} hd={hd}"
+                                 f": {bad} outputs off their bound (max "
+                                 f"err {float(err.max())}), {flips} of "
+                                 f"{live} p codes flipped")
+        line = ""
+        if cache:
+            raw = FA.dpa_flash_attention(q, k, v, fmt=fmt, fmt_kv=fmt_kv,
+                                         bq=bq, bk=bk, window=window)
+            if not torch.equal(raw, got):
+                raise AssertionError(f"dpa_flash_attention {name}: cache "
+                                     "rows gave other bits than raw K/V")
+            line = "; == raw mode bit for bit"
+        res = {"max_abs_err": float(err.max()), "flips": [flips, live]}
+        if (fmt, hd) not in timed and not cache:
+            timed.add((fmt, hd))
+            res.update(timings(lambda: FA.dpa_flash_attention(*args, **kw),
+                               lambda: FA.dpa_flash_attention_ref(*args,
+                                                                  **ref_kw),
+                               1))
+            kv_row = hd * 2
+            res["bound_ms"], res["bound_by"] = bound(CS.launch_work(
+                "dpa_flash_attention", B=1, H=H, KV=KV, sq=S, sk=S, hd=hd,
+                q_bytes=2, kv_row_bytes=kv_row, causal=True, window=window,
+                fmt=fmt))
+            line += (f"; {fmt_times(res)} (pre-pass included) bound_ms "
+                     f"{res['bound_ms']:.5f} ({res['bound_by']}, {fmt} "
+                     "peak)")
+        out[name] = res
+        print(f"dpa_flash_attention {name} H={H} KV={KV} S={S} hd={hd} "
+              f"bq={bq} bk={bk}: max_abs_err {float(err.max()):.3g} (route "
+              f"tol {route_tol}); {flips} of {live} live p codes flipped"
+              + line)
+        del q, k, v, args, got, want, err
     return out
 
 
@@ -4468,8 +5189,8 @@ def run_recurrent_front_end():
 # phase 3l: the encoder-decoder and VLM families (paths J, K)
 # -----------------------------------------------------------------------------
 
-J_BATCH, J_PROMPT, J_DECODE = 2, 32, 32      # path J: whisper-medium
-K_SEQ, K_DECODE = 4096, 16                   # path K: pixtral-12b
+J_BATCH, J_PROMPT, J_DECODE = 2, 32, 16      # path J: whisper-medium
+K_SEQ, K_DECODE = 4096, 8                    # path K: pixtral-12b
 
 
 def stub_batch(cfg, B, S, frames=0, step=0):
@@ -4622,7 +5343,7 @@ def run_encdec(name="whisper-medium"):
     decoder's self-attention over its quantized cache on the plain
     route, cross-attention Sq 32 x Sk 1,500 through the DPA flash kernel,
     the decoder's linears on the split-K route, the cross K/V on the
-    tiled route), then 32 greedy `decode_step`s from the prefill's
+    tiled route), then `J_DECODE` greedy `decode_step`s from the prefill's
     caches grown to 64 positions (cross K/V projected from `enc_out`
     at every step: tiled), each timed and counted.  The prompt stepped
     through decode_step from empty caches must land near the prefill's
@@ -4847,7 +5568,7 @@ def run_vlm(name="pixtral-12b"):
     B 1 x 4,096 embeddings.  A scoring `train_logits` (every linear
     tiled; causal DPA flash at hd 128 after its K/V pre-pass), then
     `prefill` of the same embeddings (tiled linears; attention over the
-    quantized cache on the plain route) and 16 greedy token
+    quantized cache on the plain route) and `K_DECODE` greedy token
     `decode_step`s (split-K), each timed and counted.  The prefill's last
     logits near the scoring pass's (cosine >= 0.95); layer 0's flash call
     and seven linears of the scoring pass (tiled, M 4,096) and of one
@@ -5047,7 +5768,7 @@ TRAIN_POLICIES = ("fp8_dpa", "fp32")
 TRAIN_CPU_RTOL = 1e-4
 TRAIN_CPU_LEAF = 1e-3
 TRAIN_FLIP_LEAF = 1e-2
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 3
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 REPLAY_LAYERS, REPLAY_STEPS, REPLAY_EVERY, REPLAY_FAIL_AT = 4, 6, 3, 4
 # kernel families of a train step's profile (cuBLAS GEMMs, dtype casts
@@ -5287,7 +6008,7 @@ def train_full_width(cfg):
     median = sorted(walls)[len(walls) // 2]
     prof = profile_window("train step granite-moe-1b-a400m",
                           lambda: step(state, batches[0]),
-                          watch=TRAIN_WATCH, require=True)
+                          watch=TRAIN_WATCH, require=True, warm=False)
     path_roofline("train step granite-moe-1b-a400m", prof,
                   lambda: step(state, batches[0]),
                   (cfg, "train", TRAIN_S, TRAIN_B), median)
@@ -5468,10 +6189,13 @@ TP_RANKS = 2
 TP_BACKEND = "gloo"               # NCCL refuses two ranks on one card
 TP_TIMEOUT = 600.0                # s the ranks may take, both paths
 TP_REQUESTS = 2                   # the first of phase 3's 8 requests,
-TP_NEW = 8                        # each cut to this many new tokens
+TP_NEW = 4                        # each cut to this many new tokens
 TP_PREFIX = 40                    # shared prefix: 2.5 pages of 16, a CoW
 TP_SPEC_K = 2                     # one self-draft round of k tokens
 TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 1, 1024, 2   # per rank
+# granite-moe-1b's depth in the TP train steps: 6 of its 24 layers (the
+# f32 route's gradients cross host memory)
+TP_TRAIN_LAYERS = 6
 TP_REPORT = ("tp", "tp_requested", "tp_fallback_reason", "decode_route",
              "verify_route", "draft_route", "tp_backend",
              "tp_wire_staged_through_host", "tp_wire_bytes_per_step_layer",
@@ -5569,7 +6293,8 @@ def gloo_cuda_all_gather(group) -> dict:
 
 
 def tp_train(rank, group) -> dict:
-    """granite-moe-1b-a400m at full width under fp8_dpa, data-parallel:
+    """granite-moe-1b-a400m at full width (`TP_TRAIN_LAYERS` of its
+    layers) under fp8_dpa, data-parallel:
     each rank steps TP_TRAIN_STEPS times on its TP_TRAIN_B x TP_TRAIN_S
     row of the seeded batch, through `make_compressed_train_step` on the
     f32 route and on the E4M3 wire, from the same seeded state; each
@@ -5593,7 +6318,8 @@ def tp_train(rank, group) -> dict:
     from repro_torch.launch.train import build_state
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
-    cfg = get_config("granite-moe-1b-a400m").replace(policy="fp8_dpa")
+    cfg = get_config("granite-moe-1b-a400m").replace(
+        policy="fp8_dpa", n_layers=TP_TRAIN_LAYERS)
     model = build_model(cfg, device="cuda")
     opt = adamw.AdamWConfig(lr=1e-3, total_steps=10)   # the reference test's
     pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
@@ -6072,30 +6798,52 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    # phase 2: every kernel against its plain version
-    mm_err, mm_t = check_matmul(qwen, gen, _dense_shapes(qwen),
-                                qwen.n_layers)
-    gmm_err, gmm_t = check_matmul(granite, gen, _dense_shapes(granite),
-                                  granite.n_layers)
-    tl_err, tl_t = check_fused_tiled(qwen, gen, _dense_shapes(qwen))
-    tune = run_tuner(gen)
-    pd_err, pd_t = check_paged(qwen, pol, gen, ecfg)
-    gpd_err, gpd_t = check_paged(granite, pol, gen, ecfg)
-    pdf_t = check_paged_formats(qwen, gen, ecfg)
-    gpdf_t = check_paged_formats(granite, gen, ecfg)
-    fold_t = check_verify_fold(qwen, gen, ecfg)
-    gfold_t = check_verify_fold(granite, gen, ecfg)
-    gf_err, gf_t = check_grouped_fused(granite, gen)
-    pq_t = check_prequant(granite, gen)
-    t_dp = time.monotonic()
-    dp_t = check_datapath()
-    pqo_t = check_prequant_oracle()
-    pqf_t = check_prequant_formats(granite, gen)
-    t_dp = time.monotonic() - t_dp
+    # phase 2: every kernel against its plain version, each check's
+    # seconds kept
+    checks = {}
+
+    def check(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        checks[name] = time.monotonic() - t0
+        return out
+
+    mm_err, mm_t = check("matmul qwen3-4b", check_matmul, qwen, gen,
+                         _dense_shapes(qwen), COLD_LAYERS)
+    gmm_err, gmm_t = check("matmul granite", check_matmul, granite, gen,
+                           _dense_shapes(granite), COLD_LAYERS)
+    tl_err, tl_t = check("tiled", check_fused_tiled, qwen, gen,
+                         _dense_shapes(qwen))
+    tune = check("tuner", run_tuner, gen)
+    pd_err, pd_t = check("paged qwen3-4b", check_paged, qwen, pol, gen,
+                         ecfg)
+    gpd_err, gpd_t = check("paged granite", check_paged, granite, pol, gen,
+                           ecfg)
+    pdf_t = check("paged formats qwen3-4b", check_paged_formats, qwen, gen,
+                  ecfg)
+    gpdf_t = check("paged formats granite", check_paged_formats, granite,
+                   gen, ecfg)
+    fold_t = check("fold qwen3-4b", check_verify_fold, qwen, gen, ecfg)
+    gfold_t = check("fold granite", check_verify_fold, granite, gen, ecfg)
+    gf_err, gf_t = check("grouped", check_grouped_fused, granite, gen)
+    pq_t = check("prequant", check_prequant, granite, gen)
+    dp_t = check("datapath", check_datapath)
+    pqo_t = check("prequant oracle", check_prequant_oracle)
+    pqf_t = check("prequant formats", check_prequant_formats, granite, gen)
+    t_dp = sum(checks[k] for k in ("datapath", "prequant oracle",
+                                   "prequant formats"))
     print(f"datapath phase: {t_dp:.1f} s")
-    fa_t = check_flash(gen)
-    dfa_t = check_dpa_flash(gen)
-    qz_t = check_quantizers(gen)
+    fa_t = check("flash", check_flash, gen)
+    dfa_t = check("dpa flash", check_dpa_flash, gen)
+    # phase 2m: the fused matmul's and DPA flash's new formats (paged
+    # decode's ran in check_paged_formats and check_verify_fold)
+    ff_t = check("fused formats", check_fused_formats, qwen, granite, gen)
+    dff_t = check("dpa flash formats", check_dpa_flash_formats, gen)
+    t_fmt = checks["fused formats"] + checks["dpa flash formats"]
+    print(f"formats phase: {t_fmt:.1f} s")
+    qz_t = check("quantizers", check_quantizers, gen)
+    print("phase 2 checks (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in checks.items()))
     gc.collect()
     torch.cuda.empty_cache()
     t_kernels = time.monotonic() - t_start
@@ -6119,6 +6867,17 @@ def main() -> None:
                              params)
     # phase 3e: full-sequence scoring under w4a8_kv4_attn8 with use_flash
     n_d, score_d = run_scoring(qwen.replace(use_flash=True), params)
+    t_d = time.monotonic() - t_start
+    # phase 3m on the same params: path L (fp4_dpa_fused: generate, and
+    # scoring with use_flash), path N (DPA flash in fp16 and E2M1
+    # attention), path M (the engine under the paged presets)
+    n_lq, gen_lq = run_fused_generate(qwen.replace(policy=FUSED_PRESET),
+                                      params)
+    n_ls, score_l = run_fused_scoring(
+        qwen.replace(policy=FUSED_PRESET, use_flash=True), params)
+    n_nn, flash_n = run_flash_formats(qwen, params)
+    n_mm, paged_m = run_paged_presets(qwen, ecfg, params)
+    t_paths = time.monotonic() - t_start - t_d
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6142,6 +6901,12 @@ def main() -> None:
     # graphed
     n_b, gen_b = run_generate(granite.replace(policy="fp4_dpa_packed"),
                               params)
+    # phase 3m, path L: granite-moe-1b through generate under
+    # fp4_dpa_fused (E2M1 activations, dense and grouped)
+    t_lg = time.monotonic()
+    n_lg, gen_lg = run_fused_generate(granite.replace(policy=FUSED_PRESET),
+                                      params)
+    t_paths += time.monotonic() - t_lg
     del model, params
     t_granite = time.monotonic() - t_start
     # phase 3f: the quantize_pack op
@@ -6171,7 +6936,8 @@ def main() -> None:
           f"pseudo-op {rep_q['tuned']['seconds']:.1f} s), qwen3-4b sampled and prefix "
           f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b speculative "
           f"{t_spec - t_sampled:.1f} s, qwen3-4b prefill and "
-          f"scoring {t_qwen - t_spec:.1f} s, front ends "
+          f"scoring {t_d - t_spec:.1f} s, the formats' paths L, M, N "
+          f"{t_paths:.1f} s (phase 2m {t_fmt:.1f} s), front ends "
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
           f"{t_granite - t_front:.1f} s, quantize_pack op "
           f"{t_quant - t_granite:.1f} s, recurrent families "
@@ -6181,6 +6947,9 @@ def main() -> None:
     n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
     # phase 6: the tp=1 reference's runs and every rank's
     n_tp = tp["launches"]
+    # phase 3m's paths: L (generate, scoring), M (engine), N (scoring)
+    n_fmt = add_counts(n_lq, n_lg, n_ls, n_mm, n_nn)
+    every = add_counts(n_serve, n_d, n_rec, n_fam, n_tp, n_fmt)
 
     def times(t):
         return {k: t[k] for k in TIME_KEYS + ("bound_ms",)}
@@ -6199,6 +6968,10 @@ def main() -> None:
     def lib(t):
         return {k: t[k] for k in ("library_ms", "library_device_ms")}
 
+    def unprofiled(r):
+        """A path's report without its profile (printed on its own)."""
+        return {k: v for k, v in r.items() if k != "profile"}
+
     def tuned(*routes):
         """The tuner phase's (route, shape)s of these routes: static and
         tuned device ms, the tuned knobs."""
@@ -6212,11 +6985,21 @@ def main() -> None:
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": n_serve["dpa_matmul_fused"] + n_d["dpa_matmul_fused"]
          + n_rec["dpa_matmul_fused"]
-         + n_fam["dpa_matmul_fused"] + n_tp["dpa_matmul_fused"],
+         + n_fam["dpa_matmul_fused"] + n_tp["dpa_matmul_fused"]
+         + n_fmt["dpa_matmul_fused"],
          "splitk_launches": n_serve["dpa_matmul_fused.splitk"]
          + n_rec["dpa_matmul_fused.splitk"]
          + n_fam["dpa_matmul_fused.splitk"]
-         + n_tp["dpa_matmul_fused.splitk"],
+         + n_tp["dpa_matmul_fused.splitk"]
+         + n_fmt["dpa_matmul_fused.splitk"],
+         "launches_by_x_format": {
+             f: every[f"dpa_matmul_fused.{f}"] for f in FUSED_X_FMTS},
+         "x_formats": {f: {k: ff_t[f][k] for k in (
+             "max_abs_err", "decode_layer", "tiled_layer",
+             "grouped_decode_layer")} for f in NEW_ACT_FMTS},
+         "path_l": {"qwen3-4b generate": gen_lq,
+                    "granite-moe-1b generate": gen_lg,
+                    "qwen3-4b scoring": unprofiled(score_l)},
          "tp_launches": n_tp["dpa_matmul_fused"],
          "max_abs_err": max(mm_err, gmm_err, tl_err, *fam_mm.values()),
          **times(mm_t),
@@ -6226,7 +7009,8 @@ def main() -> None:
          "cold": mm_t["cold"], "plans": mm_t["plans"],
          "tuner": tuned("cuda_fused"),
          "at": "qwen3-4b, one decoder layer's 7 projections at decode M=4 "
-               "(padded to 8), split-K route; cold: 36 layers' weights",
+               f"(padded to 8), split-K route; cold: {COLD_LAYERS} layers' "
+               "weights",
          "granite": {"max_abs_err": gmm_err, **times(gmm_t),
                      "cold": gmm_t["cold"], "plans": gmm_t["plans"],
                      "at": "granite-moe-1b, one layer's 4 attention "
@@ -6238,7 +7022,8 @@ def main() -> None:
              "replaces": "src/repro/kernels/dpa_matmul.py:184",
              "launches": n_d["dpa_matmul_fused.tiled"]
              + n_rec["dpa_matmul_fused.tiled"]
-             + n_fam["dpa_matmul_fused.tiled"],
+             + n_fam["dpa_matmul_fused.tiled"]
+             + n_fmt["dpa_matmul_fused.tiled"],
              "max_abs_err": tl_err, **times(tl_t),
              "bound_by": "operations", "library_ms": None,
              "fp16_bound_ms": tl_t["fp16_bound_ms"],
@@ -6256,7 +7041,7 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_fused_tiled.cu",
          "replaces": "src/repro/kernels/dpa_matmul.py:184",
          "launches": n_d["dpa_act_quant"] + n_rec["dpa_act_quant"]
-         + n_fam["dpa_act_quant"],
+         + n_fam["dpa_act_quant"] + n_fmt["dpa_act_quant"],
          "max_abs_err": 0.0, **times(tl_t["prepass"]),
          "bound_by": "bytes", "library_ms": None,
          "library": "none: no PyTorch call quantizes per (row, K block of "
@@ -6267,15 +7052,16 @@ def main() -> None:
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:332",
          "launches": n_serve["paged_decode_attention"]
-         + n_tp["paged_decode_attention"],
+         + n_tp["paged_decode_attention"] + n_fmt["paged_decode_attention"],
          "tp_launches": n_tp["paged_decode_attention"],
+         "path_m": paged_m,
          "max_abs_err": max(pd_err, gpd_err), **times(pd_t),
          "bound_by": pd_t["bound_by"], "library_ms": None,
          "split": pd_t["split"], "splits_device_ms": pd_t["splits_device_ms"],
          "long": pd_t["long"],
          "launches_by_format": {
-             f: n_serve[f"paged_decode_attention.{f}"]
-             for f in ("fp8_e4m3",) + PAGED_NEW_ATTN},
+             f: every[f"paged_decode_attention.{f}"]
+             for f in ("fp8_e4m3", "fp32") + PAGED_NEW_ATTN},
          "formats": {"hd128": pdf_t, "hd64": gpdf_t},
          "tuner": tuned("cuda_block_table"),
          "verify_fold": {"launches": n_serve["paged_decode_attention.verify"],
@@ -6311,8 +7097,13 @@ def main() -> None:
         {"name": "dpa_grouped_matmul_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_grouped_matmul.py:154",
-         "launches": n_g["dpa_grouped_matmul_fused"],
-         "splitk_launches": n_g["dpa_grouped_matmul_fused.splitk"],
+         "launches": n_g["dpa_grouped_matmul_fused"]
+         + n_fmt["dpa_grouped_matmul_fused"],
+         "splitk_launches": n_g["dpa_grouped_matmul_fused.splitk"]
+         + n_fmt["dpa_grouped_matmul_fused.splitk"],
+         "launches_by_x_format": {
+             f: every[f"dpa_grouped_matmul_fused.{f}"]
+             for f in FUSED_X_FMTS},
          "max_abs_err": gf_err, **times(gf_t),
          "bound_by": "bytes", "library_ms": None,
          "cold": gf_t["cold"], "plans": gf_t["plans"],
@@ -6340,10 +7131,14 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_flash.cu",
          "replaces": "src/repro/kernels/flash_attention.py:218",
          "launches": n_d["dpa_flash_attention"]
-         + n_rec["dpa_flash_attention"] + n_fam["dpa_flash_attention"],
+         + n_rec["dpa_flash_attention"] + n_fam["dpa_flash_attention"]
+         + n_fmt["dpa_flash_attention"],
          "prepass_launches": n_d["dpa_flash_attention.prepass"]
          + n_rec["dpa_flash_attention.prepass"]
-         + n_fam["dpa_flash_attention.prepass"],
+         + n_fam["dpa_flash_attention.prepass"]
+         + n_fmt["dpa_flash_attention.prepass"],
+         "formats": dff_t,
+         "path_n": {k: unprofiled(v) for k, v in flash_n.items()},
          "max_abs_err": dfa_t["max_abs_err"], **times(dfa_t),
          "device_from": dfa_t.get("device_from"),
          "bound_by": dfa_t["bound_by"], "library_ms": None,
@@ -6391,7 +7186,8 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:100",
-         "launches": n_c["flash_attention"] + n_fam["flash_attention"],
+         "launches": n_c["flash_attention"] + n_fam["flash_attention"]
+         + n_fmt["flash_attention"],
          "max_abs_err": fa_t["max_abs_err"], **times(fa_t),
          "device_from": fa_t.get("device_from"),
          "bound_by": fa_t["bound_by"], **lib(fa_t),
@@ -6418,7 +7214,7 @@ def main() -> None:
         {"name": "quantize_rows", "route": "cuda",
          "source": "src/repro_torch/csrc/quantize_rows.cu",
          "replaces": "src/repro/kernels/quantize.py:70",
-         "launches": n_qp["quantize_rows"],
+         "launches": n_qp["quantize_rows"] + n_fmt["quantize_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_rows"]),
          "device_from": qz_t["quantize_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
@@ -6438,7 +7234,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/quantize.py:50",
          "launches": n_qp["quantize_pack_rows"] + n_d["quantize_pack_rows"]
          + n_rec["quantize_pack_rows"]
-         + n_fam["quantize_pack_rows"],
+         + n_fam["quantize_pack_rows"] + n_fmt["quantize_pack_rows"],
          "max_abs_err": 0.0, **times(qz_t["quantize_pack_rows"]),
          "device_from": qz_t["quantize_pack_rows"]["device_from"],
          "bound_by": "bytes", "library_ms": None,
@@ -6464,6 +7260,11 @@ def main() -> None:
     print("prefill and scoring: " + json.dumps(
         {"qwen3-4b prefill fp8_dpa use_flash S=4096": pre_c,
          "qwen3-4b scoring w4a8_kv4_attn8 use_flash S=4096": score_d}))
+    print("formats: " + json.dumps(
+        {"path L": {"qwen3-4b generate": gen_lq, "qwen3-4b scoring": score_l,
+                    "granite-moe-1b generate": gen_lg},
+         "path M": paged_m, "path N": flash_n, "fused": ff_t,
+         "dpa flash": dff_t}))
     print("profile: " + json.dumps(
         {"qwen3-4b": prof_q, "granite-moe-1b-a400m": prof_g}))
     serving_summary({"qwen3-4b": (rep_q, prof_q),

@@ -1,0 +1,13 @@
+// dpa_flash_attention's E4M3-attention kernels at hd 256
+// (dpa_flash.cuh), a source of their own so that the build compiles them
+// in parallel with the others.
+#include "dpa_flash.cuh"
+
+namespace dpa_flash {
+
+cudaError_t run_e4m3_wide(int q_bf16, int hd, int kv_fmt, const Params& p,
+                          int B, cudaStream_t s) {
+  return run<dpa::kGridE4M3, true>(q_bf16, hd, kv_fmt, p, B, s);
+}
+
+}  // namespace dpa_flash

@@ -10,9 +10,10 @@
 // is the same contract per expert.  Below the threshold (the engines'
 // decode steps and prefill chunks) the plan keeps dpa_matmul.cu.
 //
-// Contract, per K block of 128 and per row m:
-//   scale = max(max(amax, 1e-30) * f32(1/448), 2^-126)
-//   q     = e4m3_rne_satfinite(clip(x / scale, +-448))     (IEEE division)
+// Contract, per K block of 128 and per row m, with the activation format
+// F (E4M3, E2M1 or fp16; target T = 448, 6 or 2^14) as in dpa_matmul.cuh:
+//   scale = max(max(amax, 1e-30) * f32(1/T), 2^-126)
+//   q     = grid(clip(x / scale, +-T))                     (IEEE division)
 //   part  = sum_k q * w          in a fresh f32 accumulator
 //   acc  += part * scale         (multiply rounded, then add: no FMA)
 // and out = acc * sw[n].
@@ -23,17 +24,20 @@
 // again in every block of a column tile and re-reads the weights for
 // every 32 rows: right where the weight bytes bound a call, not here.
 //
-// Stage one, act_quant_kernel: x (E, M, K) f32/bf16 -> E4M3 codes (E, M,
-// K) uint8 and scales (E, M, K/128) f32, one warp per (row, K block),
-// 16-byte (f32) or 8-byte (bf16) loads: each element is quantized once.
-// Bytes-bound (about 3 bytes per element of x).
+// Stage one, act_quant_kernel: x (E, M, K) f32/bf16 -> codes (E, M, K)
+// and scales (E, M, K/128) f32, one warp per (row, K block), 16-byte
+// (f32) or 8-byte (bf16) loads: each element is quantized once.  E4M3
+// and E2M1 activations are written as E4M3 bytes (every E2M1 value is an
+// E4M3 value), fp16 ones as fp16.  Bytes-bound (about 3 bytes per
+// element of x, 4 at fp16).
 //
 // Stage two, fused_tiled_kernel: mma.sync m16n8k16 with fp16 operands
 // and f32 accumulation.  fp16 is exact for every operand value here:
 // every E4M3 value (4 significant bits, 2^-9 .. 448) and every E2M1 value
-// is an fp16 value, and a product of two of them is exact in f32, so each
-// block's `part` differs from the plain version's only in the order of
-// its f32 sums.  The e4m3 tensor cores would run at twice the rate but
+// is an fp16 value, and a product of two of them, or of an fp16 activation
+// and either, is exact in f32, so each block's `part` differs from the
+// plain version's only in the order of its f32 sums (which at fp16
+// activations round where E4M3's and E2M1's stay exact).  The e4m3 tensor cores would run at twice the rate but
 // keep only about 14 bits in their accumulation on Hopper (DeepSeek-V3,
 // arXiv 2412.19437, 3.3.2), which costs about half of the 2e-4 pin.
 //   A block owns a 128 x 128 output tile of one expert (grid z) and walks
@@ -56,6 +60,10 @@
 // The row pitch (144 B) puts every fragment load of a warp on distinct
 // banks (2-way on the E4M3-weight loads).  The conversions, cp.async and
 // the MMA are dpa_mma.cuh's, shared with dpa_matmul.cu.
+//   fp16 activations (XB 2) take their own stage layout: rows of 256 B
+// at a 288-byte pitch, and per k16 step one 8-byte load of a row's four
+// fp16 values at physical k 4t .. 4t+3, which are the MMA's A operand as
+// they are (the 8 rows of a load on distinct banks).
 //   Rows at or past M and columns at or past N (N % 32 == 0) are
 // zero-filled and never stored.
 //   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 3.9 ms per
@@ -81,21 +89,26 @@ constexpr int kStages = 3;
 constexpr int kPitch = kBK + 16;    // shared row pitch, bytes
 constexpr int kQuantWarps = 8;      // (row, K block) pairs per quant block
 
-// One ring stage: x codes (kBM rows), weights (kWRows rows), row scales.
-template <int WFMT>
+// One ring stage: x codes (kBM rows of XB-byte codes), weights (kWRows
+// rows), row scales.
+template <int WFMT, int XB>
 struct Stage {
   static constexpr int kWRows = WFMT == dpa::kFmtFp4Packed ? kBK / 2 : kBK;
-  static constexpr int kW = kBM * kPitch;
+  static constexpr int kXPitch = XB == 2 ? 2 * kBK + 32 : kPitch;
+  static constexpr int kW = kBM * kXPitch;
   static constexpr int kS = kW + kWRows * kPitch;
   static constexpr int kBytes = kS + kBM * 4;
 };
 
-// Stage one: warp b quantizes K block (b % nkb) of row (b / nkb); its
-// scale lands at scales[b], which is the (rows, K / 128) layout.
-template <typename XT>
+// Stage one: warp b quantizes K block (b % nkb) of row (b / nkb) onto
+// x format xfmt (E4M3 bytes for kGridE4M3 and kGridE2M1, XB 1; fp16 for
+// kGridF16, XB 2); its scale lands at scales[b], which is the (rows,
+// K / 128) layout.
+template <typename XT, int XB>
 __global__ void __launch_bounds__(kQuantWarps * 32)
 act_quant_kernel(const XT* __restrict__ x, uint8_t* __restrict__ codes,
-                 float* __restrict__ scales, long long blocks, int K) {
+                 float* __restrict__ scales, long long blocks, int K,
+                 int xfmt) {
   const long long b =
       (long long)blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
   if (b >= blocks) return;                   // the whole warp leaves
@@ -105,33 +118,42 @@ act_quant_kernel(const XT* __restrict__ x, uint8_t* __restrict__ codes,
   dpa::load4(x + off, v);
   const float a = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
                         fmaxf(fabsf(v[2]), fabsf(v[3])));
-  const float s = dpa::e4m3_scale(dpa::warp_max(a));
-  uint32_t q = 0;
+  const float s = dpa::block_scale(dpa::warp_max(a), dpa::grid_inv(xfmt));
+  float y[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    q |= static_cast<uint32_t>(
-             __nv_fp8_e4m3(dpa::quantize_e4m3(v[i], s)).__x)
-         << (8 * i);
-  *reinterpret_cast<uint32_t*>(codes + off) = q;
+  for (int i = 0; i < 4; ++i) y[i] = dpa::quantize_grid(xfmt, v[i], s);
+  if constexpr (XB == 2) {
+    const __half2 lo = __floats2half2_rn(y[0], y[1]);
+    const __half2 hi = __floats2half2_rn(y[2], y[3]);
+    *reinterpret_cast<uint2*>(codes + 2 * off) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  } else {
+    uint32_t q = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q |= static_cast<uint32_t>(__nv_fp8_e4m3(y[i]).__x) << (8 * i);
+    *reinterpret_cast<uint32_t*>(codes + off) = q;
+  }
   if (lane == 0) scales[b] = s;
 }
 
 // Stage two.  Grid (ceil(N / 128), ceil(M / 128), E); warp (wm, wn) owns
 // rows wm * kWarpRows .. + kWarpRows - 1 and columns wn * 32 .. +31 of the
 // block's tile.
-template <int WFMT>
+template <int WFMT, int XB>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_tiled_kernel(const uint8_t* __restrict__ xq,
                    const float* __restrict__ xs,
                    const uint8_t* __restrict__ wq,
                    const float* __restrict__ sw, float* __restrict__ out,
                    int M, int K, int N) {
-  using S = Stage<WFMT>;
+  using S = Stage<WFMT, XB>;
   constexpr bool kFp4 = WFMT == dpa::kFmtFp4Packed;
   extern __shared__ __align__(16) uint8_t smem[];
   const int nkb = K / kBK;
   const size_t e = blockIdx.z;
-  xq += e * M * K;
+  xq += e * M * K * XB;
   xs += e * M * nkb;
   wq += e * (kFp4 ? K / 2 : K) * N;
   sw += e * N;
@@ -147,12 +169,14 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
     if (c < nkb) {
       uint8_t* st = smem + (c % kStages) * S::kBytes;
       const int k0 = c * kBK;
-      for (int i = tid; i < kBM * 8; i += kThreads) {
-        const int r = i >> 3, v = i & 7;
+      constexpr int kXChunks = 8 * XB;       // 16-byte copies an x row
+      for (int i = tid; i < kBM * kXChunks; i += kThreads) {
+        const int r = i / kXChunks, v = i % kXChunks;
         const bool live = m0 + r < M;
-        dpa::cp_async16(st + r * kPitch + v * 16,
-                   live ? xq + (size_t)(m0 + r) * K + k0 + v * 16 : xq,
-                   live ? 16 : 0);
+        dpa::cp_async16(
+            st + r * S::kXPitch + v * 16,
+            live ? xq + ((size_t)(m0 + r) * K + k0) * XB + v * 16 : xq,
+            live ? 16 : 0);
       }
       const int kr0 = kFp4 ? k0 / 2 : k0;
       for (int i = tid; i < S::kWRows * 8; i += kThreads) {
@@ -207,11 +231,14 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
 #pragma unroll
     for (int q = 0; q < kBK / 32; ++q) {
       // x codes of k32 slice q: a[mt][2h] row g, a[mt][2h+1] row g + 8 of
-      // k16 step 2q + h, physical k 4t .. 4t+3 each
+      // k16 step 2q + h, physical k 4t .. 4t+3 each (E4M3 bytes; the fp16
+      // instance loads its fragments in the step below)
       uint32_t a[kMT][4];
+      if constexpr (XB == 1) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        dpa::ldmatrix_x4(a[mt], a_base + mt * 16 * kPitch + q * 32);
+        for (int mt = 0; mt < kMT; ++mt)
+          dpa::ldmatrix_x4(a[mt], a_base + mt * 16 * kPitch + q * 32);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int s = 2 * q + h;
@@ -228,11 +255,22 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
         }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          const uint32_t lo = a[mt][2 * h], hi = a[mt][2 * h + 1];
-          const uint32_t a0 = dpa::e4m3x2_to_f16x2(lo);
-          const uint32_t a1 = dpa::e4m3x2_to_f16x2(hi);
-          const uint32_t a2 = dpa::e4m3x2_to_f16x2(lo >> 16);
-          const uint32_t a3 = dpa::e4m3x2_to_f16x2(hi >> 16);
+          uint32_t a0, a1, a2, a3;
+          if constexpr (XB == 2) {
+            // rows g and g + 8 of m-tile mt, fp16 at physical k 4t ..
+            const uint8_t* xr = st + (wm * kWarpRows + mt * 16 + g) *
+                                         S::kXPitch + (16 * s + 4 * t) * 2;
+            const uint2 r0 = *reinterpret_cast<const uint2*>(xr);
+            const uint2 r1 =
+                *reinterpret_cast<const uint2*>(xr + 8 * S::kXPitch);
+            a0 = r0.x, a2 = r0.y, a1 = r1.x, a3 = r1.y;
+          } else {
+            const uint32_t lo = a[mt][2 * h], hi = a[mt][2 * h + 1];
+            a0 = dpa::e4m3x2_to_f16x2(lo);
+            a1 = dpa::e4m3x2_to_f16x2(hi);
+            a2 = dpa::e4m3x2_to_f16x2(lo >> 16);
+            a3 = dpa::e4m3x2_to_f16x2(hi >> 16);
+          }
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
             dpa::mma_f16(part[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
@@ -284,19 +322,43 @@ fused_tiled_kernel(const uint8_t* __restrict__ xq,
     }
 }
 
-template <int WFMT>
+template <int WFMT, int XB>
 int launch_tiled(const uint8_t* xq, const float* xs, const uint8_t* wq,
                  const float* sw, float* out, int E, int M, int K, int N,
                  cudaStream_t s) {
-  constexpr int smem = kStages * Stage<WFMT>::kBytes;
+  constexpr int smem = kStages * Stage<WFMT, XB>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fused_tiled_kernel<WFMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fused_tiled_kernel<WFMT, XB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
-  fused_tiled_kernel<WFMT><<<grid, kThreads, smem, s>>>(xq, xs, wq, sw, out,
-                                                        M, K, N);
+  fused_tiled_kernel<WFMT, XB><<<grid, kThreads, smem, s>>>(xq, xs, wq, sw,
+                                                            out, M, K, N);
   return (int)cudaGetLastError();
+}
+
+template <int XB>
+int launch_tiled_w(int w_fmt, const uint8_t* xq, const float* xs,
+                   const uint8_t* wq, const float* sw, float* out, int E,
+                   int M, int K, int N, cudaStream_t s) {
+  return w_fmt == dpa::kFmtFp4Packed
+             ? launch_tiled<dpa::kFmtFp4Packed, XB>(xq, xs, wq, sw, out, E,
+                                                    M, K, N, s)
+             : launch_tiled<dpa::kFmtE4M3, XB>(xq, xs, wq, sw, out, E, M, K,
+                                               N, s);
+}
+
+template <typename XT, int XB>
+void launch_quant(unsigned grid, const void* x, void* codes, float* scales,
+                  long long blocks, int K, int xfmt, cudaStream_t s) {
+  act_quant_kernel<XT, XB><<<grid, kQuantWarps * 32, 0, s>>>(
+      static_cast<const XT*>(x), static_cast<uint8_t*>(codes), scales,
+      blocks, K, xfmt);
+}
+
+bool grid_ok(int x_fmt) {
+  return x_fmt == dpa::kGridE4M3 || x_fmt == dpa::kGridE2M1 ||
+         x_fmt == dpa::kGridF16;
 }
 
 bool misaligned(const void* p) {
@@ -306,46 +368,54 @@ bool misaligned(const void* p) {
 }  // namespace
 
 // x: (rows, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), contiguous, 16-byte
-// aligned; codes: (rows, K) uint8 E4M3; scales: (rows, K / 128) f32.
-// Requires K % 128 == 0.
-extern "C" int dpa_act_quant_launch(const void* x, int x_bf16, void* codes,
-                                    float* scales, int rows, int K,
-                                    void* stream) {
-  if (rows <= 0 || K <= 0 || K % kBK || misaligned(x) || misaligned(codes))
+// aligned, quantized onto x_fmt (0 E4M3, 1 E2M1, 2 fp16); codes: (rows,
+// K) uint8 E4M3 bytes (x_fmt 0 and 1) or fp16 (2); scales: (rows, K /
+// 128) f32.  Requires K % 128 == 0.
+extern "C" int dpa_act_quant_launch(const void* x, int x_bf16, int x_fmt,
+                                    void* codes, float* scales, int rows,
+                                    int K, void* stream) {
+  if (rows <= 0 || K <= 0 || K % kBK || !grid_ok(x_fmt) || misaligned(x) ||
+      misaligned(codes))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)rows * (K / kBK);
   const unsigned grid =
       static_cast<unsigned>((blocks + kQuantWarps - 1) / kQuantWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    act_quant_kernel<__nv_bfloat16><<<grid, kQuantWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(codes),
-        scales, blocks, K);
-  else
-    act_quant_kernel<float><<<grid, kQuantWarps * 32, 0, s>>>(
-        static_cast<const float*>(x), static_cast<uint8_t*>(codes), scales,
-        blocks, K);
+  const bool x16 = x_fmt == dpa::kGridF16;
+  if (x_bf16) {
+    if (x16)
+      launch_quant<__nv_bfloat16, 2>(grid, x, codes, scales, blocks, K,
+                                     x_fmt, s);
+    else
+      launch_quant<__nv_bfloat16, 1>(grid, x, codes, scales, blocks, K,
+                                     x_fmt, s);
+  } else if (x16) {
+    launch_quant<float, 2>(grid, x, codes, scales, blocks, K, x_fmt, s);
+  } else {
+    launch_quant<float, 1>(grid, x, codes, scales, blocks, K, x_fmt, s);
+  }
   return (int)cudaGetLastError();
 }
 
-// xq: (E, M, K) E4M3 codes and xs: (E, M, K / 128) f32 scales from
-// dpa_act_quant_launch; wq: (E, K/2, N) packed E2M1 (w_fmt 0) or (E, K, N)
-// E4M3 (w_fmt 1); sw: (E, 1, N) f32; out: (E, M, N) f32; each contiguous
-// and 16-byte aligned.  Requires K % 128 == 0 and N % 32 == 0.
-extern "C" int dpa_fused_tiled_launch(const void* xq, const float* xs,
-                                      const void* wq, int w_fmt,
-                                      const float* sw, float* out, int E,
-                                      int M, int K, int N, void* stream) {
+// xq: (E, M, K) codes (E4M3 bytes, x_fmt 0 and 1; fp16, x_fmt 2) and xs:
+// (E, M, K / 128) f32 scales from dpa_act_quant_launch; wq: (E, K/2, N)
+// packed E2M1 (w_fmt 0) or (E, K, N) E4M3 (w_fmt 1); sw: (E, 1, N) f32;
+// out: (E, M, N) f32; each contiguous and 16-byte aligned.  Requires K %
+// 128 == 0 and N % 32 == 0.
+extern "C" int dpa_fused_tiled_launch(const void* xq, int x_fmt,
+                                      const float* xs, const void* wq,
+                                      int w_fmt, const float* sw, float* out,
+                                      int E, int M, int K, int N,
+                                      void* stream) {
   if (K <= 0 || K % kBK || N <= 0 || N % 32 || M <= 0 || E <= 0 ||
       E > 65535 || (w_fmt != dpa::kFmtFp4Packed && w_fmt != dpa::kFmtE4M3) ||
-      misaligned(xq) || misaligned(wq) || misaligned(sw) || misaligned(out))
+      !grid_ok(x_fmt) || misaligned(xq) || misaligned(wq) ||
+      misaligned(sw) || misaligned(out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* x8 = static_cast<const uint8_t*>(xq);
   const uint8_t* w8 = static_cast<const uint8_t*>(wq);
-  return w_fmt == dpa::kFmtFp4Packed
-             ? launch_tiled<dpa::kFmtFp4Packed>(x8, xs, w8, sw, out, E, M, K,
-                                                N, s)
-             : launch_tiled<dpa::kFmtE4M3>(x8, xs, w8, sw, out, E, M, K, N,
-                                           s);
+  return x_fmt == dpa::kGridF16
+             ? launch_tiled_w<2>(w_fmt, x8, xs, w8, sw, out, E, M, K, N, s)
+             : launch_tiled_w<1>(w_fmt, x8, xs, w8, sw, out, E, M, K, N, s);
 }

@@ -26,24 +26,38 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dpa_matmul.cu", "dpa_fused_tiled.cu", "dpa_prequant.cu",
-           "paged_decode.cu", "flash_attention.cu", "dpa_flash.cu",
-           "quantize_rows.cu")
-HEADERS = ("dpa_common.cuh", "dpa_mma.cuh")
+# the heaviest sources first: the compiles start together, and the
+# longest should not wait for a core
+SOURCES = ("dpa_flash_e2m1.cu", "dpa_flash_f16.cu", "dpa_flash.cu",
+           "dpa_matmul.cu", "dpa_matmul_x16.cu", "dpa_flash_e2m1_wide.cu",
+           "dpa_flash_f16_wide.cu", "dpa_flash_wide.cu", "paged_decode.cu",
+           "dpa_prequant.cu", "quantize_rows.cu", "flash_attention.cu",
+           "dpa_fused_tiled.cu")
+HEADERS = ("dpa_common.cuh", "dpa_mma.cuh", "dpa_flash.cuh", "dpa_matmul.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the kernels' format codes (csrc/dpa_common.cuh): the layout of stored
+# codes (weights, KV rows) by (format, packed), kFmt*, and the grids that
+# activations, q and p are quantized onto, kGrid*
+CODE_LAYOUTS = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1,
+                ("fp8_e5m2", False): 2, ("fp4_e2m1", False): 3,
+                ("fp16", False): 4, ("bf16", False): 5}
+GRID_CODES = {"fp8_e4m3": 0, "fp4_e2m1": 1, "fp16": 2, "fp32": 3,
+              "bf16": 4, "fp8_e5m2": 5}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, x_bf16, wq, w_fmt, sw, out, E (1 for a dense product), M, K, N,
-    # bm, bn, split, stream
-    "dpa_grouped_fused_launch": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+    # x, x_bf16, x_fmt, wq, w_fmt, sw, out, E (1 for a dense product), M,
+    # K, N, bm, bn, split, stream
+    "dpa_grouped_fused_launch": (_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _P),
-    # x, x_bf16, codes, scales, rows, K, stream
-    "dpa_act_quant_launch": (_P, _I, _P, _P, _I, _I, _P),
-    # xq, xs, wq, w_fmt, sw, out, E, M, K, N, stream
-    "dpa_fused_tiled_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_bf16, x_fmt, codes, scales, rows, K, stream
+    "dpa_act_quant_launch": (_P, _I, _I, _P, _P, _I, _I, _P),
+    # xq, x_fmt, xs, wq, w_fmt, sw, out, E, M, K, N, stream
+    "dpa_fused_tiled_launch": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                               _P),
     # xq, x_fmt, sx, wq, w_fmt, sw, out, E, M, K, N, bn, split, stream
     "dpa_prequant_launch": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P),
@@ -59,9 +73,9 @@ _SIGNATURES = {
                                _I, _I, _I, _I, ctypes.c_float, _P),
     # x, out, rows, n, stream
     "flash_kv_split_launch": (_P, _P, ctypes.c_longlong, _I, _P),
-    # q, q_bf16, k, v, ks, vs, out, p_codes, hd, kv_fmt,
+    # q, q_bf16, k, v, ks, vs, out, p_codes, hd, kv_fmt, attn_fmt,
     # B, H, KV, Sq, Sk, bq, bk, causal, window, scale, stream
-    "dpa_flash_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+    "dpa_flash_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P),
     # x, x_bf16, codes, scales, M, K, fmt, vec, lanes, rows, nv, stream
@@ -93,21 +107,29 @@ def _nvcc() -> str:
 
 def _build(out: Path) -> str:
     """Compile every source in parallel, link, and move the library into
-    place atomically.  Returns the compilers' diagnostics (ptxas -v)."""
+    place atomically.  Returns the compilers' diagnostics (ptxas -v), each
+    source's headed by the seconds its compile took."""
     nvcc = _nvcc()
     tmp = out.parent / f"tmp.{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.monotonic()
     for name in SOURCES:
         obj = tmp / (name + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-        procs.append((name, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        with open(tmp / (name + ".log"), "w") as f:
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    took = {}
+    while len(took) < len(procs):
+        for name, _, p in procs:
+            if name not in took and p.poll() is not None:
+                took[name] = time.monotonic() - t0
+        time.sleep(0.05)
     log, objs = [], []
     for name, obj, p in procs:
-        text, _ = p.communicate()
-        log.append(f"== {name}\n{text}")
+        text = (tmp / (name + ".log")).read_text()
+        log.append(f"== {name} ({took[name]:.1f} s)\n{text}")
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{text}")
         objs.append(str(obj))

@@ -101,18 +101,21 @@ def attn_pairs(sq: int, sk: int, causal: bool = True, window=None) -> int:
     return total
 
 
-def _fused(E, M, K, N, x_bytes, fmt_w, pack_w):
+def _fused(E, M, K, N, x_bytes, fmt_w, pack_w, fmt_x="fp8_e4m3"):
     """Raw (E, M, K) x, (E, K, N) weight codes and (E, 1, N) f32 column
-    scales in, (E, M, N) f32 out; 2 E M K N at the fp8 peak."""
+    scales in, (E, M, N) f32 out; 2 E M K N at the narrower operand
+    format's peak (E4M3 and E2M1 activations at fp8's, fp16 at 989)."""
     nbytes = (E * M * K * x_bytes + E * operand_bytes(K * N, fmt_w, pack_w)
               + E * N * 4 + E * M * N * 4)
-    return Work(nbytes, 2 * E * M * K * N, PEAK_OPS["fp8_e4m3"])
+    return Work(nbytes, 2 * E * M * K * N,
+                min(PEAK_OPS[fmt_x], PEAK_OPS[fmt_w]))
 
 
-def _act_quant(rows, K, x_bytes):
-    """Raw (rows, K) in; E4M3 codes and one f32 scale a K block out."""
-    return Work(rows * K * (x_bytes + 1) + rows * (K // BK) * 4, 0,
-                PEAK_OPS["fp8_e4m3"])
+def _act_quant(rows, K, x_bytes, fmt="fp8_e4m3"):
+    """Raw (rows, K) in; codes (one byte a value, E2M1 as E4M3 bytes;
+    two at fp16) and one f32 scale a K block out."""
+    return Work(rows * K * (x_bytes + CODE_BYTES[fmt])
+                + rows * (K // BK) * 4, 0, PEAK_OPS[fmt])
 
 
 def _prequant(E, M, K, N, fmt_x, fmt_w, pack_x, pack_w):
@@ -136,13 +139,15 @@ def _paged(fmt, B, sq, H, KV, hd, code_bytes, q_bytes, table_entries,
     return Work(nbytes, 4 * pairs * H * hd, PEAK_OPS[fmt])
 
 
-def _dpa_flash(B, H, KV, sq, sk, hd, q_bytes, kv_row_bytes, causal, window):
+def _dpa_flash(B, H, KV, sq, sk, hd, q_bytes, kv_row_bytes, causal, window,
+               fmt="fp8_e4m3"):
     """q read and the output written in q's dtype, K and V rows as the
     wrapper takes them (raw, or codes and a scale); QK and PV over the
-    live pairs at the fp8 peak."""
+    live pairs at the attention format's peak (fp8's for E4M3 and E2M1,
+    989 for fp16)."""
     nbytes = 2 * B * H * sq * hd * q_bytes + 2 * B * KV * sk * kv_row_bytes
     return Work(nbytes, 4 * B * H * hd * attn_pairs(sq, sk, causal, window),
-                PEAK_OPS["fp8_e4m3"])
+                PEAK_OPS[fmt])
 
 
 def _flash(B, H, KV, sq, sk, hd, elem, causal, window):

@@ -41,12 +41,14 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_fused.launches` counts
-    launches."""
+    launches, `.<route>_launches` and `.<fmt_x>_launches` those of each
+    route and activation format."""
     build.forward_only("dpa_grouped_matmul_fused", x, wq, sw)
     DM.check_fused(x, wq, sw, pack_w,
                    lead=(x.shape[0],) if x.ndim == 3 else (-1,))
     if bn is not None or split is not None:
-        DM.fused_plan(*x.shape, wq.shape[-1], bn=bn, split=split)
+        DM.fused_plan(*x.shape, wq.shape[-1], bn=bn, split=split,
+                      xb=DM.X_CODE_BYTES.get(fmt_x, 1))
     if x.device.type == "cpu":
         return dpa_grouped_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x,
                                             fmt_w=fmt_w, bk=bk,
@@ -62,11 +64,12 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
                            split=split)
     census.count(dpa_grouped_matmul_fused, census.launch_work(
         "dpa_grouped_matmul_fused", plan.route, E=E, M=M, K=K, N=N,
-        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
+        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w, fmt_x=fmt_x),
+        plan.route, fmt_x)
     return out
 
 
-census.declare(dpa_grouped_matmul_fused, "splitk", "tiled")
+census.declare(dpa_grouped_matmul_fused, "splitk", "tiled", *DM.KERNEL_X)
 
 
 # -----------------------------------------------------------------------------

@@ -3,8 +3,9 @@ the CUDA kernels.
 
 `dpa_matmul_fused` replaces the Pallas TPU kernel
 `repro/kernels/dpa_matmul.py` `dpa_matmul_fused`: raw (M, K) f32/bf16
-activations are absmax-quantized per (row, K block of 128) onto the E4M3
-grid, each block's partial product over pre-quantized weights is scaled
+activations are absmax-quantized per (row, K block of 128) onto the
+`fmt_x` grid (E4M3, E2M1 or fp16 on the card: `KERNEL_X`), each block's
+partial product over pre-quantized weights is scaled
 by its row scale and added into an f32 accumulator, and the weight
 column scales apply at the end.  `fused_plan` picks one of two routes by
 shape: below `TILED_MIN_M` rows, `csrc/dpa_matmul.cu` ("splitk": swapped
@@ -38,6 +39,15 @@ from repro_torch.kernels import build, census
 
 BK = 128                     # the K block: part of the numerics contract
 KERNEL_W = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
+# the activation formats the fused kernels quantize onto (their grid
+# codes), and the bytes of a code the kernels hold (E2M1 values as E4M3
+# bytes: every E2M1 value is an E4M3 value)
+KERNEL_X = {f: build.GRID_CODES[f] for f in ("fp8_e4m3", "fp4_e2m1", "fp16")}
+X_CODE_BYTES = {f: census.CODE_BYTES[f] for f in KERNEL_X}
+# the ROADMAP item naming what the fused kernels do not serve yet
+FUSED_FORMATS_ITEM = ("ROADMAP Queue 2 under dpa_matmul_fused (formats "
+                      "open: bf16 and E5M2 activations, weights other than "
+                      "packed E2M1 and E4M3)")
 
 
 def widen(codes, fmt: str, *, packed: bool = False, dim: int = 0):
@@ -119,17 +129,19 @@ SPLITK_SLICE = 1280          # K per cluster rank the plan aims below
 SPLITK_MIN_BLOCKS = 64       # ... and blocks it aims at, about half the SMs
 
 
-def splitk_smem_bytes(bm: int, bn: int, K: int, split: int) -> int:
+def splitk_smem_bytes(bm: int, bn: int, K: int, split: int,
+                      xb: int = 1) -> int:
     """Shared memory of one split-K block (`smem_layout` of
-    csrc/dpa_matmul.cu): bm rows of x as E4M3 codes over the K slice (row
-    pitch K / split + 16 bytes), their block scales, the warps' weight
+    csrc/dpa_matmul.cuh): bm rows of x as codes of xb bytes (E4M3 bytes 1,
+    fp16 2) over the K slice (row pitch xb (K / split + 16) bytes), their
+    block scales, the warps' weight
     rings (no deeper than a warp's K blocks fill, counted at E4M3
     weights' two stages a K block: at least the packed weights' need);
     then the cluster's receive slots."""
     ks = K // split
     slots = min({32: 4, 64: 3}[bn],
                 -(-(ks // BK) // SPLITK_WARPS) * 2)
-    ring = -(-(bm * (ks + 16) + ks // BK * bm * 4) // 16) * 16 \
+    ring = -(-(bm * xb * (ks + 16) + ks // BK * bm * 4) // 16) * 16 \
         + SPLITK_WARPS * slots * SPLITK_STAGE_ROWS * (bn + 16)
     return (max(ring, SPLITK_WARPS * bm * bn * 4)
             + split * -(-bm * bn // split) * 4)
@@ -148,9 +160,10 @@ class FusedPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def splitk_cols(E: int, K: int, N: int):
-    """The split-K route's (bn, split) from (E, K, N) alone — the split
-    decides the bits of the fold, so no row's output depends on M.  64
+def splitk_cols(E: int, K: int, N: int, xb: int = 1):
+    """The split-K route's (bn, split) from (E, K, N) and the x code's
+    bytes alone — the split decides the bits of the fold, so no row's
+    output depends on M.  64
     columns a block where that alone gives `SMS` column tiles, else 32;
     then the smallest split (a cluster size <= 8 dividing K / 128) that
     leaves each rank at most `SPLITK_SLICE` of K and brings the grid to
@@ -161,7 +174,7 @@ def splitk_cols(E: int, K: int, N: int):
     splits = [s for s in range(1, MAX_CLUSTER + 1) if (K // BK) % s == 0]
     for bn in ((64, 32) if N % 64 == 0 and E * (N // 64) >= SMS else (32,)):
         fits = [s for s in splits
-                if splitk_smem_bytes(8, bn, K, s) <= SMEM_LIMIT]
+                if splitk_smem_bytes(8, bn, K, s, xb) <= SMEM_LIMIT]
         if fits:
             return bn, next((s for s in fits if K // s <= SPLITK_SLICE
                              and E * (N // bn) * s >= SPLITK_MIN_BLOCKS),
@@ -169,18 +182,18 @@ def splitk_cols(E: int, K: int, N: int):
     return None
 
 
-def splitk_rows(M: int, K: int, bn: int, split: int) -> int:
+def splitk_rows(M: int, K: int, bn: int, split: int, xb: int = 1) -> int:
     """Rows per split-K block: the smallest tile holding M, else the
     largest, halved until the block fits its shared memory.  Any tile
     gives every row the same bits."""
     bm = next((r for r in SPLITK_ROWS if M <= r), SPLITK_ROWS[-1])
-    while bm > 8 and splitk_smem_bytes(bm, bn, K, split) > SMEM_LIMIT:
+    while bm > 8 and splitk_smem_bytes(bm, bn, K, split, xb) > SMEM_LIMIT:
         bm //= 2
     return bm
 
 
 def fused_plan(E: int, M: int, K: int, N: int, *, bn=None,
-               split=None) -> FusedPlan:
+               split=None, xb: int = 1) -> FusedPlan:
     """The route by shape: "tiled" from `TILED_MIN_M` rows per expert on
     (or where no split-K launch fits), else "splitk" with `splitk_cols`'
     (bn, split) and `splitk_rows`' rows.  Raises for what no route takes:
@@ -193,9 +206,10 @@ def fused_plan(E: int, M: int, K: int, N: int, *, bn=None,
     plan's checks or raises `ValueError`: bn one of `SPLITK_COLS` dividing
     N, split at most `MAX_CLUSTER` dividing K / 128, the block at 8 rows
     within `SMEM_LIMIT`.  From `TILED_MIN_M` rows on the tiled route
-    serves, which has no such knobs."""
+    serves, which has no such knobs.  `xb`: the bytes of an x code in
+    shared memory (`X_CODE_BYTES`: 2 for fp16 activations)."""
     if bn is None and split is None:
-        return _auto_fused_plan(E, M, K, N)
+        return _auto_fused_plan(E, M, K, N, xb)
     _check_fused_shape(E, M, K, N)
     if bn is None or split is None:
         raise ValueError(f"a split-K override takes bn and split together; "
@@ -207,11 +221,11 @@ def fused_plan(E: int, M: int, K: int, N: int, *, bn=None,
     if not 1 <= split <= MAX_CLUSTER or (K // BK) % split:
         raise ValueError(f"split-K split must be 1..{MAX_CLUSTER} dividing "
                          f"K / {BK} = {K // BK}; got {split}")
-    if splitk_smem_bytes(8, bn, K, split) > SMEM_LIMIT:
+    if splitk_smem_bytes(8, bn, K, split, xb) > SMEM_LIMIT:
         raise ValueError(f"split-K block (8 rows, bn {bn}, split {split}) "
                          f"needs more than {SMEM_LIMIT} bytes of shared "
                          f"memory at K={K}")
-    return _fused_route(E, M, K, N, (bn, split))
+    return _fused_route(E, M, K, N, (bn, split), xb)
 
 
 def _check_fused_shape(E, M, K, N):
@@ -226,20 +240,21 @@ def _check_fused_shape(E, M, K, N):
                          f"got E={E}, M={M}")
 
 
-def _fused_route(E, M, K, N, cols) -> FusedPlan:
+def _fused_route(E, M, K, N, cols, xb=1) -> FusedPlan:
     if M >= TILED_MIN_M or cols is None:
         return FusedPlan("tiled", TILE, TILE, 1,
                          E * -(-M // TILE) * -(-N // TILE))
     bn, split = cols
-    bm = splitk_rows(M, K, bn, split)
+    bm = splitk_rows(M, K, bn, split, xb)
     return FusedPlan("splitk", bm, bn, split,
                      E * -(-M // bm) * (N // bn) * split)
 
 
 @functools.lru_cache(maxsize=None)
-def _auto_fused_plan(E: int, M: int, K: int, N: int) -> FusedPlan:
+def _auto_fused_plan(E: int, M: int, K: int, N: int, xb: int = 1
+                     ) -> FusedPlan:
     _check_fused_shape(E, M, K, N)
-    return _fused_route(E, M, K, N, splitk_cols(E, K, N))
+    return _fused_route(E, M, K, N, splitk_cols(E, K, N, xb), xb)
 
 
 # the memo is the automatic path's alone
@@ -253,14 +268,15 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
     dense), with the split-K override (bn, split) where given, or raise
     for what the kernels do not serve.  -> the plan."""
     w_fmt = KERNEL_W.get((fmt_w, pack_w))
-    if fmt_x != "fp8_e4m3" or w_fmt is None:
+    if fmt_x not in KERNEL_X or w_fmt is None:
         raise NotImplementedError(
-            f"{what} kernel serves (fp8_e4m3, packed fp4_e2m1) and "
-            f"(fp8_e4m3, fp8_e4m3); ({fmt_x}, {fmt_w}, pack_w={pack_w}) is "
-            "open in ROADMAP Queue 2 under dpa_matmul_fused (formats open)")
+            f"{what} kernel serves {sorted(KERNEL_X)} activations times "
+            f"packed fp4_e2m1 or fp8_e4m3 weights; ({fmt_x}, {fmt_w}, "
+            f"pack_w={pack_w}) is open in {FUSED_FORMATS_ITEM}")
     if bk != BK:
         raise ValueError(f"kernel needs bk == {BK}; got bk={bk}")
-    plan = fused_plan(E, M, K, N, bn=bn, split=split)
+    plan = fused_plan(E, M, K, N, bn=bn, split=split,
+                      xb=X_CODE_BYTES[fmt_x])
     if fmt_w == "fp8_e4m3" and wq.dtype != torch.float8_e4m3fn:
         raise TypeError(f"fp8 weights must be float8_e4m3fn, got {wq.dtype}")
     if fmt_w == "fp4_e2m1" and wq.dtype != torch.uint8:
@@ -274,15 +290,16 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
     lib = build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.route == "tiled":
-        codes, scales = dpa_act_quant(x)
+        codes, scales = dpa_act_quant(x, fmt=fmt_x)
         err = lib.dpa_fused_tiled_launch(
-            codes.data_ptr(), scales.data_ptr(), wq.data_ptr(), w_fmt,
-            sw.data_ptr(), out.data_ptr(), E, M, K, N, stream)
+            codes.data_ptr(), KERNEL_X[fmt_x], scales.data_ptr(),
+            wq.data_ptr(), w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N,
+            stream)
     else:
         err = lib.dpa_grouped_fused_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), wq.data_ptr(),
-            w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N, plan.bm,
-            plan.bn, plan.split, stream)
+            x.data_ptr(), int(x.dtype == torch.bfloat16), KERNEL_X[fmt_x],
+            wq.data_ptr(), w_fmt, sw.data_ptr(), out.data_ptr(), E, M, K, N,
+            plan.bm, plan.bn, plan.split, stream)
     build.check(err, what)
     return plan
 
@@ -296,13 +313,14 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_fused.launches` counts launches,
-    `.<route>_launches` those of each route, and the census
-    (`kernels.census`) their bytes, operations and bound."""
+    `.<route>_launches` those of each route, `.<fmt_x>_launches` those of
+    each activation format, and the census (`kernels.census`) their
+    bytes, operations and bound."""
     build.forward_only("dpa_matmul_fused", x, wq, sw)
     check_fused(x, wq, sw, pack_w)
     if bn is not None or split is not None:
         fused_plan(1, x.shape[0], x.shape[1], wq.shape[1], bn=bn,
-                   split=split)
+                   split=split, xb=X_CODE_BYTES.get(fmt_x, 1))
     if x.device.type == "cpu":
         return dpa_matmul_fused_ref(x, wq, sw, fmt_x=fmt_x, fmt_w=fmt_w,
                                     bk=bk, pack_w=pack_w)
@@ -316,40 +334,53 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
                         what="dpa_matmul_fused", bn=bn, split=split)
     census.count(dpa_matmul_fused, census.launch_work(
         "dpa_matmul_fused", plan.route, E=1, M=M, K=K, N=N,
-        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w), plan.route)
+        x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w, fmt_x=fmt_x),
+        plan.route, fmt_x)
     return out
 
 
-census.declare(dpa_matmul_fused, "splitk", "tiled")
+census.declare(dpa_matmul_fused, "splitk", "tiled", *KERNEL_X)
 
 
 # -----------------------------------------------------------------------------
 # the tiled route's two stages
 # -----------------------------------------------------------------------------
 
-def dpa_act_quant_ref(x, bk: int = BK):
+def dpa_act_quant_ref(x, bk: int = BK, fmt: str = "fp8_e4m3"):
     """Plain version of the tiled route's pre-pass: x (..., M, K) f32/bf16
-    -> (E4M3 codes (..., M, K) uint8, scales (..., M, K / bk) f32), the
-    per-(row, K block) quantization of `fused_blocks`."""
-    target = get_format("fp8_e4m3").quant_target
+    -> (codes (..., M, K), scales (..., M, K / bk) f32), the per-(row, K
+    block) quantization of `fused_blocks` onto fmt's grid.  The codes are
+    E4M3 bytes (uint8) for E4M3 and E2M1 (whose values are all E4M3
+    values), fp16 values (float16) for fp16."""
+    target = get_format(fmt).quant_target
     xb = x.to(torch.float32).unflatten(-1, (x.shape[-1] // bk, bk))
     scale = absmax_block_scale(xb, target, dim=-1)
     y = torch.clamp(xb / scale, -target, target)
-    codes = y.to(torch.float8_e4m3fn).view(torch.uint8).flatten(-2)
+    if fmt == "fp16":
+        codes = y.to(torch.float16).flatten(-2)
+    else:
+        if fmt == "fp4_e2m1":
+            y = decode_fp4(encode_fp4(y))
+        codes = y.to(torch.float8_e4m3fn).view(torch.uint8).flatten(-2)
     return codes, scale.squeeze(-1)
 
 
-def dpa_act_quant(x, bk: int = BK):
+def dpa_act_quant(x, bk: int = BK, fmt: str = "fp8_e4m3"):
     """Stage one of the tiled route (`csrc/dpa_fused_tiled.cu`
-    `act_quant_kernel`): x (..., M, K) quantized once per (row, K block).
+    `act_quant_kernel`): x (..., M, K) quantized once per (row, K block)
+    onto fmt's grid (`KERNEL_X`; codes as `dpa_act_quant_ref` gives them).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_act_quant.launches` counts launches."""
     build.forward_only("dpa_act_quant", x)
     if x.device.type == "cpu":
-        return dpa_act_quant_ref(x, bk)
+        return dpa_act_quant_ref(x, bk, fmt)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if fmt not in KERNEL_X:
+        raise NotImplementedError(
+            f"dpa_act_quant kernel serves {sorted(KERNEL_X)} activations; "
+            f"{fmt} is open in {FUSED_FORMATS_ITEM}")
     K = x.shape[-1]
     if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim < 2:
         raise TypeError(f"x must be f32/bf16 (..., M, K), got {x.dtype} "
@@ -359,17 +390,18 @@ def dpa_act_quant(x, bk: int = BK):
                          f"bk={bk}, K={K}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("dpa_act_quant needs contiguous 16-byte aligned x")
-    codes = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    codes = torch.empty(x.shape, dtype=torch.float16 if fmt == "fp16"
+                        else torch.uint8, device=x.device)
     scales = torch.empty(x.shape[:-1] + (K // BK,), dtype=torch.float32,
                          device=x.device)
     err = build.load_library().dpa_act_quant_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-        scales.data_ptr(), x.numel() // K, K,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), KERNEL_X[fmt],
+        codes.data_ptr(), scales.data_ptr(), x.numel() // K, K,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dpa_act_quant")
     census.count(dpa_act_quant, census.launch_work(
         "dpa_act_quant", rows=x.numel() // K, K=K,
-        x_bytes=x.element_size()))
+        x_bytes=x.element_size(), fmt=fmt))
     return codes, scales
 
 
@@ -378,15 +410,17 @@ census.declare(dpa_act_quant)
 
 def dpa_fused_tiled_ref(codes, scales, wq, sw, *, fmt_w: str,
                         pack_w: bool = False, bk: int = BK):
-    """Plain version of the tiled route's product: E4M3 codes (..., M, K)
-    and scales (..., M, K / bk) of `dpa_act_quant`, times wq (..., K', N)
+    """Plain version of the tiled route's product: codes (..., M, K; E4M3
+    bytes or fp16) and scales (..., M, K / bk) of `dpa_act_quant`, times
+    wq (..., K', N)
     with column scales sw (..., 1, N), per K block a fresh partial scaled
     by its row scale and added into the running sum.  Equals
     `dpa_matmul_fused_ref` (dense) and `dpa_grouped_matmul_fused_ref`
     (an expert stack) on the raw x bit for bit."""
     wt = widen(wq, fmt_w, packed=pack_w, dim=-2).transpose(-1, -2)
     dot = rowwise_dot if codes.ndim == 2 else batched_rowwise_dot
-    q = codes.view(torch.float8_e4m3fn).to(torch.float32)
+    q = (codes.view(torch.float8_e4m3fn) if codes.dtype == torch.uint8
+         else codes).to(torch.float32)
     out = torch.zeros(codes.shape[:-1] + (wt.shape[-2],),
                       dtype=torch.float32, device=codes.device)
     for i, k0 in enumerate(range(0, codes.shape[-1], bk)):
@@ -521,9 +555,7 @@ prequant_plan.cache_clear = _auto_prequant_plan.cache_clear
 
 
 # the kernel's operand formats (csrc/dpa_prequant.cu), by (format, packed)
-PREQUANT_FMT = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1,
-                ("fp8_e5m2", False): 2, ("fp4_e2m1", False): 3,
-                ("fp16", False): 4, ("bf16", False): 5}
+PREQUANT_FMT = build.CODE_LAYOUTS
 # the pairs no exact 16-bit MMA holds (fp16 x bf16)
 PREQUANT_REFUSED = {("fp16", "bf16"), ("bf16", "fp16")}
 

@@ -19,11 +19,13 @@ rows (codes plus per-row f32 scales, E2M1 optionally packed along the
 head dim) and are widened; the probabilities are quantized per (row, key
 block of `bk`) after the exp under the running max, their scale folded
 into the numerator and the denominator.  `bk` is part of the numerics.
-On the card raw K/V are quantized once by the row-quantizer kernels
-(`kernels.quantize`) into the codes and scales a quantized cache holds,
-and the kernel reads those.  Head dims 64 and 128 take q blocks of up to
-128 rows; 256 (recurrentgemma's local attention) up to 64 (`max_bq`),
-the kernel's other layout; the f32 kernel has no hd-256 instance yet.
+On the card the attention format (q's and p's grid) is E4M3, E2M1 or
+fp16 (`_ATTN_FMT`) over E4M3, E2M1 or fp16 K/V; raw K/V are quantized
+once by the row-quantizer kernels (`kernels.quantize`) into the codes
+and scales a quantized cache holds, and the kernel reads those.  Head
+dims 64 and 128 take q blocks of up to 128 rows; 256 (recurrentgemma's
+local attention) up to 64 (`max_bq`), the kernel's other layout; the
+f32 kernel has no hd-256 instance yet.
 """
 from __future__ import annotations
 
@@ -43,9 +45,14 @@ DPA_WIDE_BQ = 64                 # the DPA kernel's q rows a block at hd 256
 F32_WIDE_ITEM = ("ROADMAP Queue 2, flash_attention (the f32 flash kernel) "
                  "at head dim 256")
 
-# the DPA kernel's K/V code layouts: (fmt_kv, packed) -> kv_fmt
+# the DPA kernel's K/V code layouts: (fmt_kv, packed) -> kv_fmt, and its
+# attention formats (dpa_common.cuh kGrid*)
 _KV_FMT = {("fp8_e4m3", False): 0, ("fp4_e2m1", False): 1,
-           ("fp4_e2m1", True): 2}
+           ("fp4_e2m1", True): 2, ("fp16", False): 3}
+_ATTN_FMT = {f: build.GRID_CODES[f] for f in ("fp8_e4m3", "fp4_e2m1",
+                                              "fp16")}
+DPA_FORMATS_ITEM = ("ROADMAP Queue 2 under dpa_flash_attention (formats "
+                    "open: f32 attention over quantized K/V, bf16 and E5M2)")
 
 
 def _mask(sq: int, sk: int, causal: bool, window, device):
@@ -92,8 +99,9 @@ def dpa_flash_attention_ref(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     plus the kernel's cache mode): the key-block loop of the kernel —
     running max, alpha rescale, p quantized per (row, key block).
 
-    `p_codes`, a check-only output: a zeroed (B, H, Sq, Sk) uint8 tensor
-    that receives the E4M3 code of every quantized probability."""
+    `p_codes`, a check-only output: a zeroed (B, H, Sq, Sk) tensor that
+    receives the code of every quantized probability (`p_code_dtype`: the
+    E4M3 byte of an E4M3 or E2M1 value, fp16 at fp16)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     g = H // k.shape[1]
@@ -121,13 +129,19 @@ def dpa_flash_attention_ref(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
         alpha = torch.exp(m - m_cur)
         pg, ps = quant_rows_grid(p, fmt)
         if p_codes is not None:
-            p_codes[..., j0:j0 + bk] = pg.to(torch.float8_e4m3fn).view(
-                torch.uint8)
+            p_codes[..., j0:j0 + bk] = (
+                pg.to(torch.float16) if fmt == "fp16" else
+                pg.to(torch.float8_e4m3fn).view(torch.uint8))
         l = l * alpha + pg.sum(dim=-1, keepdim=True) * ps
         acc = acc * alpha + batched_rowwise_dot(
             pg, v_eff[:, :, j0:j0 + bk].transpose(-1, -2)) * ps
         m = m_cur
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def p_code_dtype(fmt: str):
+    """The dtype of `p_codes` at attention format fmt."""
+    return torch.float16 if fmt == "fp16" else torch.uint8
 
 
 def _blocks(q, k, bq: int, bk: int):
@@ -255,8 +269,9 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
                         bk: int = 128, p_codes=None):
     """(B, H, Sq, D) x (B, Hkv, Sk, Dk) x (B, Hkv, Sk, Dk) -> (B, H, Sq, D)
     in q's dtype.  Raw mode (`kv_quant` False): k/v are float tensors.
-    Cache mode: k/v are cache codes (float8_e4m3fn, or uint8 E2M1 codes,
-    Dk = D / 2 when `kv_packed`) with (B, Hkv, Sk, 1) f32 row scales.
+    Cache mode: k/v are cache codes (float8_e4m3fn, float16, or uint8 E2M1
+    codes, Dk = D / 2 when `kv_packed`) with (B, Hkv, Sk, 1) f32 row
+    scales.
     `p_codes`: see `dpa_flash_attention_ref` (a check only).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -275,24 +290,26 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
     if q.device.type == "cpu":
         return dpa_flash_attention_ref(q, k, v, k_scale, v_scale, bk=bk,
                                        p_codes=p_codes, **kw)
-    if fmt != "fp8_e4m3" or fmt_kv not in ("fp8_e4m3", "fp4_e2m1"):
+    if fmt not in _ATTN_FMT or (fmt_kv, False) not in _KV_FMT:
         raise NotImplementedError(
-            f"dpa_flash_attention kernel serves fp8_e4m3 attention over "
-            f"fp8_e4m3 or fp4_e2m1 K/V (raw, cache codes, packed fp4); "
-            f"(fmt={fmt}, fmt_kv={fmt_kv}, kv_quant={kv_quant}, "
-            f"kv_packed={kv_packed}) is open in ROADMAP Queue 2 under "
-            "dpa_flash_attention (formats open)")
+            f"dpa_flash_attention kernel serves {sorted(_ATTN_FMT)} "
+            f"attention over fp8_e4m3, fp4_e2m1 or fp16 K/V (raw, cache "
+            f"codes, packed fp4); (fmt={fmt}, fmt_kv={fmt_kv}, kv_quant="
+            f"{kv_quant}, kv_packed={kv_packed}) is open in "
+            f"{DPA_FORMATS_ITEM}")
     _check_launch(q, bq, bk, window, (q, k, v, k_scale, v_scale, p_codes),
                   "dpa_flash_attention", DPA_HEAD_DIMS)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1:3]
-    if p_codes is not None and (p_codes.dtype != torch.uint8 or
+    if p_codes is not None and (p_codes.dtype != p_code_dtype(fmt) or
                                 p_codes.shape != (B, H, Sq, Sk)):
-        raise ValueError("p_codes must be a (B, H, Sq, Sk) uint8 tensor")
+        raise ValueError(f"p_codes must be a (B, H, Sq, Sk) "
+                         f"{p_code_dtype(fmt)} tensor")
     packed = bool(kv_quant and kv_packed)
     kv_row_bytes = k.shape[-1] * k.element_size() + (4 if kv_quant else 0)
     if kv_quant:
-        want = torch.float8_e4m3fn if fmt_kv == "fp8_e4m3" else torch.uint8
+        want = {"fp8_e4m3": torch.float8_e4m3fn, "fp16": torch.float16,
+                "fp4_e2m1": torch.uint8}[fmt_kv]
         if k.dtype != want or v.dtype != want:
             raise TypeError(f"{fmt_kv} cache codes must be {want}, got "
                             f"{k.dtype}, {v.dtype}")
@@ -316,28 +333,29 @@ def dpa_flash_attention(q, k, v, k_scale=None, v_scale=None, *, fmt: str,
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
         v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), None if p_codes is None else p_codes.data_ptr(), D,
-        _KV_FMT[(fmt_kv, packed)], B, H, Hkv, Sq, Sk, bq, bk, int(causal),
+        _KV_FMT[(fmt_kv, packed)], _ATTN_FMT[fmt], B, H, Hkv, Sq, Sk, bq, bk,
+        int(causal),
         int(window or 0), float(scale if scale is not None else D ** -0.5),
         _stream(q))
     build.check(err, "dpa_flash_attention")
     census.count(dpa_flash_attention, census.launch_work(
         "dpa_flash_attention", B=B, H=H, KV=Hkv, sq=Sq, sk=Sk, hd=D,
         q_bytes=q.element_size(), kv_row_bytes=kv_row_bytes,
-        causal=bool(causal), window=window or None),
+        causal=bool(causal), window=window or None, fmt=fmt),
         *(() if kv_quant else ("prepass",)))
     return out
 
 
 def _prepass(x, fmt_kv):
     """Raw (B, Hkv, Sk, D) K or V quantized once per row by the row
-    quantizers' kernels: -> (E4M3 codes, or E2M1 codes packed two per
-    byte along D; (B, Hkv, Sk, 1) f32 scales), the rows
+    quantizers' kernels: -> (E4M3 or fp16 codes, or E2M1 codes packed two
+    per byte along D; (B, Hkv, Sk, 1) f32 scales), the rows
     `core.kvcache.quantize_kv` writes for the same values (E2M1's negative
     zero aside: the cache writes code 0 where the quantizer keeps code 8,
     both the value 0)."""
     rows = x.reshape(-1, x.shape[-1])
-    if fmt_kv == "fp8_e4m3":
-        codes, scales = quantize_rows(rows, fmt="fp8_e4m3")
+    if fmt_kv in ("fp8_e4m3", "fp16"):
+        codes, scales = quantize_rows(rows, fmt=fmt_kv)
     else:
         codes, scales = quantize_pack_rows(rows)
     return (codes.view(x.shape[:-1] + (codes.shape[-1],)),

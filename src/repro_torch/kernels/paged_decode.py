@@ -4,9 +4,10 @@ wrapper around the CUDA kernel (`csrc/paged_decode.cu`).
 Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py`
 `paged_decode_attention`: one decode step per (request, KV head) against
 the paged quantized KV cache — pages read through the block table, q and
-the softmax probabilities quantized per row onto the fmt grid (E4M3,
-E2M1 or fp16), f32 accumulation, per-request causal mask `kpos <=
-positions[b]`.
+the softmax probabilities quantized per row onto the fmt grid (any
+format of the table; fp32 quantizes nothing), f32 accumulation, per-
+request causal mask `kpos <= positions[b]`, over KV codes in any format
+(E2M1 packed or one a byte).
 
 The kernel splits each (request, KV head)'s live keys across a cluster
 of `paged_plan(...).split` blocks.  The speculative verify pass folds its
@@ -16,8 +17,8 @@ split is the decode step's at the same B (`paged_plan` of the request
 batch), so every verify row carries exactly the bits of the decode step
 at its position.
 
-Formats the kernel does not serve yet raise `NotImplementedError` naming
-their ROADMAP item, before the library loads (`kernel_formats`).
+What is no format of the table raises `NotImplementedError` before the
+library loads (`kernel_formats`).
 """
 from __future__ import annotations
 
@@ -31,8 +32,10 @@ from repro_torch.kernels.dpa_matmul import MAX_CLUSTER, SMS
 from repro_torch.models.decode_attn import (dpa_paged_decode_attn,
                                              dpa_paged_verify_attn)
 
-_KERNEL_KV = {("fp4_e2m1", True): 0, ("fp8_e4m3", False): 1}
-_KERNEL_ATTN = {"fp8_e4m3": 0, "fp4_e2m1": 1, "fp16": 2}
+# (fmt_kv, kv_packed) -> the kernel's KV code layout, and fmt_attn -> its
+# attention grid: every one of the table's
+_KERNEL_KV = build.CODE_LAYOUTS
+_KERNEL_ATTN = build.GRID_CODES
 KERNEL_HEAD_DIMS = (64, 128)     # the kernel's head-dim template instances
 MAX_G = 8                        # query heads per KV head
 MIN_RANK_ROWS = 16               # no split leaves a rank fewer view rows
@@ -52,8 +55,9 @@ def paged_smem_bytes(G: int, hd: int, wc: int, max_pages: int, page: int,
                      split: int) -> int:
     """Dynamic shared memory of one block (`smem_layout` of
     `csrc/paged_decode.cu`): the block-table row, the logits of
-    ceil(view / split) rows a head, the ring of K/V code stages (which
-    the warps' PV sums reuse), and the split slots rank 0 receives."""
+    ceil(view / split) rows a head, the ring of K/V code stages of wc
+    bytes a row (which the warps' PV sums reuse), and the split slots
+    rank 0 receives."""
     cap = -(-max_pages * page // split)
     ring = max(_STAGES * _CHUNK * (wc + 4), _WARPS * G * hd * 4)
     return (_a16(max_pages * 4) + _a16(G * cap * 4) + ring
@@ -84,11 +88,11 @@ def paged_plan(B: int, KV: int, G: int, hd: int, wc: int, page: int,
     third slower (PERF.md).  Raises where none fits (a view too long for
     8 ranks).  Memoized."""
     if hd not in KERNEL_HEAD_DIMS or not 1 <= G <= MAX_G or \
-            wc not in (hd // 2, hd):
+            wc not in (hd // 2, hd, 2 * hd):
         raise ValueError(f"paged decode kernel needs hd in "
                          f"{KERNEL_HEAD_DIMS}, 1 <= H/KV <= {MAX_G} and "
-                         f"codes of hd or hd/2 bytes; got hd={hd}, G={G}, "
-                         f"wc={wc}")
+                         f"code rows of hd/2, hd or 2 hd bytes; got hd={hd}, "
+                         f"G={G}, wc={wc}")
     if min(B, KV, page, max_pages) < 1 or B > 65535 or KV > 65535:
         raise ValueError(f"paged decode kernel needs 1 <= B, KV <= 65535 "
                          f"and a nonempty table; got B={B}, KV={KV}, "
@@ -137,25 +141,21 @@ def paged_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
                 scale=float(scale if scale is not None else hd ** -0.5))
 
 
-# the ROADMAP item that lists the formats the kernel does not serve yet
-FORMATS_ITEM = ("ROADMAP Queue 2 under paged_decode_attention (formats "
-                "open)")
-
-
 def kernel_formats(fmt, fmt_kv, kv_packed) -> tuple:
     """-> the kernel's (KV format, attention format) codes for a policy's
-    (fmt_attn, fmt_kv, kv_packed); raises `NotImplementedError` naming
-    the ROADMAP item for what it does not serve: f32 attention over a
-    quantized cache, fp16 KV and unpacked fp4 KV.  Needs no card: the
-    engine checks every policy it will run at construction."""
+    (fmt_attn, fmt_kv, kv_packed).  Every pair a `kv_quantized` policy
+    can name is served; anything else (no format of the table, a packed
+    cache that is not E2M1, an f32 cache) raises `NotImplementedError`.
+    Needs no card: the engine checks every policy it will run at
+    construction."""
     kv = _KERNEL_KV.get((fmt_kv, bool(kv_packed)))
     attn = _KERNEL_ATTN.get(fmt)
     if kv is None or attn is None:
         raise NotImplementedError(
             f"paged_decode_attention kernel serves {sorted(_KERNEL_ATTN)} "
-            f"attention over packed fp4_e2m1 or fp8_e4m3 KV; (fmt={fmt}, "
-            f"fmt_kv={fmt_kv}, kv_packed={kv_packed}) is open in "
-            f"{FORMATS_ITEM}")
+            f"attention over {sorted({f for f, _ in _KERNEL_KV})} KV codes "
+            f"(fp4_e2m1 packed or not); (fmt={fmt}, fmt_kv={fmt_kv}, "
+            f"kv_packed={kv_packed}) names no such pair")
     return kv, attn
 
 
@@ -238,7 +238,8 @@ def launch_paged(q, k_codes, k_scale, v_codes, v_scale, block_table,
     if any(t.data_ptr() % 16 for t in (q, k_codes, v_codes)):
         raise ValueError("paged_decode_attention kernel needs 16-byte "
                          "aligned q and code pools")
-    plan = fold_plan(B, sq, KV, H // KV, hd, k_codes.shape[3],
+    plan = fold_plan(B, sq, KV, H // KV, hd,
+                     k_codes.shape[3] * k_codes.element_size(),
                      k_codes.shape[1], block_table.shape[1])
     out = torch.empty_like(q)
     lib = build.load_library()

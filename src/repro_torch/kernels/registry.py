@@ -72,21 +72,27 @@ PAGED_DECODE_CARD_TOL = 2e-2
 # weight in an output is at most max over adjacent codes lo < hi of
 # (hi - lo) / (T + lo), the step against the least denominator, which
 # holds the top code T of the max key: E4M3 32 / (448 + 256) = 1/22,
-# E2M1 2 / (6 + 4) = 1/5, fp16 8 / (16384 + 8192) = 1/3072.  Each
+# E2M1 2 / (6 + 4) = 1/5, fp16 8 / (16384 + 8192) = 1/3072, bf16 64 /
+# (16384 + 8192) = 1/384, E5M2 8192 / (57344 + 32768) = 1/11.  Each
 # format's flip allowance is E4M3's scaled by that weight, plus the ulp.
+# fp32 attention has no codes (weight 0) and is held on f32 q, whose
+# outputs are not rounded again: its bound is what the sums' order moves,
+# F32_ATTN_TOL.
 _BF16_ULP_BELOW_4 = 2.0 ** -6
-_FLIP_WEIGHT = {"fp8_e4m3": 1 / 22, "fp4_e2m1": 1 / 5, "fp16": 1 / 3072}
+_FLIP_WEIGHT = {"fp8_e4m3": 1 / 22, "fp4_e2m1": 1 / 5, "fp16": 1 / 3072,
+                "bf16": 1 / 384, "fp8_e5m2": 1 / 11}
+F32_ATTN_TOL = 1e-5
 PAGED_DECODE_CARD_TOLS = {
-    fmt: _BF16_ULP_BELOW_4 + (PAGED_DECODE_CARD_TOL - _BF16_ULP_BELOW_4)
-    * w / _FLIP_WEIGHT["fp8_e4m3"] for fmt, w in _FLIP_WEIGHT.items()}
+    **{fmt: _BF16_ULP_BELOW_4 + (PAGED_DECODE_CARD_TOL - _BF16_ULP_BELOW_4)
+       * w / _FLIP_WEIGHT["fp8_e4m3"] for fmt, w in _FLIP_WEIGHT.items()},
+    "fp32": F32_ATTN_TOL}
 # These are worst cases over any inputs.  chip_smoke.py also holds each
 # case to its own, far smaller, bound (`_paged_case_tol`, from the case's
 # own sum of codes).
 
 
 def _pd_tol(policy, ctx):
-    """The paged kernel's routes' bound: their attention format's (None
-    for the formats the kernel refuses)."""
+    """The paged kernel's routes' bound: their attention format's."""
     return PAGED_DECODE_CARD_TOLS.get(policy.fmt_attn)
 
 # the flash routes' q and key block, cut to divide the sequence: part of
@@ -137,7 +143,8 @@ def _mm_dims(ctx):
 
 
 def _fused_plan(policy, ctx, *, bn=None, split=None):
-    return DM.fused_plan(*_mm_dims(ctx), bn=bn, split=split)
+    return DM.fused_plan(*_mm_dims(ctx), bn=bn, split=split,
+                         xb=DM.X_CODE_BYTES.get(policy.fmt_acts, 1))
 
 
 def _prequant_plan(policy, ctx, *, bn=None, split=None):

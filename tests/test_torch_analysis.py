@@ -403,6 +403,51 @@ PINS = {
 }
 
 
+def test_census_prices_the_new_formats():
+    """One figure a format the kernels took last, by hand: the
+    fused matmul's bytes at E2M1 and fp16 activations (x read raw, codes
+    never stored) with operations at the operand format's peak, the
+    pre-pass's fp16 codes, paged decode over 2-byte and unpacked codes
+    with f32 attention bound by bytes, and DPA flash at fp16 and E2M1."""
+    hbm = 3.35e12
+    # qwen3-4b's wq (K 2560, N 4096) at M 4096, packed-E2M1 weights
+    M, K, N = 4096, 2560, 4096
+    nbytes = M * K * 2 + K * N // 2 + N * 4 + M * N * 4
+    ops = 2 * M * K * N
+    for fmt, peak in (("fp4_e2m1", 1979e12), ("fp16", 989e12)):
+        w = C.launch_work("dpa_matmul_fused", "tiled", E=1, M=M, K=K, N=N,
+                          x_bytes=2, fmt_w="fp4_e2m1", pack_w=True,
+                          fmt_x=fmt)
+        assert (w.bytes, w.ops, w.peak) == (nbytes, ops, peak)
+        assert C.bound_s(*w) == max(nbytes / hbm, ops / peak)
+    # the pre-pass at fp16: bf16 in, fp16 codes and one scale a block out
+    w = C.launch_work("dpa_act_quant", rows=M, K=K, x_bytes=2, fmt="fp16")
+    assert w.bytes == M * K * (2 + 2) + M * (K // 128) * 4 and w.ops == 0
+    # paged decode, qwen3-4b's engine step (B 4, H 32, KV 8, hd 128, 16
+    # pages a request): fp16 codes (256 bytes a row) under fp16 attention
+    # on bf16 q, unpacked E2M1 (128) under f32 attention on f32 q
+    rows, pairs = sum(ENGINE_LENGTHS), sum(ENGINE_LENGTHS)
+    for fmt, code_bytes, q_bytes in (("fp16", 256, 2), ("fp32", 128, 4)):
+        w = C.launch_work("paged_decode_attention", fmt=fmt, B=4, sq=1,
+                          H=32, KV=8, hd=128, code_bytes=code_bytes,
+                          q_bytes=q_bytes, table_entries=64, kv_rows=rows,
+                          pairs=pairs)
+        want = 2 * rows * 8 * (code_bytes + 4) \
+            + 2 * 4 * 32 * 128 * q_bytes + 64 * 4 + 4 * 4
+        assert (w.bytes, w.ops) == (want, 4 * pairs * 32 * 128)
+        assert C.bound_by(*w) == "bytes"
+    assert f"{C.bound_s(*w) * 1e3:.6f}" == "0.000402"
+    # DPA flash, one qwen3-4b scoring layer: 2.75e11 operations at the
+    # fp16 peak, and at fp8's for E2M1
+    pairs = 4096 * 4097 // 2
+    for fmt, peak in (("fp16", 989e12), ("fp4_e2m1", 1979e12)):
+        w = C.launch_work("dpa_flash_attention", B=1, H=32, KV=8, sq=4096,
+                          sk=4096, hd=128, q_bytes=2, kv_row_bytes=256,
+                          causal=True, window=None, fmt=fmt)
+        assert w.ops == 4 * 32 * 128 * pairs and w.peak == peak
+        assert C.bound_s(*w) == w.ops / peak
+
+
 @pytest.mark.parametrize("row", list(PINS))
 def test_census_gives_the_kernel_table_bound(row):
     fn, printed = PINS[row]

@@ -382,9 +382,12 @@ def test_fold_plan_keeps_the_decode_split(shape, k):
     ("fp4_e2m1", "fp4_e2m1", False),    # unpacked fp4 KV
     ("bf16", "fp4_e2m1", True)])
 def test_launch_refuses_open_formats_before_loading(fmt, fmt_kv, packed):
-    """What the kernel does not serve yet raises NotImplementedError
-    naming its ROADMAP item, before the library loads (which this machine
-    cannot build: loading would raise RuntimeError)."""
+    """The pairs the kernel once refused (these five) are served now:
+    `kernel_formats` gives their kernel codes.  What names no pair of the
+    format table — the case's attention format replaced by int8, or its
+    cache packed as E4M3 — still raises NotImplementedError before the
+    library loads (which this machine cannot build: loading would raise
+    RuntimeError)."""
     B, H, KV, hd, page, P = 2, 8, 2, 128, 16, 4
     wc = hd // 2 if packed else hd
     code = torch.uint8 if fmt_kv == "fp4_e2m1" else torch_dtype(fmt_kv)
@@ -393,15 +396,13 @@ def test_launch_refuses_open_formats_before_loading(fmt, fmt_kv, packed):
     scales = torch.ones((P, page, KV, 1))
     table = torch.zeros((B, 2), dtype=torch.int32)
     pos = torch.zeros((B,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="formats open"):
+    assert TPD.kernel_formats(fmt, fmt_kv, packed) == (
+        TPD._KERNEL_KV[fmt_kv, packed], TPD._KERNEL_ATTN[fmt])
+    with pytest.raises(NotImplementedError, match="names no such pair"):
         TPD.launch_paged(q, codes, scales, codes, scales, table, pos,
-                         fmt=fmt, fmt_kv=fmt_kv, kv_packed=packed)
-    with pytest.raises(NotImplementedError, match="formats open"):
-        TPD.kernel_formats(fmt, fmt_kv, packed)
-    for served in (("fp8_e4m3", "fp4_e2m1", True), ("fp4_e2m1", "fp8_e4m3",
-                                                     False),
-                   ("fp16", "fp4_e2m1", True)):
-        TPD.kernel_formats(*served)
+                         fmt="int8", fmt_kv=fmt_kv, kv_packed=packed)
+    with pytest.raises(NotImplementedError, match="names no such pair"):
+        TPD.kernel_formats(fmt, "fp8_e4m3", True)
 
 
 @pytest.mark.parametrize("args,what", [

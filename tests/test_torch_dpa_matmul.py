@@ -25,8 +25,9 @@ from repro_torch.kernels import ops as TOPS  # noqa: E402
 ROPS = importlib.import_module("repro.kernels.ops")
 RPOL = importlib.import_module("repro.core.policy")
 
-# (fmt_x, fmt_w) pairs: (fp8, packed fp4) and (fp8, fp8)
-POLICIES = ["w4a8_kv4_attn8", "fp8_dpa_fused"]
+# (fmt_x, fmt_w) pairs: (fp8, packed fp4), (fp8, fp8) and (fp4, packed
+# fp4), the last E2M1 activations quantized in the kernel
+POLICIES = ["w4a8_kv4_attn8", "fp8_dpa_fused", "fp4_dpa_fused"]
 RTOL, ATOL = 2e-5, 2e-4
 
 

@@ -27,7 +27,8 @@ from repro_torch.launch.engine import (Engine, EngineConfig,  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
-POLICIES = ["kv4_attn8_packed", "w4a8_kv4_attn8"]
+POLICIES = ["kv4_attn8_packed", "w4a8_kv4_attn8", "kv8_attn_f32",
+            "kv16_attn_f32", "attn_fp16_dpa"]
 ECFG = EngineConfig(page_size=8, n_pages=32, max_batch=3,
                     max_pages_per_req=4, token_budget=8, prefill_chunk=8)
 LENS = [(9, 5), (14, 7), (5, 4), (20, 6), (11, 8)]

@@ -149,15 +149,18 @@ def test_fit_block():
 
 def test_off_the_cpu_the_wrappers_launch_or_raise():
     """A tensor that is not on the CPU never takes the plain version: an
-    unserved format raises NotImplementedError naming the ROADMAP item,
-    a served one goes to the launch (which refuses a non-CUDA device)."""
+    unserved format (f32 attention over quantized K/V) raises
+    NotImplementedError naming the ROADMAP item, a served one goes to the
+    launch (which refuses a non-CUDA device)."""
     q = torch.empty((1, 4, 128, 64), device="meta")
     k = torch.empty((1, 2, 128, 64), device="meta")
     with pytest.raises(NotImplementedError,
                        match="Queue 2 under dpa_flash_attention"):
-        TFA.dpa_flash_attention(q, k, k, fmt="fp4_e2m1")
+        TFA.dpa_flash_attention(q, k, k, fmt="fp32", fmt_kv="fp8_e4m3")
     for call in (lambda: TFA.dpa_flash_attention(q, k, k, fmt="fp8_e4m3",
                                                  fmt_kv="fp4_e2m1"),
+                 lambda: TFA.dpa_flash_attention(q, k, k, fmt="fp4_e2m1"),
+                 lambda: TFA.dpa_flash_attention(q, k, k, fmt="fp16"),
                  lambda: TFA.flash_attention(q, k, k)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

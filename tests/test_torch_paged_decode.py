@@ -30,7 +30,8 @@ from repro_torch.kernels import paged_decode as TPD  # noqa: E402
 RKV = importlib.import_module("repro.core.kvcache")
 RPLAN = importlib.import_module("repro.core.exec_plan")
 
-PRESETS = ["kv4_attn8_packed", "attn_fp8_dpa"]
+PRESETS = ["kv4_attn8_packed", "attn_fp8_dpa", "kv8_attn_f32",
+           "kv16_attn_f32", "attn_fp16_dpa"]
 PS, N_KV, HD, H = 8, 2, 16, 4
 TOL = 1e-4
 

@@ -2,7 +2,8 @@
 
     python3 tools/fused_splitk_ablation.py
 
-Builds `src/repro_torch/csrc/dpa_matmul.cu` (with `dpa_mma.cuh` pasted in)
+Builds `src/repro_torch/csrc/dpa_matmul.cuh` and its sources (with
+`dpa_mma.cuh` pasted in)
 several ways into `build/fused_splitk_ablation/`:
 - as it is ("full");
 - stubs: the packed E2M1 -> f16x2 weight decode a pass-through
@@ -68,8 +69,8 @@ WARPS8 = ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")
 NOXLOAD = ("        dpa::load4(x + (size_t)(m0 + r) * K + kbeg + j * kBK + "
            "4 * lane,\n                   v[u]);",
            "        v[u][0] = lane, v[u][1] = p, v[u][2] = r, v[u][3] = j;")
-EXACTDIV = ("      qc[u] = quantize4(v[u], sc[u], rcp_refined(sc[u]));",
-            "      qc[u] = quantize4_exact(v[u], sc[u]);")
+EXACTDIV = ("quantize4<XB>(v[u], sc[u], rcp_refined(sc[u]), xfmt, false);",
+            "quantize4<XB>(v[u], sc[u], 0.0f, xfmt, true);")
 PROLOGUE = ("  const int nst = (warp < L ?",
             "  const int nst = 0 * (warp < L ?")
 NOSHFL = ("        a[u] = fmaxf(a[u], __shfl_xor_sync(0xffffffffu, a[u], o));",
@@ -128,7 +129,13 @@ def build_all(out: Path) -> dict:
     from repro_torch.kernels import build
     sys.path.insert(0, str(ROOT / "tools"))
     from fused_tiled_ablation import inline_mma_header
-    src = inline_mma_header((build.CSRC / "dpa_matmul.cu").read_text())
+    # the kernel's header with the entry and the fp16 instances after it:
+    # one source to stub and build
+    inc = '#include "dpa_matmul.cuh"\n'
+    src = inline_mma_header(
+        (build.CSRC / "dpa_matmul.cuh").read_text()
+        + "".join((build.CSRC / f).read_text().replace(inc, "")
+                  for f in ("dpa_matmul.cu", "dpa_matmul_x16.cu")))
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variants(src).items():
@@ -205,7 +212,7 @@ def main() -> None:
         for name, fn in libs.items():
             def launch(c, fn=fn):
                 x, prep, out, p, E, K, N = c
-                err = fn(x.data_ptr(), 1, prep["wq"].data_ptr(), 0,
+                err = fn(x.data_ptr(), 1, 0, prep["wq"].data_ptr(), 0,
                          prep["sw"].data_ptr(), out.data_ptr(), E, M, K, N,
                          p.bm, p.bn, p.split,
                          torch.cuda.current_stream().cuda_stream)

@@ -116,8 +116,7 @@ def build_all(out: Path) -> dict:
         print(f"{name}: {'; '.join(regs)}")
         lib = ctypes.CDLL(str(so))
         fn = lib.dpa_fused_tiled_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = list(build._SIGNATURES["dpa_fused_tiled_launch"])
         fn.restype = ctypes.c_int
         libs[name] = fn
     return libs
@@ -148,7 +147,7 @@ def main() -> None:
     for name, fn in libs.items():
         def layer(fn=fn):
             for _, codes, scales, prep, out, K, N in calls:
-                err = fn(codes.data_ptr(), scales.data_ptr(),
+                err = fn(codes.data_ptr(), 0, scales.data_ptr(),
                          prep["wq"].data_ptr(), 0, prep["sw"].data_ptr(),
                          out.data_ptr(), 1, M, K, N, stream)
                 if err:
