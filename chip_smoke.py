@@ -208,7 +208,20 @@ Phases (every failure raises; the exit code is then non-zero):
       sampled adaptive run twice on the first request (both drain, equal
       tokens); one replay of each draft and verify step profiled; and one
       `launch.serve.main(FRONT_END_ADAPTIVE)` call (`--adaptive-draft`,
-      its own model).
+      its own model).  Then speculation off the split-K route
+      (`run_spec_policies`): for each of the reference's (draft, verify)
+      policy pairs at k 3 (f32 verify linears, one query row a call) the
+      probe under the verify policy and the plain and speculative graphed
+      engines on the same requests, tokens equal; a 160-row verify
+      (max_batch 32, k 4: the fused linears in calls of whole query rows
+      below 128 rows), its probe and a self-draft against the plain
+      engine at max_batch 32; each run's verify step against the decode
+      step, one profiled replay each.  On granite-moe-1b (b's weights,
+      `run_moe_spec`): the probe (no op may differ on equal inputs, but
+      `apply_moe` in the rows whose assignment the verify pass drops), a
+      static fp4 draft, a self-draft and the default ladder, each
+      draining, acceptance reported.  The tuner's engine pseudo-op is
+      measured at spec_k 2 and 4 too (`tune_engine`, in a).
    Paths g-j run the engine's kernels only (fused split-K, paged
    decode and its verify fold); every engine run's counts are checked
    as a's, paged decode's by attention format too.
@@ -1171,8 +1184,9 @@ PAGED_SLICE_EXTRA = (("fp8_e4m3", ("bf16", False)),
 # the draft length of the verify fold's check and of phase 3j.  At the
 # engine's max_batch 4 the verify pass is 4 (k + 1) = 20 rows, below the
 # fused kernel's TILED_MIN_M = 128: there the split-K route's row bits do
-# not depend on M, so verify rows carry the decode steps' bits (the
-# Engine refuses 128 rows or more on the card, `check_verify_rows`)
+# not depend on M and each linear is one call; from 128 rows (phase 3j's
+# max_batch 32 run) it takes whole query rows in calls below 128 rows, and
+# every other route runs one call a query row (`kernels.registry`)
 VERIFY_K = 4
 
 
@@ -2696,13 +2710,19 @@ def hold_tuned(op, route, pol, ctx, knobs, gen) -> dict:
     return res
 
 
+# the engine pseudo-op's speculative points measured on the card, at
+# this page size, one timed run each (its draft, `tuner.
+# ENGINE_DRAFT_POLICY`, is a fake-quant policy whose draft steps
+# re-quantize every f32 master weight)
+TUNE_SPEC_PAGE = 16
+
+
 def tune_engine(cfg, params) -> dict:
     """The tuner's engine pseudo-op on the card: qwen3-4b at full width
     under `tuner.ENGINE_POLICY` on phase 3a's weights, phase 3a's
     geometry (`tuner.CARD_ENGINE_GEOMETRY`) at page sizes 8 and 16 (the
-    smoke grid), into `TUNE_DB`; the full grid's speculative points that
-    `check_verify_rows` refuses for the policy's linears, which the card
-    leaves out, are printed."""
+    smoke grid), then the full space's speculative points at
+    `TUNE_SPEC_PAGE` (one timed run each), into `TUNE_DB`."""
     from repro_torch.models import build_model
     from repro_torch.runtime import tuner
     t0 = time.monotonic()
@@ -2711,23 +2731,38 @@ def tune_engine(cfg, params) -> dict:
     stats = tuner.run_sweep(str(TUNE_DB), smoke=True, device="cuda",
                             ops=(tuner.ENGINE_OP,),
                             engine_fixture=(emodel, params))
-    points = {}
+    t_spec = time.monotonic()
+    spec = [c for c in tuner.enumerate_space(ops=(tuner.ENGINE_OP,),
+                                             device="cuda")
+            if c["knobs"]["spec_k"] and
+            c["knobs"]["page_size"] == TUNE_SPEC_PAGE]
+    db = tuner.load_db(str(TUNE_DB))
+    for c in spec:
+        db["records"][tuner.config_hash(c)] = {**c, **tuner.measure_config(
+            c, 1, "cuda", engine_fixture=(emodel, params))}
+    db["meta"] = tuner.env_fingerprint("cuda")
+    tuner.save_db(str(TUNE_DB), db)
+    t_spec = time.monotonic() - t_spec
+    points, here = {}, tuner.env_fingerprint("cuda")
     for rec in tuner.load_db(str(TUNE_DB))["records"].values():
-        if rec["op"] == tuner.ENGINE_OP:
+        if rec["op"] == tuner.ENGINE_OP and all(
+                rec.get(k) == v for k, v in here.items()):
             points[_knobs_str(rec["knobs"])] = rec["us"]
             print(f"tuner engine {tuner.ENGINE_POLICY} "
                   f"{_knobs_str(rec['knobs'])}: {rec['us']:.1f} us a "
                   f"generated token (best of {rec['reps']} graphed runs, "
                   f"spread {rec['spread']:.3f})")
+    want = [_knobs_str(c["knobs"]) for c in spec]
+    if len(want) != 2 or not all(k in points for k in want):
+        raise AssertionError(f"tuner engine: speculative points {want} "
+                             f"not measured")
     best = tuner.best_engine_knobs(str(TUNE_DB))
-    # the full grid's speculative points, which the card leaves out
-    refused = tuner.engine_points(tuner.ENGINE_KNOB_GRID, "cuda",
-                                  tuner.CARD_ENGINE_GEOMETRY)[1]
     seconds = time.monotonic() - t0
-    print(f"tuner engine pseudo-op: {seconds:.1f} s, {stats['measured']} "
-          f"points, best {best}; left out: {refused or 'none'}")
-    return {"seconds": seconds, "us_per_token": points, "best": best,
-            "refused": refused}
+    print(f"tuner engine pseudo-op: {seconds:.1f} s ({t_spec:.1f} s the "
+          f"speculative points), {stats['measured'] + len(spec)} "
+          f"points, best {best}")
+    return {"seconds": seconds, "spec_seconds": t_spec,
+            "us_per_token": points, "best": best}
 
 
 def check_tuned_run(cfg, ecfg, rep, counts, want_counts) -> bool:
@@ -3082,10 +3117,10 @@ def _capture_line(name, st) -> str:
 
 
 SERVE_ORDER = ("eager", "graphed", "graphed")
-# requests of an engine's eager reference run: the first 2 of phase 3's 8
+# requests of an engine's eager reference run: the first of phase 3's 8
 # (a request's tokens do not depend on the batch it rides in: phase 3g
 # serves two requests alone against their in-batch tokens)
-EAGER_REQUESTS = 2
+EAGER_REQUESTS = 1
 
 
 def workload(cfg, **kw):
@@ -3105,26 +3140,57 @@ def _fused_linears(pol) -> bool:
                              w_dtype="float32").name == "cuda_fused"
 
 
-def engine_counts(cfg, rep, rungs=()) -> dict:
+def verify_split(engine):
+    """(dense, grouped) fused calls a linear makes in one of the engine's
+    verify passes: one below `TILED_MIN_M` rows (per expert), else calls
+    of whole query rows (dense: max_batch rows each) or capacity slots
+    (grouped: max_batch rows each) that each stay below it
+    (`kernels.registry._splitk_rows`), the same at every k the engine
+    verifies at."""
+    from repro_torch.kernels.dpa_matmul import TILED_MIN_M
+    from repro_torch.kernels.registry import _splitk_rows
+    from repro_torch.models.layers import moe_capacity
+    B = engine.ecfg.max_batch
+
+    def calls(n):
+        return -(-n // _splitk_rows(B)) if B * n >= TILED_MIN_M else 1
+
+    splits = {(calls(k + 1), calls(moe_capacity(engine.cfg, k + 1))
+               if engine.cfg.is_moe else 1) for k in engine._round_host}
+    if len(splits) > 1:
+        raise AssertionError(f"verify passes split apart: {splits}")
+    return splits.pop() if splits else (1, 1)
+
+
+def engine_counts(cfg, rep, rungs=(), split=(1, 1)) -> dict:
     """The launches an engine run with report `rep` implies: every
     projection of every serving-policy model call (prefill chunks, decode
-    steps, verify steps) and of every draft step whose policy runs the
-    fused kernel on the split-K route; one paged decode a layer a decode,
-    draft or verify step, counted by its attention format, the verify
-    steps' also as folds.  `rungs`: (draft policy, draft steps run)."""
+    steps, verify steps: `split` (dense, grouped) calls a linear each,
+    `verify_split`) and of every draft step whose policy runs the fused
+    kernel on the split-K route; one paged decode a layer a decode, draft
+    or verify step, counted by its attention format, the verify steps'
+    also as folds; the fused matmuls' verify calls also as `.verify`
+    (counted where the wrapper launches).  `rungs`: (draft policy, draft
+    steps run)."""
     from repro_torch.core.policy import get_policy
     dense, experts = per_call_projections(cfg)
     L = cfg.n_layers
-    serve = rep["decode_steps"] + rep.get("verify_steps", 0)
+    verify = rep.get("verify_steps", 0)
+    serve = rep["decode_steps"] + verify
     # the serving policy's model calls, where its linears run the fused
-    # kernel (path M's f32 linears do not)
-    calls = (rep["prefill_calls"] + serve
-             if _fused_linears(get_policy(cfg.policy)) else 0) + sum(
-        n for pol, n in rungs if _fused_linears(pol))
-    want = {"dpa_matmul_fused": dense * L * calls,
-            "dpa_matmul_fused.splitk": dense * L * calls,
-            "dpa_grouped_matmul_fused": experts * L * calls,
-            "dpa_grouped_matmul_fused.splitk": experts * L * calls,
+    # kernel (path M's f32 linears do not), each verify pass as its calls
+    fused = _fused_linears(get_policy(cfg.policy))
+    drafts = sum(n for pol, n in rungs if _fused_linears(pol))
+    calls = [(rep["prefill_calls"] + rep["decode_steps"] + verify * s
+              if fused else 0) + drafts for s in split]
+    want = {"dpa_matmul_fused": dense * L * calls[0],
+            "dpa_matmul_fused.splitk": dense * L * calls[0],
+            "dpa_matmul_fused.verify": dense * L * verify * split[0]
+            if fused else 0,
+            "dpa_grouped_matmul_fused": experts * L * calls[1],
+            "dpa_grouped_matmul_fused.splitk": experts * L * calls[1],
+            "dpa_grouped_matmul_fused.verify":
+            experts * L * verify * split[1] if fused else 0,
             "paged_decode_attention": L * (serve + sum(n for _, n in rungs)),
             "paged_decode_attention.verify": L * rep.get("verify_steps", 0)}
     by_fmt = {get_policy(cfg.policy).fmt_attn: serve}
@@ -3174,7 +3240,9 @@ def serve_once(what, cfg, model, params, ecfg, reqs, sampler=None,
             engine.alloc.reserved:
         raise AssertionError(f"{what}: pages not evicted / table not back "
                              "to scratch / reservations left")
-    check_counts(what, counts, engine_counts(cfg, rep, spec_rungs(engine)))
+    split = verify_split(engine)
+    check_counts(what, counts, engine_counts(cfg, rep, spec_rungs(engine),
+                                             split))
     dense, experts = per_call_projections(cfg)
     if engine.rungs:
         print(f"  = {dense * cfg.n_layers} dense per kernel-policy model "
@@ -3623,7 +3691,7 @@ def run_front_end(cfg):
 # the ops the row-invariance probe records, by their names in
 # repro_torch.models.layers
 PROBE_OPS = ("apply_norm", "apply_linear", "rope", "apply_attention",
-             "apply_mlp", "apply_unembed")
+             "apply_mlp", "apply_moe", "apply_unembed")
 # requests of a's workload the runs with slow draft steps serve (the
 # fake-quant rungs re-quantize every f32 master weight each step): the
 # first four, one batch, whose greedy tokens do not depend on the rest
@@ -3632,7 +3700,8 @@ SPEC_ONE = 1                      # ... of the static fp4 draft, the
                                   # runs (their fake-quant draft steps
                                   # take 0.15-0.5 s)
 SPEC_FEW = 2                      # requests of the other spec runs,
-SPEC_NEW = 8                      # each cut to this many new tokens
+SPEC_NEW = 8                      # each cut to this many new tokens,
+SPEC_FAKE_NEW = 4                 # those of a fake-quant draft's to these
 FRONT_END_ADAPTIVE = ["--arch", "qwen3-4b", "--engine", "--policy",
                       "w4a8_kv4_attn8", "--adaptive-draft", "--requests", "2",
                       "--prompt-len", "96", "--gen", "8"]
@@ -3672,22 +3741,48 @@ def recorded_ops():
             setattr(L, n, fn)
 
 
-def probe_verify_rows(model, params, ecfg, k=VERIFY_K):
+def moe_dropped(mlp, x, cfg):
+    """(B, S) bool: the tokens of an `apply_moe` call on x (B, S, d) one
+    of whose top-k assignments the call drops, its capacity
+    `moe_capacity(cfg, S)` being full: gated and placed as the verify pass
+    does (`models.layers.moe_gates` a query row at a time, `moe_slots`)."""
+    import torch
+    from repro_torch.models.layers import moe_capacity, moe_gates, moe_slots
+    B, S, _ = x.shape
+    gate_i = moe_gates(mlp, x, cfg, per_row=True)[2]
+    order, _, _, keep = moe_slots(gate_i, cfg.n_experts, moe_capacity(cfg, S))
+    drop = ~keep.gather(1, torch.argsort(order, dim=-1))   # token order
+    return drop.reshape(B, S, -1).any(-1)
+
+
+def probe_verify_rows(model, params, ecfg, k=VERIFY_K, prompt=64):
     """The row-invariance probe: from one cache state (4 requests after
     prefill, an eager engine), k+1 stepped decode steps (each token the
     previous step's argmax) against one (k+1)-token verify pass over the
-    same tokens, as the engine runs it (`models.layers` splits the
-    row-sensitive reductions), every recorded op's output compared row
-    for row with `torch.equal`: every op must be equal, and a call that
-    differs on equal inputs is named.  -> {op: {"differ", "calls"},
-    "ops_that_break_it": [...]}."""
+    same tokens, as the engine runs it (`models.layers` runs what picks
+    its order by the number of rows one query row at a time), every
+    recorded op's output compared row for row (element-wise ==, as
+    `torch.equal`).  Every op is held row by row: a (request, query) row
+    whose input equals the decode step's must give its output.  A dense
+    model's ops must all be equal.  A MoE verify pass sizes expert
+    capacity for its k+1 tokens: each `apply_moe` call's tokens whose
+    assignment it drops (`moe_dropped`) are counted and left out of the
+    rule (later ops see their change in their inputs), and the dense
+    rule holds where nothing dropped.  The rows held are counted per op,
+    and each op must hold some (a MoE call never drops a request's first
+    query row).  A call that differs on equal inputs is named.
+    `prompt`: the requests' prompt tokens.  -> {op: {"differ", "calls"},
+    "ops_that_break_it": [...], "rows_held": {op: rows},
+    "moe_dropped_rows" (MoE)}."""
     import torch
     from repro_torch.core import kvcache as KV
     from repro_torch.launch.engine import DECODE, Engine, synthetic_workload
 
+    cfg = model.cfg
+    t0 = time.monotonic()
     engine = Engine(model, params, ecfg, device="cuda", graphs=False)
-    reqs = synthetic_workload(ecfg.max_batch, vocab=model.cfg.vocab_size,
-                              seed=1, prompt_range=(64, 64),
+    reqs = synthetic_workload(ecfg.max_batch, vocab=cfg.vocab_size,
+                              seed=1, prompt_range=(prompt, prompt),
                               gen_range=(32, 32))
     for r in reqs:
         engine.submit(r)
@@ -3721,29 +3816,54 @@ def probe_verify_rows(model, params, ecfg, k=VERIFY_K):
         raise AssertionError("probe: the verify pass and a decode step "
                              "call other ops")
 
-    def same(j, part):
-        return all(torch.equal(ver[j][part][:, i:i + 1], steps[i][j][part])
-                   for i in range(k + 1))
+    def by_row(j, part):
+        """The decode steps' tensors of call j, stacked as the verify
+        pass's (B, k+1, ...)."""
+        return torch.cat([steps[i][j][part] for i in range(k + 1)], dim=1)
 
-    differ, first = {}, []
-    for j, (name, _, _) in enumerate(ver):
-        bad = not same(j, 2)
+    def rows_equal(a, b):
+        return (a == b).reshape(*a.shape[:2], -1).all(-1)     # (B, k+1)
+
+    differ, first, n_moe, dropped_rows = {}, [], 0, 0
+    held = dict.fromkeys(PROBE_OPS, 0)
+    for j, (name, x, y) in enumerate(ver):
+        out_eq = rows_equal(y, by_row(j, 2))
         differ.setdefault(name, [0, 0])
-        differ[name][0] += bad
+        differ[name][0] += not bool(out_eq.all())
         differ[name][1] += 1
-        if bad and same(j, 1) and len(first) < 8:
-            # the op itself broke row invariance: equal inputs
-            first.append(f"{name} over (..., {ver[j][1].shape[-1]}) rows "
+        # the rows held: input equal to the decode step's, and (apply_moe)
+        # no assignment dropped; each must give the decode step's output
+        hold = rows_equal(x, by_row(j, 1))
+        if name == "apply_moe":
+            drop = moe_dropped(params["layers"][n_moe]["mlp"], x, cfg)
+            n_moe += 1
+            dropped_rows += int(drop.sum())
+            hold &= ~drop
+        held[name] += int(hold.sum())
+        if bool((hold & ~out_eq).any()) and len(first) < 8:
+            first.append(f"{name} over (..., {x.shape[-1]}) rows "
                          f"(call {j})")
     out = {n: {"differ": d, "calls": c} for n, (d, c) in differ.items()}
     out["ops_that_break_it"] = first
-    print(f"row-invariance probe: a {k + 1}-token verify pass against "
-          f"{k + 1} decode steps, calls whose rows differ: "
+    out["rows_held"] = {n: v for n, v in held.items() if n in differ}
+    if cfg.is_moe:
+        out["moe_dropped_rows"] = dropped_rows
+    print(f"row-invariance probe, {cfg.name} under {cfg.policy}: a "
+          f"{k + 1}-token verify pass against {k + 1} decode steps, calls "
+          "whose rows differ: "
           + ", ".join(f"{n} {d}/{c}" for n, (d, c) in differ.items())
           + "; calls that differ on equal inputs: "
-          + (", ".join(first) or "none"))
-    if any(d for d, _ in differ.values()):
-        raise AssertionError(f"verify rows differ from decode steps: {out}")
+          + (", ".join(first) or "none")
+          + "; rows held equal to the decode step's on equal inputs: "
+          + ", ".join(f"{n} {v}" for n, v in out["rows_held"].items())
+          + (f"; MoE rows with a dropped assignment: {dropped_rows} of "
+             f"{n_moe * ecfg.max_batch * (k + 1)}" if cfg.is_moe else "")
+          + f"; {time.monotonic() - t0:.1f} s")
+    if first or (any(d for d, _ in differ.values())
+                 and not (cfg.is_moe and dropped_rows)) \
+            or not all(out["rows_held"].values()):
+        raise AssertionError(f"verify rows differ from decode steps (or "
+                             f"an op held no row): {out}")
     del engine
     return out
 
@@ -3800,12 +3920,12 @@ def _spec_line(name, rep, plain, prof) -> str:
             f"{rep['tokens_per_s'] / plain['tokens_per_s']:.2f}x); {steps}")
 
 
-def spec_requests(cfg, cut=True, n=SPEC_FEW):
-    """The first n of phase 3's requests, each cut to `SPEC_NEW` new
-    tokens (the prefix of their greedy tokens) unless `cut` is off."""
+def spec_requests(cfg, cut=True, n=SPEC_FEW, new=SPEC_NEW):
+    """The first n of phase 3's requests, each cut to `new` new tokens
+    (the prefix of their greedy tokens) unless `cut` is off."""
     reqs = workload(cfg)[:n]
     for r in reqs:
-        r.max_new = min(r.max_new, SPEC_NEW) if cut else r.max_new
+        r.max_new = min(r.max_new, new) if cut else r.max_new
     return reqs
 
 
@@ -3816,7 +3936,7 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     first `SPEC_FEW` requests cut to `SPEC_NEW` new tokens
     (`spec_requests`; `SPEC_ONE` of them for all but the default
     ladder's run) a static w4a4_kv4_attn4 draft (their greedy
-    tokens), the default adaptive ladder under the default controller and
+    tokens; `SPEC_FAKE_NEW` new tokens), the default adaptive ladder under the default controller and
     (the requests whole) under one that switches every round (the greedy
     tokens; every rung's attention format launched), and a sampled
     adaptive run twice on `SPEC_ONE` request (both drain, equal tokens).  Each run's acceptance, tokens a round, tokens/s
@@ -3843,7 +3963,8 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
         # draft enough rounds to walk every rung
         reqs = (workload(cfg) if name == "self-draft" else spec_requests(
             cfg, cut=not name.startswith("adaptive, every"),
-            n=SPEC_FEW if name == "adaptive" else SPEC_ONE))
+            n=SPEC_FEW if name == "adaptive" else SPEC_ONE,
+            new=SPEC_FAKE_NEW if name.startswith("static") else SPEC_NEW))
         rep, n, engine = serve_once(f"{cfg.name} spec engine, {name}", cfg,
                                     model, params, ecfg, reqs, **kw)
         counts.append(n)
@@ -3898,6 +4019,193 @@ def run_spec(cfg, ecfg, model, params, greedy_tokens, plain_rep):
     print(f"spec sampled adaptive ({SAMPLED}): two runs drain and give "
           f"the same tokens for all {SPEC_ONE} requests; acceptance "
           f"{out['sampled adaptive 1']['acceptance_rate']:.4f}")
+    return out, add_counts(*counts)
+
+
+# the reference's pinned (draft, verify) policy pairs
+# (`tests/test_spec_decode.py`, POLICY_PAIRS) at its k: f32 linears in
+# every verify pass, one query row a call
+SPEC_PAIRS = (("w4a4_kv4_attn4", "kv4_attn8_packed"),
+              ("attn_fp8_dpa", "kv8_attn_f32"),
+              ("attn_fp16_dpa", "kv16_attn_f32"))
+SPEC_PAIR_K = 3
+# --max-batch 32 --spec-k 4: a 160-row verify pass, past TILED_MIN_M, the
+# fused linears in calls of 96 and 64 rows (whole query rows)
+WIDE_BATCH, WIDE_K = 32, 4
+WIDE_PROMPTS = (32, 64)
+
+
+def profile_decode_step(engine, label):
+    """One profiled replay of a plain engine's decode step (positions 0 on
+    the scratch page: the run has ended), as `profile_spec_steps` takes
+    the draft and verify steps'."""
+    step = engine._decode
+    step.load(positions=[0] * engine.ecfg.max_batch)
+    prof = profile_window(f"{label} decode step", step.run,
+                          watch=("paged_decode", "dpa_fused_kernel"),
+                          timed=3)
+    prof["pool_bytes"] = getattr(step, "stats", {}).get("pool_bytes", 0)
+    return prof
+
+
+def _ms(p):
+    b = p.get("busy_ms")
+    return None if b is None else round(b, 4)
+
+
+def spec_vs_plain(label, cfg, model, params, ecfg, make_reqs, same=True,
+                  drafts=None, replay=False, **spec):
+    """The plain graphed engine and a speculative graphed one (`spec`:
+    Engine's spec= / adaptive=) over the same requests (`make_reqs()`
+    each time): every request drains (`serve_once`), greedy tokens equal
+    the plain engine's where `same`, one profiled replay of the plain
+    decode step and of each draft and verify step (a draft step's taken
+    once over the runs that share `drafts`: a draft policy's step does
+    the same work whatever the verify policy); with `replay`, one replay
+    of each verify graph held to its capture's launch counts
+    (`check_replay`: the split calls are captured like any other).  ->
+    (summary, launch counts of both runs summed)."""
+    t0 = time.monotonic()
+    preqs = make_reqs()
+    prep, pn, engine = serve_once(f"{label}, plain", cfg, model, params,
+                                  ecfg, preqs)
+    decode = profile_decode_step(engine, f"{label} plain")
+    del engine
+    sreqs = make_reqs()
+    srep, sn, engine = serve_once(f"{label}, speculative", cfg, model,
+                                  params, ecfg, sreqs, **spec)
+    drafts = {} if drafts is None else drafts
+    seen = {k: v for k, v in drafts.items() if k.startswith("draft")}
+    steps = profile_spec_steps(engine, label, seen)
+    drafts.update({k: v for k, v in seen.items() if k.startswith("draft")})
+    replays = {step.name: check_replay(f"{label} {step.name}", step)
+               for step in engine._verify.values()} if replay else {}
+    del engine
+    seconds = time.monotonic() - t0
+    differ = [a.rid for a, b in zip(preqs, sreqs)
+              if a.out_tokens != b.out_tokens]
+    if same and differ:
+        raise AssertionError(f"{label}: requests {differ} differ from the "
+                             "plain graphed engine's tokens")
+    verify = {k: _ms(p) for k, p in steps.items() if k.startswith("verify")}
+    out = {"requests": len(sreqs), "gen_tokens": srep["gen_tokens"],
+           "tokens_equal_plain": not differ, "requests_differ": differ,
+           "acceptance_rate": srep["acceptance_rate"],
+           "tokens_per_round": srep["eff_tokens_per_round"],
+           "spec_rounds": srep["spec_rounds"],
+           "tokens_per_s": srep["tokens_per_s"],
+           "plain_tokens_per_s": prep["tokens_per_s"],
+           "speedup": srep["tokens_per_s"] / prep["tokens_per_s"],
+           "decode_step_device_ms": _ms(decode),
+           "decode_step_wall_ms": decode.get("unprofiled_wall_ms"),
+           "step_device_ms": {k: _ms(p) for k, p in steps.items()},
+           "step_wall_ms": {k: p.get("unprofiled_wall_ms")
+                            for k, p in steps.items()},
+           "launches": {k: v for k, v in sn.items() if v},
+           "plain_launches": {k: v for k, v in pn.items() if v},
+           "replay_check": {k: _ms(p) for k, p in replays.items()},
+           "seconds": seconds}
+    if "adaptive_rungs" in srep:
+        out["rungs"] = [{k: r[k] for k in ("policy", "rounds",
+                                           "acceptance_rate")}
+                        for r in srep["adaptive_rungs"]]
+    print(f"{label}: {len(sreqs)} requests, acceptance "
+          f"{out['acceptance_rate']:.4f}, {out['tokens_per_round']:.3f} "
+          f"tokens a round over {out['spec_rounds']} rounds; "
+          f"{out['tokens_per_s']:.2f} tok/s against plain "
+          f"{out['plain_tokens_per_s']:.2f} ({out['speedup']:.2f}x); "
+          f"device ms a step: verify {verify} against decode "
+          f"{out['decode_step_device_ms']}; tokens "
+          + ("equal the plain engine's" if not differ else
+             f"differ from the plain engine's in requests {differ}")
+          + f"; {seconds:.1f} s for both runs and their profiles")
+    return out, add_counts(pn, sn)
+
+
+def run_spec_policies(cfg, ecfg, params, drafts=None):
+    """Phase 3j's speculation off the split-K route, qwen3-4b at full
+    width on phase 3a's weights: for each of the reference's (draft,
+    verify) pairs at its k, the probe under the verify policy and the
+    plain and speculative graphed engines over the same requests
+    (`SPEC_ONE` of `SPEC_FAKE_NEW` new tokens with the fake-quant draft,
+    `SPEC_FEW` of `SPEC_NEW` else; `drafts`: draft steps profiled
+    before, `spec_vs_plain`); then under the serving policy at --max-batch 32
+    --spec-k 4 (a 160-row verify pass, the fused linears in calls of
+    whole query rows below 128 rows): the probe at that geometry and a self-draft (every draft
+    accepted) against the plain engine at max_batch 32.  -> (reports,
+    counts summed)."""
+    import dataclasses as dc
+    from repro_torch.launch.engine import synthetic_workload
+    from repro_torch.models import build_model
+    from repro_torch.serving.spec_decode import SpecConfig
+    out, counts = {}, []
+    for draft, verify in SPEC_PAIRS:
+        vcfg = cfg.replace(policy=verify)
+        model = build_model(vcfg, device="cuda")
+        p = model.prepare_params(params)
+        probe = probe_verify_rows(model, p, ecfg, k=SPEC_PAIR_K)
+        fake = draft == "w4a4_kv4_attn4"
+        res, c = spec_vs_plain(
+            f"spec {draft} -> {verify}", vcfg, model, p, ecfg,
+            lambda: spec_requests(
+                vcfg, n=SPEC_ONE if fake else SPEC_FEW,
+                new=SPEC_FAKE_NEW if fake else SPEC_NEW),
+            drafts=drafts, spec=SpecConfig(draft, SPEC_PAIR_K))
+        out[f"{draft} -> {verify}"] = dict(res, probe=probe)
+        counts.append(c)
+        del model, p
+    wide = dc.replace(ecfg, max_batch=WIDE_BATCH,
+                      n_pages=WIDE_BATCH * 5 + 8, max_pages_per_req=6,
+                      token_budget=512)
+    model = build_model(cfg, device="cuda")
+    # the probe's 32 requests: one 32-token prefill chunk each
+    probe = probe_verify_rows(model, params, wide, k=WIDE_K,
+                              prompt=ecfg.prefill_chunk)
+
+    def reqs():
+        return synthetic_workload(WIDE_BATCH, vocab=cfg.vocab_size, seed=2,
+                                  prompt_range=WIDE_PROMPTS,
+                                  gen_range=(SPEC_NEW, SPEC_NEW))
+
+    res, c = spec_vs_plain(
+        f"spec self-draft, max_batch {WIDE_BATCH} k {WIDE_K}", cfg, model,
+        params, wide, reqs, replay=True,
+        spec=SpecConfig(cfg.policy, WIDE_K))
+    if res["acceptance_rate"] != 1.0:
+        raise AssertionError(f"160-row self-draft acceptance "
+                             f"{res['acceptance_rate']} != 1")
+    out[f"self-draft max_batch {WIDE_BATCH}"] = dict(res, probe=probe)
+    counts.append(c)
+    return out, add_counts(*counts)
+
+
+def run_moe_spec(cfg, ecfg, model, params):
+    """Phase 3j on granite-moe-1b (phase 3b's weights, serving policy):
+    the probe (every op exact on equal inputs, `apply_moe` but in the rows
+    whose assignment the verify pass drops); a static w4a4_kv4_attn4 draft
+    (`SPEC_ONE` request of `SPEC_FAKE_NEW` new tokens), a self-draft and
+    the default adaptive ladder (`SPEC_FEW` of `SPEC_NEW`), each against the plain graphed engine on the same
+    requests: each drains; tokens are reported against the plain
+    engine's, not held to them (the verify pass sizes expert capacity
+    for k+1 tokens, as the reference's does).  -> (reports, counts)."""
+    from repro_torch.runtime import controller as CTRL
+    from repro_torch.serving.spec_decode import SpecConfig
+    out = {"probe": probe_verify_rows(model, params, ecfg)}
+    ladder = CTRL.ControllerConfig(CTRL.default_ladder(cfg.policy),
+                                   k=VERIFY_K)
+    runs = (("static w4a4_kv4_attn4", SPEC_ONE, SPEC_FAKE_NEW,
+             dict(spec=SpecConfig("w4a4_kv4_attn4", VERIFY_K))),
+            ("self-draft", SPEC_FEW, SPEC_NEW,
+             dict(spec=SpecConfig(cfg.policy, VERIFY_K))),
+            ("adaptive", SPEC_FEW, SPEC_NEW, dict(adaptive=ladder)))
+    counts, drafts = [], {}
+    for name, n, new, kw in runs:
+        res, c = spec_vs_plain(f"{cfg.name} spec {name}", cfg, model,
+                               params, ecfg,
+                               lambda: spec_requests(cfg, n=n, new=new),
+                               same=False, drafts=drafts, **kw)
+        out[name] = res
+        counts.append(c)
     return out, add_counts(*counts)
 
 
@@ -4512,7 +4820,7 @@ def run_format_paths(qwen, granite, ecfg):
 MIXER_LINEARS = {"attn": 4, "attn_local": 4, "rg": 4, "mlstm": 7,
                  "slstm": 5, "enc": 4, "dec": 8}
 RG_PROMPT = 4096                  # path H's prefill
-RG_DECODE = 16                    # greedy steps after it
+RG_DECODE = 8                    # greedy steps after it
 
 
 def linears_per_call(model, kinds=None) -> int:
@@ -5189,8 +5497,8 @@ def run_recurrent_front_end():
 # phase 3l: the encoder-decoder and VLM families (paths J, K)
 # -----------------------------------------------------------------------------
 
-J_BATCH, J_PROMPT, J_DECODE = 2, 32, 16      # path J: whisper-medium
-K_SEQ, K_DECODE = 4096, 8                    # path K: pixtral-12b
+J_BATCH, J_PROMPT, J_DECODE = 2, 32, 8      # path J: whisper-medium
+K_SEQ, K_DECODE = 4096, 4                    # path K: pixtral-12b
 
 
 def stub_batch(cfg, B, S, frames=0, step=0):
@@ -5300,7 +5608,9 @@ def hold_linears(what, calls, want):
         (M, K), N = x.shape, sw.shape[-1]
         # the launch-plan knobs the call took (None: the automatic plan)
         knobs = {k: v for k, v in kw.items() if k in ("bn", "split")}
-        kw = {k: v for k, v in kw.items() if k not in knobs}
+        # the operands' formats (`verify` only says how a launch counts)
+        kw = {k: v for k, v in kw.items()
+              if k not in knobs and k != "verify"}
         plan = DM.fused_plan(1, M, K, N, **knobs)
         routes[plan.route] = routes.get(plan.route, 0) + 1
         worst = max(worst, _held(
@@ -6856,11 +7166,20 @@ def main() -> None:
     rep_s, n_s = run_sampled(qwen, ecfg, model, params, greedy_q, prof_q)
     rep_p, n_p = run_prefix(qwen, ecfg, model, params)
     t_sampled = time.monotonic() - t_start
-    # phase 3j: speculative decoding and the adaptive draft ladder
+    # phase 3j: speculative decoding and the adaptive draft ladder; the
+    # reference's policy pairs (f32 verify linears) and a 160-row verify
     rep_j, n_j = run_spec(qwen, ecfg, model, params, greedy_q, rep_q)
     del model
     gc.collect()
+    t_spec_split = time.monotonic()
+    rep_jp, n_jp = run_spec_policies(qwen, ecfg, params, drafts={
+        k: v for r in rep_j.values() if isinstance(r, dict)
+        for k, v in r.get("step_profiles", {}).items()
+        if k.startswith("draft")})
+    n_j = add_counts(n_j, n_jp)
+    gc.collect()
     t_spec = time.monotonic() - t_start
+    t_spec_split = time.monotonic() - t_spec_split
     # phase 3d: qwen3-4b's long-prompt prefill under its own policy
     # (fp8_dpa) with use_flash, on the engine's params
     n_c, pre_c = run_prefill(get_config("qwen3-4b").replace(use_flash=True),
@@ -6896,6 +7215,10 @@ def main() -> None:
     # graphed
     model, params, rep_g, n_g, _ = run_engine(granite, ecfg)
     prof_g = profile_engine(model, params, ecfg)
+    # phase 3j on granite: MoE speculation
+    t_moe_spec = time.monotonic()
+    rep_jg, n_jg = run_moe_spec(granite, ecfg, model, params)
+    t_moe_spec = time.monotonic() - t_moe_spec
     # phase 3c / 4: granite-moe-1b through generate under fp4_dpa_packed
     # (path B), on the same weights prepared for that policy, eager and
     # graphed
@@ -6935,7 +7258,9 @@ def main() -> None:
           f"{t_engine_q - t_kernels:.1f} s (of which the tuner's engine "
           f"pseudo-op {rep_q['tuned']['seconds']:.1f} s), qwen3-4b sampled and prefix "
           f"cache {t_sampled - t_engine_q:.1f} s, qwen3-4b speculative "
-          f"{t_spec - t_sampled:.1f} s, qwen3-4b prefill and "
+          f"{t_spec - t_sampled:.1f} s (of which the reference's pairs and "
+          f"the 160-row verify {t_spec_split:.1f} s; granite's "
+          f"{t_moe_spec:.1f} s in granite-moe-1b's), qwen3-4b prefill and "
           f"scoring {t_d - t_spec:.1f} s, the formats' paths L, M, N "
           f"{t_paths:.1f} s (phase 2m {t_fmt:.1f} s), front ends "
           f"{t_front - t_qwen:.1f} s, granite-moe-1b "
@@ -6944,7 +7269,11 @@ def main() -> None:
           f"{t_rec - t_quant:.1f} s, encoder-decoder and VLM "
           f"{t_fam - t_rec:.1f} s, training {t_train - t_fam:.1f} s, "
           f"tensor parallelism {t_total - t_train:.1f} s")
-    n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa)
+    n_serve = add_counts(n_q, n_g, n_s, n_p, n_f, n_j, n_fa, n_jg)
+    print("verify passes' launches (counted): " + json.dumps(
+        {w: n_serve[f"{w}.verify"] for w in (
+            "dpa_matmul_fused", "dpa_grouped_matmul_fused",
+            "paged_decode_attention")}))
     # phase 6: the tp=1 reference's runs and every rank's
     n_tp = tp["launches"]
     # phase 3m's paths: L (generate, scoring), M (engine), N (scoring)
@@ -6987,6 +7316,7 @@ def main() -> None:
          + n_rec["dpa_matmul_fused"]
          + n_fam["dpa_matmul_fused"] + n_tp["dpa_matmul_fused"]
          + n_fmt["dpa_matmul_fused"],
+         "verify_launches": n_serve["dpa_matmul_fused.verify"],
          "splitk_launches": n_serve["dpa_matmul_fused.splitk"]
          + n_rec["dpa_matmul_fused.splitk"]
          + n_fam["dpa_matmul_fused.splitk"]
@@ -7098,9 +7428,13 @@ def main() -> None:
          "source": "src/repro_torch/csrc/dpa_matmul.cu",
          "replaces": "src/repro/kernels/dpa_grouped_matmul.py:154",
          "launches": n_g["dpa_grouped_matmul_fused"]
+         + n_jg["dpa_grouped_matmul_fused"]
          + n_fmt["dpa_grouped_matmul_fused"],
          "splitk_launches": n_g["dpa_grouped_matmul_fused.splitk"]
+         + n_jg["dpa_grouped_matmul_fused.splitk"]
          + n_fmt["dpa_grouped_matmul_fused.splitk"],
+         "spec_launches": n_jg["dpa_grouped_matmul_fused"],
+         "verify_launches": n_serve["dpa_grouped_matmul_fused.verify"],
          "launches_by_x_format": {
              f: every[f"dpa_grouped_matmul_fused.{f}"]
              for f in FUSED_X_FMTS},
@@ -7254,6 +7588,8 @@ def main() -> None:
         {"qwen3-4b": rep_q, "granite-moe-1b-a400m": rep_g,
          "qwen3-4b sampled": rep_s, "qwen3-4b prefix cache": rep_p,
          "qwen3-4b front end": rep_f, "qwen3-4b speculative": rep_j,
+         "qwen3-4b speculative, reference pairs and 160 rows": rep_jp,
+         "granite-moe-1b-a400m speculative": rep_jg,
          "qwen3-4b adaptive front end": rep_fa}))
     print("generate: " + json.dumps(
         {"granite-moe-1b-a400m fp4_dpa_packed": gen_b}))
@@ -7274,6 +7610,18 @@ def main() -> None:
         if "step_profiles" in r:
             print("summary qwen3-4b " + _spec_line(name, r, rep_q,
                                                    r["step_profiles"]))
+    for model_name, reps in (("qwen3-4b", rep_jp),
+                             ("granite-moe-1b-a400m", rep_jg)):
+        for name, r in reps.items():
+            if name != "probe":
+                print(f"summary {model_name} spec {name}: acceptance "
+                      f"{r['acceptance_rate']:.4f}, {r['tokens_per_round']:.3f}"
+                      f" tokens a round, {r['tokens_per_s']:.2f} tok/s "
+                      f"against plain {r['plain_tokens_per_s']:.2f} "
+                      f"({r['speedup']:.2f}x), device ms: steps "
+                      f"{r['step_device_ms']}, decode step "
+                      f"{r['decode_step_device_ms']}; tokens equal plain "
+                      f"{r['tokens_equal_plain']}")
     print("recurrent: " + json.dumps(rec))
     for name, r in rec.items():
         g = r["generate"]

@@ -79,3 +79,18 @@ def batched_rowwise_dot(a, b):
         out[..., i:i + rows, :] = (
             a[..., i:i + rows, None, :] * b[..., None, :, :]).sum(-1)
     return out
+
+
+def by_query_row(fn, *xs, dim: int = 1, rows: int = 1):
+    """fn over the tensors xs split alike along `dim` into slices of
+    `rows` (the last may be shorter), each made contiguous, the outputs
+    concatenated along `dim` (each of them where fn returns a tuple).
+    The speculative verify pass's rows (x (B, S_q, ...), dim 1, rows 1):
+    each call sees the decode step's shape, (B, 1, ...), so a kernel or a
+    cuBLAS GEMM that picks its order by the number of rows gives each
+    query row the decode step's bits."""
+    parts = zip(*(x.split(rows, dim=dim) for x in xs))
+    outs = [fn(*(s.contiguous() for s in p)) for p in parts]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o, dim=dim) for o in zip(*outs))
+    return torch.cat(outs, dim=dim)

@@ -65,25 +65,28 @@ def prepare_linear(params: dict, policy, compute_dtype) -> dict:
     return params
 
 
-def dpa_dot(x, lin: dict, policy):
-    """The DPA execution contract for x @ lin["w"]."""
+def dpa_dot(x, lin: dict, policy, *, per_row: bool = False):
+    """The DPA execution contract for x @ lin["w"].  `per_row` (x (B,
+    S_q, K), the speculative verify pass on the card): the product runs
+    one query row at a time at the decode step's shape where the route's
+    row bits depend on the number of rows (`kernels.registry`)."""
     policy = get_policy(policy)
     w = lin["w"]
     entry = exec_plan.resolve("matmul", policy,
                               w_dtype=str(w.dtype).replace("torch.", ""),
                               m=x.numel() // x.shape[-1], k=x.shape[-1],
                               n=w.shape[-1])
-    return entry.run(x, lin, policy)
+    return entry.run(x, lin, policy, per_row=per_row)
 
 
-def apply_linear(params, x, policy=None):
+def apply_linear(params, x, policy=None, *, per_row: bool = False):
     policy = get_policy(policy or "fp32")
     if params["w"].dtype == torch.uint8:
         raise TypeError(
             "apply_linear got uint8 code weights; keep the float master "
             "weight in params['w'] (the fused policies add their codes "
             "beside it)")
-    y = dpa_dot(x, params, policy)
+    y = dpa_dot(x, params, policy, per_row=per_row)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y.to(x.dtype)
@@ -125,9 +128,12 @@ def grouped_dims(eq: str, x_shape, w_shape):
     return None
 
 
-def dpa_grouped_dot(x, lin: dict, policy, *, eq: str):
+def dpa_grouped_dot(x, lin: dict, policy, *, eq: str,
+                    per_row: bool = False):
     """The grouped (per-expert) DPA contract: einsum `eq` over x and the
-    stacked expert weights lin["w"], routed through the plan layer."""
+    stacked expert weights lin["w"], routed through the plan layer.
+    `per_row`: the verify pass, as in `dpa_dot` (the rows lie along
+    `kernels.ops.GROUPED_ROW_DIM[eq]`)."""
     policy = get_policy(policy)
     w = lin["w"]
     dims = grouped_dims(eq, tuple(x.shape), tuple(w.shape))
@@ -136,7 +142,7 @@ def dpa_grouped_dot(x, lin: dict, policy, *, eq: str):
     entry = exec_plan.resolve("grouped_matmul", policy,
                               w_dtype=str(w.dtype).replace("torch.", ""),
                               eq=eq, **ctx)
-    return entry.run(x, lin, policy, eq=eq)
+    return entry.run(x, lin, policy, eq=eq, per_row=per_row)
 
 
 def apply_grouped_linear(params, x, policy=None):

@@ -4,13 +4,20 @@ Each wrapper adds one to its `.launches` where it launches its kernel,
 and the wrappers with routes or a pre-pass one to `.<route>_launches`
 too (`dpa_matmul_fused.splitk_launches`, `.tiled_launches`, the flash
 wrappers' `.prepass_launches`; paged decode by attention format,
-`.fp8_e4m3_launches`, `.fp4_e2m1_launches`, `.fp16_launches`, and its
-speculative verify folds, `.verify_launches`).  Beside each launch
+`.fp8_e4m3_launches`, `.fp4_e2m1_launches`, `.fp16_launches`; and the
+launches a speculative verify pass made, paged decode's verify folds and
+the fused matmuls' calls, `.verify_launches`).  Beside each launch
 counter, `kernels.census` keeps the work of the launches it counts:
 `.bytes`, `.ops` and `.bound_s` (`.<route>_bytes`, ...).  A snapshot
 names the launches "wrapper" and "wrapper.route", and their work
 "wrapper:bytes", "wrapper.route:bound_s", ... (`launches` keeps the
 launch counters alone).
+
+A speculative verify pass that runs its products one query row at a
+time (`kernels.registry`, `per_row`) launches each row's call: each
+counts as one launch with its own rows' work, so a verify pass at 160
+rows adds two split-K launches a linear (calls of 96 and 64 rows), as
+the profiler sees them.
 
 A replayed CUDA graph runs no Python, so no wrapper counts its launches
 there: `launch.graphs.StepGraph` takes the snapshots' difference over its

@@ -34,7 +34,7 @@ def dpa_grouped_matmul_fused_ref(x, wq, sw, *, fmt_x: str, fmt_w: str,
 
 def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
                              bk: int = DM.BK, pack_w: bool = False,
-                             bn=None, split=None):
+                             bn=None, split=None, verify: bool = False):
     """(E, M, K) raw x times pre-quantized expert weights wq ((E, K//2, N)
     packed fp4 or (E, K, N) fp8 codes) with (E, 1, N) column scales ->
     (E, M, N) f32.  `bn`, `split`: the split-K override (`fused_plan`).
@@ -42,7 +42,8 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_grouped_matmul_fused.launches` counts
     launches, `.<route>_launches` and `.<fmt_x>_launches` those of each
-    route and activation format."""
+    route and activation format, `.verify_launches` those of a
+    speculative verify pass (`verify`)."""
     build.forward_only("dpa_grouped_matmul_fused", x, wq, sw)
     DM.check_fused(x, wq, sw, pack_w,
                    lead=(x.shape[0],) if x.ndim == 3 else (-1,))
@@ -65,11 +66,12 @@ def dpa_grouped_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str,
     census.count(dpa_grouped_matmul_fused, census.launch_work(
         "dpa_grouped_matmul_fused", plan.route, E=E, M=M, K=K, N=N,
         x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w, fmt_x=fmt_x),
-        plan.route, fmt_x)
+        plan.route, fmt_x, *(("verify",) if verify else ()))
     return out
 
 
-census.declare(dpa_grouped_matmul_fused, "splitk", "tiled", *DM.KERNEL_X)
+census.declare(dpa_grouped_matmul_fused, "splitk", "tiled", *DM.KERNEL_X,
+               "verify")
 
 
 # -----------------------------------------------------------------------------

@@ -305,7 +305,8 @@ def launch_fused(x, wq, sw, out, E, M, K, N, *, fmt_x, fmt_w, pack_w, bk,
 
 
 def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
-                     pack_w: bool = False, bn=None, split=None):
+                     pack_w: bool = False, bn=None, split=None,
+                     verify: bool = False):
     """(M, K) raw x times pre-quantized wq ((K//2, N) packed fp4 or
     (K, N) fp8 codes) with (1, N) column scales -> (M, N) f32.  `bn`,
     `split`: the split-K route's launch override (`fused_plan`), checked
@@ -314,8 +315,9 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  `dpa_matmul_fused.launches` counts launches,
     `.<route>_launches` those of each route, `.<fmt_x>_launches` those of
-    each activation format, and the census (`kernels.census`) their
-    bytes, operations and bound."""
+    each activation format, `.verify_launches` those a speculative verify
+    pass made (`verify`, set by `kernels.registry`'s `per_row`), and the
+    census (`kernels.census`) their bytes, operations and bound."""
     build.forward_only("dpa_matmul_fused", x, wq, sw)
     check_fused(x, wq, sw, pack_w)
     if bn is not None or split is not None:
@@ -335,11 +337,11 @@ def dpa_matmul_fused(x, wq, sw, *, fmt_x: str, fmt_w: str, bk: int = BK,
     census.count(dpa_matmul_fused, census.launch_work(
         "dpa_matmul_fused", plan.route, E=1, M=M, K=K, N=N,
         x_bytes=x.element_size(), fmt_w=fmt_w, pack_w=pack_w, fmt_x=fmt_x),
-        plan.route, fmt_x)
+        plan.route, fmt_x, *(("verify",) if verify else ()))
     return out
 
 
-census.declare(dpa_matmul_fused, "splitk", "tiled", *KERNEL_X)
+census.declare(dpa_matmul_fused, "splitk", "tiled", *KERNEL_X, "verify")
 
 
 # -----------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import exec_plan
+from repro_torch.core.device import by_query_row
 from repro_torch.core.formats import get_format
 from repro_torch.core.packing import pack_fp4_axis
 from repro_torch.core.policy import get_policy
@@ -71,12 +72,13 @@ def _prep(w, policy, k_dim: int, bk: int, bn: int) -> dict:
 
 
 def dpa_matmul_fused_pipeline(x, prep: dict, policy, *, bm=128, bk=128,
-                              bn=None, split=None):
+                              bn=None, split=None, verify=False):
     """Fused-quant pipeline: x ships at its native width (f32/bf16) and
     quantizes in the kernel prologue; `prep` holds the load-time weights
     (`prep_weights`).  Pads M and K like the reference, slices, and casts
     the f32 output back to x's dtype.  `bn`, `split`: the split-K launch
-    override (`kernels.dpa_matmul.fused_plan`), passed to the kernel."""
+    override (`kernels.dpa_matmul.fused_plan`), passed to the kernel;
+    `verify`: the launch counts as a verify pass's."""
     policy = get_policy(policy)
     lead, K, N = x.shape[:-1], x.shape[-1], prep["n"]
     x2 = x.reshape(-1, K)
@@ -86,36 +88,44 @@ def dpa_matmul_fused_pipeline(x, prep: dict, policy, *, bm=128, bk=128,
     out = _dm.dpa_matmul_fused(
         x2p.contiguous(), prep["wq"], prep["sw"], fmt_x=policy.fmt_acts,
         fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"], bn=bn,
-        split=split)
+        split=split, verify=verify)
     out = out[: x2.shape[0], :N]
     return out.reshape(*lead, N).to(x.dtype)
 
 
 def dpa_matmul_prequant_pipeline(x, prep: dict, policy, *, bm=128, bk=128,
-                                 bn=None, split=None):
+                                 bn=None, split=None, per_row=False):
     """Prequant pipeline: a plain quantize pass over x (per-row scales over
     the whole K), codes padded and, on an fp4 side of a packed policy,
     nibble-packed along K; `prep` holds the load-time weights.  Pads,
     slices and casts like the reference.  `bn`, `split`: the launch
-    override (`kernels.dpa_matmul.prequant_plan`)."""
+    override (`kernels.dpa_matmul.prequant_plan`).  `per_row` (x (B, S_q,
+    K), the verify pass): the whole x quantizes in one pass, then one
+    product a query row at the decode step's (B, K)."""
     policy = get_policy(policy)
-    lead, K, N = x.shape[:-1], x.shape[-1], prep["n"]
-    x2 = x.reshape(-1, K)
-    xq, sx, pack_x = _quant_acts(x2, policy, min(bm, max(8, x2.shape[0])),
-                                 bk, 0)
-    out = _dm.dpa_matmul_prequant(
-        xq, prep["wq"], sx, prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
-        bn=bn, split=split)
-    out = out[: x2.shape[0], :N]
-    return out.reshape(*lead, N).to(x.dtype)
-
-
-def _quant_acts(x, policy, bm_, bk, m_dim):
-    """Row-quantize x (..., M, K) over K, pad M to bm_ (codes and scales)
-    and K to bk, pack fp4 codes along K when the policy packs."""
-    pack_x = policy.packed and policy.fmt_acts == "fp4_e2m1"
+    K, N = x.shape[-1], prep["n"]
     xq, sx = _quant_operand(x, policy.fmt_acts, -1)
+
+    def product(q, s):
+        lead = q.shape[:-1]
+        q2, s2 = q.reshape(-1, K), s.reshape(-1, 1)
+        M = q2.shape[0]
+        q2, s2, pack_x = _pad_codes(q2, s2, policy, min(bm, max(8, M)), bk,
+                                    0)
+        out = _dm.dpa_matmul_prequant(
+            q2, prep["wq"], s2, prep["sw"], fmt_x=policy.fmt_acts,
+            fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
+            bn=bn, split=split)
+        return out[:M, :N].reshape(*lead, N)
+
+    out = by_query_row(product, xq, sx) if per_row else product(xq, sx)
+    return out.to(x.dtype)
+
+
+def _pad_codes(xq, sx, policy, bm_, bk, m_dim):
+    """Pad row codes xq (..., M, K) and their scales to bm_ rows and K to
+    bk, and pack fp4 codes along K when the policy packs."""
+    pack_x = policy.packed and policy.fmt_acts == "fp4_e2m1"
     xq, _ = _pad_to(xq, bm_, m_dim)
     sx, _ = _pad_to(sx, bm_, m_dim)
     xq, _ = _pad_to(xq, bk, m_dim + 1)
@@ -137,13 +147,19 @@ def grouped_views(eq: str, x):
     raise ValueError(f"unsupported grouped einsum {eq!r}")
 
 
+# the axis of a known grouped einsum's x that holds the verify pass's
+# rows: "becd" a batch row's capacity slots, "gti" each group's tokens
+GROUPED_ROW_DIM = {"gti,gio->gto": 1, "becd,edf->becf": 2}
+
+
 def dpa_grouped_fused_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
-                               bk=128, bn=None, split=None):
+                               bk=128, bn=None, split=None, verify=False):
     """Grouped fused-quant pipeline: per-expert rows ship at native width
     and quantize in the kernel prologue; `prep` holds the load-time expert
     weights (`prep_grouped_weights`).  Per-expert M pads to
     min(bm, max(8, M)) like the reference; the result is sliced, cast to
-    x's dtype and viewed back to the einsum's output."""
+    x's dtype and viewed back to the einsum's output.  `verify`: the
+    launch counts as a verify pass's."""
     policy = get_policy(policy)
     x3, unview = grouped_views(eq, x)
     M, N = x3.shape[1], prep["n"]
@@ -152,24 +168,37 @@ def dpa_grouped_fused_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
     out = _gm.dpa_grouped_matmul_fused(
         x3p.contiguous(), prep["wq"], prep["sw"], fmt_x=policy.fmt_acts,
         fmt_w=policy.fmt_weights, bk=bk, pack_w=prep["pack_w"], bn=bn,
-        split=split)
+        split=split, verify=verify)
     return unview(out[:, :M, :N].to(x.dtype))
 
 
 def dpa_grouped_prequant_pipeline(x, prep: dict, policy, *, eq: str, bm=128,
-                                  bk=128, bn=None, split=None):
+                                  bk=128, bn=None, split=None,
+                                  per_row=False):
     """Grouped prequant pipeline: the plain quantize pass over every
     expert's rows, then the grouped prequant kernel; padding, slicing and
-    the output view as in `dpa_grouped_fused_pipeline`."""
+    the output view as in `dpa_grouped_fused_pipeline`.  `per_row` (the
+    verify pass): the whole x quantizes in one pass, then one product a
+    slice along `GROUPED_ROW_DIM[eq]`."""
     policy = get_policy(policy)
-    x3, unview = grouped_views(eq, x)
-    M, N = x3.shape[1], prep["n"]
-    xq, sx, pack_x = _quant_acts(x3, policy, min(bm, max(8, M)), bk, 1)
-    out = _gm.dpa_grouped_matmul_prequant(
-        xq, prep["wq"], sx, prep["sw"], fmt_x=policy.fmt_acts,
-        fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
-        bn=bn, split=split)
-    return unview(out[:, :M, :N].to(x.dtype))
+    N = prep["n"]
+    xq, sx = _quant_operand(x, policy.fmt_acts, -1)
+
+    def product(q, s):
+        q3, unview = grouped_views(eq, q)
+        s3, _ = grouped_views(eq, s)
+        M = q3.shape[1]
+        q3, s3, pack_x = _pad_codes(q3, s3, policy, min(bm, max(8, M)), bk,
+                                    1)
+        out = _gm.dpa_grouped_matmul_prequant(
+            q3, prep["wq"], s3, prep["sw"], fmt_x=policy.fmt_acts,
+            fmt_w=policy.fmt_weights, pack_x=pack_x, pack_w=prep["pack_w"],
+            bn=bn, split=split)
+        return unview(out[:, :M, :N])
+
+    out = (by_query_row(product, xq, sx, dim=GROUPED_ROW_DIM[eq])
+           if per_row else product(xq, sx))
+    return out.to(x.dtype)
 
 
 def quantize_rows(x, fmt: str, *, pack: bool = False):

@@ -13,9 +13,10 @@ Uniform run signatures per op (a CUDA route also takes its launch-plan
 `knobs` as keywords, and its `plan(policy, ctx, **knobs)` says which
 launch they give at ctx or raises `ValueError`; the tuner sweeps them):
 
-  matmul          run(x, lin, policy) -> (..., N); knobs bn, split
-  grouped_matmul  run(x, lin, policy, *, eq) -> einsum output, x.dtype;
+  matmul          run(x, lin, policy, *, per_row=False) -> (..., N);
                       knobs bn, split
+  grouped_matmul  run(x, lin, policy, *, eq, per_row=False) -> einsum
+                      output, x.dtype; knobs bn, split
   flash_attn      run(q, k, v, *, policy, causal, window, offset, valid,
                       scale, kv_on_grid) -> (B, Sq, H, hd); knobs bq, bk
   decode_attn     run(q, cache, offset, *, policy, scale) -> (B, 1, H, hd)
@@ -30,6 +31,19 @@ launch they give at ctx or raises `ValueError`; the tuner sweeps them):
                       knobs lanes, nv
   allreduce       run(grad, err, *, group, fmt_name) -> (mean over the
                       group's ranks, new error-feedback residual)
+
+`per_row` (the speculative verify pass, x (B, S_q, ...)): the product
+runs one query row at a time at the decode step's shape (`core.device.
+by_query_row`; a grouped route's rows lie along `kernels.ops.
+GROUPED_ROW_DIM[eq]`), because cuBLAS and the prequant kernel pick their
+order by the number of rows.  What quantizes activations quantizes the
+whole tensor first, as the reference does (a per-tensor scale spans the
+verify pass); only the products go row by row.  The fused routes' row
+bits do not depend on M on their split-K route, so they stay one call
+below `TILED_MIN_M` rows (per expert) and from there split into calls of
+whole query rows that each stay below it (`_splitk_rows`: at 32 x 5
+rows, calls of 96 and 64).  Each call is a launch of its own, counted as
+one, and also in the wrapper's `.verify_launches`.
 
 The paged routes' ctx carries `n_devices`, the ranks of the active TP
 group (`distributed.tp`): the single-device routes serve n_devices 1,
@@ -46,8 +60,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import exec_plan
-from repro_torch.core.device import batched_rowwise_dot, rowwise_dot
-from repro_torch.core.linear import GROUPED_EQS
+from repro_torch.core.device import (batched_rowwise_dot, by_query_row,
+                                     rowwise_dot)
+from repro_torch.core.linear import GROUPED_EQS, grouped_dims
 from repro_torch.core.packing import operand_nbytes, pack_fp4_axis
 from repro_torch.core.quantize import fake_quant
 from repro_torch.kernels import dpa_matmul as DM
@@ -117,14 +132,28 @@ def _prepared(lin):
     return lin
 
 
-def _mm_fused(x, lin, policy, *, bn=None, split=None):
-    return kops.dpa_matmul_fused_pipeline(x, _prepared(lin), policy, bn=bn,
-                                          split=split)
+def _splitk_rows(m_row: int) -> int:
+    """Query rows of m_row kernel rows each that one fused call may take
+    and stay on the split-K route (below `TILED_MIN_M` rows), where a
+    row's bits do not depend on M."""
+    return max(1, (DM.TILED_MIN_M - 1) // m_row)
 
 
-def _mm_prequant(x, lin, policy, *, bn=None, split=None):
+def _mm_fused(x, lin, policy, *, bn=None, split=None, per_row=False):
+    def run(z):
+        return kops.dpa_matmul_fused_pipeline(z, _prepared(lin), policy,
+                                              bn=bn, split=split,
+                                              verify=per_row)
+    m = x.numel() // x.shape[-1]
+    if per_row and m >= DM.TILED_MIN_M:
+        return by_query_row(run, x, rows=_splitk_rows(m // x.shape[1]))
+    return run(x)
+
+
+def _mm_prequant(x, lin, policy, *, bn=None, split=None, per_row=False):
     return kops.dpa_matmul_prequant_pipeline(x, _prepared(lin), policy,
-                                             bn=bn, split=split)
+                                             bn=bn, split=split,
+                                             per_row=per_row)
 
 
 def _up(v: int, mult: int) -> int:
@@ -154,7 +183,17 @@ def _prequant_plan(policy, ctx, *, bn=None, split=None):
 MM_KNOBS = ("bn", "split")
 
 
-def _mm_fake_quant(x, lin, policy):
+def _rowwise(x, w, per_row):
+    """x (..., K) . w (K, N) in f32 (`rowwise_dot`); `per_row`: one call a
+    query row, w widened to f32 once for all of them (`rowwise_dot` widens
+    it on each call otherwise: the same values)."""
+    if not per_row:
+        return rowwise_dot(x, w.t())
+    wt = w.to(torch.float32).t()
+    return by_query_row(lambda z: rowwise_dot(z, wt), x)
+
+
+def _mm_fake_quant(x, lin, policy, *, per_row=False):
     w = lin["w"].to(x.dtype)
     wq = fake_quant(
         w, policy.fmt_weights,
@@ -166,11 +205,11 @@ def _mm_fake_quant(x, lin, policy):
         dim=-1 if policy.a_granularity == "per_channel" else None,
         block=policy.block_size if policy.a_granularity == "per_block"
         else None)
-    return rowwise_dot(xq, wq.t())
+    return _rowwise(xq, wq, per_row)
 
 
-def _mm_f32(x, lin, policy):
-    return rowwise_dot(x, lin["w"].to(x.dtype).t())
+def _mm_f32(x, lin, policy, *, per_row=False):
+    return _rowwise(x, lin["w"].to(x.dtype), per_row)
 
 
 def _mm_operand_bytes(policy, ctx):
@@ -226,24 +265,40 @@ exec_plan.register(
 # grouped_matmul: per-expert einsums (grouped linear / MoE)
 # -----------------------------------------------------------------------------
 
-def _gmm_fused(x, lin, policy, *, eq, bn=None, split=None):
-    return kops.dpa_grouped_fused_pipeline(x, _prepared(lin), policy, eq=eq,
-                                           bn=bn, split=split)
+def _gmm_fused(x, lin, policy, *, eq, bn=None, split=None, per_row=False):
+    def run(z):
+        return kops.dpa_grouped_fused_pipeline(z, _prepared(lin), policy,
+                                               eq=eq, bn=bn, split=split,
+                                               verify=per_row)
+    m = grouped_dims(eq, tuple(x.shape), tuple(lin["w"].shape))[1]
+    dim = kops.GROUPED_ROW_DIM[eq]
+    if per_row and m >= DM.TILED_MIN_M:
+        return by_query_row(run, x, dim=dim,
+                            rows=_splitk_rows(m // x.shape[dim]))
+    return run(x)
 
 
-def _gmm_prequant(x, lin, policy, *, eq, bn=None, split=None):
+def _gmm_prequant(x, lin, policy, *, eq, bn=None, split=None,
+                  per_row=False):
     return kops.dpa_grouped_prequant_pipeline(x, _prepared(lin), policy,
-                                              eq=eq, bn=bn, split=split)
+                                              eq=eq, bn=bn, split=split,
+                                              per_row=per_row)
 
 
-def _grouped_einsum(eq, x, w):
+def _grouped_einsum(eq, x, w, per_row=False):
     """einsum `eq` in f32, each output summed over K in one fixed order
-    (`batched_rowwise_dot` per expert)."""
-    x3, unview = kops.grouped_views(eq, x)
-    return unview(batched_rowwise_dot(x3, w.transpose(1, 2)))
+    (`batched_rowwise_dot` per expert); `per_row`: one call a slice along
+    `GROUPED_ROW_DIM[eq]`, w widened to f32 once."""
+    def run(z):
+        x3, unview = kops.grouped_views(eq, z)
+        return unview(batched_rowwise_dot(x3, w.transpose(1, 2)))
+    if not per_row:
+        return run(x)
+    w = w.to(torch.float32)
+    return by_query_row(run, x, dim=kops.GROUPED_ROW_DIM[eq])
 
 
-def _gmm_fake_quant(x, lin, policy, *, eq):
+def _gmm_fake_quant(x, lin, policy, *, eq, per_row=False):
     # quantize the *master* weights (no pre-cast through x.dtype, which
     # would round them twice); the stacked (E, d_in, d_out) layout puts
     # the contraction axis at 1 where dense has it at 0
@@ -257,11 +312,11 @@ def _gmm_fake_quant(x, lin, policy, *, eq):
         dim=-1 if policy.a_granularity == "per_channel" else None,
         block=policy.block_size if policy.a_granularity == "per_block"
         else None)
-    return _grouped_einsum(eq, xq, wq).to(x.dtype)
+    return _grouped_einsum(eq, xq, wq, per_row).to(x.dtype)
 
 
-def _gmm_f32(x, lin, policy, *, eq):
-    return _grouped_einsum(eq, x, lin["w"].to(x.dtype)).to(x.dtype)
+def _gmm_f32(x, lin, policy, *, eq, per_row=False):
+    return _grouped_einsum(eq, x, lin["w"].to(x.dtype), per_row).to(x.dtype)
 
 
 def _gmm_operand_bytes(policy, ctx):
@@ -717,8 +772,7 @@ def _ue_tied(x, table, policy, *, per_row=False):
     if not per_row:
         return rowwise_dot(x, t)
     t = t.to(torch.float32)
-    return torch.cat([rowwise_dot(x[:, i:i + 1].contiguous(), t)
-                      for i in range(x.shape[1])], dim=1)
+    return by_query_row(lambda z: rowwise_dot(z, t), x)
 
 
 exec_plan.register(

@@ -87,10 +87,17 @@ per request on the CPU, where every plain path is row-invariant
 (`core.device.rowwise_dot`) — for a MoE model with `prefill_chunk=1`,
 since expert capacity is computed per model call.  MoE configs serve
 through the `grouped_matmul` plan, resolved at construction.  Greedy
-speculative and adaptive outputs equal the plain engine's token for token
-(on the card too: the verify pass runs its row-count-sensitive
-reductions per query row, `models.layers`, and its linears on the fused
-kernel's split-K route below `TILED_MIN_M` rows, `check_verify_rows`).
+speculative and adaptive outputs of a dense model equal the plain
+engine's token for token, on the card too under every serving policy
+and batch: the verify pass runs what picks its order by the number of
+rows one query row at a time at the decode step's shape (`models.
+layers`: the norms, the unembed, the linears on cuBLAS and the prequant
+kernel, and on the fused kernel from `TILED_MIN_M` rows).  A MoE model
+speculates as the reference's engine does: the verify pass sizes expert
+capacity for its k+1 tokens, so a row whose assignment it drops differs
+from k+1 decode steps, and greedy outputs follow the reference's, not
+the plain engine's; the report states the decode step's and each verify
+pass's grouped shape.
 Tensor parallelism (`EngineConfig.tp`, `distributed.tp`): one process
 per rank (`launch.mesh.run_ranks`), each running this engine on the same
 requests with the group active at construction.  Rank r holds rows [r *
@@ -130,9 +137,9 @@ from repro_torch.core.linear import needs_prep
 from repro_torch.core.policy import get_policy
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp as TP
-from repro_torch.kernels.dpa_matmul import TILED_MIN_M
 from repro_torch.kernels.paged_decode import kernel_formats
 from repro_torch.launch.graphs import Step, StepGraph
+from repro_torch.models.layers import moe_capacity
 from repro_torch.runtime import controller as CTRL
 from repro_torch.runtime.controller import ControllerConfig
 from repro_torch.serving import spec_decode as SPD
@@ -243,28 +250,8 @@ def synthetic_workload(n_requests: int, *, vocab: int, seed: int = 0,
     return reqs
 
 
-MOE_SPEC_ITEM = "ROADMAP Queue 1, \"Speculation on the MoE engine\""
 GRAPHED_TP_ITEM = ("ROADMAP Queue 1, \"Graphed TP decode step under NCCL "
                    "(>= 2 cards)\"")
-VERIFY_ROWS_ITEM = ("ROADMAP Queue 1, \"Speculative verify beyond the "
-                    "split-K route\"")
-
-
-def check_verify_rows(pol, rows: int) -> None:
-    """On the card a verify pass carries the decode steps' bits only where
-    the serving policy's linears run the fused kernel's split-K route:
-    its row bits do not depend on M below `TILED_MIN_M` rows, where the
-    tiled route and cuBLAS pick their order by M.  `rows` is the verify
-    pass's M, max_batch (k + 1).  Raises `NotImplementedError` naming the
-    ROADMAP item for what lies outside.  Needs no card."""
-    route = exec_plan.resolve("matmul", pol, w_dtype="float32").name
-    if route != "cuda_fused" or rows >= TILED_MIN_M:
-        raise NotImplementedError(
-            f"speculative decoding on the card with linears on the "
-            f"{route} route at {rows} verify rows: the verify pass keeps "
-            f"the decode steps' bits only on cuda_fused below "
-            f"{TILED_MIN_M} rows (max_batch * (k + 1)); open in "
-            f"{VERIFY_ROWS_ITEM}")
 
 
 @dataclasses.dataclass
@@ -315,12 +302,6 @@ class Engine:
                 "model)")
         pol = get_policy(cfg.policy)
         self.tuned_db = exec_plan.tuned_db()
-        if (spec is not None or adaptive is not None) and cfg.is_moe:
-            raise NotImplementedError(
-                f"speculative decoding of a MoE model ({cfg.name}): expert "
-                "capacity is computed per model call, so a verify pass "
-                "does not carry the decode steps' bits; open in "
-                f"{MOE_SPEC_ITEM}")
         self.sampler = sampler or SamplerConfig()
         self._init_tp(ecfg, dev, graphs)
         self._plan_ctx = dict(batch=ecfg.max_batch, page_size=ecfg.page_size,
@@ -341,9 +322,9 @@ class Engine:
         # token into (B, E, C, d) with C = f(S=1)
         self.moe_plan, self._moe_ctx = None, None
         if cfg.is_moe:
-            c = int(cfg.capacity_factor * cfg.top_k / cfg.n_experts) + 1
             self._moe_ctx = dict(w_dtype="float32", eq="becd,edf->becf",
-                                 e=cfg.n_experts, m=ecfg.max_batch * c,
+                                 e=cfg.n_experts,
+                                 m=ecfg.max_batch * moe_capacity(cfg, 1),
                                  k=cfg.d_model, n=cfg.d_ff)
             self.moe_plan = exec_plan.describe("grouped_matmul", pol,
                                                **self._moe_ctx)
@@ -363,8 +344,6 @@ class Engine:
             # the kernel launches or raises: name what it refuses now
             kernel_formats(pol.fmt_attn, pol.fmt_kv, pol.kv_packed)
         self.spec, self.adaptive = spec, adaptive
-        if self._spec_k and self.device.type == "cuda":
-            check_verify_rows(pol, ecfg.max_batch * (self._spec_k + 1))
         # one draft view per rung (a static spec draft is a one-rung list
         # walked by no controller), all sharing params and page pool
         self.rungs: List[_Rung] = []
@@ -1215,15 +1194,27 @@ class Engine:
         }
 
     def moe_report(self) -> dict:
-        """Which grouped route the expert contraction runs, and the expert
-        weights' bytes at format width (all layers x gate/up/down) vs the
-        f32 masters' residency."""
+        """Which grouped route the expert contraction runs, its shape
+        (capacity and rows per expert) in the decode step and in each
+        verify pass, and the expert weights' bytes at format width (all
+        layers x gate/up/down) vs the f32 masters' residency."""
         cfg, plan = self.cfg, self.moe_plan
         n_w = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
         w_bytes = operand_nbytes(n_w, self.pol.fmt_weights,
                                  packed=self.pol.packed)
+        B = self.ecfg.max_batch
+        shapes = {"decode": (1, moe_capacity(cfg, 1))}
+        shapes.update({f"verify k={k}": (k + 1, moe_capacity(cfg, k + 1))
+                       for k in self._round_host})
+        grouped = {name: {"tokens": s, "capacity": c,
+                          "rows_per_expert": B * c,
+                          "route": exec_plan.resolve(
+                              "grouped_matmul", self.pol,
+                              **dict(self._moe_ctx, m=B * c)).name}
+                   for name, (s, c) in shapes.items()}
         return {
             "moe_experts": cfg.n_experts,
+            "moe_grouped_shapes": grouped,
             "moe_top_k": cfg.top_k,
             "moe_grouped_route": plan["route"],
             "moe_grouped_backend": plan["backend"],
@@ -1311,5 +1302,8 @@ def format_report(rep: dict, policy: str) -> str:
            f"{rep['expert_w_bytes_f32'] / mb:.2f} MB "
            f"({rep['expert_w_reduction_vs_f32']:.1f}x), "
            f"{rep['moe_grouped_bytes_per_step_layer'] / 1e3:.1f} KB "
-           "expert operands per step/layer"
+           "expert operands per step/layer; rows per expert "
+           + ", ".join(f"{n} {g['rows_per_expert']} (capacity "
+                       f"{g['capacity']})"
+                       for n, g in rep["moe_grouped_shapes"].items())
            if "moe_experts" in rep else ""))

@@ -20,7 +20,11 @@ Two modes, as the reference's:
       verify under --policy, `--spec-k` tokens a round) or adaptive with
       `--adaptive-draft` (the default precision ladder of --policy); it
       prints the reference's report lines (tokens/s, latency p50/p99,
-      TTFT p50, KV bytes, plan, spec, adaptive, prefix, moe).
+      TTFT p50, KV bytes, plan, spec, adaptive, prefix, moe).  Speculation
+      serves wherever the reference's does, on the card too: every paged
+      --policy (f32, fake-quant or kernel linears, at any --max-batch) and
+      MoE configs (whose verify pass sizes expert capacity for its k+1
+      tokens, as the reference's does).
 
 Weights are `model.init(torch.Generator(device).manual_seed(0))` (the
 reference's `PRNGKey(0)`; `--seed` seeds the workload and the sampler).

@@ -86,11 +86,6 @@ def verify(db_path: str, smoke: bool, **space) -> int:
     print(f"  engine         {tuner.ENGINE_SHAPE_CLASS:<13} "
           f"{tuner.ENGINE_POLICY} -> best knobs "
           f"{tuner.best_engine_knobs(db_path)}")
-    device = space.get("device", "cpu")
-    egrid = tuner.SMOKE_ENGINE_KNOB_GRID if smoke else tuner.ENGINE_KNOB_GRID
-    for point in tuner.engine_points(egrid, device, tuner.engine_geometry(
-            device, space.get("reduced")))[1]:
-        print(f"  engine point left out: {point}")
     print(f"tune --verify: OK ({checked} keys, space fully measured)")
     return 0
 

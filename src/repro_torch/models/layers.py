@@ -12,15 +12,21 @@ CUDA graph replays the writes).
 
 The speculative verify pass (S_q query tokens a request over the paged
 cache) must give each query row the decode step's bits.  On the CPU
-every plain path treats rows alike.  On the card two reductions pick
-their order by the number of rows, as chip_smoke.py's probe of a verify
-pass against stepped decode steps finds them on an H100: RMSNorm's sum
-of squares (ATen's reduce kernel lays its threads out by the number of
-outputs; the block norms, qk-norm and the final norm) and the tied
-unembed (cuBLAS picks its GEMM by M).  With `per_row` each runs there as
-S_q calls at the decode step's shape.  The fused matmul (below
-`TILED_MIN_M` rows), rope and the attention kernel give every row the
-decode step's bits as they stand.
+every plain path treats rows alike.  On the card what picks its order
+by the number of rows runs, with `per_row`, as S_q calls at the decode
+step's shape (`core.device.by_query_row`), as chip_smoke.py's probe of
+a verify pass against stepped decode steps finds them on an H100:
+RMSNorm's sums (ATen's reduce kernel lays its threads out by the number
+of outputs; the block norms, qk-norm and the final norm), the tied
+unembed and every linear on a cuBLAS or prequant route (`kernels.
+registry`: the q/k/v/o projections, the MLP, the MoE router and
+experts), and the MoE routing (softmax and gate sums).  The fused
+matmul's row bits do not depend on M below `TILED_MIN_M` rows: it stays
+one call there, and takes whole query rows in calls below it from
+there; rope and the attention kernel give every row the decode step's
+bits as they stand.  A MoE verify pass still sizes its
+expert capacity per call, as the reference's does (`apply_moe`): a row
+whose assignment it drops differs from the decode step's.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import exec_plan
 from repro_torch.core import kvcache as KV
+from repro_torch.core.device import by_query_row
 from repro_torch.core.linear import (apply_linear, dpa_grouped_dot,
                                      init_grouped_linear, init_linear)
 from repro_torch.core.policy import get_policy
@@ -60,8 +67,7 @@ def _row_sums(t, per_row: bool):
     """Sums over the last dim, keepdim; `per_row`: each query row's on its
     contiguous (B, 1, ...) slice, the decode step's shape (module doc)."""
     if _rows_apart(t, per_row):
-        return torch.cat([t[:, i:i + 1].contiguous().sum(dim=-1, keepdim=True)
-                          for i in range(t.shape[1])], dim=1)
+        return by_query_row(lambda z: z.sum(dim=-1, keepdim=True), t)
     return t.sum(dim=-1, keepdim=True)
 
 
@@ -227,14 +233,17 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
     policy = get_policy(cfg.policy)
     B, Sq, _ = x.shape
     hd = cfg.hd
-    q = apply_linear(params["wq"], x, policy).reshape(B, Sq, cfg.n_heads, hd)
+    apart = _rows_apart(x, per_row)
+
+    def proj(name, z):
+        return apply_linear(params[name], z, policy, per_row=apart)
+
+    q = proj("wq", x).reshape(B, Sq, cfg.n_heads, hd)
     if cross_kv is not None:
         k, v, cache = cross_kv["k"], cross_kv["v"], None
     else:
-        k = apply_linear(params["wk"], x, policy).reshape(
-            B, Sq, cfg.n_kv_heads, hd)
-        v = apply_linear(params["wv"], x, policy).reshape(
-            B, Sq, cfg.n_kv_heads, hd)
+        k = proj("wk", x).reshape(B, Sq, cfg.n_kv_heads, hd)
+        v = proj("wv", x).reshape(B, Sq, cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = apply_norm(params["q_norm"], q, eps=cfg.norm_eps,
                        per_row=per_row)
@@ -284,9 +293,7 @@ def apply_attention(params, x, cfg, *, offset=0, cache=None,
         entry = (exec_plan.resolve("paged_decode", policy, **ctx) if Sq == 1
                  else exec_plan.resolve("verify_attn", policy, sq=Sq, **ctx))
         y = entry.run(q, cache, offset, policy=policy, scale=scale)
-        y = apply_linear(params["wo"], y.reshape(B, Sq, cfg.n_heads * hd),
-                         policy)
-        return y, cache
+        return proj("wo", y.reshape(B, Sq, cfg.n_heads * hd)), cache
     if cache is not None and "k_codes" in cache:
         # contiguous quantized cache: rows quantize into the format-width
         # cache; attention consumes the dequantized-in-prologue values, so
@@ -354,16 +361,20 @@ def init_mlp(generator, cfg, device="cpu"):
             "wd": init_linear(generator, f, d, bias=True, device=device)}
 
 
-def apply_mlp(params, x, cfg):
+def apply_mlp(params, x, cfg, *, per_row: bool = False):
+    """`per_row`: the verify pass (module doc)."""
     policy = get_policy(cfg.policy)
+    apart = _rows_apart(x, per_row)
+
+    def lin(name, z):
+        return apply_linear(params[name], z, policy, per_row=apart)
+
     if "wg" in params:
-        g = apply_linear(params["wg"], x, policy)
-        u = apply_linear(params["wu"], x, policy)
-        h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+        h = torch.nn.functional.silu(lin("wg", x).to(torch.float32)).to(
+            x.dtype) * lin("wu", x)
     else:
-        u = apply_linear(params["wu"], x, policy)
-        h = gelu(u.to(torch.float32)).to(x.dtype)
-    return apply_linear(params["wd"], h, policy)
+        h = gelu(lin("wu", x).to(torch.float32)).to(x.dtype)
+    return lin("wd", h)
 
 
 # -----------------------------------------------------------------------------
@@ -386,7 +397,55 @@ def _softmax(x):
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def apply_moe(params, x, cfg):
+def moe_capacity(cfg, s: int) -> int:
+    """Expert slots of a model call over s tokens a batch row, the
+    reference's int(cf * s * top_k / E) + 1."""
+    return int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts) + 1
+
+
+def route_tokens(logits, top_k: int):
+    """Router logits (B, S, E) -> (probs, gate weights (B, S, top_k)
+    normalized over the top k, expert ids (B, S, top_k))."""
+    probs = _softmax(logits)
+    # lax.top_k: descending, ties to the lower index — a stable sort
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_i = top.values[..., :top_k], top.indices[..., :top_k]
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_w, gate_i
+
+
+def moe_gates(params, x, cfg, *, per_row: bool = False):
+    """The router's f32 linear and the routing (`route_tokens`) of
+    x (B, S, d) -> (probs, gate weights, expert ids); `per_row`: one
+    query row at a time on the card (module doc)."""
+    apart = _rows_apart(x, per_row)
+    logits = apply_linear(params["router"], x.to(torch.float32), "fp32",
+                          per_row=apart)                        # (B, S, E)
+
+    def route(z):
+        return route_tokens(z, cfg.top_k)
+    return by_query_row(route, logits) if apart else route(logits)
+
+
+def moe_slots(gate_i, n_experts: int, C: int):
+    """Each batch row's assignments gate_i (B, S, K) placed in their
+    experts' C slots: sorted by expert, stably (a row's tokens keep their
+    order within an expert) -> (order, sorted experts, place within the
+    expert (0 where dropped), keep: the place is below C), each (B, S*K)
+    in sorted order."""
+    B = gate_i.shape[0]
+    flat_e = gate_i.reshape(B, -1)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(1, order)
+    counts = torch.nn.functional.one_hot(flat_e, n_experts).sum(1)  # (B, E)
+    start = counts.cumsum(1) - counts
+    pos = torch.arange(flat_e.shape[1], device=gate_i.device) - \
+        start.gather(1, sorted_e)
+    keep = pos < C
+    return order, sorted_e, torch.where(keep, pos, 0), keep
+
+
+def apply_moe(params, x, cfg, *, per_row: bool = False):
     """x: (B, S, d) -> (y, aux_loss).
 
     Group-local dispatch, as in the reference: each batch row routes its
@@ -397,19 +456,19 @@ def apply_moe(params, x, cfg):
     dropped, and still scatter-adds a zero into slot 0.  The combine sums
     each token's weighted expert outputs in x's dtype in the reference's
     scatter order — ascending expert — one add at a time, so it is
-    deterministic on the card (no atomics)."""
+    deterministic on the card (no atomics).
+
+    `per_row` (the verify pass, module doc): the router's linear, the
+    routing (`moe_gates`) and the expert products run one query row at a
+    time where their order depends on the number of rows; capacity stays
+    the reference's, per call."""
     policy = get_policy(cfg.policy)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    C = int(cfg.capacity_factor * S * K / E) + 1
+    C = moe_capacity(cfg, S)
     dev = x.device
-
-    logits = apply_linear(params["router"], x.to(torch.float32), "fp32")
-    probs = _softmax(logits)                                     # (B, S, E)
-    # lax.top_k: descending, ties to the lower index — a stable sort
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_w, gate_i = top.values[..., :K], top.indices[..., :K]  # (B, S, K)
-    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+    apart = _rows_apart(x, per_row)
+    probs, gate_w, gate_i = moe_gates(params, x, cfg, per_row=per_row)
 
     # aux load-balancing loss (Switch style); a mean is a sum times
     # f32(1/n), as the jitted reference computes it
@@ -422,13 +481,7 @@ def apply_moe(params, x, cfg):
     # dispatch: (B, S*K) assignments sorted by expert, positions within
     # each expert's capacity
     flat_e = gate_i.reshape(B, S * K)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    sorted_e = flat_e.gather(1, order)
-    counts = torch.nn.functional.one_hot(flat_e, E).sum(1)      # (B, E)
-    start = counts.cumsum(1) - counts
-    pos = torch.arange(S * K, device=dev) - start.gather(1, sorted_e)
-    keep = pos < C
-    pos_c = torch.where(keep, pos, 0)
+    order, sorted_e, pos_c, keep = moe_slots(gate_i, E, C)
     rows = torch.arange(B, device=dev)[:, None].expand(B, S * K)
     # each token repeated K times, then permuted: the gather's backward
     # writes every slot once, and the K copies' gradients meet in the
@@ -441,7 +494,8 @@ def apply_moe(params, x, cfg):
                    accumulate=True)
 
     def expert_mm(name, z):
-        return dpa_grouped_dot(z, params[name], policy, eq="becd,edf->becf")
+        return dpa_grouped_dot(z, params[name], policy, eq="becd,edf->becf",
+                               per_row=apart)
 
     if "wg" in params:
         h = torch.nn.functional.silu(expert_mm("wg", buf).to(torch.float32)

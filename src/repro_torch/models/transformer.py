@@ -178,9 +178,9 @@ def apply_block(params, x, cfg: ModelConfig, kind: str = "attn", *,
         h = L.apply_norm(params["norm2"], x, eps=cfg.norm_eps,
                          per_row=per_row)
         if cfg.is_moe:
-            y, aux = L.apply_moe(params["mlp"], h, cfg)
+            y, aux = L.apply_moe(params["mlp"], h, cfg, per_row=per_row)
         else:
-            y = L.apply_mlp(params["mlp"], h, cfg)
+            y = L.apply_mlp(params["mlp"], h, cfg, per_row=per_row)
         x = x + y.to(x.dtype)
     return x, cache, aux
 

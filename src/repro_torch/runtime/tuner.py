@@ -71,9 +71,8 @@ Departures from the reference, each forced by the card:
   not take, so on the card it is qwen3-4b at full width with the
   serving phase's geometry (`CARD_ENGINE_GEOMETRY`), pool rows and
   per-request rows held constant across page sizes (the view, and with
-  it `paged_plan`'s split and the bits, stay the same).  Speculative
-  points that `check_verify_rows` refuses for the policy's linears are
-  left out there (`engine_points`).
+  it `paged_plan`'s split and the bits, stay the same).  Its speculative
+  points (spec_k 2 and 4) run on the card as on the CPU.
 
 DB schema (`version` 1)::
 
@@ -607,25 +606,13 @@ def engine_geometry(device: str = "cpu", reduced: Optional[bool] = None):
     return CPU_ENGINE_GEOMETRY if reduced else CARD_ENGINE_GEOMETRY
 
 
-def engine_points(egrid: dict, device: str, geometry: dict):
-    """-> (the engine pseudo-op's knob points, the points left out, each
-    with the reason): on the card a speculative point whose verify pass
-    `check_verify_rows` refuses for `ENGINE_POLICY`'s linears."""
-    from repro_torch.core.policy import get_policy
-    from repro_torch.launch.engine import check_verify_rows
-    points, refused = [], []
-    for ps in egrid["page_size"]:
-        for k in egrid["spec_k"]:
-            if k and device.startswith("cuda"):
-                try:
-                    check_verify_rows(get_policy(ENGINE_POLICY),
-                                      geometry["max_batch"] * (k + 1))
-                except NotImplementedError as exc:
-                    refused.append({"page_size": ps, "spec_k": k,
-                                    "reason": str(exc)})
-                    continue
-            points.append({"page_size": ps, "spec_k": k})
-    return points, refused
+def engine_points(egrid: dict):
+    """-> the engine pseudo-op's knob points, every (page_size, spec_k) of
+    `egrid`: the speculative ones run on the card as on the CPU (the
+    verify pass keeps the decode steps' bits on every linear route,
+    `models.layers`)."""
+    return [{"page_size": ps, "spec_k": k}
+            for ps in egrid["page_size"] for k in egrid["spec_k"]]
 
 
 def enumerate_space(smoke: bool = False, ops=None, policies=None,
@@ -684,7 +671,7 @@ def enumerate_space(smoke: bool = False, ops=None, policies=None,
             (policies is None or ENGINE_POLICY in policies):
         geometry = engine_geometry(device, reduced)
         egrid = SMOKE_ENGINE_KNOB_GRID if smoke else ENGINE_KNOB_GRID
-        for knobs in engine_points(egrid, device, geometry)[0]:
+        for knobs in engine_points(egrid):
             add({"op": ENGINE_OP, "policy": ENGINE_POLICY,
                  "policy_key": policy_key(ENGINE_POLICY),
                  "shape_class": ENGINE_SHAPE_CLASS,

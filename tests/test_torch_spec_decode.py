@@ -22,6 +22,9 @@ the engine's `spec=`), against the JAX reference.
   request alone equals the same request in the batch (self-draft);
   mismatched cache formats are refused and the draft window
   counts against S_max.
+- `per_row` (the verify pass on the card): every matmul and grouped
+  matmul route gives the one-call form's bits on CPU tensors, and runs
+  its rows at the decode step's shape where the card once refused it.
 """
 import functools
 import importlib
@@ -64,6 +67,17 @@ POLICY_PAIRS = [
 ]
 SAMPLED = dict(temperature=0.8, top_k=16, top_p=0.95, seed=7)
 TOL = 1e-4                  # tests/test_torch_paged_decode.py's pin
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its many small ops lose
+    most of their time to thread hand-offs when test workers share the
+    cores; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -419,22 +433,117 @@ def test_mismatched_cache_formats_refused():
                   adaptive=ControllerConfig(("w4a4_kv4_attn4",)))
 
 
-def test_verify_rows_guard():
-    """What the Engine checks on the card at construction (it needs no
-    card): the verify pass keeps the decode steps' bits only with the
-    serving linears on the fused kernel's split-K route, below
-    `TILED_MIN_M` verify rows; other routes, or max_batch (k + 1) >= 128
-    rows, are refused naming the ROADMAP item."""
-    from repro_torch.kernels.dpa_matmul import TILED_MIN_M
-    pol = get_policy("w4a8_kv4_attn8")
-    TE.check_verify_rows(pol, 4 * (K + 1))
-    TE.check_verify_rows(pol, TILED_MIN_M - 1)
-    refused = "Speculative verify beyond the split-K route"
-    with pytest.raises(NotImplementedError, match=refused):
-        TE.check_verify_rows(pol, 32 * 5)            # --max-batch 32 k 4
-    for name in ("kv4_attn8_packed", "w4a4_kv4_attn4", "fp4_dpa_packed"):
-        with pytest.raises(NotImplementedError, match=refused):
-            TE.check_verify_rows(get_policy(name), 4 * (K + 1))
+# every matmul / grouped_matmul route, a policy that resolves it
+PER_ROW_ROUTES = [
+    ("matmul", "torch_f32", "kv4_attn8_packed"),
+    ("matmul", "torch_fake_quant", "w4a4_kv4_attn4"),
+    ("matmul", "cuda_fused", "w4a8_kv4_attn8"),
+    ("matmul", "cuda_prequant", "fp4_dpa_packed"),
+    ("grouped_matmul", "torch_f32", "kv4_attn8_packed"),
+    ("grouped_matmul", "torch_fake_quant", "w4a4_kv4_attn4"),
+    ("grouped_matmul", "cuda_grouped_fused", "w4a8_kv4_attn8"),
+    ("grouped_matmul", "cuda_grouped_prequant", "fp4_dpa_packed"),
+]
+GROUPED_EQ = "becd,edf->becf"
+
+
+def _route_case(op, route, policy, B, S, d_in=96, d_out=40, E=4, seed=0):
+    """(route entry, policy, x, lin, kw): bf16 x of B batch rows and S
+    query rows ((B, S, d_in), or the MoE buffer (B, E, S, d_in) whose S
+    capacity slots are the rows), a seeded f32 master weight, prepared
+    for a kernel route."""
+    from repro_torch.core.linear import prepare_grouped_linear, prepare_linear
+    gen = torch.Generator().manual_seed(seed)
+    pol = get_policy(policy)
+    grouped = op == "grouped_matmul"
+    shape = (E, d_in, d_out) if grouped else (d_in, d_out)
+    lin = {"w": torch.randn(shape, generator=gen) * d_in ** -0.5}
+    xs = (B, E, S, d_in) if grouped else (B, S, d_in)
+    x = torch.randn(xs, generator=gen).to(torch.bfloat16)
+    if route.startswith("cuda"):
+        if grouped:
+            prepare_grouped_linear(lin, pol)
+        else:
+            prepare_linear(lin, pol, torch.bfloat16)
+    return (exec_plan.route(op, route), pol, x, lin,
+            {"eq": GROUPED_EQ} if grouped else {})
+
+
+@pytest.mark.parametrize("B,S", [(3, 4), (33, 4)],
+                         ids=["12-rows", "132-rows"])
+@pytest.mark.parametrize("op,route,policy", PER_ROW_ROUTES,
+                         ids=[f"{o}-{r}" for o, r, _ in PER_ROW_ROUTES])
+def test_per_row_route_equals_one_call(op, route, policy, B, S):
+    """`per_row` (the verify pass on the card) on CPU tensors equals the
+    one-call form bit for bit on every route: the slicing and the
+    concatenation, and the activations quantized over the whole tensor
+    first (the fake-quant policies' per-tensor scale spans every row).
+    132 rows pass `TILED_MIN_M`, where the fused routes split too (into
+    calls of whole query rows below it)."""
+    entry, pol, x, lin, kw = _route_case(op, route, policy, B, S)
+    one = entry.run(x, lin, pol, **kw)
+    got = entry.run(x, lin, pol, per_row=True, **kw)
+    assert got.dtype == one.dtype and got.shape == one.shape
+    assert torch.equal(got, one)
+
+
+def _recorded_rows(monkeypatch, route):
+    """Patch the product a route runs to record the rows of each call."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import registry as KR
+    calls = []
+    if route in ("torch_f32", "torch_fake_quant"):
+        mod, name = KR, "rowwise_dot"
+    elif route == "cuda_fused":
+        mod, name = kops._dm, "dpa_matmul_fused"
+    else:
+        mod, name = kops._dm, "dpa_matmul_prequant"
+    fn = getattr(mod, name)
+
+    def rec(a, *args, **kw):
+        calls.append(a.numel() // a.shape[-1])
+        return fn(a, *args, **kw)
+
+    monkeypatch.setattr(mod, name, rec)
+    return calls
+
+
+# (policy, route, batch, query rows, calls of how many rows): what the
+# card refused before this pass's rows were split (the f32, fake-quant and
+# prequant routes, and the fused one from 128 rows: --max-batch 32 k 4)
+VERIFY_CASES = [
+    ("w4a8_kv4_attn8", "cuda_fused", 4, K + 1, [16]),
+    ("w4a8_kv4_attn8", "cuda_fused", 32, 5, [96, 64]),
+    ("kv4_attn8_packed", "torch_f32", 4, K + 1, [4] * (K + 1)),
+    ("w4a4_kv4_attn4", "torch_fake_quant", 4, K + 1, [4] * (K + 1)),
+    ("fp4_dpa_packed", "cuda_prequant", 4, K + 1, [8] * (K + 1)),
+]
+
+
+def test_verify_rows_guard(monkeypatch):
+    """What the card once refused (`check_verify_rows`) is served, each
+    row of a verify pass with the decode step's bits: the split-K route
+    stays one call below `TILED_MIN_M` rows (its row bits do not depend
+    on M), and from there takes whole query rows in calls that each stay
+    below it; every other route, at any row count, runs one product a
+    query row at the decode step's rows (the prequant kernel's padded to
+    8); every row equals a decode step's call on that
+    row alone, but under a per-tensor activation scale (the fake-quant
+    policies), which spans the whole verify pass, as in the reference."""
+    for policy, route, B, S, want in VERIFY_CASES:
+        pol = get_policy(policy)
+        assert exec_plan.resolve("matmul", pol, w_dtype="float32").name \
+            == route
+        entry, pol, x, lin, _ = _route_case("matmul", route, policy, B, S)
+        with monkeypatch.context() as mp:
+            calls = _recorded_rows(mp, route)
+            got = entry.run(x, lin, pol, per_row=True)
+        assert calls == want, (policy, B, S, calls)
+        for i in range(S if route != "torch_fake_quant" else 0):
+            step = entry.run(x[:, i:i + 1].contiguous(), lin, pol)
+            assert torch.equal(got[:, i:i + 1], step), (policy, i)
+    assert not hasattr(TE, "check_verify_rows")
+    assert not hasattr(TE, "VERIFY_ROWS_ITEM")
 
 
 def test_spec_window_counts_against_s_max():

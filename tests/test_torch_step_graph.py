@@ -263,7 +263,7 @@ def test_counters_list_every_kernel_wrapper():
         "paged_decode_attention.bf16", "paged_decode_attention.fp8_e5m2",
         "paged_decode_attention.verify"} | {
         f"{w}.{f}" for w in ("dpa_matmul_fused", "dpa_grouped_matmul_fused")
-        for f in ("fp8_e4m3", "fp4_e2m1", "fp16")}
+        for f in ("fp8_e4m3", "fp4_e2m1", "fp16", "verify")}
     # beside each launch counter, the census of the launches it counts
     assert set(snap) == {f"{k}{w}" for k in counters.launches(snap)
                          for w in ("", ":bytes", ":ops", ":bound_s")}

@@ -17,6 +17,8 @@
   variable opens the consult.
 - The plan overrides at the layer shapes of six configurations: plan
   or `ValueError`, never a launch the automatic checks would refuse.
+- The engine pseudo-op keeps its speculative points at the card's
+  geometry.
 - End to end: reduced qwen3-4b's greedy engine tokens equal with a
   tuned DB (page size 8) and without, and the JAX engine's; `launch.tune
   --device cpu --smoke` then `--verify`; `plan_table --check` passes
@@ -591,6 +593,25 @@ def test_engine_greedy_bit_identical_tuned_vs_off(tmp_path):
                                         max_pages_per_req=6, **GEOM))
     rengine.run(_requests(RE))
     assert tuned == {r.rid: list(r.out_tokens) for r in rengine.finished}
+
+
+def test_engine_points_keep_spec_k_on_the_card(monkeypatch):
+    """The engine pseudo-op's space at the card's geometry (full-width
+    qwen3-4b, `CARD_ENGINE_GEOMETRY`) holds every (page_size, spec_k)
+    point: speculation at k 2 and 4 is served on the card."""
+    monkeypatch.setattr(tuner, "env_fingerprint", lambda device=None: {
+        "torch": "t", "cuda": "c", "device": "card"})
+    want = [{"page_size": ps, "spec_k": k} for ps in (8, 16)
+            for k in (0, 2, 4)]
+    assert tuner.engine_points(tuner.ENGINE_KNOB_GRID) == want
+    space = tuner.enumerate_space(ops=(tuner.ENGINE_OP,), device="cuda")
+    assert [c["knobs"] for c in space] == want
+    assert all(c["ctx"] == tuner.CARD_ENGINE_GEOMETRY
+               and c["shape"][1] == 0 for c in space)
+    smoke = tuner.enumerate_space(smoke=True, ops=(tuner.ENGINE_OP,),
+                                  device="cuda")
+    assert [c["knobs"] for c in smoke] == [
+        {"page_size": ps, "spec_k": 0} for ps in (8, 16)]
 
 
 def test_tune_command_fills_a_db_that_verify_accepts(tmp_path, capsys):
